@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the FedScalar system (``repro`` is the reference).
+
+The layout mirrors :mod:`repro`: ``repro_torch/core/prng.py`` is the
+counterpart of ``repro/core/prng.py`` and so on.  The package imports
+``torch`` and numpy only, never ``jax`` and nothing of ``repro``.
+
+Entry points (:func:`repro_torch.models.mlp_classifier.init_mlp`,
+:func:`repro_torch.fed.simulation.run_simulation`,
+:func:`repro_torch.convert.params_from_jax`) run on the CUDA card unless
+the caller passes ``device="cpu"``; without a card they raise instead of
+falling back.  Everything else computes on the device of the tensors it
+is given.  The two hand-written Hopper kernels live in
+:mod:`repro_torch.kernels` (sources under ``kernels/csrc``).
+"""

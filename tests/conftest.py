@@ -29,6 +29,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests (subprocess / many rounds)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and nvcc (PyTorch/CUDA port); skips without one")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,46 @@
+"""The port stands alone: importing it (and chip_smoke.py) loads no jax and no ``repro``.
+
+Checked in a fresh subprocess, so this test process's own jax import
+cannot mask a leak.
+"""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parent.parent
+
+_CODE = r"""
+import importlib, importlib.util, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+                or m.startswith("jaxlib.") or m == "repro"
+                or m.startswith("repro."))
+print(json.dumps({"modules": names, "leaked": leaked}))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CODE], cwd=REPO, capture_output=True, text=True,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"},
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    for mod in ("repro_torch.core.prng", "repro_torch.kernels.ops",
+                "repro_torch.kernels.seeded_projection",
+                "repro_torch.kernels.reconstruct_apply",
+                "repro_torch.fed.simulation", "repro_torch.convert"):
+        assert mod in out["modules"]

@@ -1,0 +1,253 @@
+"""Port parity of the two kernels' plain versions against the reference.
+
+* Encode: ``project_blocks_plain`` against the reference's Pallas
+  ``projection_blocks_kernel_call`` in interpret mode.  The sum order is
+  open: |Δr| ≤ 1e-6·Σ|x|·max|v| (max|v| = 1, 2 for sparse, 6.7 for
+  gaussian, the largest Box–Muller value from 32-bit uniforms).  The
+  card's check, ``encode_tolerance`` against the plain version summed in
+  float64, is shown to admit float32 rounding and to reject a lost row.
+* Fused close: ``ops.server_update_fused`` (plain on the CPU) against
+  ``repro.kernels.ref.server_update_fused_ref`` and the reference's jnp
+  mirror.  Bitwise for the ±1/±2 families; gaussian within rtol 1e-5 /
+  atol 1e-5, because ``log``/``cos`` ulps in v are scaled by the summed
+  scalars.  The reference's interpret-mode Pallas kernel is not used as
+  an oracle here: under jax 0.9 it differs from its own mirror and
+  oracle by up to 1.2e-7.
+
+The CUDA kernels are held against these plain versions on the card by
+``tests/test_torch_cuda.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.prng import Distribution as JD  # noqa: E402
+from repro.core.prng import block_seed as j_block_seed  # noqa: E402
+from repro.core.projection import ProjectionMode as JM  # noqa: E402
+from repro.kernels.seeded_projection import projection_blocks_kernel_call  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.prng import Distribution as TD  # noqa: E402
+from repro_torch.core.projection import ProjectionMode as TM  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply  # noqa: E402
+from repro_torch.kernels.seeded_projection import (  # noqa: E402
+    encode_tolerance,
+    project_blocks,
+    project_blocks_plain,
+)
+from torch_parity import jax_kernels, mlp_params_np, seeds_np  # noqa: E402,F401
+
+FAMILIES = ["rademacher", "gaussian", "sparse_rademacher", "hadamard"]
+VMAX = {"rademacher": 1.0, "hadamard": 1.0, "sparse_rademacher": 2.0,
+        "gaussian": 6.7}
+MLP_SHAPES = [(24,), (12,), (10,), (64, 24), (24, 12), (12, 10)]
+MODES = [(1, "full"), (8, "full"), (8, "block")]
+
+
+def _view2(shape):
+    return (1, shape[0]) if len(shape) == 1 else shape
+
+
+def _bounds(offset, size, total, k, mode):
+    lo, hi = ops.leaf_block_bounds(offset, size, total, k, TM(mode))
+    return np.asarray(lo, np.float32), np.asarray(hi, np.float32)
+
+
+def _jax_encode(x2d, seed, tag, lo, hi, family, masked, row_offset=0,
+                col_offset=0):
+    rows, cols = x2d.shape
+    br, bc = min(256, -(-rows // 8) * 8), min(512, -(-cols // 128) * 128)
+    xp = np.zeros((-(-rows // br) * br, -(-cols // bc) * bc), np.float32)
+    xp[:rows, :cols] = x2d
+    seeds = jnp.stack([j_block_seed(seed, j) for j in range(len(lo))])
+    return np.asarray(projection_blocks_kernel_call(
+        jnp.asarray(xp), seeds, tag, jnp.asarray(lo), jnp.asarray(hi), family,
+        (br, bc), row_offset, col_offset, orig_cols=cols, interpret=True,
+        masked=masked))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", MODES)
+def test_encode_plain_matches_reference_kernel(family, k, mode):
+    rng = np.random.RandomState(k + len(family))
+    total = sum(int(np.prod(s)) for s in MLP_SHAPES)
+    masked = mode == "block" and k > 1
+    offset = 0
+    for tag, shape in enumerate(MLP_SHAPES):
+        rows, cols = _view2(shape)
+        x = rng.randn(1, rows, cols).astype(np.float32)
+        seeds = seeds_np(rng, 1)
+        lo, hi = _bounds(offset, rows * cols, total, k, mode)
+        got = project_blocks_plain(
+            torch.from_numpy(x), torch.from_numpy(seeds.astype(np.int64)), tag,
+            torch.from_numpy(lo), torch.from_numpy(hi), family, masked).numpy()
+        assert got.shape == (1, k) and got.dtype == np.float32
+        want = _jax_encode(x[0], int(seeds[0]), tag, lo, hi, family, masked)
+        tol = 1e-6 * np.abs(x).sum() * VMAX[family]
+        assert np.abs(got[0] - want).max() <= tol, shape
+        offset += rows * cols
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_encode_plain_row_col_offsets(family, masked):
+    """Runtime row/col offsets shift the coordinates exactly as the reference's."""
+    rng = np.random.RandomState(7)
+    x = rng.randn(1, 9, 40).astype(np.float32)
+    lo = np.asarray([0.0, 200.0, 5000.0], np.float32)
+    hi = np.asarray([200.0, 5000.0, 9000.0], np.float32)
+    got = project_blocks_plain(torch.from_numpy(x), torch.tensor([4242]), 3,
+                               torch.from_numpy(lo), torch.from_numpy(hi),
+                               family, masked, row_offset=100, col_offset=17,
+                               orig_cols=57).numpy()
+    xp = np.zeros((16, 128), np.float32)
+    xp[:9, :40] = x[0]
+    seeds = jnp.stack([j_block_seed(4242, j) for j in range(3)])
+    want = np.asarray(projection_blocks_kernel_call(
+        jnp.asarray(xp), seeds, 3, jnp.asarray(lo), jnp.asarray(hi), family,
+        (16, 128), 100, 17, orig_cols=57, interpret=True, masked=masked))
+    tol = 1e-6 * np.abs(x).sum() * VMAX[family]
+    assert np.abs(got[0] - want).max() <= tol
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("shape", [(1, 24), (64, 24), (300, 700)])
+def test_encode_tolerance_admits_rounding_but_not_a_dropped_row(family, shape):
+    """The kernel check's tolerance: float32 rounding fits, one lost row does not."""
+    rng = np.random.RandomState(len(family) + shape[0])
+    rows, cols = shape
+    x = torch.from_numpy(rng.randn(8, rows, cols).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, 8).astype(np.int64))
+    lo, hi = torch.zeros(1), torch.tensor([float(rows * cols)])
+    exact = project_blocks_plain(x, seeds, 2, lo, hi, family, dtype=torch.float64)
+    assert exact.dtype == torch.float64
+    tol = encode_tolerance(x, family)
+    r32 = project_blocks_plain(x, seeds, 2, lo, hi, family)
+    assert ((r32.double() - exact).abs() <= tol).all()
+    dropped = x.clone()
+    dropped[:, rows // 2] = 0.0
+    r_drop = project_blocks_plain(dropped, seeds, 2, lo, hi, family)
+    assert ((r_drop.double() - exact).abs() > tol).all()
+
+
+def _fused_case(jk, family, n, k, mode, weights, block_weights, seed):
+    rng = np.random.RandomState(seed)
+    p = mlp_params_np(seed)
+    rs = rng.randn(n, k).astype(np.float32)
+    seeds = seeds_np(rng, n)
+    w = rng.rand(n).astype(np.float32) if weights else None
+    bw = np.linspace(0.4, 1.0, k).astype(np.float32) if block_weights else None
+    pj = {key: jnp.asarray(v) for key, v in p.items()}
+    jargs = dict(weights=None if w is None else jnp.asarray(w),
+                 block_weights=None if bw is None else jnp.asarray(bw))
+    oracle = jk.ref.server_update_fused_ref(
+        pj, jnp.asarray(rs), jnp.asarray(seeds), 0.7, JD(family), k, JM(mode),
+        **jargs)
+    mirror = jk.ops.server_update_fused(
+        pj, jnp.asarray(rs), jnp.asarray(seeds), 0.7, JD(family), mode=JM(mode),
+        use_pallas=False, **jargs)
+    got = ops.server_update_fused(
+        params_from_jax(p, "cpu"), torch.from_numpy(rs),
+        torch.from_numpy(seeds.astype(np.int64)), 0.7, TD(family),
+        weights=None if w is None else torch.from_numpy(w), mode=TM(mode),
+        block_weights=None if bw is None else torch.from_numpy(bw))
+    return p, oracle, mirror, got
+
+
+def _assert_fused(family, p, want, got):
+    for key in p:
+        a, b = np.asarray(want[key]), got[key].numpy()
+        assert a.shape == b.shape and a.dtype == b.dtype, key
+        if family == "gaussian":
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5, err_msg=key)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=key)
+
+
+# (n, k, mode, weights, block_weights): cohorts below, at and above one
+# 16-client chunk, k ∈ {1, FULL 8, BLOCK 8}, with and without weights.
+FUSED_CASES = [(5, 1, "full", False, False), (40, 1, "full", False, False),
+               (16, 1, "full", True, False), (5, 8, "full", False, True),
+               (16, 8, "block", True, True)]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n,k,mode,weights,block_weights", FUSED_CASES)
+def test_fused_plain_matches_reference_oracle_and_mirror(
+        jax_kernels, family, n, k, mode, weights, block_weights):
+    p, oracle, mirror, got = _fused_case(jax_kernels, family, n, k, mode,
+                                         weights, block_weights, seed=n + k)
+    _assert_fused(family, p, oracle, got)
+    _assert_fused(family, p, mirror, got)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_fused_leaf_offsets_match_reference_mirror(jax_kernels, family):
+    """Runtime row/col offsets and masks: leaf-level call against the mirror."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(7, 33).astype(np.float32)
+    rs = rng.randn(21, 3).astype(np.float32)
+    seeds = seeds_np(rng, 21)
+    lo = np.asarray([0.0, 900.0, 2000.0], np.float32)
+    hi = np.asarray([900.0, 2000.0, 4000.0], np.float32)
+    want = np.asarray(jax_kernels.reconstruct_apply.fused_reconstruct_apply(
+        jnp.asarray(x), jnp.asarray(seeds), jnp.asarray(rs), 4, 0.25, family,
+        row_offset=30, col_offset=5, lo=jnp.asarray(lo), hi=jnp.asarray(hi),
+        orig_cols=61, masked=True, use_pallas=False))
+    got = fused_reconstruct_apply(
+        torch.from_numpy(x), torch.from_numpy(seeds.astype(np.int64)),
+        torch.from_numpy(rs), 4, 0.25, family, lo=torch.from_numpy(lo),
+        hi=torch.from_numpy(hi), masked=True, row_offset=30, col_offset=5,
+        orig_cols=61).numpy()
+    if family == "gaussian":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_port_oracle_matches_plain_fused(family):
+    """The port's longhand oracle (core generator) ≡ its factored plain path."""
+    rng = np.random.RandomState(3)
+    p = params_from_jax(mlp_params_np(3), "cpu")
+    for n, (k, mode) in zip((19, 5, 9), MODES):
+        rs = torch.from_numpy(rng.randn(n, k).astype(np.float32))
+        seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+        a = ref.server_update_fused_ref(p, rs, seeds, 1.3, TD(family), k,
+                                        TM(mode))
+        b = ops.server_update_fused(p, rs, seeds, 1.3, TD(family),
+                                    mode=TM(mode))
+        for key in p:
+            torch.testing.assert_close(b[key], a[key], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k,mode", MODES)
+def test_fold_upload_weights_bitwise(jax_kernels, k, mode):
+    rng = np.random.RandomState(k)
+    rs = rng.randn(13, k).astype(np.float32)
+    w = rng.rand(13).astype(np.float32)
+    bw = rng.rand(k).astype(np.float32)
+    for weights, block_weights in ((None, None), (w, None), (None, bw), (w, bw)):
+        jr, js = jax_kernels.ops.fold_upload_weights(
+            jnp.asarray(rs), 0.9, None if weights is None else jnp.asarray(weights),
+            JM(mode), None if block_weights is None else jnp.asarray(block_weights))
+        tr, ts = ops.fold_upload_weights(
+            torch.from_numpy(rs), 0.9,
+            None if weights is None else torch.from_numpy(weights), TM(mode),
+            None if block_weights is None else torch.from_numpy(block_weights))
+        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+        assert ts == js
+    total = 1990
+    for off, size in ((0, 24), (70, 1536), (1606, 288)):
+        assert ops.leaf_block_bounds(off, size, total, k, TM(mode)) == \
+            jax_kernels.ops.leaf_block_bounds(off, size, total, k, JM(mode))
+
+
+def test_wrappers_reject_other_devices():
+    x = torch.zeros((1, 2, 3), device="meta")
+    with pytest.raises(ValueError):
+        project_blocks(x, torch.zeros(1, dtype=torch.int64, device="meta"), 0,
+                       torch.zeros(1, device="meta"), torch.ones(1, device="meta"))
