@@ -8,24 +8,35 @@ Run from the repository root, with no arguments::
 Phases (any failure exits non-zero and the final line is not printed):
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: both CUDA sources with nvcc (in parallel), with ptxas's
+2. build: the four CUDA sources with nvcc (in parallel), with ptxas's
    registers and spills per kernel;
 3. kernels against their plain PyTorch versions, on the card, at the MLP
    leaves, a SmolLM-360M-sized tied embedding (49152, 960) for k = 1 and
    FULL k = 8, and a (960, 2560) leaf for BLOCK k = 8; all four direction
-   families, nonzero row/col offsets, cohorts 20 and 1000.  The fused
-   close must equal its plain version bitwise for the ±1/±2 families
-   (gaussian within rtol/atol 1e-5); the encode within
-   ``encode_tolerance`` (4·2⁻²³·√h·‖x‖₂·max|v|, h the depth of its float32
-   sum) of its plain version summed in float64, and bitwise equal to
-   itself across runs;
-4. main path: ``run_simulation`` on the card for fedscalar_rademacher,
-   fedscalar_gaussian, fedscalar_block8 and fedscalar_ef (N = 20, S = 5,
-   B = 32);
-   both kernels' launch counters must move and the loss must fall; one
-   round on the card must match the same round on the CPU (atol 1e-6);
-5. times from CUDA events: each kernel, its plain version and its bound,
-   at the main path's shapes and at the large leaf (cohorts 256, 1024).
+   families, nonzero row/col offsets, cohorts 20, 33 and 1000.  The fused
+   close and the per-client decode must equal their plain versions
+   bitwise for the ±1/±2 families (gaussian within rtol/atol 1e-5); the
+   encode within ``encode_tolerance`` (4·2⁻²³·√h·‖x‖₂·max|v|, h the depth
+   of its float32 sum) of its plain version summed in float64, and
+   bitwise equal to itself across runs; the QSGD kernel bitwise equal to
+   its plain version given the same norms (bits 2, 4, 8; a leaf of zeros);
+4. main path of the first slice: ``run_simulation`` on the card for
+   fedscalar_rademacher, fedscalar_gaussian, fedscalar_block8 and
+   fedscalar_ef (N = 20, S = 5, B = 32); the encode and fused-close
+   counters must move and the loss must fall; one round on the card must
+   match the same round on the CPU (atol 1e-6);
+5. main path of the runtime slice: ``run_federation`` on the card at the
+   population of ``examples/runtime_scale.py`` (100 000 clients, 1 %
+   participation: cohorts of 1000), 10 rounds each for fedscalar through
+   the per-client decode, fedscalar through the fused close, fedscalar
+   with the digest downlink and a shadow replay, fedavg and qsgd; the
+   expected counters must move, the loss must fall, the replay must stay
+   bit-identical, and one round on the card must match the same round on
+   the CPU (atol 1e-6; qsgd 2e-6, for a level flipped by the norm's last
+   bit);
+6. times from CUDA events: each kernel, its plain version and its bound,
+   at the main paths' shapes and at the large leaf (cohorts 256, 1024 for
+   both decodes; 16 clients for the encode and QSGD).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -69,6 +80,22 @@ MAIN_METHODS = ("fedscalar_rademacher", "fedscalar_gaussian", "fedscalar_block8"
 MAIN_ROUNDS = 40
 LARGE = (49152, 960)             # SmolLM-360M tied embedding (vocab, d_model)
 LARGE_BLOCK = (960, 2560)        # SmolLM-360M MLP width, under 2**24 elements
+MLP = [(1, 24), (1, 12), (1, 10), (64, 24), (24, 12), (12, 10)]
+# Runtime phase: examples/runtime_scale.py's population and participation.
+RT_POPULATION, RT_PARTICIPATION, RT_ROUNDS, RT_SHARDS = 100_000, 0.01, 10, 20
+RT_CONFIGS = {   # name -> (RuntimeConfig overrides, kernels that must run)
+    "fedscalar_rec": (dict(), ("encode", "rec")),
+    "fedscalar_fused": (dict(projection_mode="fused_kernel"), ("encode", "fused")),
+    "fedscalar_digest_replay": (dict(downlink_mode="digest", verify_replay=True),
+                                ("encode", "rec")),
+    "fedavg": (dict(protocol_name="fedavg"), ()),
+    "qsgd": (dict(protocol_name="qsgd"), ("qsgd",)),
+}
+# QSGD per element: the one unhoisted SplitMix32 round (xor, add, three
+# shift-xor pairs: 8 integer ops, 2 multiplies) and the float ops of the
+# spec (convert, +1, ·2⁻³², |x|/norm, ·L, floor, −, <, +, sign·level,
+# norm·sign, ·level, /L: 13, each IEEE division counted as one op).
+QSGD_ELEM_OPS = {"int": 8, "imul": 2, "fp": 13}
 
 
 class Smoke:
@@ -76,7 +103,7 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
-        self.errs = {"encode": 0.0, "fused": 0.0}
+        self.errs = {"encode": 0.0, "fused": 0.0, "rec": 0.0, "qsgd": 0.0}
         self.enc_ratio = 0.0     # largest encode error / its tolerance
         self.checks = 0
         self.group = ""
@@ -143,6 +170,46 @@ class Smoke:
             raise AssertionError(f"fused disagrees: {what} max err {err}")
         self._record("fused", family, err, bool(torch.equal(got, want)))
 
+    def check_rec(self, x2d, seeds, rs, tag, scale, family, lo, hi, masked,
+                  ro=0, co=0, orig_cols=None, what=""):
+        from repro_torch.kernels.seeded_reconstruct import (
+            reconstruct_apply_clients,
+            reconstruct_plain,
+        )
+        torch = self.torch
+        got = reconstruct_apply_clients(x2d, seeds, rs, tag, scale, family,
+                                        lo=lo, hi=hi, masked=masked,
+                                        row_offset=ro, col_offset=co,
+                                        orig_cols=orig_cols)
+        want = reconstruct_plain(x2d, seeds, rs, tag, scale, lo, hi, family,
+                                 masked, ro, co, orig_cols)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if family in EXACT:
+            ok = torch.equal(got, want)
+        else:
+            ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+        if not ok or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"rec disagrees: {what} max err {err}")
+        self._record("rec", family, err, bool(torch.equal(got, want)))
+
+    def check_qsgd(self, x, seeds, bits, what=""):
+        from repro_torch.kernels.qsgd_quant import qsgd_quantize, qsgd_quantize_plain
+        torch = self.torch
+        n = x.shape[0]
+        norms = torch.linalg.vector_norm(x.reshape(n, -1), dim=1)
+        norms = torch.where(norms == 0, torch.ones_like(norms), norms)
+        levels = (1 << (bits - 1)) - 1
+        q, lv = qsgd_quantize(x, seeds, norms, levels, True, True)
+        qp, lp = qsgd_quantize_plain(x, seeds, norms, levels, True, True)
+        torch.cuda.synchronize()
+        err = float((q - qp).abs().max())
+        ok = torch.equal(q, qp) and torch.equal(lv, lp)
+        if not ok or not bool(torch.isfinite(q).all()):
+            raise AssertionError(f"qsgd disagrees: {what} max err {err}, "
+                                 f"levels equal {torch.equal(lv, lp)}")
+        self._record("qsgd", f"bits={bits}", err, True)
+
     def _record(self, kernel, family, err, bitwise):
         self.errs[kernel] = max(self.errs[kernel], err)
         self.checks += 1
@@ -158,6 +225,9 @@ class Smoke:
                 if kernel == "encode":
                     what = ("max |kernel - float64 plain| "
                             f"{err!r}, same bits on every rerun")
+                elif kernel == "qsgd":
+                    what = (f"max |kernel q - plain q| {err!r}, levels and q "
+                            "bitwise equal to plain")
                 else:
                     what = (f"max |kernel - plain| {err!r}, bitwise equal to "
                             f"plain: {bitwise}")
@@ -200,6 +270,22 @@ def _encode_bound(shapes, n, k):
 def _fused_bound(shapes, n, k):
     d = sum(r * c for r, c in shapes)
     return _bound_ms(8 * d + len(shapes) * n * (4 + 4 * k), shapes, n, k)
+
+
+# The per-client decode does the fused close's work in another order.
+_rec_bound = _fused_bound
+
+
+def _qsgd_bound(shapes, n, outputs):
+    """Bytes: x read by the norm pass and by the kernel, ``outputs`` float32
+    arrays written, seeds and norms; ops: QSGD_ELEM_OPS per element."""
+    d = sum(r * c for r, c in shapes)
+    nbytes = n * d * 4 * (2 + outputs) + len(shapes) * n * (8 + 4)
+    ops = {c: n * d * QSGD_ELEM_OPS[c] for c in QSGD_ELEM_OPS}
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 1e3 * max(ops["int"] / INT32_OPS_PER_S, ops["imul"] / INT32_OPS_PER_S,
+                      ops["fp"] / FP32_OPS_PER_S, sum(ops.values()) / ISSUE_PER_S)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device(torch):
@@ -318,6 +404,174 @@ def phase_kernels(s: Smoke):
           f"{time.perf_counter() - t0:.1f} s; max |err| encode "
           f"{s.errs['encode']!r} (at most {s.enc_ratio!r} of its tolerance), "
           f"fused {s.errs['fused']!r}", flush=True)
+
+
+def phase_kernels_runtime(s: Smoke):
+    """The runtime slice's kernels against their plain versions."""
+    import torch
+
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.kernels.ops import leaf_block_bounds
+
+    t0 = time.perf_counter()
+    total = sum(r * c for r, c in MLP)
+
+    def bounds(offset, size, tot, k, mode):
+        lo, hi = leaf_block_bounds(offset, size, tot, k, ProjectionMode(mode))
+        return (torch.tensor(lo, dtype=torch.float32, device=s.dev),
+                torch.tensor(hi, dtype=torch.float32, device=s.dev))
+
+    # Per-client decode: every family, k ∈ {1, FULL 8, BLOCK 8}, cohorts
+    # 20, 33 (a ragged 32-client chunk) and 1000, weights folded in.
+    s.group = "per-client decode, MLP leaves (k=1, FULL 8, BLOCK 8; N=20, 33, 1000)"
+    for family in FAMILIES:
+        for k, mode in ((1, "full"), (8, "full"), (8, "block")):
+            for n in (20, 33, 1000):
+                offset = 0
+                seeds = s.seeds(n)
+                rs = s.randn(n, k) * s.randn(n, 1).abs()
+                for tag, (rows, cols) in enumerate(MLP):
+                    lo, hi = bounds(offset, rows * cols, total, k, mode)
+                    s.check_rec(s.randn(rows, cols), seeds, rs, tag, 1.0 / n,
+                                family, lo, hi, mode == "block",
+                                what=f"mlp {family} k={k} {mode} n={n} "
+                                     f"leaf={rows}x{cols}")
+                    offset += rows * cols
+    s.report()
+    s.group = "per-client decode, row/col offsets (300x700 of a 1000-col leaf, BLOCK 3)"
+    lo = torch.tensor([0.0, 4e5, 9e5], device=s.dev)
+    hi = torch.tensor([4e5, 9e5, 4e6], device=s.dev)
+    for family in FAMILIES:
+        s.check_rec(s.randn(300, 700), s.seeds(1000), s.randn(1000, 3), 4,
+                    0.001, family, lo, hi, True, 960, 33, 1000,
+                    what=f"offsets {family}")
+    s.report()
+    s.group = f"per-client decode, large leaf {LARGE} (k=1; N=20 all, 1000 rademacher)"
+    rows, cols = LARGE
+    x = s.randn(rows, cols)
+    lo, hi = bounds(0, rows * cols, rows * cols, 1, "full")
+    for family in FAMILIES:
+        s.check_rec(x, s.seeds(20), s.randn(20, 1), 9, 0.05, family, lo, hi,
+                    False, what=f"large {family} k=1 n=20")
+    s.check_rec(x, s.seeds(1000), s.randn(1000, 1), 9, 0.001, "rademacher",
+                lo, hi, False, what="large rademacher k=1 n=1000")
+    del x
+    s.report()
+    s.group = f"per-client decode, block leaf {LARGE_BLOCK} (BLOCK 8; N=20, 1000)"
+    rows, cols = LARGE_BLOCK
+    lo, hi = bounds(123_456, rows * cols, 3 * rows * cols, 8, "block")
+    for family in FAMILIES:
+        for n in (20, 1000):
+            s.check_rec(s.randn(rows, cols), s.seeds(n), s.randn(n, 8), 5,
+                        1.0 / n, family, lo, hi, True,
+                        what=f"block-leaf {family} k=8 n={n}")
+    s.report()
+
+    # QSGD: bits 2, 4, 8 at the MLP leaves for the runtime's cohort of
+    # 1000, a leaf of zeros, and the large leaf for 16 clients.
+    s.group = "qsgd (bits 2, 4, 8; MLP leaves N=1000, a zero leaf, large leaf N=16)"
+    for bits in (2, 4, 8):
+        for rows, cols in MLP:
+            x = s.randn(1000, rows, cols) * 0.01
+            x[7] = 0.0
+            s.check_qsgd(x, s.seeds(1000), bits, what=f"mlp {rows}x{cols} b={bits}")
+        s.check_qsgd(torch.zeros((4, 64, 24), device=s.dev), s.seeds(4), bits,
+                     what=f"zero leaf b={bits}")
+    x = s.randn(16, *LARGE) * 0.01
+    for bits in (2, 4, 8):
+        s.check_qsgd(x, s.seeds(16), bits, what=f"large b={bits}")
+    del x
+    s.report()
+    torch.cuda.empty_cache()
+    print(f"kernels (runtime slice): all checks ok in "
+          f"{time.perf_counter() - t0:.1f} s; max |err| rec {s.errs['rec']!r}, "
+          f"qsgd {s.errs['qsgd']!r}", flush=True)
+
+
+def _kernel_fns():
+    from repro_torch.kernels.qsgd_quant import qsgd_quantize
+    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
+    from repro_torch.kernels.seeded_projection import project_blocks
+    from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients
+
+    return {"encode": project_blocks, "fused": fused_reconstruct_apply,
+            "rec": reconstruct_apply_clients, "qsgd": qsgd_quantize}
+
+
+def phase_runtime(s: Smoke):
+    """run_federation on the card at 100 000 clients, cohorts of 1000."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import load_digits, make_client_datasets
+    from repro_torch.data import train_test_split_arrays
+    from repro_torch.fed.runtime import RuntimeConfig, run_federation
+    from repro_torch.models.mlp_classifier import init_mlp
+
+    x, y = load_digits()
+    xtr, ytr, xte, yte = train_test_split_arrays(x, y)
+    clients = make_client_datasets(xtr, ytr, RT_SHARDS)
+    fns = _kernel_fns()
+    launches = dict.fromkeys(fns, 0)
+    rows = {}
+    for name, (over, expect) in RT_CONFIGS.items():
+        cfg = RuntimeConfig(rounds=RT_ROUNDS, population=RT_POPULATION,
+                            participation=RT_PARTICIPATION, eval_every=1,
+                            seed=0, **over)
+        params = init_mlp(seed=0, device="cuda")
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        h = run_federation(cfg, params, clients, xte, yte, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in fns.items()}
+        for k in launches:
+            launches[k] += got[k]
+        missing = [k for k in expect if got[k] == 0]
+        stray = [k for k in got if k not in expect and got[k]]
+        loss = h["loss"]
+        if missing or stray:
+            raise AssertionError(f"runtime {name}: launches {got}, expected "
+                                 f"only {expect}")
+        if h["fused_path"] or not (h["cohort_size"] == 1000).all():
+            raise AssertionError(f"runtime {name}: not the event-driven path "
+                                 f"at cohort 1000")
+        if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+            raise AssertionError(f"runtime {name}: loss did not fall: "
+                                 f"{loss[0]} -> {loss[-1]}")
+        applied = h["apply_s"] > 0
+        rows[name] = dict(
+            rounds_per_s=RT_ROUNDS / wall,
+            median_apply_ms=float(np.median(h["apply_s"][applied]) * 1e3),
+            launches=got, bits_per_upload=int(h["bits_per_client_per_round"]),
+            loss_first=float(loss[0]), loss_last=float(loss[-1]),
+            accuracy_last=float(h["accuracy"][-1]),
+            replay_verified=bool(cfg.verify_replay))
+        print(f"runtime: {name}: " + json.dumps(rows[name]), flush=True)
+
+    # One round on the card against the same round on the CPU.  The
+    # decode threshold is pinned on both so both take the same route.
+    for name, (over, _) in RT_CONFIGS.items():
+        cfg = RuntimeConfig(rounds=1, population=RT_POPULATION,
+                            participation=RT_PARTICIPATION, seed=3,
+                            **{**over, "kernel_cohort_threshold": 512})
+        hs = {dev: run_federation(cfg, init_mlp(seed=2, device=dev), clients,
+                                  xte, yte, device=dev)
+              for dev in ("cuda", "cpu")}
+        err = max(float((hs["cuda"]["final_params"][k].cpu()
+                         - hs["cpu"]["final_params"][k]).abs().max())
+                  for k in hs["cpu"]["final_params"])
+        tol = 2e-6 if over.get("protocol_name") == "qsgd" else 1e-6
+        if not err <= tol:
+            raise AssertionError(f"runtime {name}: card round differs from "
+                                 f"CPU by {err} (tolerance {tol})")
+        for key in ("cum_bits", "applied", "cum_downlink_bits"):
+            if not np.array_equal(hs["cuda"][key], hs["cpu"][key]):
+                raise AssertionError(f"runtime {name}: {key} differs")
+        print(f"runtime: {name}: one round, card vs CPU max |dparams| {err!r} "
+              f"(tolerance {tol})", flush=True)
+    return launches, rows
 
 
 def phase_main_path(s: Smoke):
@@ -484,6 +738,116 @@ def phase_times(s: Smoke):
     }
 
 
+def phase_times_runtime(s: Smoke):
+    """CUDA-event times of the per-client decode and QSGD kernels."""
+    import torch
+
+    from repro_torch.kernels.qsgd_quant import qsgd_quantize, qsgd_quantize_plain
+    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
+    from repro_torch.kernels.seeded_reconstruct import (
+        reconstruct_apply_clients,
+        reconstruct_plain,
+    )
+
+    one = torch.ones(1, device=s.dev)
+    zero = torch.zeros(1, device=s.dev)
+    # Main path: one round's apply at cohort 1000 (the bucket pads to 1024)
+    # over the 6 MLP leaves, and one round's qsgd encode (levels only).
+    n = 1024
+    seeds = s.seeds(n)
+    rs = s.randn(n, 1) * (1.0 / n)
+    leaves = [(s.randn(r, c), tag, zero, one * (r * c))
+              for tag, (r, c) in enumerate(MLP)]
+    qx = [s.randn(1000, r, c) * 0.01 for r, c in MLP]
+    qs = s.seeds(1000)
+
+    def rec_kernel():
+        for x2d, tag, lo, hi in leaves:
+            reconstruct_apply_clients(x2d, seeds, rs, tag, 1.0, lo=lo, hi=hi)
+
+    def rec_plain():
+        for x2d, tag, lo, hi in leaves:
+            reconstruct_plain(x2d, seeds, rs, tag, 1.0, lo, hi)
+
+    def norms(x):   # the norm pass, outside the kernel as in the reference
+        return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
+
+    def q_kernel():
+        for x in qx:
+            qsgd_quantize(x, qs, norms(x), 127, want_q=False, want_levels=True)
+
+    def q_plain():
+        for x in qx:
+            qsgd_quantize_plain(x, qs, norms(x), 127, want_q=False,
+                                want_levels=True)
+
+    t = {}
+    for name, fn, reps in (("rec_plain", rec_plain, 3), ("rec_kernel", rec_kernel, 50),
+                           ("rec_kernel2", rec_kernel, 50), ("rec_plain2", rec_plain, 3),
+                           ("qsgd_plain", q_plain, 10), ("qsgd_kernel", q_kernel, 50),
+                           ("qsgd_kernel2", q_kernel, 50), ("qsgd_plain2", q_plain, 10)):
+        t[name] = s.time_ms(fn, reps=reps, warmup=1)
+    rec_b, rec_by = _rec_bound(MLP, n, 1)
+    q_b, q_by = _qsgd_bound(MLP, 1000, 1)
+    print("times (runtime main path, one round: 6 MLP leaves; decode N=1024, "
+          "k=1; qsgd norm pass + levels, N=1000, bits=8): " + json.dumps(t),
+          flush=True)
+    del qx
+
+    rows = []
+    r, c = LARGE
+    x2d = s.randn(r, c)
+    for cohort in (256, 1024):
+        sd = s.seeds(cohort)
+        rsl = s.randn(cohort, 1) * (1.0 / cohort)
+        tt = {}
+        for name, fn in (
+                ("fused", lambda: fused_reconstruct_apply(x2d, sd, rsl, 9, 1.0,
+                                                          lo=zero, hi=one * (r * c))),
+                ("rec", lambda: reconstruct_apply_clients(x2d, sd, rsl, 9, 1.0,
+                                                          lo=zero, hi=one * (r * c))),
+                ("rec2", lambda: reconstruct_apply_clients(x2d, sd, rsl, 9, 1.0,
+                                                           lo=zero, hi=one * (r * c))),
+                ("fused2", lambda: fused_reconstruct_apply(x2d, sd, rsl, 9, 1.0,
+                                                           lo=zero, hi=one * (r * c)))):
+            tt[name] = s.time_ms(fn, reps=3, warmup=1)
+        pr = s.time_ms(lambda: reconstruct_plain(x2d, sd, rsl, 9, 1.0, zero,
+                                                 one * (r * c)), reps=1, warmup=0)
+        b, by = _rec_bound([LARGE], cohort, 1)
+        rows.append(dict(kernel="rec", shape=list(LARGE), cohort=cohort, k=1,
+                         ms=(tt["rec"] + tt["rec2"]) / 2,
+                         fused_ms=(tt["fused"] + tt["fused2"]) / 2,
+                         plain_ms=pr, bound_ms=b, bound_by=by))
+    del x2d
+    torch.cuda.empty_cache()
+    x = s.randn(16, r, c) * 0.01
+    sd = s.seeds(16)
+    nm = norms(x)
+    kq = s.time_ms(lambda: qsgd_quantize(x, sd, nm, 127, True, True), reps=5,
+                   warmup=1)
+    kn = s.time_ms(lambda: norms(x), reps=5, warmup=1)
+    kt = s.time_ms(lambda: qsgd_quantize(x, sd, norms(x), 127, True, True),
+                   reps=5, warmup=1)
+    pq = s.time_ms(lambda: qsgd_quantize_plain(x, sd, norms(x), 127, True, True),
+                   reps=1, warmup=0)
+    b, by = _qsgd_bound([LARGE], 16, 2)
+    rows.append(dict(kernel="qsgd", shape=list(LARGE), cohort=16, bits=8,
+                     outputs="q and levels", ms=kt, kernel_only_ms=kq,
+                     norm_pass_ms=kn, plain_ms=pq, bound_ms=b, bound_by=by))
+    del x
+    torch.cuda.empty_cache()
+    print("times (runtime slice, large leaf, rademacher): "
+          + json.dumps({"rows": rows}), flush=True)
+    return {
+        "rec": dict(ms=(t["rec_kernel"] + t["rec_kernel2"]) / 2,
+                    plain_ms=(t["rec_plain"] + t["rec_plain2"]) / 2,
+                    bound_ms=rec_b, bound_by=rec_by),
+        "qsgd": dict(ms=(t["qsgd_kernel"] + t["qsgd_kernel2"]) / 2,
+                     plain_ms=(t["qsgd_plain"] + t["qsgd_plain2"]) / 2,
+                     bound_ms=q_b, bound_by=q_by),
+    }
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -504,8 +868,13 @@ def main() -> int:
     phase_build()
     s = Smoke(torch)
     phase_kernels(s)
+    phase_kernels_runtime(s)
     launches = phase_main_path(s)
+    rt_launches, _ = phase_runtime(s)
+    for k in ("encode", "fused"):
+        launches[k] += rt_launches[k]
     times = phase_times(s)
+    times.update(phase_times_runtime(s))
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",
@@ -517,6 +886,16 @@ def main() -> int:
              replaces="src/repro/kernels/reconstruct_apply.py:134",
              launches=launches["fused"], max_abs_err=s.errs["fused"],
              library_ms=None, **times["fused"]),
+        dict(name="seeded_reconstruct", route="cuda",
+             source="src/repro_torch/kernels/csrc/seeded_reconstruct.cu",
+             replaces="src/repro/kernels/seeded_reconstruct.py:60",
+             launches=rt_launches["rec"], max_abs_err=s.errs["rec"],
+             library_ms=None, **times["rec"]),
+        dict(name="qsgd_quant", route="cuda",
+             source="src/repro_torch/kernels/csrc/qsgd_quant.cu",
+             replaces="src/repro/kernels/qsgd_quant.py:31",
+             launches=rt_launches["qsgd"], max_abs_err=s.errs["qsgd"],
+             library_ms=None, **times["qsgd"]),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi_line)

@@ -1,10 +1,11 @@
 """Federated simulation (torch port of ``repro/fed/simulation.py``).
 
 Runs one method for K rounds: per round each client samples a fresh
-minibatch per local step from its own shard, the FedScalar round runs
+minibatch per local step from its own shard, the method's round runs
 (:func:`repro_torch.core.fedscalar.fedscalar_round`: kernel encode and
-fused kernel close), and the global model's loss and accuracy on the
-test set are recorded.  The bandwidth / energy cost model (eqs. 12–13)
+fused kernel close; :func:`repro_torch.core.fedavg.fedavg_round`;
+:func:`repro_torch.core.qsgd.qsgd_round`: the QSGD kernel), and the
+global model's loss and accuracy on the test set are recorded.  The bandwidth / energy cost model (eqs. 12–13)
 is applied afterwards from the per-round upload payloads.
 
 Batches are drawn with a ``torch.Generator`` seeded from ``cfg.seed``;
@@ -23,7 +24,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import fedavg as fa
 from repro_torch.core import fedscalar as fs
+from repro_torch.core import qsgd as q
 from repro_torch.core.prng import Distribution
 from repro_torch.core.projection import ProjectionMode, tree_size
 from repro_torch.core.tree import tree_map
@@ -31,7 +34,8 @@ from repro_torch.device import resolve_device
 from repro_torch.fed.costmodel import ChannelConfig, CostModel, dense_upload_bits
 from repro_torch.models.mlp_classifier import mlp_accuracy, mlp_grad, mlp_loss
 
-__all__ = ["SimulationConfig", "run_simulation", "METHODS"]
+__all__ = ["SimulationConfig", "run_simulation", "METHODS",
+           "METHOD_FOR_DISTRIBUTION", "protocol_config"]
 
 METHODS = (
     "fedscalar_rademacher",
@@ -45,9 +49,14 @@ METHODS = (
     "fedscalar_hadamard",
 )
 
-_BASELINES_SLICE = ("the fedavg and qsgd baselines are ported in a later "
-                    "slice of the port (the baselines slice, with the QSGD "
-                    "kernel)")
+# run_simulation method of each direction family at k = 1: the federation
+# runtime's full-participation shortcut keys on it.
+METHOD_FOR_DISTRIBUTION = {
+    Distribution.RADEMACHER: "fedscalar_rademacher",
+    Distribution.GAUSSIAN: "fedscalar_gaussian",
+    Distribution.SPARSE_RADEMACHER: "fedscalar_sparse",
+    Distribution.HADAMARD: "fedscalar_hadamard",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,12 +72,14 @@ class SimulationConfig:
     capture_uploads: bool = False
 
 
-def protocol_config(cfg: SimulationConfig) -> fs.FedScalarConfig:
-    """The FedScalarConfig behind a ``fedscalar_*`` method."""
+def protocol_config(cfg: SimulationConfig):
+    """The config behind a method: FedScalarConfig, FedAvgConfig or QSGDConfig."""
     m = cfg.method
     base = dict(local_steps=cfg.local_steps, local_lr=cfg.local_lr)
-    if m in ("fedavg", "qsgd"):
-        raise NotImplementedError(f"{m!r}: {_BASELINES_SLICE}")
+    if m == "fedavg":
+        return fa.FedAvgConfig(**base)
+    if m == "qsgd":
+        return q.QSGDConfig(**base)
     if m == "fedscalar_rademacher":
         return fs.FedScalarConfig(**base)
     if m == "fedscalar_gaussian":
@@ -106,7 +117,17 @@ def run_simulation(cfg: SimulationConfig, init_params: Any, client_sets,
     """Run one method for K rounds on ``device`` → history dict of numpy arrays."""
     dev = resolve_device(device)
     pc = protocol_config(cfg)
-    bits_per_client = fs.upload_bits_per_client(init_params, pc)
+    fedscalar = isinstance(pc, fs.FedScalarConfig)
+    if cfg.capture_uploads and not fedscalar:
+        raise ValueError(
+            f"capture_uploads needs a fedscalar method (uploads are (r, ξ) "
+            f"scalars); {cfg.method!r} frames are Θ(d)")
+    if fedscalar:
+        bits_per_client = fs.upload_bits_per_client(init_params, pc)
+    elif cfg.method == "fedavg":
+        bits_per_client = fa.upload_bits_per_client(init_params, pc)
+    else:
+        bits_per_client = q.upload_bits_per_client(init_params, pc)
 
     cx_np, cy_np = _stack_clients(client_sets)
     cx = torch.from_numpy(cx_np).to(dev, torch.float32)   # (N, n_per, 64)
@@ -122,7 +143,7 @@ def run_simulation(cfg: SimulationConfig, init_params: Any, client_sets,
 
     params = tree_map(lambda p: p.to(dev), init_params)
     ef = None
-    if pc.error_feedback:
+    if fedscalar and pc.error_feedback:
         ef = tree_map(lambda p: torch.zeros((n,) + tuple(p.shape),
                                             dtype=torch.float32, device=dev),
                       params)
@@ -138,8 +159,13 @@ def run_simulation(cfg: SimulationConfig, init_params: Any, client_sets,
             idx = torch.randint(0, n_per, (n, S * B), generator=gen).to(dev)
             bx = cx[rows, idx].reshape(n, S, B, -1)
             by = cy[rows, idx].reshape(n, S, B)
-            params, (aux, ef) = fs.fedscalar_round(params, (bx, by), k,
-                                                   mlp_grad, pc, ef)
+            if fedscalar:
+                params, (aux, ef) = fs.fedscalar_round(params, (bx, by), k,
+                                                       mlp_grad, pc, ef)
+            elif cfg.method == "fedavg":
+                params, _ = fa.fedavg_round(params, (bx, by), k, mlp_grad, pc)
+            else:
+                params, _ = q.qsgd_round(params, (bx, by), k, mlp_grad, pc)
             losses.append(mlp_loss(params, (xt, yt)))
             accs.append(mlp_accuracy(params, xt, yt))
             if cfg.capture_uploads:

@@ -1,9 +1,14 @@
-"""Hand-written Hopper kernels for the FedScalar round, with their plain versions.
+"""Hand-written Hopper kernels of the port, with their plain versions.
 
 * :mod:`seeded_projection` — client encode ``r = ⟨δ, v(ξ)⟩`` for a whole
   cohort per leaf (``csrc/seeded_projection.cu``).
 * :mod:`reconstruct_apply` — fused server close ``y = x + Σ r·v``
   (``csrc/reconstruct_apply.cu``).
+* :mod:`seeded_reconstruct` — per-client server decode, the federation
+  runtime's large-cohort apply and digest replay
+  (``csrc/seeded_reconstruct.cu``).
+* :mod:`qsgd_quant` — QSGD quantize→dequantize for a cohort, one leaf
+  per call (``csrc/qsgd_quant.cu``).
 * :mod:`common` — the direction chain in plain torch (``csrc/chain.cuh``
   is its CUDA twin) and the wrappers' checks.
 * :mod:`ops` — parameter trees → per-leaf kernel calls.

@@ -7,12 +7,14 @@ plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \\
          -Xptxas -v -shared -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-``-fmad=false`` is part of the fused decode's numeric spec: no mul+add
-pair may be contracted into an FMA.  The library name carries a hash of
-the sources and flags, so an edited source is rebuilt and a stale one is
-never loaded.  Libraries land in ``kernels/build/`` beside this file
-(git-ignored), written under a temporary name and renamed into place so
-concurrent builders never load a half-written file.
+``-fmad=false`` is part of the numeric spec of the fused close, the
+per-client decode and the QSGD round trip: no mul+add pair may be
+contracted into an FMA.  Division stays IEEE (never ``--use_fast_math``).
+The library name carries a hash of the sources and flags, so an edited
+source is rebuilt and a stale one is never loaded.  Libraries land in
+``kernels/build/`` beside this file (git-ignored), written under a
+temporary name and renamed into place so concurrent builders never load
+a half-written file.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "BuildResult",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("seeded_projection", "reconstruct_apply")
+SOURCES = ("seeded_projection", "reconstruct_apply", "seeded_reconstruct",
+           "qsgd_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 

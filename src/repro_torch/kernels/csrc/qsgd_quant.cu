@@ -1,0 +1,91 @@
+// QSGD stochastic quantize -> dequantize for every client of a cohort, one leaf.
+//
+// Replaces the TPU kernel repro/kernels/qsgd_quant.py::_qsgd_kernel.  The
+// numeric spec is the reference's (qsgd_quant.py, core/qsgd.py), in its op
+// order, float32 throughout:
+//
+//   u      = (f32(hash_u32(seed, row, col, QSGD_TAG)) + 1) * 2^-32
+//   scaled = (|x| / norm) * L
+//   level  = floor(scaled) + (u < scaled - floor(scaled))
+//   signed = sign(x) * level                       (the wire's level code)
+//   q      = ((norm * sign(x)) * level) / L
+//
+// with seed the leaf-folded client seed and (row, col) the coordinates of
+// the leaf's 2-D view.  The norm is computed outside the kernel, as in the
+// reference, and arrives with a zero norm already replaced by 1.  Every
+// float op is an _rn intrinsic (IEEE division, no fast math) and the file
+// is built with -fmad=false, so the result equals the plain version bit
+// for bit.
+//
+// Bound on this card: per element the kernel reads 4 bytes of x and writes
+// 4 bytes of q and/or 4 bytes of levels, against one SplitMix32 round (the
+// seed and row rounds are hoisted) and about ten float ops.  That is a few
+// integer ops per byte, below the card's ops-to-bytes ratio, so it is bound
+// by HBM: the design keeps to one pass that reads x once and writes both
+// outputs from registers, with coalesced rows.
+//
+// Design.  Grid (column tiles, row tiles, clients); a thread block is
+// TILE_R rows by TILE_C columns, one thread per element.  The first TILE_R
+// threads hoist the chain's seed and row rounds for the tile's rows into
+// shared memory, so each element pays one mixer round.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "chain.cuh"
+
+namespace {
+
+constexpr int TILE_C = 128;
+constexpr int TILE_R = 4;
+constexpr uint32_t QSGD_TAG = 0x7FEB352Du;   // repro.core.qsgd.QSGD_TAG
+
+__global__ void __launch_bounds__(TILE_C * TILE_R)
+qsgd_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
+            const float* __restrict__ norms, float* __restrict__ q,
+            float* __restrict__ lv, int rows, int cols, int levels,
+            uint32_t row_offset, uint32_t col_offset) {
+  __shared__ uint32_t s_state[TILE_R];
+  const int n = blockIdx.z;
+  const int c = blockIdx.x * TILE_C + threadIdx.x;
+  const int r = blockIdx.y * TILE_R + threadIdx.y;
+  const int tid = threadIdx.y * TILE_C + threadIdx.x;
+  if (tid < TILE_R) {
+    const uint32_t row = row_offset + (uint32_t)(blockIdx.y * TILE_R + tid);
+    // hash_u32(seed, row, col, tag): the first two of its three rounds.
+    s_state[tid] = fs::splitmix32(fs::splitmix32(seeds[n] ^ QSGD_TAG) ^ row);
+  }
+  __syncthreads();
+  if (r >= rows || c >= cols) return;
+
+  const size_t idx = ((size_t)n * rows + r) * cols + c;
+  const float xv = x[idx];
+  const float norm = norms[n];
+  const float fl = (float)levels;
+  const float u = fs::uniform01(fs::splitmix32(s_state[threadIdx.y] ^ (col_offset + (uint32_t)c)));
+  const float scaled = __fmul_rn(__fdiv_rn(fabsf(xv), norm), fl);
+  const float lo = floorf(scaled);
+  const float level = __fadd_rn(lo, (u < __fsub_rn(scaled, lo)) ? 1.0f : 0.0f);
+  const float sign = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : 0.0f);
+  if (lv != nullptr) lv[idx] = __fmul_rn(sign, level);
+  if (q != nullptr) q[idx] = __fdiv_rn(__fmul_rn(__fmul_rn(norm, sign), level), fl);
+}
+
+}  // namespace
+
+extern "C" int fs_qsgd_max_rows() { return 65535 * TILE_R; }
+
+// x, q, lv: (n, rows, cols) float32 (q or lv may be null); seeds: (n,)
+// leaf-folded uint32; norms: (n,) float32, nonzero.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int fs_qsgd(const float* x, const uint32_t* seeds, const float* norms,
+                       float* q, float* lv, int n, int rows, int cols, int levels,
+                       uint32_t row_offset, uint32_t col_offset, void* stream) {
+  if (n <= 0 || rows <= 0 || cols <= 0) return (int)cudaSuccess;
+  if (n > 65535 || (rows + TILE_R - 1) / TILE_R > 65535 || (q == nullptr && lv == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R, n);
+  const dim3 block(TILE_C, TILE_R);
+  qsgd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      x, seeds, norms, q, lv, rows, cols, levels, row_offset, col_offset);
+  return (int)cudaGetLastError();
+}

@@ -5,6 +5,11 @@
 * ``server_update_fused``  ≡ ``repro.kernels.ops.server_update_fused``:
   the fused round close, bitwise equal to the reference's fused spec for
   the ±1/±2 families.
+* ``server_update_kernel`` ≡ ``repro.kernels.ops.server_update_kernel``:
+  the per-client decode (clients added one by one, scale applied last),
+  the federation runtime's large-cohort apply and its digest replay.
+* ``qsgd_roundtrip_kernel`` ≡ ``repro.kernels.ops.qsgd_roundtrip_kernel``:
+  the QSGD quantize→dequantize round trip of one update tree.
 
 Each dispatches on the tensor's device inside the kernel wrappers: a
 CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
@@ -24,9 +29,11 @@ from repro_torch.core.projection import ProjectionMode, leaf_layout
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
 from repro_torch.kernels.seeded_projection import project_blocks
+from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients
 
 __all__ = ["leaf_block_bounds", "fold_upload_weights", "project_tree_kernel",
-           "server_update_fused"]
+           "server_update_kernel", "server_update_fused",
+           "qsgd_roundtrip_kernel"]
 
 
 def leaf_block_bounds(
@@ -134,3 +141,44 @@ def server_update_fused(
                                     masked=masked, orig_cols=ll.cols)
         out.append(y.reshape(ll.shape))
     return tree_unflatten(params, out)
+
+
+def server_update_kernel(
+    params: Any,
+    rs: torch.Tensor,                    # (N,), (N, 1) or (N, k)
+    seeds: torch.Tensor,                 # (N,) round seeds
+    server_lr: float = 1.0,
+    distribution: Distribution = Distribution.RADEMACHER,
+    weights: torch.Tensor | None = None,
+    mode: ProjectionMode = ProjectionMode.FULL,
+    block_weights: torch.Tensor | None = None,
+) -> Any:
+    """Per-client decode: x ← x + (lr/N)·Σₙⱼ rₙⱼ vₙⱼ (or lr·Σ wₙ… with weights).
+
+    Same contract as :func:`server_update_fused`; every weight is folded
+    into the scalars and each leaf goes through
+    :func:`repro_torch.kernels.seeded_reconstruct.reconstruct_apply_clients`.
+    """
+    rs, scale = fold_upload_weights(rs, server_lr, weights, mode, block_weights)
+    k = rs.shape[1]
+    leaves = tree_leaves(params)
+    layout = leaf_layout(params)
+    total = layout[-1].end if layout else 0
+    masked = mode == ProjectionMode.BLOCK and k > 1
+    seeds = seeds.to(torch.int64)
+    out = []
+    for ll, leaf in zip(layout, leaves):
+        x2d = leaf.reshape(ll.rows, ll.cols).contiguous()
+        lo, hi = _bounds(ll, total, k, mode, leaf.device)
+        y = reconstruct_apply_clients(x2d, seeds, rs, ll.tag, scale,
+                                      distribution.value, lo=lo, hi=hi,
+                                      masked=masked, orig_cols=ll.cols)
+        out.append(y.reshape(ll.shape))
+    return tree_unflatten(params, out)
+
+
+def qsgd_roundtrip_kernel(tree: Any, seed, bits: int = 8) -> Any:
+    """Per-leaf QSGD quantize→dequantize of one update tree (kernel path)."""
+    from repro_torch.core.qsgd import quantize_tree
+
+    return quantize_tree(tree, seed, bits)

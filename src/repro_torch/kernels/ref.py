@@ -4,7 +4,9 @@ The projection and aggregation oracles are the core functions.  The
 fused oracle writes the chunked spec of :mod:`reconstruct_apply` longhand
 with the core generator (``block_seed`` + ``random_for_shape``, not the
 kernels' factored chain), so it checks the factoring as well as the sum.
-O(chunk·d) memory: a test oracle, not a serving path.
+O(chunk·d) memory: a test oracle, not a serving path.  The QSGD oracle
+writes the reference's quantizer longhand with the core hash (not the
+kernel), on per-leaf norms that a caller may inject.
 """
 from __future__ import annotations
 
@@ -13,13 +15,25 @@ from typing import Any
 import torch
 
 from repro_torch.core.fedscalar import FedScalarConfig, server_aggregate
-from repro_torch.core.prng import Distribution, block_seed, random_for_shape
+from repro_torch.core.prng import (
+    Distribution,
+    block_seed,
+    fold_seed,
+    hash_u32,
+    random_for_shape,
+    u32,
+    uniform01,
+)
 from repro_torch.core.projection import ProjectionMode, leaf_layout, project_tree
+from repro_torch.core.qsgd import QSGD_TAG, _coords_2d
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.kernels.ops import fold_upload_weights, leaf_block_bounds
 from repro_torch.kernels.reconstruct_apply import FUSED_CHUNK, pad_cohort
 
-__all__ = ["project_tree_ref", "server_update_ref", "server_update_fused_ref"]
+__all__ = ["project_tree_ref", "server_update_ref", "server_update_fused_ref",
+           "qsgd_roundtrip_ref"]
+
+
 
 
 def project_tree_ref(delta: Any, seed,
@@ -86,3 +100,27 @@ def server_update_fused_ref(params: Any, rs, seeds, server_lr: float = 1.0,
         y = (x2d.to(torch.float32) + acc).to(leaf.dtype)
         out.append(y.reshape(ll.shape))
     return tree_unflatten(params, out)
+
+
+def qsgd_roundtrip_ref(tree: Any, seed, bits: int = 8, norms=None):
+    """Oracle of the QSGD round trip, one leaf at a time (reference op order)."""
+    levels = (1 << (bits - 1)) - 1
+    out = []
+    for tag, leaf in enumerate(tree_leaves(tree)):
+        dev = leaf.device
+        (rows, cols), row, col = _coords_2d(tuple(leaf.shape), dev)
+        xf = leaf.to(torch.float32).reshape(rows, cols)
+        if norms is None:
+            norm = torch.linalg.vector_norm(xf.reshape(-1))
+            norm = torch.where(norm == 0, torch.ones_like(norm), norm)
+        else:
+            norm = torch.as_tensor(norms[tag], dtype=torch.float32, device=dev)
+        u = uniform01(hash_u32(fold_seed(u32(seed, dev), tag), row, col,
+                               QSGD_TAG))
+        scaled = torch.abs(xf) / norm * float(levels)
+        floor = torch.floor(scaled)
+        level = floor + (u < (scaled - floor)).to(torch.float32)
+        signed = torch.sign(xf) * level
+        q = norm * signed / torch.tensor(float(levels), device=dev)
+        out.append(q.to(leaf.dtype).reshape(leaf.shape))
+    return tree_unflatten(tree, out)

@@ -12,7 +12,11 @@ kernel's logf/cosf against torch's).  The encode's sum order differs
 from the plain version's: it is held against the plain version summed
 in float64, within ``encode_tolerance`` (4·2⁻²³·√h·‖x‖₂·max|v|, h the
 depth of the kernel's float32 sum); and the kernel gives the same bits
-on every run.
+on every run.  The per-client decode is bitwise equal to its plain
+version for the ±1/±2 families (gaussian within rtol/atol 1e-5), and the
+QSGD kernel's levels and round trip are bitwise equal to its plain
+version given the same norms.  A digest replayed through the decode
+kernel lands on the server's bits.
 """
 import numpy as np
 import pytest
@@ -31,6 +35,14 @@ from repro_torch.kernels.seeded_projection import (  # noqa: E402
     encode_tolerance,
     project_blocks,
     project_blocks_plain,
+)
+from repro_torch.kernels.qsgd_quant import (  # noqa: E402
+    qsgd_quantize,
+    qsgd_quantize_plain,
+)
+from repro_torch.kernels.seeded_reconstruct import (  # noqa: E402
+    reconstruct_apply_clients,
+    reconstruct_plain,
 )
 from repro_torch.models.mlp_classifier import init_mlp  # noqa: E402
 from torch_parity import cuda_device, seeds_np  # noqa: E402,F401
@@ -130,3 +142,101 @@ def test_cuda_wrappers_check_inputs(cuda_device):
     with pytest.raises(TypeError):
         fused_reconstruct_apply(x[0].double(), seeds, torch.ones(2, device=cuda_device),
                                 0, 1.0)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", MODES)
+@pytest.mark.parametrize("n", [20, 33, 1000])
+def test_cuda_rec_matches_plain(cuda_device, family, k, mode, n):
+    rng = np.random.RandomState(n + k)
+    p = _params(n)
+    rs = torch.from_numpy(rng.randn(n, k).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+    w = torch.from_numpy(rng.rand(n).astype(np.float32))
+    want = ops.server_update_kernel(p, rs, seeds, 0.9, Distribution(family),
+                                    weights=w, mode=ProjectionMode(mode))
+    before = reconstruct_apply_clients.launches
+    got = ops.server_update_kernel(
+        {key: v.to(cuda_device) for key, v in p.items()}, rs.to(cuda_device),
+        seeds.to(cuda_device), 0.9, Distribution(family),
+        weights=w.to(cuda_device), mode=ProjectionMode(mode))
+    assert reconstruct_apply_clients.launches == before + len(p)
+    for key in p:
+        _assert_fused(family, got[key].cpu(), want[key])
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_cuda_rec_offsets_match_plain(cuda_device, family):
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(37, 300).astype(np.float32))
+    rs = torch.from_numpy(rng.randn(45, 3).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, 45).astype(np.int64))
+    lo = torch.tensor([0.0, 5000.0, 9000.0])
+    hi = torch.tensor([5000.0, 9000.0, 20000.0])
+    want = reconstruct_plain(x, seeds, rs, 2, 0.5, lo, hi, family, True, 40, 9,
+                             310)
+    got = reconstruct_apply_clients(
+        x.to(cuda_device), seeds.to(cuda_device), rs.to(cuda_device), 2, 0.5,
+        family, lo=lo.to(cuda_device), hi=hi.to(cuda_device), masked=True,
+        row_offset=40, col_offset=9, orig_cols=310)
+    _assert_fused(family, got.cpu(), want)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(16, 1, 24), (16, 64, 24), (3, 300, 700)])
+def test_cuda_qsgd_matches_plain(cuda_device, bits, shape):
+    rng = np.random.RandomState(bits)
+    x = torch.from_numpy((rng.randn(*shape) * 0.01).astype(np.float32))
+    x[0] = 0.0
+    seeds = torch.from_numpy(seeds_np(rng, shape[0]).astype(np.int64))
+    norms = torch.linalg.vector_norm(x.reshape(shape[0], -1), dim=1)
+    norms = torch.where(norms == 0, torch.ones_like(norms), norms)
+    levels = (1 << (bits - 1)) - 1
+    qp, lp = qsgd_quantize_plain(x, seeds, norms, levels, True, True, 3, 5)
+    q, lv = qsgd_quantize(x.to(cuda_device), seeds.to(cuda_device),
+                          norms.to(cuda_device), levels, True, True, 3, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(q.cpu(), qp) and torch.equal(lv.cpu(), lp)
+    q_only, none = qsgd_quantize(x.to(cuda_device), seeds.to(cuda_device),
+                                 norms.to(cuda_device), levels, row_offset=3,
+                                 col_offset=5)
+    assert none is None and torch.equal(q_only, q)
+
+
+def test_cuda_new_wrappers_check_inputs(cuda_device):
+    x = torch.zeros((2, 4, 8), device=cuda_device)
+    seeds = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    norms = torch.ones(2, device=cuda_device)
+    with pytest.raises(TypeError):
+        qsgd_quantize(x.double(), seeds, norms, 127)
+    with pytest.raises(ValueError):
+        qsgd_quantize(x, seeds[:1], norms, 127)
+    with pytest.raises(ValueError):
+        qsgd_quantize(x.transpose(1, 2), seeds, norms, 127)
+    with pytest.raises(ValueError):
+        qsgd_quantize(x, seeds, norms, 300)
+    rs = torch.ones(2, 1, device=cuda_device)
+    with pytest.raises(TypeError):
+        reconstruct_apply_clients(x[0].double(), seeds, rs, 0, 1.0)
+    with pytest.raises(ValueError):
+        reconstruct_apply_clients(x[0], seeds[:1], rs, 0, 1.0)
+    with pytest.raises(ValueError):
+        reconstruct_apply_clients(x[0], seeds, rs, 0, 1.0, "bogus")
+
+
+def test_cuda_digest_replay_through_rec_is_bit_identical(cuda_device):
+    from repro_torch.data import load_digits, make_client_datasets
+    from repro_torch.data import train_test_split_arrays
+    from repro_torch.fed.runtime import RuntimeConfig, run_federation
+
+    x, y = load_digits(400)
+    xtr, ytr, xte, yte = train_test_split_arrays(x, y)
+    before = reconstruct_apply_clients.launches
+    h = run_federation(
+        RuntimeConfig(rounds=3, population=64, participation=0.5,
+                      kernel_cohort_threshold=8, downlink_mode="digest",
+                      verify_replay=True),
+        init_mlp(device="cuda"), make_client_datasets(xtr, ytr, 8), xte, yte)
+    # server apply and shadow replay: 6 leaves each, every round
+    assert reconstruct_apply_clients.launches - before == 2 * 3 * 6
+    assert np.isfinite(h["loss"]).all()

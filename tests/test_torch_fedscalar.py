@@ -223,9 +223,19 @@ def test_run_simulation_loss_falls_on_cpu(method):
 
 
 def test_baselines_wait_for_their_slice():
-    for method in ("fedavg", "qsgd"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tsim.protocol_config(tsim.SimulationConfig(method=method))
+    """The baselines slice has landed: fedavg/qsgd map to their configs."""
+    from repro_torch.core import fedavg as tfa
+    from repro_torch.core import qsgd as tq
+
+    assert tsim.protocol_config(tsim.SimulationConfig(method="fedavg")) == \
+        tfa.FedAvgConfig()
+    assert tsim.protocol_config(tsim.SimulationConfig(method="qsgd")) == \
+        tq.QSGDConfig()
+    with pytest.raises(ValueError, match="capture_uploads"):
+        tsim.run_simulation(tsim.SimulationConfig(method="qsgd", rounds=1,
+                                                  capture_uploads=True),
+                            tmlp.init_mlp(device="cpu"), [], None, None,
+                            device="cpu")
 
 
 def test_cost_model_copy_matches_reference():

@@ -42,5 +42,13 @@ def test_port_imports_neither_jax_nor_reference():
     for mod in ("repro_torch.core.prng", "repro_torch.kernels.ops",
                 "repro_torch.kernels.seeded_projection",
                 "repro_torch.kernels.reconstruct_apply",
+                "repro_torch.kernels.seeded_reconstruct",
+                "repro_torch.kernels.qsgd_quant",
+                "repro_torch.core.fedavg", "repro_torch.core.qsgd",
+                "repro_torch.fed.protocols", "repro_torch.fed.baselines",
+                "repro_torch.fed.runtime.engine",
+                "repro_torch.fed.runtime.sampling",
+                "repro_torch.fed.runtime.server",
+                "repro_torch.fed.runtime.transport",
                 "repro_torch.fed.simulation", "repro_torch.convert"):
         assert mod in out["modules"]

@@ -14,6 +14,23 @@
   an oracle here: under jax 0.9 it differs from its own mirror and
   oracle by up to 1.2e-7.
 
+* Per-client decode (``_rec``): the plain version against the reference's
+  Pallas ``reconstruct_kernel_call`` in interpret mode.  The sum over
+  blocks and clients is bitwise for the ±1/±2 families; the reference's
+  final ``x + scale·acc`` is contracted into one fused multiply-add by
+  XLA on the CPU, so the port (two roundings, as its CUDA kernel does)
+  is held bitwise against that FMA, emulated in float64 from the port's
+  own sum, and within 2⁻²³·(|y| + |scale·acc|) of the reference itself.  Gaussian within
+  rtol/atol 1e-5.  ``ops.server_update_kernel`` against the reference's
+  fori oracle ``ref.server_update_ref`` with ``allclose`` (rtol 1e-5,
+  atol 1e-6: the oracle takes p + lr·(Σ/n)).
+* QSGD: the plain version against ``repro.core.qsgd`` with the
+  reference's norms injected, bitwise (levels and round trip), and the
+  port's ``ops.qsgd_roundtrip_kernel`` against its longhand oracle
+  ``ref.qsgd_roundtrip_ref``, bitwise.  The reference's interpret-mode
+  QSGD kernel differs from its own core quantizer by an ulp of q and is
+  held within 1 ulp.
+
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
@@ -32,7 +49,12 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.prng import Distribution as TD  # noqa: E402
 from repro_torch.core.projection import ProjectionMode as TM  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.qsgd_quant import qsgd_quantize, qsgd_quantize_plain  # noqa: E402
 from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply  # noqa: E402
+from repro_torch.kernels.seeded_reconstruct import (  # noqa: E402
+    reconstruct_apply_clients,
+    reconstruct_plain,
+)
 from repro_torch.kernels.seeded_projection import (  # noqa: E402
     encode_tolerance,
     project_blocks,
@@ -251,3 +273,166 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError):
         project_blocks(x, torch.zeros(1, dtype=torch.int64, device="meta"), 0,
                        torch.zeros(1, device="meta"), torch.ones(1, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# per-client decode (_rec_kernel) and QSGD (_qsgd_kernel)
+# ---------------------------------------------------------------------------
+
+# (rows, cols, n, k, mode, row_offset, col_offset): a ragged last client
+# chunk (33 = 32 + 1), BLOCK masks, FULL k = 8, runtime offsets.
+REC_CASES = [(64, 24, 33, 8, "block", 0, 0), (24, 12, 45, 8, "full", 0, 0),
+             (7, 40, 20, 3, "block", 30, 5)]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("rows,cols,n,k,mode,ro,co", REC_CASES)
+def test_rec_plain_matches_reference_kernel(jax_kernels, family, rows, cols, n,
+                                            k, mode, ro, co):
+    from repro.kernels.seeded_reconstruct import reconstruct_kernel_call
+
+    rng = np.random.RandomState(rows + n)
+    masked = mode == "block"
+    x = rng.randn(rows, cols).astype(np.float32)
+    seeds = seeds_np(rng, n)
+    rs = rng.randn(n, k).astype(np.float32)
+    orig_cols = cols + 3 if ro or co else cols
+    lo, hi = _bounds(100, rows * orig_cols, 3 * rows * orig_cols, k, mode)
+    scale = 0.05
+    br, bc = -(-rows // 8) * 8, -(-cols // 128) * 128
+    xp = np.zeros((br, bc), np.float32)
+    xp[:rows, :cols] = x
+    want = np.asarray(reconstruct_kernel_call(
+        jnp.asarray(xp), jnp.asarray(seeds), jnp.asarray(rs), 6, scale, family,
+        (br, bc), ro, co, interpret=True, lo=jnp.asarray(lo),
+        hi=jnp.asarray(hi), orig_cols=orig_cols, masked=masked))[:rows, :cols]
+    args = (torch.from_numpy(seeds.astype(np.int64)), torch.from_numpy(rs), 6)
+    bounds = (torch.from_numpy(lo), torch.from_numpy(hi), family, masked, ro,
+              co, orig_cols)
+    got = reconstruct_plain(torch.from_numpy(x), *args, scale, *bounds).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    if family == "gaussian":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        return
+    acc = reconstruct_plain(torch.zeros(rows, cols), *args, 1.0, *bounds)
+    fma = (x.astype(np.float64) + float(np.float32(scale))
+           * acc.numpy().astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(fma, want)
+    # two roundings against one: |Δ| ≤ ulp-scale of the result and the product
+    bound = 2.0 ** -23 * (np.abs(want) + np.abs(np.float32(scale) * acc.numpy()))
+    assert (np.abs(got - want) <= bound).all()
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n,k,mode,weights", [(40, 1, "full", True),
+                                              (33, 8, "block", True)])
+def test_server_update_kernel_matches_fori_oracle(family, n, k, mode, weights):
+    from repro.core import fedscalar as jfs
+
+    rng = np.random.RandomState(n + k)
+    p = mlp_params_np(n)
+    rs = rng.randn(n, k).astype(np.float32)
+    seeds = seeds_np(rng, n)
+    w = rng.rand(n).astype(np.float32) if weights else None
+    got = ops.server_update_kernel(
+        params_from_jax(p, "cpu"), torch.from_numpy(rs),
+        torch.from_numpy(seeds.astype(np.int64)), 0.7, TD(family),
+        weights=None if w is None else torch.from_numpy(w), mode=TM(mode))
+    cfg = jfs.FedScalarConfig(server_lr=0.7, distribution=JD(family),
+                              num_projections=k, mode=JM(mode))
+    want = jfs.server_aggregate({key: jnp.asarray(v) for key, v in p.items()},
+                                jnp.asarray(rs), jnp.asarray(seeds), cfg,
+                                weights=None if w is None else jnp.asarray(w))
+    for key in p:
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+def test_port_fori_oracle_is_server_aggregate():
+    """``ref.server_update_ref`` is the per-client fori loop; the decode
+    kernel's plain path agrees with it as the reference's kernel does."""
+    rng = np.random.RandomState(2)
+    p = params_from_jax(mlp_params_np(2), "cpu")
+    rs = torch.from_numpy(rng.randn(5, 1).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, 5).astype(np.int64))
+    a = ref.server_update_ref(p, rs, seeds, 0.7)
+    b = ops.server_update_kernel(p, rs, seeds, 0.7)
+    from repro_torch.core.fedscalar import FedScalarConfig, server_aggregate
+
+    c = server_aggregate(p, rs, seeds, FedScalarConfig(server_lr=0.7))
+    for key in p:
+        assert torch.equal(a[key], c[key])
+        torch.testing.assert_close(b[key], a[key], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(1, 10), (64, 24), (300, 70)])
+def test_qsgd_plain_matches_reference_quantizer(bits, shape):
+    """Cohort call of the plain version ≡ the reference per client, given its norms."""
+    from repro.core import qsgd as jq
+    from repro.core.prng import fold_seed as j_fold_seed
+
+    rng = np.random.RandomState(bits * 7 + shape[0])
+    n, levels, tag = 5, (1 << (bits - 1)) - 1, 4
+    x = (rng.randn(n, *shape) * 0.02).astype(np.float32)
+    x[1] = 0.0                                   # a zero leaf: norm → 1
+    seeds = seeds_np(rng, n)
+    want_l, want_n = [], []
+    for i in range(n):
+        lv, nm = jq.quantize_levels(jnp.asarray(x[i]), jnp.uint32(seeds[i]),
+                                    levels, tag)
+        want_l.append(np.asarray(lv))
+        want_n.append(float(nm))
+    folded = np.asarray([int(j_fold_seed(jnp.uint32(s), tag)) for s in seeds])
+    q, lv = qsgd_quantize(torch.from_numpy(x), torch.from_numpy(folded),
+                          torch.tensor(want_n, dtype=torch.float32), levels,
+                          True, True)
+    assert torch.equal(lv, torch.from_numpy(np.stack(want_l)))
+    for i in range(n):
+        want_q = jq.quantize_leaf(jnp.asarray(x[i]), jnp.uint32(seeds[i]), levels,
+                                  tag)
+        np.testing.assert_array_equal(q[i].numpy(), np.asarray(want_q))
+    assert float(lv[1].abs().sum()) == 0.0 and want_n[1] == 1.0
+    q2, lv2 = qsgd_quantize_plain(torch.from_numpy(x), torch.from_numpy(folded),
+                                  torch.tensor(want_n), levels, False, True)
+    assert q2 is None and torch.equal(lv2, lv)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qsgd_roundtrip_kernel_matches_oracles(jax_kernels, bits):
+    rng = np.random.RandomState(bits)
+    tree = {"w": (rng.randn(64, 24) * 0.01).astype(np.float32),
+            "b": (rng.randn(24) * 0.01).astype(np.float32)}
+    tt = params_from_jax(tree, "cpu")
+    got = ops.qsgd_roundtrip_kernel(tt, 11, bits)
+    port_oracle = ref.qsgd_roundtrip_ref(tt, 11, bits)
+    ref_core = jax_kernels.ref.qsgd_roundtrip_ref(
+        {k: jnp.asarray(v) for k, v in tree.items()}, jnp.uint32(11), bits)
+    ref_kernel = jax_kernels.ops.qsgd_roundtrip_kernel(
+        {k: jnp.asarray(v) for k, v in tree.items()}, jnp.uint32(11), bits,
+        interpret=True)
+    for k in tree:
+        assert torch.equal(got[k], port_oracle[k]), k
+        a, b = got[k].numpy(), np.asarray(ref_kernel[k])
+        assert (np.abs(a - b) <= np.spacing(np.abs(b))).all(), k
+        # the norms may differ by ulps: levels may flip, each by ‖x‖/L
+        bound = np.linalg.norm(tree[k]) / ((1 << (bits - 1)) - 1)
+        assert (np.abs(a - np.asarray(ref_core[k])) <= bound + 1e-9).all(), k
+
+
+def test_new_wrappers_reject_other_devices_and_bad_requests():
+    x = torch.zeros((2, 3), device="meta")
+    with pytest.raises(ValueError):
+        reconstruct_apply_clients(x, torch.zeros(1, dtype=torch.int64,
+                                                 device="meta"),
+                                  torch.zeros(1, 1, device="meta"), 0, 1.0)
+    with pytest.raises(ValueError):
+        qsgd_quantize(torch.zeros((1, 2, 3), device="meta"),
+                      torch.zeros(1, dtype=torch.int64, device="meta"),
+                      torch.ones(1, device="meta"), 127)
+    with pytest.raises(ValueError, match="ask for"):
+        qsgd_quantize(torch.zeros((1, 2, 3)), torch.zeros(1, dtype=torch.int64),
+                      torch.ones(1), 127, want_q=False, want_levels=False)
+    with pytest.raises(ValueError, match="lo/hi"):
+        reconstruct_apply_clients(torch.zeros(2, 3), torch.zeros(1, dtype=torch.int64),
+                                  torch.zeros(1, 2), 0, 1.0, masked=True)
