@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases (any failure exits non-zero and the final line is not printed):
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: the four CUDA sources with nvcc (in parallel), with ptxas's
+2. build: the five CUDA sources with nvcc (in parallel), with ptxas's
    registers and spills per kernel;
 3. kernels against their plain PyTorch versions, on the card, at the MLP
    leaves, a SmolLM-360M-sized tied embedding (49152, 960) for k = 1 and
@@ -36,13 +36,36 @@ Phases (any failure exits non-zero and the final line is not printed):
    bit);
 6. times from CUDA events: each kernel, its plain version and its bound,
    at the main paths' shapes and at the large leaf (cohorts 256, 1024 for
-   both decodes; 16 clients for the encode and QSGD).
+   both decodes; 16 clients for the encode and QSGD);
+7. flash attention against its plain version, on the card: bf16 and f32,
+   head_dim 32, 64 and 128, MHA, GQA with group 3 and MQA, causal and a
+   window of 64, ``kpos = -1`` holes and padding queries, ragged S = T of
+   333 and 1000, decode (S = 1) against T = 16 424, a wrapped ring
+   (unsorted kpos), and SmolLM-360M's prefill shape in both types; on
+   rows with an allowed key, f32 within ``tests/test_flash_kernel.py``'s
+   rtol 1e-3 / atol 2e-5, bf16 within 2^-7 of its row's largest |plain|
+   (at most one bf16 ulp) and with at most 1% of its elements changed
+   (``kernels.flash_attention.flash_agrees``);
+8. flash attention's times (CUDA events) at SmolLM-360M's prefill and
+   decode shapes, beside its bound, its plain version and
+   ``scaled_dot_product_attention`` (timed only, as a yardstick);
+9. main path of the serving slice, card against CPU: SmolLM-360M at full
+   width, depth cut to 2 layers, float32, batch 1, a prompt of 8448
+   tokens and 4 decode steps against a cache of 8460 slots (both over
+   the 8192 threshold, so both phases launch the kernel); last-token
+   logits within ``PARITY_ATOL`` of the CPU run;
+10. main path of the serving slice at full width and depth: SmolLM-360M,
+   32 layers, bf16, batch 4, a prompt of 16 384 tokens and 32 greedy
+   decode steps against a cache of 16 424 slots through
+   ``launch/serve.py``'s steps, timed; the flash counter must read
+   32 + 32 × 32.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -96,6 +119,20 @@ RT_CONFIGS = {   # name -> (RuntimeConfig overrides, kernels that must run)
 # spec (convert, +1, ·2⁻³², |x|/norm, ·L, floor, −, <, +, sign·level,
 # norm·sign, ·level, /L: 13, each IEEE division counted as one op).
 QSGD_ELEM_OPS = {"int": 8, "imul": 2, "fp": 13}
+# Serving slice: SmolLM-360M (src/repro_torch/configs/smollm_360m.py).
+# The flash kernel's bound counts 4·hd flops per allowed (query, key) pair
+# at the bf16 tensor-core rate (data sheet, dense) and q, k, v, out once.
+BF16_FLOPS_PER_S = 989e12
+SERVE_ARCH = "smollm-360m"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16384, 32
+SERVE_CAPACITY = SERVE_PROMPT + SERVE_GEN + 8          # 16 424 slots
+PARITY_LAYERS, PARITY_PROMPT, PARITY_GEN = 2, 8448, 4
+PARITY_CAPACITY = PARITY_PROMPT + PARITY_GEN + 8       # 8460 slots
+# Card against CPU, float32: the two sum in other orders over width 960
+# and 8448 keys, and their cos/sin differ by ulps at positions up to
+# 8451; the logits are of magnitude ≈ 3, so 1e-3 is far above sum-order
+# noise (≈ 1e-5) and far below a wrong mask or position (≈ 1e-1).
+PARITY_ATOL = 1e-3
 
 
 class Smoke:
@@ -103,11 +140,14 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
-        self.errs = {"encode": 0.0, "fused": 0.0, "rec": 0.0, "qsgd": 0.0}
+        self.errs = {"encode": 0.0, "fused": 0.0, "rec": 0.0, "qsgd": 0.0,
+                     "flash": 0.0}
         self.enc_ratio = 0.0     # largest encode error / its tolerance
         self.checks = 0
         self.group = ""
-        self.stats = {}     # (group, kernel, family) -> [checks, max err, bitwise]
+        # (group, kernel, family) -> [checks, max err, bitwise, max err over
+        # its limit, max share of elements changed]; the last two for flash
+        self.stats = {}
 
     # ---- inputs ----
 
@@ -210,17 +250,57 @@ class Smoke:
                                  f"levels equal {torch.equal(lv, lp)}")
         self._record("qsgd", f"bits={bits}", err, True)
 
-    def _record(self, kernel, family, err, bitwise):
+    def check_flash(self, b, s, t, h, kh, hd, dtype, window=0, qpos=None,
+                    kpos=None):
+        """Kernel against plain version on the rows with an allowed key."""
+        from repro_torch.kernels.flash_attention import (
+            allowed_mask,
+            flash_agrees,
+            flash_attention,
+            flash_attention_plain,
+            flash_compare,
+        )
+        torch = self.torch
+        q = self.randn(b, s, h, hd).to(dtype)
+        k = self.randn(b, t, kh, hd).to(dtype)
+        v = self.randn(b, t, kh, hd).to(dtype)
+        i32 = dict(dtype=torch.int32, device=self.dev)
+        qpos = torch.arange(t - s, t, **i32) if qpos is None else qpos.to(**i32)
+        kpos = torch.arange(t, **i32) if kpos is None else kpos.to(**i32)
+        got = flash_attention(q, k, v, qpos, kpos, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, qpos, kpos, causal=True,
+                                     window=window)
+        torch.cuda.synchronize()
+        rows = allowed_mask(qpos, kpos, True, window).any(dim=1)
+        name = str(dtype).removeprefix("torch.")
+        g, w = got[:, rows], want[:, rows]
+        what = (f"B={b} S={s} T={t} H={h} K={kh} hd={hd} {name} "
+                f"window={window}")
+        if not rows.any():
+            raise AssertionError(f"flash check without an allowed row: {what}")
+        err, ratio, changed = flash_compare(g, w)
+        if not (flash_agrees(g, w) and bool((got[:, ~rows] == 0).all())):
+            raise AssertionError(f"flash disagrees: {what} max err {err}, "
+                                 f"{ratio} of its limit, {changed} of the "
+                                 "elements changed")
+        self._record("flash", f"{name} hd={hd}", err, bool(torch.equal(g, w)),
+                     ratio, changed)
+
+    def _record(self, kernel, family, err, bitwise, ratio=0.0, changed=0.0):
         self.errs[kernel] = max(self.errs[kernel], err)
         self.checks += 1
-        st = self.stats.setdefault((self.group, kernel, family), [0, 0.0, True])
+        st = self.stats.setdefault((self.group, kernel, family),
+                                   [0, 0.0, True, 0.0, 0.0])
         st[0] += 1
         st[1] = max(st[1], err)
         st[2] = st[2] and bitwise
+        st[3] = max(st[3], ratio)
+        st[4] = max(st[4], changed)
 
     def report(self):
         """One line per (kernel, family) of the current group."""
-        for (group, kernel, family), (n, err, bitwise) in self.stats.items():
+        for (group, kernel, family), (n, err, bitwise, ratio,
+                                      changed) in self.stats.items():
             if group == self.group:
                 if kernel == "encode":
                     what = ("max |kernel - float64 plain| "
@@ -228,6 +308,10 @@ class Smoke:
                 elif kernel == "qsgd":
                     what = (f"max |kernel q - plain q| {err!r}, levels and q "
                             "bitwise equal to plain")
+                elif kernel == "flash":
+                    what = (f"max |kernel - plain| {err!r}, at most {ratio!r} "
+                            f"of its limit, at most {changed!r} of a check's "
+                            f"elements changed, bitwise equal to plain: {bitwise}")
                 else:
                     what = (f"max |kernel - plain| {err!r}, bitwise equal to "
                             f"plain: {bitwise}")
@@ -848,6 +932,274 @@ def phase_times_runtime(s: Smoke):
     }
 
 
+def phase_flash(s: Smoke):
+    """Flash attention against its plain version, on the card."""
+    import torch
+
+    t0 = time.perf_counter()
+    n0 = s.checks
+    s.group = ("flash attention, ragged S = T (333, 1000; 333 with kpos -1 "
+               "holes and 40 padding queries): hd 32/64/128, MHA/GQA3/MQA, "
+               "causal and window 64")
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (32, 64, 128):
+            for h, kh in ((4, 4), (6, 2), (4, 1)):
+                for window in (0, 64):
+                    s.check_flash(2, 333, 333, h, kh, hd, dtype, window)
+                    s.check_flash(1, 1000, 1000, h, kh, hd, dtype, window)
+                    kpos = torch.arange(333)
+                    kpos[::5] = -1
+                    qpos = torch.arange(333)
+                    qpos[:40] = -1
+                    s.check_flash(1, 333, 333, h, kh, hd, dtype, window, qpos,
+                                  kpos)
+    s.report()
+    s.group = ("flash attention, decode S = 1 against T = 16424 (SmolLM heads), "
+               "and a wrapped ring of 1000 (unsorted kpos; S = 1 and 300; "
+               "window 0, 64, 1000)")
+    filled = SERVE_PROMPT + SERVE_GEN // 2
+    dec_kpos = torch.where(torch.arange(SERVE_CAPACITY) < filled,
+                           torch.arange(SERVE_CAPACITY), -1)
+    ring = torch.full((1000,), -1, dtype=torch.int64)
+    written = torch.arange(500, 1500)
+    ring[written % 1000] = written
+    for dtype in (torch.float32, torch.bfloat16):
+        s.check_flash(SERVE_BATCH, 1, SERVE_CAPACITY, 15, 5, 64, dtype,
+                      qpos=torch.tensor([filled - 1]), kpos=dec_kpos)
+        for window in (0, 64, 1000):
+            s.check_flash(2, 1, 1000, 6, 2, 64, dtype, window,
+                          torch.tensor([1499]), ring)
+            s.check_flash(2, 300, 1000, 6, 2, 64, dtype, window,
+                          torch.arange(1200, 1500), ring)
+    s.report()
+    s.group = (f"flash attention, SmolLM-360M prefill shape (B={SERVE_BATCH}, "
+               f"S=T={SERVE_PROMPT}, 15/5 heads, hd 64)")
+    for dtype in (torch.bfloat16, torch.float32):
+        s.check_flash(SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64, dtype)
+        torch.cuda.empty_cache()
+    s.report()
+    torch.cuda.empty_cache()
+    worst = {}
+    for (_, kernel, family), st in s.stats.items():
+        if kernel == "flash":
+            dt = family.split()[0]
+            w = worst.setdefault(dt, [0.0, 0.0])
+            w[0], w[1] = max(w[0], st[3]), max(w[1], st[4])
+    print(f"flash: all {s.checks - n0} checks ok in {time.perf_counter() - t0:.1f} s; "
+          f"max |err| {s.errs['flash']!r}; max err over its limit and max "
+          f"share changed: {json.dumps(worst)}", flush=True)
+
+
+def _flash_bound(b, s_len, t, h, kh, hd, elem, pairs):
+    """Least time: 4·hd flops per allowed pair at the bf16 tensor rate, or
+    q, k, v, out and the positions once over HBM."""
+    flops = 4 * hd * pairs
+    nbytes = elem * (2 * b * s_len * h * hd + 2 * b * t * kh * hd) + 4 * (s_len + t)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_flash_times(s: Smoke):
+    """CUDA-event times of flash attention at the serve shapes."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (
+        allowed_mask,
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    rows = {}
+    b, h, kh, hd = SERVE_BATCH, 15, 5, 64
+    filled = SERVE_PROMPT + SERVE_GEN // 2
+    i32 = dict(dtype=torch.int32, device=s.dev)
+    shapes = {
+        "prefill": (SERVE_PROMPT, SERVE_PROMPT, torch.arange(SERVE_PROMPT, **i32),
+                    torch.arange(SERVE_PROMPT, **i32)),
+        "decode": (1, SERVE_CAPACITY, torch.tensor([filled - 1], **i32),
+                   torch.where(torch.arange(SERVE_CAPACITY, **i32) < filled,
+                               torch.arange(SERVE_CAPACITY, **i32), -1)),
+    }
+    for name, (s_len, t, qpos, kpos) in shapes.items():
+        q = s.randn(b, s_len, h, hd).bfloat16()
+        k = s.randn(b, t, kh, hd).bfloat16()
+        v = s.randn(b, t, kh, hd).bfloat16()
+        reps = 3 if name == "prefill" else 50
+        tt = {}
+        tt["plain"] = s.time_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos),
+                                reps=1, warmup=1)
+        for turn in ("kernel", "kernel2"):
+            tt[turn] = s.time_ms(lambda: flash_attention(q, k, v, qpos, kpos),
+                                 reps=reps, warmup=1)
+        # The yardstick: one PyTorch call on the same inputs in its own
+        # layout (transposed outside the timed region), held to its fused
+        # backends so that it never materialises the (S, T) scores.  Never
+        # used by the port.
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kw = (dict(is_causal=True) if name == "prefill"
+              else dict(attn_mask=(kpos >= 0)[None, None, None, :]))
+
+        def lib():
+            with sdpa_kernel(fused):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True, **kw)
+        ref = lib().transpose(1, 2).float()
+        lib_err = float((ref - flash_attention(q, k, v, qpos, kpos).float()).abs().max())
+        tt["library"] = s.time_ms(lib, reps=reps, warmup=1)
+        pairs = int(allowed_mask(qpos, kpos, True, 0).sum()) * b * h
+        bound, by = _flash_bound(b, s_len, t, h, kh, hd, 2, pairs)
+        rows[name] = dict(shape=dict(B=b, S=s_len, T=t, H=h, K=kh, hd=hd,
+                                     dtype="bfloat16"),
+                          allowed_pairs=pairs,
+                          ms=(tt["kernel"] + tt["kernel2"]) / 2,
+                          kernel_turns_ms=[tt["kernel"], tt["kernel2"]],
+                          plain_ms=tt["plain"], library_ms=tt["library"],
+                          library_max_abs_diff=lib_err, bound_ms=bound,
+                          bound_by=by, tflops=4 * hd * pairs
+                          / ((tt["kernel"] + tt["kernel2"]) / 2 * 1e-3) / 1e12)
+        print(f"flash times ({name}): " + json.dumps(rows[name]), flush=True)
+        del q, k, v, qt, kt, vt, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve_parity(s: Smoke):
+    """SmolLM-360M at full width, 2 layers, f32: card against CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.api import Arch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), num_layers=PARITY_LAYERS,
+                              dtype="float32")
+    arch = Arch(cfg)
+    cpu = torch.device("cpu")
+    params = {cpu: arch.init(seed=0, device=cpu)}
+    params[s.dev] = tree_map(lambda x: x.to(s.dev), params[cpu])
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, PARITY_PROMPT)))
+    feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1)))
+    logits = {}
+    for dev in (s.dev, cpu):
+        flash_attention.launches = 0
+        out, caches = arch.prefill(params[dev], {"tokens": tokens.to(dev)},
+                                   capacity=PARITY_CAPACITY)
+        steps = [out]
+        for i in range(PARITY_GEN):
+            out, caches = arch.decode(params[dev], feed[i].to(dev), caches,
+                                      PARITY_PROMPT + i)
+            steps.append(out)
+        logits[dev] = torch.cat([x.float().cpu() for x in steps], dim=1)
+        if dev == s.dev:
+            torch.cuda.synchronize()
+            launches = flash_attention.launches
+    want = PARITY_LAYERS * (1 + PARITY_GEN)
+    if launches != want:
+        raise AssertionError(f"serve parity: {launches} flash launches on the "
+                             f"card, expected {want}")
+    if flash_attention.launches:
+        raise AssertionError("serve parity: the CPU run launched the kernel")
+    err = float((logits[s.dev] - logits[cpu]).abs().max())
+    scale = float(logits[cpu].abs().max())
+    if not (err <= PARITY_ATOL and bool(torch.isfinite(logits[s.dev]).all())):
+        raise AssertionError(f"serve parity: card logits differ from the CPU "
+                             f"by {err} (tolerance {PARITY_ATOL})")
+    top = logits[s.dev].argmax(-1).eq(logits[cpu].argmax(-1)).all().item()
+    print(f"serve parity: {cfg.name} at full width, {PARITY_LAYERS} layers, "
+          f"float32, prompt {PARITY_PROMPT} + {PARITY_GEN} decode steps "
+          f"(cache {PARITY_CAPACITY}): card vs CPU max |dlogits| {err!r} "
+          f"(tolerance {PARITY_ATOL}; logits up to {scale!r}), same argmax "
+          f"{bool(top)}, flash launches {launches}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_serve(s: Smoke, flash_rows):
+    """SmolLM-360M at full width and depth through the serve steps, timed."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.models.api import Arch
+
+    cfg = get_config(SERVE_ARCH)
+    arch = Arch(cfg)
+    t0 = time.perf_counter()
+    params = arch.init(seed=0, device=s.dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b = SERVE_BATCH
+    tokens = torch.randint(0, cfg.vocab_size, (b, SERVE_PROMPT), generator=s.gen,
+                           device=s.dev)
+    prefill = make_prefill_step(arch, capacity=SERVE_CAPACITY)
+    decode = make_decode_step(arch)
+    # Warm-up on a short prompt (cuBLAS handles, the allocator): no flash.
+    tok, caches = make_prefill_step(arch, capacity=80)(params, {"tokens": tokens[:, :64]})
+    decode(params, tok.reshape(b, 1), caches, 64)
+    del caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fns = _kernel_fns()
+    for fn in (*fns.values(), flash_attention):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tok, caches = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(SERVE_GEN):
+        tok, caches = decode(params, tok.reshape(b, 1), caches, SERVE_PROMPT + i)
+        generated.append(tok.reshape(b))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    stray = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    want = cfg.num_layers * (1 + SERVE_GEN)
+    if launches != want or stray:
+        raise AssertionError(f"serve: flash launches {launches} (expected "
+                             f"{want}), other kernels {stray}")
+    gen = torch.stack(generated, dim=1)
+    (st,) = caches.caches
+    n = SERVE_PROMPT + SERVE_GEN
+    pos_ok = bool((st.pos[:, :n] == torch.arange(n, device=s.dev)).all()
+                  and (st.pos[:, n:] == -1).all() and (st.idx == n).all())
+    finite = bool(torch.isfinite(st.k).all() and torch.isfinite(st.v).all())
+    if not (pos_ok and finite and bool(((gen >= 0) & (gen < cfg.vocab_size)).all())):
+        raise AssertionError(f"serve: caches or tokens wrong (positions {pos_ok}, "
+                             f"finite {finite})")
+    pre, dec = flash_rows["prefill"]["ms"], flash_rows["decode"]["ms"]
+    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, batch=b,
+               prompt=SERVE_PROMPT, decode_steps=SERVE_GEN,
+               capacity=SERVE_CAPACITY, init_s=init_s, prefill_s=prefill_s,
+               prompt_tokens_per_s=b * SERVE_PROMPT / prefill_s,
+               decode_ms_per_token=decode_s / SERVE_GEN * 1e3,
+               decode_tokens_per_s=b * SERVE_GEN / decode_s,
+               flash_launches=launches,
+               flash_ms_per_prefill_layer=pre, flash_ms_per_decode_layer=dec,
+               flash_share_of_prefill=cfg.num_layers * pre / (prefill_s * 1e3),
+               flash_share_of_decode=cfg.num_layers * dec * SERVE_GEN / (decode_s * 1e3),
+               peak_gib=peak_gib, first_tokens=gen[:, :6].tolist())
+    print("serve: " + json.dumps(row), flush=True)
+    del params, caches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -875,6 +1227,11 @@ def main() -> int:
         launches[k] += rt_launches[k]
     times = phase_times(s)
     times.update(phase_times_runtime(s))
+    phase_flash(s)
+    flash_rows = phase_flash_times(s)
+    phase_serve_parity(s)
+    serve_launches = phase_serve(s, flash_rows)
+    fr = flash_rows["prefill"]
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",
@@ -896,6 +1253,12 @@ def main() -> int:
              replaces="src/repro/kernels/qsgd_quant.py:31",
              launches=rt_launches["qsgd"], max_abs_err=s.errs["qsgd"],
              library_ms=None, **times["qsgd"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:40",
+             launches=serve_launches, max_abs_err=s.errs["flash"],
+             ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
+             bound_by=fr["bound_by"], library_ms=fr["library_ms"]),
     ]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi_line)

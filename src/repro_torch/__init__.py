@@ -7,10 +7,11 @@ counterpart of ``repro/core/prng.py`` and so on.  The package imports
 Entry points (:func:`repro_torch.models.mlp_classifier.init_mlp`,
 :func:`repro_torch.fed.simulation.run_simulation`,
 :func:`repro_torch.fed.runtime.run_federation`,
+:meth:`repro_torch.models.api.Arch.init` and ``init_caches``,
 :func:`repro_torch.convert.params_from_jax`) run on the CUDA card unless
 the caller passes ``device="cpu"``; without a card they raise instead of
 falling back.  Everything else computes on the device of the tensors it
-is given.  The four hand-written Hopper kernels (encode, fused close,
-per-client decode, QSGD) live in :mod:`repro_torch.kernels` (sources
-under ``kernels/csrc``).
+is given.  The five hand-written Hopper kernels (encode, fused close,
+per-client decode, QSGD, flash attention) live in
+:mod:`repro_torch.kernels` (sources under ``kernels/csrc``).
 """

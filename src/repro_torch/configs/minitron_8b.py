@@ -1,0 +1,20 @@
+"""minitron-8b [dense]: pruned nemotron. [arXiv:2407.14679]
+
+32L d_model=4096 32H (GQA kv=8) d_ff=16384 vocab=256000.
+Nemotron-family non-gated squared-ReLU MLP.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b",
+    arch_type="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=256000,
+    activation="relu2",
+    norm="layernorm",
+    source="arXiv:2407.14679",
+)

@@ -1,10 +1,17 @@
 """Parameters between the two packages, as numpy arrays.
 
 ``params_from_jax`` takes the reference's parameters already turned into
-numpy (``{k: np.asarray(v) for k, v in jax_params.items()}``) and returns
-the port's ``dict[str, Tensor]`` with the same keys, shapes and dtypes;
-leaf order then agrees by construction, because both packages walk dict
-keys in sorted order.  ``params_to_numpy`` is the inverse.
+numpy (``jax.tree_util.tree_map(np.asarray, jax_params)``: nested dicts
+and lists, such as the LM tree with its ``period`` list of stacked
+leaves) and returns the port's tree of tensors with the same keys,
+shapes and dtypes; leaf order then agrees by construction, because both
+packages walk dict keys in sorted order and lists in order.
+``params_to_numpy`` is the inverse for the dtypes numpy has.
+
+``np.asarray`` of a bf16 ``jax.Array`` is an ``ml_dtypes.bfloat16``
+array, which ``torch.from_numpy`` rejects; such a leaf is read as its
+16-bit words and reinterpreted as ``torch.bfloat16``, bit for bit,
+without importing ``ml_dtypes`` (the card's machine has no jax).
 """
 from __future__ import annotations
 
@@ -19,11 +26,17 @@ from repro_torch.device import resolve_device
 __all__ = ["params_from_jax", "params_to_numpy"]
 
 
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(np_params: Any, device="cuda") -> Any:
     """numpy tree → tensor tree on ``device`` (same keys, shapes, dtypes)."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev),
-                    np_params)
+    return tree_map(lambda a: _tensor(a).to(dev), np_params)
 
 
 def params_to_numpy(params: Any) -> Any:

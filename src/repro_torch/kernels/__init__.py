@@ -9,6 +9,8 @@
   (``csrc/seeded_reconstruct.cu``).
 * :mod:`qsgd_quant` — QSGD quantize→dequantize for a cohort, one leaf
   per call (``csrc/qsgd_quant.cu``).
+* :mod:`flash_attention` — causal flash attention, forward, for the LLM
+  serving path's long prefills and decodes (``csrc/flash_attention.cu``).
 * :mod:`common` — the direction chain in plain torch (``csrc/chain.cuh``
   is its CUDA twin) and the wrappers' checks.
 * :mod:`ops` — parameter trees → per-leaf kernel calls.

@@ -9,7 +9,9 @@ plain C interface::
 
 ``-fmad=false`` is part of the numeric spec of the fused close, the
 per-client decode and the QSGD round trip: no mul+add pair may be
-contracted into an FMA.  Division stays IEEE (never ``--use_fast_math``).
+contracted into an FMA.  Flash attention needs only a tolerance; it
+writes its FMAs as ``fmaf``, which the flag leaves alone.  Division and
+``expf`` stay IEEE (never ``--use_fast_math``).
 The library name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale one is never loaded.  Libraries land in
 ``kernels/build/`` beside this file (git-ignored), written under a
@@ -34,7 +36,7 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "BuildResult",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("seeded_projection", "reconstruct_apply", "seeded_reconstruct",
-           "qsgd_quant")
+           "qsgd_quant", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,0 +1,187 @@
+"""Causal flash attention, forward: the port of ``repro/kernels/flash_attention.py``.
+
+The CUDA kernel is ``csrc/flash_attention.cu`` (its note gives the design
+and the bound); this module holds its plain PyTorch version and the
+wrapper.  Both compute ``_flash_kernel``'s function::
+
+    out[b, s, h] = Σ_t softmax_t(q[b, s, h] · k[b, t, h // G] · hd^-0.5) · v[b, t, h // G]
+
+over the allowed keys t: ``kpos[t] >= 0``, ``kpos[t] <= qpos[s]`` when
+``causal``, and ``kpos[t] > qpos[s] - window`` when ``window`` is set;
+G = H / K query heads share a kv head.  Scores, the softmax and p are
+float32, and p stays float32 before P·V (``_sdpa_blocked`` in the
+reference rounds p to V's dtype; in bf16 the two differ within bf16's
+tolerance).  The output is in q's dtype.
+
+Layouts are the reference's: q (B, S, H, hd), k and v (B, T, K, hd),
+qpos (S,) and kpos (T,) int32.  Unlike the Pallas wrapper, no multiple
+of a block size is asked of S or T: the kernel masks both ragged edges.
+
+A row with no allowed key (a padding query, say) comes out as zeros in
+both versions; the Pallas kernel gives such a row a uniform average of V
+over its masked keys instead.  Callers drop those rows, and at prefill
+and decode every real query sees at least its own key.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import check_cuda_tensor, raise_on_cuda_error
+
+__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_plain",
+           "allowed_mask", "flash_compare", "flash_agrees"]
+
+# head_dim values the CUDA kernel is instantiated for.
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Score elements per query chunk in the plain version (bounds its memory).
+_PLAIN_SCORE_ELEMS = 1 << 26
+
+# How far the kernel may be from its plain version, on rows with an
+# allowed key.  float32: tests/test_flash_kernel.py's rtol 1e-3 / atol
+# 2e-5 (sum order).  bfloat16: both versions sum in float32 and round to
+# bf16 once, so an element differs by at most one bf16 ulp of the larger
+# of the two, and one ulp of x is at most 2^-7·|x|: the limit is 2^-7
+# times the largest |plain| of its (b, s, h) row.  Their float32 sums
+# differ by ~1e-6 relative, which changes a rounding rarely; a kernel
+# that rounds p to bf16 moves ~1e-3 relative and changes many, so at
+# most 1% of the bf16 elements may differ at all.
+F32_RTOL, F32_ATOL = 1e-3, 2e-5
+BF16_ROW_ULP = 2.0 ** -7
+BF16_MAX_CHANGED = 0.01
+
+
+def allowed_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+                 window: int) -> torch.Tensor:
+    """(S, T) bool: key t is allowed for query s."""
+    q = qpos.to(torch.int64)[:, None]
+    k = kpos.to(torch.int64)[None, :]
+    ok = k >= 0
+    if causal:
+        ok = ok & (k <= q)
+    if window:
+        ok = ok & (k > q - window)
+    return ok
+
+
+def flash_compare(got: torch.Tensor, want: torch.Tensor):
+    """→ (max |got - want|, max of |got - want| over its limit, share of
+    elements that differ), ``want`` being the plain version's output."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if want.dtype == torch.bfloat16:
+        limit = BF16_ROW_ULP * w.abs().amax(dim=-1, keepdim=True)
+    else:
+        limit = F32_RTOL * w.abs() + F32_ATOL
+    ratio = torch.where(err == 0, torch.zeros_like(err), err / limit)
+    return (float(err.max()), float(ratio.max()),
+            float((got != want).float().mean()))
+
+
+def flash_agrees(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Every element within its limit and, in bf16, at most
+    ``BF16_MAX_CHANGED`` of them changed (see the limits above)."""
+    _, ratio, changed = flash_compare(got, want)
+    return (bool(torch.isfinite(got).all()) and ratio <= 1
+            and (want.dtype != torch.bfloat16 or changed <= BF16_MAX_CHANGED))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          qpos: torch.Tensor, kpos: torch.Tensor, *,
+                          causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Plain version of the kernel (masked float32 softmax, query-chunked)."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = hd ** -0.5
+    out = torch.empty_like(q)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    qc = max(1, _PLAIN_SCORE_ELEMS // max(b * h * t, 1))
+    for s0 in range(0, s, qc):
+        n = min(qc, s - s0)
+        qg = q[:, s0:s0 + n].to(torch.float32).reshape(b, n, kh, g, hd)
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+        ok = allowed_mask(qpos[s0:s0 + n], kpos, causal, window)
+        sc = sc.masked_fill(~ok, float("-inf"))
+        m = sc.amax(dim=-1, keepdim=True)
+        m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+        p = torch.exp(sc - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bkgst,btkd->bkgsd", p, vf)
+        o = torch.where(l > 0, o / l, torch.zeros_like(o))
+        out[:, s0:s0 + n] = o.permute(0, 3, 1, 2, 4).reshape(b, n, h, hd).to(q.dtype)
+    return out
+
+
+def _lib():
+    lib = _build.library("flash_attention")
+    if not getattr(lib, "_fs_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fs_flash_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                           i, f, i, i, p]
+        lib.fs_flash_attention.restype = i
+        lib._fs_typed = True
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    qpos: torch.Tensor, kpos: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """→ (B, S, H, hd) in q's dtype.
+
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version.  ``flash_attention.launches`` counts kernel launches.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, qpos, kpos, causal=causal,
+                                     window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    dev = q.device
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q has dtype {q.dtype}; the kernel takes float32 "
+                        "and bfloat16")
+    check_cuda_tensor("q", q, q.dtype, 4, dev)
+    check_cuda_tensor("k", k, q.dtype, 4, dev)
+    check_cuda_tensor("v", v, q.dtype, 4, dev)
+    check_cuda_tensor("qpos", qpos, torch.int32, 1, dev)
+    check_cuda_tensor("kpos", kpos, torch.int32, 1, dev)
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if kh == 0 or h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if qpos.numel() != s or kpos.numel() != t:
+        raise ValueError(f"qpos {qpos.numel()} / kpos {kpos.numel()} do not "
+                         f"match S={s}, T={t}")
+    if window < 0:
+        raise ValueError(f"window {window} < 0")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    out = torch.empty_like(q)
+    if b == 0 or s == 0:
+        return out
+    if t == 0:
+        return out.zero_()
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fs_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), out.data_ptr(), b, s, h, kh, t, hd,
+            _DTYPE_CODES[q.dtype], hd ** -0.5, int(causal), int(window), stream)
+    raise_on_cuda_error("fs_flash_attention", err)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,1 +1,1 @@
-"""Models of the port: the paper's MLP classifier."""
+"""Models of the port: the paper's MLP classifier and the dense LLM stack."""

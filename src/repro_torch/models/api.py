@@ -1,0 +1,82 @@
+"""Unified architecture API for the port's dense decoder-only family.
+
+Counterpart of ``repro/models/api.py``.  ``Arch`` wraps a ModelConfig
+with the serving entry points:
+
+* ``init(seed, device)``                  → params
+* ``prefill(params, batch, capacity)``    → (logits, caches)
+* ``decode(params, token, caches, pos)``  → (logits, caches), caches
+  updated in place
+* ``init_caches(batch, capacity, device)``
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``.  ``loss`` waits for the LLM training slice, and
+``input_specs``/``param_shapes`` for the meta-device dry run (ROADMAP
+A11).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["Arch", "INPUT_SHAPES", "LONG_WINDOW"]
+
+# The four assigned input shapes: name → (seq_len, global_batch, mode)
+INPUT_SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# Sliding window used by full-attention archs at 500k decode.
+LONG_WINDOW = 8192
+
+
+class Arch:
+    def __init__(self, cfg: ModelConfig):
+        if cfg.encoder_layers > 0:
+            raise NotImplementedError("the enc-dec family is not ported yet "
+                                      "(ROADMAP A10)")
+        self.cfg = cfg
+
+    # ---------------- parameters ----------------
+    def init(self, seed: int = 0, device="cuda"):
+        """Random parameters drawn from a ``torch.Generator`` seeded with ``seed``."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return lm.init_lm(self.cfg, gen)
+
+    # ---------------- serving ----------------
+    def prefill(self, params, batch, capacity: int, window: Optional[int] = None):
+        return lm.lm_prefill(params, self.cfg, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"), capacity=capacity,
+                             window=window)
+
+    def decode(self, params, token, caches, position, window: Optional[int] = None):
+        return lm.lm_decode(params, self.cfg, token, caches, position,
+                            window=window)
+
+    def init_caches(self, batch: int, capacity: int, device="cuda"):
+        return lm.init_lm_caches(self.cfg, batch, capacity,
+                                 device=resolve_device(device))
+
+    # ---------------- shape plumbing ----------------
+    def decode_window(self, seq_len: int) -> int:
+        """Cache capacity for a decode shape — full attention archs cap the
+        ring at LONG_WINDOW beyond 32k (sliding-window carve-out)."""
+        if seq_len > 32768:
+            return LONG_WINDOW
+        return seq_len
+
+    def serve_window(self, shape_name: str) -> Optional[int]:
+        """Window override passed to decode for this shape."""
+        seq, _, mode = INPUT_SHAPES[shape_name]
+        if mode == "decode" and seq > 32768 and self.cfg.num_heads:
+            return LONG_WINDOW
+        return None

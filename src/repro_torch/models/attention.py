@@ -1,0 +1,200 @@
+"""Grouped-query attention with RoPE, sliding windows and a ring-buffer KV cache.
+
+Counterpart of ``repro/models/attention.py`` for the dense serving path:
+GQA / MQA / MHA, QKV biases, sliding windows and the ring-buffer cache.
+The prefix-bidirectional mask (PaliGemma) is kept in the plain path;
+cross-attention arrives with the enc-dec family.
+
+``_sdpa`` is plain PyTorch.  ``_sdpa_blocked`` — taken, as in the
+reference, for prompts and caches longer than ``BLOCKED_SDPA_THRESHOLD``
+— is the hand-written flash-attention kernel on a CUDA tensor and its
+plain version on a CPU tensor.
+
+The KV cache is a fixed-capacity ring buffer: ``pos`` records each
+slot's absolute token position (−1 = empty).  Unlike the reference,
+whose arrays are immutable, the port writes the new tokens into the
+cache's ``k``, ``v`` and ``pos`` tensors **in place** and returns a
+cache holding those same tensors with ``idx`` advanced.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import allowed_mask, flash_attention
+from repro_torch.models.layers import apply_rope, init_linear, linear, rope_freqs
+
+__all__ = ["KVCache", "init_attention", "attention", "init_cache", "NEG_INF",
+           "BLOCKED_SDPA_THRESHOLD"]
+
+NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, T, K, hd)
+    v: torch.Tensor          # (B, T, K, hd)
+    pos: torch.Tensor        # (T,) int32 absolute positions, −1 = empty
+    idx: torch.Tensor        # () int32 — number of tokens seen so far
+
+
+def init_attention(gen: torch.Generator, cfg):
+    """Projection params (wq, wk, wv with the config's bias, wo without)."""
+    hd = cfg.resolved_head_dim
+    dt = cfg.torch_dtype
+    return {
+        "wq": init_linear(gen, cfg.d_model, cfg.num_heads * hd, cfg.qkv_bias, dt),
+        "wk": init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd, cfg.qkv_bias, dt),
+        "wv": init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd, cfg.qkv_bias, dt),
+        "wo": init_linear(gen, cfg.num_heads * hd, cfg.d_model, False, dt),
+    }
+
+
+def init_cache(cfg, batch: int, capacity: int, dtype=None, device="cpu") -> KVCache:
+    hd = cfg.resolved_head_dim
+    dt = dtype or cfg.torch_dtype
+    return KVCache(
+        k=torch.zeros((batch, capacity, cfg.num_kv_heads, hd), dtype=dt, device=device),
+        v=torch.zeros((batch, capacity, cfg.num_kv_heads, hd), dtype=dt, device=device),
+        pos=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+        idx=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _mask_logits(scores, qpos, kpos, *, causal, window, prefix_len):
+    """scores: (..., S, T); qpos: (S,), kpos: (T,) absolute positions."""
+    ok = allowed_mask(qpos, kpos, causal, window)
+    if causal and prefix_len:
+        # the prefix attends to itself both ways
+        both = (kpos[None, :] < prefix_len) & (qpos[:, None] < prefix_len)
+        ok = ok | (allowed_mask(qpos, kpos, False, window) & both)
+    return torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+
+
+def _sdpa(q, k, v, qpos, kpos, *, causal, window, prefix_len):
+    """q: (B,S,H,hd), k/v: (B,T,K,hd) → (B,S,H,hd).  fp32 softmax.
+
+    The reference's einsums take storage-dtype operands with float32
+    accumulation (``preferred_element_type``); a bf16 ``torch.einsum``
+    would return bf16, so the operands are upcast to float32 first, and
+    the probabilities are rounded to V's dtype before P·V as there.  At
+    S = T = 8192 the score tensor is B·H·S²·4 bytes (16 GB at batch 4,
+    15 heads): above the threshold the blocked path takes over.
+    """
+    b, s, h, hd = q.shape
+    t, kheads = k.shape[1], k.shape[2]
+    g = h // kheads
+    qg = q.reshape(b, s, kheads, g, hd)
+    scale = hd ** -0.5
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    scores = _mask_logits(scores, qpos, kpos, causal=causal, window=window,
+                          prefix_len=prefix_len)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+# Prefill sequences (and decode caches) longer than this take the blocked
+# path — the full (S, T) score tensor at 32k² would be hundreds of GiB.
+BLOCKED_SDPA_THRESHOLD = 8192
+
+
+def _sdpa_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
+    """Flash attention: online softmax over key tiles, one kernel launch.
+
+    The reference's ``_sdpa_blocked`` is the pure-JAX form of the same
+    algorithm; here it is ``kernels.flash_attention``, whose kernel has
+    no prefix-bidirectional mask.  A prefix on the CPU falls back to the
+    plain ``_sdpa`` (the same function, unblocked); on the card it raises
+    until the VLM family brings its own kernel path.
+    """
+    if prefix_len:
+        if q.is_cuda:
+            raise NotImplementedError(
+                "prefix-bidirectional attention above BLOCKED_SDPA_THRESHOLD "
+                "has no kernel yet (it arrives with the VLM family, ROADMAP A10)")
+        return _sdpa(q, k, v, qpos, kpos, causal=causal, window=window,
+                     prefix_len=prefix_len)
+    return flash_attention(q, k, v, qpos.to(torch.int32).contiguous(),
+                           kpos.to(torch.int32).contiguous(), causal=causal,
+                           window=window)
+
+
+def attention(
+    params,
+    x: torch.Tensor,                          # (B, S, D)
+    cfg,
+    *,
+    positions: Optional[torch.Tensor] = None,  # (S,) absolute positions
+    causal: bool = True,
+    window: int = 0,
+    prefix_len: int = 0,
+    cache: Optional[KVCache] = None,
+    update_cache: bool = False,
+):
+    """One attention layer.  Returns ``(y, cache)``.
+
+    Modes:
+      * train/encoder:   cache=None                      (self-attn over x)
+      * prefill:         cache=empty, update_cache=True  (fills ring buffer)
+      * decode:          cache=filled, update_cache=True (S=1 append)
+
+    With ``update_cache`` the new tokens are written into ``cache``'s
+    tensors in place; the returned cache shares them and has ``idx + S``.
+    """
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+
+    q = linear(params["wq"], x).reshape(b, s, cfg.num_heads, hd)
+    k = linear(params["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
+    v = linear(params["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
+
+    if cfg.use_rope:
+        cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    sdpa = _sdpa_blocked if s > BLOCKED_SDPA_THRESHOLD else _sdpa
+
+    if cache is None:
+        out = sdpa(q, k, v, positions, positions, causal=causal, window=window,
+                   prefix_len=prefix_len)
+        return linear(params["wo"], out.reshape(b, s, -1)), None
+
+    capacity = cache.k.shape[1]
+    if update_cache:
+        # Ring-buffer append of the s new tokens (s=1 decode, s=S prefill).
+        # If the prompt exceeds the ring (windowed cache), only the last
+        # `capacity` tokens survive — write exactly those, so no slot is
+        # written twice.
+        if s > capacity:
+            k_w, v_w = k[:, s - capacity:], v[:, s - capacity:]
+            pos_w = positions[s - capacity:]
+            offs = torch.arange(s - capacity, s, dtype=torch.int64, device=x.device)
+        else:
+            k_w, v_w, pos_w = k, v, positions
+            offs = torch.arange(s, dtype=torch.int64, device=x.device)
+        slots = (cache.idx.to(torch.int64) + offs) % capacity
+        cache.k.index_copy_(1, slots, k_w.to(cache.k.dtype))
+        cache.v.index_copy_(1, slots, v_w.to(cache.v.dtype))
+        cache.pos.index_copy_(0, slots, pos_w.to(torch.int32))
+        cache = KVCache(cache.k, cache.v, cache.pos, cache.idx + s)
+
+    if s > 1:
+        # Prefill: attend over the full prompt's local K/V (the ring cache
+        # may hold only the trailing window — middle queries must still
+        # see their own context).  The cache is read only at decode.
+        out = sdpa(q, k, v, positions, positions, causal=causal,
+                   window=window, prefix_len=prefix_len)
+    else:
+        # Decode: the blocked path for long caches keeps the float32 score
+        # working set at one key tile instead of the whole cache.
+        dec_sdpa = (_sdpa_blocked if cache.k.shape[1] > BLOCKED_SDPA_THRESHOLD
+                    else _sdpa)
+        out = dec_sdpa(q, cache.k, cache.v, positions, cache.pos, causal=causal,
+                       window=window, prefix_len=prefix_len)
+    return linear(params["wo"], out.reshape(b, s, -1)), cache

@@ -1,0 +1,254 @@
+"""Decoder-only LM stack, dense family: prefill and decode.
+
+Counterpart of the dense path of ``repro/models/lm.py``.  Layers are
+grouped into **periods** as in the reference (period = 1 for the dense
+family); params for each position-in-period are stacked across periods
+with a leading ``(num_periods, …)`` axis, and a Python loop over periods
+takes the place of ``lax.scan``.
+
+The parameter tree keeps the reference's layout — plain nested dicts,
+the ``period`` list and the stacked leading axis — because the
+federated-LLM training slice will project over these leaves and the leaf
+ordinal seeds every direction (``core/tree.py``): leaf order and shapes
+must stay those of ``jax.tree_util.tree_leaves`` on the reference's tree.
+
+Entry points: ``lm_forward`` (no cache), ``lm_prefill`` (forward + fill
+the KV caches) and ``lm_decode`` (one token against the caches, which it
+updates in place).  The Mamba and MoE branches and ``lm_loss`` come with
+their slices and raise ``NotImplementedError`` here.  The reference's
+``constrain(...)`` calls are sharding hints that are no-ops off a mesh;
+one card has none, so they are dropped.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.attention import KVCache, attention, init_attention, init_cache
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_norm,
+    init_embedding,
+    init_linear,
+    init_norm,
+    linear,
+)
+from repro_torch.models.mlp import ffn, init_ffn
+
+__all__ = [
+    "period_structure",
+    "init_lm",
+    "lm_forward",
+    "lm_prefill",
+    "lm_decode",
+    "LayerCaches",
+    "init_lm_caches",
+]
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP A10)")
+
+
+# ---------------------------------------------------------------------------
+# structure
+# ---------------------------------------------------------------------------
+
+def period_structure(cfg: ModelConfig):
+    """→ (period_len, num_periods, [(layer_kind, ffn_kind)] per position)."""
+    if cfg.attn_period:
+        p = cfg.attn_period
+        if cfg.moe_period:
+            # lcm with moe_period (jamba: lcm(8, 2) = 8)
+            p = math.lcm(p, cfg.moe_period)
+    else:
+        p = 1
+    if cfg.num_layers % p:
+        raise ValueError(f"{cfg.num_layers} layers do not divide into periods of {p}")
+    kinds = [(cfg.layer_kind(i), cfg.ffn_kind(i)) for i in range(p)]
+    return p, cfg.num_layers // p, kinds
+
+
+def _check_dense(kinds):
+    for kind, ffn_kind in kinds:
+        if kind != "attn":
+            raise _not_ported("the Mamba layer")
+        if ffn_kind == "moe":
+            raise _not_ported("the MoE FFN")
+
+
+def _init_sublayer(gen, cfg, kind: str, ffn_kind: str):
+    dt = cfg.torch_dtype
+    dev = gen.device
+    p: dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, dev),
+                         "attn": init_attention(gen, cfg)}
+    if ffn_kind != "none":
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, dev)
+        p["ffn"] = init_ffn(gen, cfg)
+    return p
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """Full parameter tree on ``gen``'s device; per-period-position stacks.
+
+    Draws from ``gen`` (not ``jax.random``): the numbers differ from the
+    reference's, the layout does not.
+    """
+    plen, nper, kinds = period_structure(cfg)
+    _check_dense(kinds)
+    dt, dev = cfg.torch_dtype, gen.device
+    period = [_stack([_init_sublayer(gen, cfg, kind, ffn_kind) for _ in range(nper)])
+              for kind, ffn_kind in kinds]
+    params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
+        "period": period,
+        "final_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, False, dt)
+    if cfg.max_position and not cfg.use_rope:
+        params["pos_embed"] = init_embedding(gen, cfg.max_position, cfg.d_model, dt)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _sublayer_fwd(sub, x, cfg, kind, ffn_kind, positions, window, prefix_len,
+                  cache=None, update_cache=False):
+    """One attention + optional FFN sublayer with pre-norms + residuals."""
+    if kind != "attn":
+        raise _not_ported("the Mamba layer")
+    h = apply_norm(sub["norm1"], x, cfg.norm)
+    y, new_cache = attention(
+        sub["attn"], h, cfg, positions=positions, causal=True, window=window,
+        prefix_len=prefix_len, cache=cache, update_cache=update_cache)
+    x = x + y
+    if ffn_kind == "moe":
+        raise _not_ported("the MoE FFN")
+    if ffn_kind != "none":
+        h = apply_norm(sub["norm2"], x, cfg.norm)
+        x = x + ffn(sub["ffn"], h, cfg)
+    return x, new_cache
+
+
+def _embed_inputs(params, cfg, tokens, embeds):
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(cfg.torch_dtype))
+    if tokens is not None:
+        parts.append(params["embed"]["embedding"][tokens])
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    if cfg.max_position and not cfg.use_rope:
+        s = x.shape[1]
+        x = x + params["pos_embed"]["embedding"][:s][None]
+    return x
+
+
+def _logits(params, cfg, x):
+    if cfg.tie_embeddings:
+        return x.to(torch.float32) @ params["embed"]["embedding"].to(torch.float32).T
+    return linear(params["lm_head"], x).to(torch.float32)
+
+
+def _period_slice(period, i: int):
+    """The i-th period's params (views into the stacks)."""
+    def take(t):
+        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
+    return [take(p) for p in period]
+
+
+def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
+               window: Optional[int] = None):
+    """Forward without caches → logits (B, S_total, V) in float32."""
+    plen, nper, kinds = period_structure(cfg)
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    win = cfg.window if window is None else window
+    for i in range(nper):
+        period_slice = _period_slice(params["period"], i)
+        for pos, (kind, ffn_kind) in enumerate(kinds):
+            x, _ = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
+                                 positions, win, cfg.prefix_bidirectional)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _logits(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+class LayerCaches(NamedTuple):
+    """Per period-position cache stacks (leading axis = periods)."""
+    caches: tuple  # tuple over period positions; each a KVCache stacked
+
+
+def init_lm_caches(cfg: ModelConfig, batch: int, capacity: int, device="cpu"):
+    """Empty caches, stacked over periods per period-position."""
+    plen, nper, kinds = period_structure(cfg)
+    _check_dense(kinds)
+    out = []
+    for _ in kinds:
+        single = init_cache(cfg, batch, capacity, device=device)
+        out.append(KVCache(*(t[None].repeat((nper,) + (1,) * t.dim())
+                             for t in single)))
+    return LayerCaches(caches=tuple(out))
+
+
+def _scan_with_caches(params, cfg, x, caches, positions, window, prefix_len):
+    """Run every period, writing each layer's cache slice in place."""
+    plen, nper, kinds = period_structure(cfg)
+    for i in range(nper):
+        period_slice = _period_slice(params["period"], i)
+        for pos, (kind, ffn_kind) in enumerate(kinds):
+            st = caches.caches[pos]
+            x, nc = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
+                                  positions, window, prefix_len,
+                                  cache=KVCache(st.k[i], st.v[i], st.pos[i], st.idx[i]),
+                                  update_cache=True)
+            st.idx[i] = nc.idx
+    return x, caches
+
+
+def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None,
+               capacity: Optional[int] = None, window: Optional[int] = None):
+    """Process the full prompt, fill caches → (last-token logits, caches)."""
+    x = _embed_inputs(params, cfg, tokens, embeds)
+    b, s = x.shape[0], x.shape[1]
+    cap = capacity or s
+    win = cfg.window if window is None else window
+    caches = init_lm_caches(cfg, b, cap, device=x.device)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    x, caches = _scan_with_caches(params, cfg, x, caches, positions, win,
+                                  cfg.prefix_bidirectional)
+    x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
+    return _logits(params, cfg, x), caches
+
+
+def lm_decode(params, cfg: ModelConfig, token, caches, position,
+              window: Optional[int] = None):
+    """One decode step.  token: (B, 1) int; position: int or () tensor.
+
+    → (logits (B, 1, V), caches).  ``caches`` is updated in place and
+    returned.
+    """
+    emb = params["embed"]["embedding"]
+    x = emb[token]
+    positions = torch.as_tensor(position, dtype=torch.int32,
+                                device=emb.device).reshape(1)
+    if cfg.max_position and not cfg.use_rope:
+        x = x + params["pos_embed"]["embedding"][positions.long()][None]
+    win = cfg.window if window is None else window
+    x, caches = _scan_with_caches(params, cfg, x, caches, positions, win,
+                                  cfg.prefix_bidirectional)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _logits(params, cfg, x), caches

@@ -16,7 +16,12 @@ on every run.  The per-client decode is bitwise equal to its plain
 version for the ±1/±2 families (gaussian within rtol/atol 1e-5), and the
 QSGD kernel's levels and round trip are bitwise equal to its plain
 version given the same norms.  A digest replayed through the decode
-kernel lands on the server's bits.
+kernel lands on the server's bits.  Flash attention is held against its
+plain version on rows with an allowed key by ``flash_agrees``: float32
+within ``tests/test_flash_kernel.py``'s rtol 1e-3 / atol 2e-5, bfloat16
+within 2^-7 of its row's largest |plain| (one bf16 ulp at most) with at
+most 1% of the elements changed; and the serving path on the card
+against the same path on the CPU, with the kernel's launches counted.
 """
 import numpy as np
 import pytest
@@ -43,6 +48,13 @@ from repro_torch.kernels.qsgd_quant import (  # noqa: E402
 from repro_torch.kernels.seeded_reconstruct import (  # noqa: E402
     reconstruct_apply_clients,
     reconstruct_plain,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    allowed_mask,
+    flash_agrees,
+    flash_attention,
+    flash_attention_plain,
+    flash_compare,
 )
 from repro_torch.models.mlp_classifier import init_mlp  # noqa: E402
 from torch_parity import cuda_device, seeds_np  # noqa: E402,F401
@@ -240,3 +252,126 @@ def test_cuda_digest_replay_through_rec_is_bit_identical(cuda_device):
     # server apply and shadow replay: 6 leaves each, every round
     assert reconstruct_apply_clients.launches - before == 2 * 3 * 6
     assert np.isfinite(h["loss"]).all()
+
+
+def _ring(capacity, last):
+    """kpos of a ring of ``capacity`` slots after positions 0..last."""
+    kpos = torch.full((capacity,), -1, dtype=torch.int32)
+    p = torch.arange(max(0, last - capacity + 1), last + 1)
+    kpos[p % capacity] = p.to(torch.int32)
+    return kpos
+
+
+def _check_flash(dev, b, s, t, h, kh, hd, dtype, window=0, qpos=None, kpos=None,
+                 seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype)
+               for shape in ((b, s, h, hd), (b, t, kh, hd), (b, t, kh, hd)))
+    qpos = torch.arange(t - s, t, dtype=torch.int32) if qpos is None else qpos
+    kpos = torch.arange(t, dtype=torch.int32) if kpos is None else kpos
+    args = [x.to(dev) for x in (q, k, v, qpos, kpos)]
+    before = flash_attention.launches
+    got = flash_attention(*args, causal=True, window=window)
+    want = flash_attention_plain(*args, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    rows = allowed_mask(qpos, kpos, True, window).any(dim=1).to(dev)
+    assert got.dtype == dtype and bool(rows.any())
+    g, w = got[:, rows], want[:, rows]
+    assert flash_agrees(g, w), flash_compare(g, w)
+    assert bool((got[:, ~rows] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (4, 1)], ids=["mha", "gqa3", "mqa"])
+@pytest.mark.parametrize("window", [0, 64])
+def test_cuda_flash_matches_plain(cuda_device, dtype, hd, heads, window):
+    h, kh = heads
+    _check_flash(cuda_device, 2, 333, 333, h, kh, hd, dtype, window)
+    _check_flash(cuda_device, 1, 1000, 1000, h, kh, hd, dtype, window, seed=1)
+    # empty slots and a query tile with no allowed key at all
+    kpos = torch.arange(333, dtype=torch.int32)
+    kpos[::5] = -1
+    qpos = torch.arange(333, dtype=torch.int32)
+    qpos[:40] = -1
+    _check_flash(cuda_device, 1, 333, 333, h, kh, hd, dtype, window, qpos, kpos, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_ring_and_decode(cuda_device, dtype):
+    # decode (S = 1) against the serve phase's cache of 16 424 slots
+    kpos = torch.where(torch.arange(16424) < 16400, torch.arange(16424), -1).int()
+    _check_flash(cuda_device, 4, 1, 16424, 15, 5, 64, dtype,
+                 qpos=torch.tensor([16399], dtype=torch.int32), kpos=kpos)
+    # a wrapped ring: kpos unsorted, allowed keys in tiles "before" masked ones
+    ring = _ring(1000, 1499)
+    for window in (0, 64, 1000):
+        _check_flash(cuda_device, 2, 1, 1000, 6, 2, 64, dtype, window,
+                     torch.tensor([1499], dtype=torch.int32), ring, 3)
+        _check_flash(cuda_device, 2, 300, 1000, 6, 2, 64, dtype, window,
+                     torch.arange(1200, 1500, dtype=torch.int32), ring, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_smollm_prefill_shape(cuda_device, dtype):
+    _check_flash(cuda_device, 1, 16384, 16384, 15, 5, 64, dtype)
+
+
+def test_cuda_flash_checks_inputs(cuda_device):
+    q = torch.zeros((1, 8, 4, 64), device=cuda_device)
+    k = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), k.double(), pos, pos)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), k.bfloat16(), pos, pos)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        k[..., :48].contiguous(), pos, pos)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros((1, 8, 3, 64), device=cuda_device),
+                        torch.zeros((1, 8, 3, 64), device=cuda_device), pos, pos)
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), k, k, pos, pos)
+    with pytest.raises(TypeError):
+        flash_attention(q, k, k, pos.long(), pos)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, pos[:4], pos)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, pos.cpu(), pos)
+
+
+def test_cuda_serve_matches_cpu(cuda_device, monkeypatch):
+    """Prefill + 4 decode steps of a 2-layer GQA model on the card against
+    the CPU, with the blocked threshold at 64 so both phases launch the
+    kernel: 2 launches for the prefill, 2 per decode step.  float32; the
+    logits agree within atol 1e-3 (sum order on a 200-token prompt)."""
+    import dataclasses
+
+    import repro_torch.models.attention as t_attention
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.api import Arch
+
+    monkeypatch.setattr(t_attention, "BLOCKED_SDPA_THRESHOLD", 64)
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
+                              dtype="float32")
+    arch = Arch(cfg)
+    params = arch.init(seed=0, device="cpu")
+    dev_params = tree_map(lambda t: t.to(cuda_device), params)
+    tok = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                                            (2, 200)))
+    before = flash_attention.launches
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", dev_params)):
+        logits, caches = arch.prefill(p, {"tokens": tok.to(dev)}, capacity=212)
+        steps = [logits]
+        for i in range(4):
+            nxt = torch.full((2, 1), 7 + i, device=dev)
+            logits, caches = arch.decode(p, nxt, caches, 200 + i)
+            steps.append(logits)
+        out[dev] = torch.stack([x.cpu() for x in steps])
+    assert flash_attention.launches - before == 2 + 2 * 4
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-3)
+

@@ -1,0 +1,269 @@
+"""The port's flash attention (plain version, the CPU path) against the reference.
+
+* Against the reference's Pallas ``flash_attention_call`` in interpret
+  mode, at the shapes of ``tests/test_flash_kernel.py`` (which its block
+  sizes divide), with a window, with empty ``kpos = -1`` slots, and
+  decode-style with one real query.
+* Against the reference's einsum ``repro.models.attention._sdpa`` at the
+  shapes the Pallas wrapper refuses: ragged S and T, GQA with group 3,
+  MQA, a window, ``kpos = -1`` holes and a wrapped (unsorted) ring.
+
+Tolerances are ``test_flash_kernel.py``'s: float32 rtol 1e-3 / atol
+2e-5 (sum order), bfloat16 atol 3e-2 (one output rounding, and ``_sdpa``
+rounds p to bf16 before P·V where the kernel keeps it float32).  Only
+rows with at least one allowed key are compared: the Pallas kernel
+gives a row with none a uniform average of V, the port zeros, and no
+caller keeps such rows.  The CUDA kernel is held against this plain
+version on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+
+At the shipped ``BLOCKED_SDPA_THRESHOLD`` (8192), one layer of the GQA
+variant of reduced SmolLM serves a prompt of 8200 tokens and one decode
+step in both packages: both take the blocked path, and logits and
+caches agree (float32, atol 5e-5 + rtol 1e-5: sum order only).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.models.attention as j_attention  # noqa: E402
+import repro_torch.models.attention as t_attention  # noqa: E402
+from repro.configs.registry import get_config as j_get_config  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_call  # noqa: E402
+from repro.models.api import Arch as JArch  # noqa: E402
+from repro.models.attention import _sdpa as j_sdpa  # noqa: E402
+from repro_torch.configs.registry import get_config as t_get_config  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    allowed_mask,
+    flash_agrees,
+    flash_attention,
+    flash_attention_plain,
+    flash_compare,
+)
+from repro_torch.models.api import Arch as TArch  # noqa: E402
+
+TOL = {"float32": dict(rtol=1e-3, atol=2e-5), "bfloat16": dict(rtol=1e-3, atol=3e-2)}
+T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _qkv(seed, b, s, t, h, kh, hd):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(b, s, h, hd).astype(np.float32),
+            rng.randn(b, t, kh, hd).astype(np.float32),
+            rng.randn(b, t, kh, hd).astype(np.float32))
+
+
+def _port(arrays, qpos, kpos, dtype, **kw):
+    q, k, v = (torch.from_numpy(a).to(T_DT[dtype]) for a in arrays)
+    out = flash_attention(q, k, v, torch.from_numpy(qpos), torch.from_numpy(kpos), **kw)
+    assert out.dtype == T_DT[dtype] and out.shape == q.shape
+    return out.to(torch.float32).numpy()
+
+
+def _jax_inputs(arrays, dtype):
+    return tuple(jnp.asarray(a, J_DT[dtype]) for a in arrays)
+
+
+def _close(got, want, qpos, kpos, dtype, causal=True, window=0):
+    rows = allowed_mask(torch.from_numpy(qpos), torch.from_numpy(kpos), causal,
+                        window).any(dim=1).numpy()
+    assert rows.any()
+    np.testing.assert_allclose(got[:, rows], np.asarray(want, np.float32)[:, rows],
+                               **TOL[dtype])
+    return rows
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, S, H, KH, hd, q_block, kv_block), as in test_flash_kernel.py
+    (1, 256, 4, 2, 64, 128, 128),
+    (2, 256, 4, 1, 128, 64, 128),     # MQA
+    (1, 512, 6, 6, 32, 256, 256),     # MHA, odd head count
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_causal(shape, dtype):
+    b, s, h, kh, hd, qb, kvb = shape
+    arrays = _qkv(0, b, s, s, h, kh, hd)
+    pos = np.arange(s, dtype=np.int32)
+    want = flash_attention_call(*_jax_inputs(arrays, dtype), jnp.asarray(pos),
+                                jnp.asarray(pos), causal=True, q_block=qb,
+                                kv_block=kvb)
+    _close(_port(arrays, pos, pos, dtype), want, pos, pos, dtype)
+
+
+@pytest.mark.parametrize("case", ["window", "empty_slots", "decode_row"])
+def test_plain_matches_pallas_masks(case):
+    if case == "window":
+        arrays = _qkv(1, 1, 256, 256, 4, 2, 64)
+        qpos = kpos = np.arange(256, dtype=np.int32)
+        kw = dict(causal=True, window=64)
+        blocks = dict(q_block=128, kv_block=128)
+    elif case == "empty_slots":
+        arrays = _qkv(2, 1, 128, 128, 2, 2, 64)
+        qpos = np.arange(128, dtype=np.int32)
+        kpos = qpos.copy()
+        kpos[64:] = -1
+        kw = dict(causal=True, window=0)
+        blocks = dict(q_block=128, kv_block=64)
+    else:   # one real query row at the end of a 512-key stream
+        arrays = _qkv(3, 2, 128, 512, 4, 2, 64)
+        qpos = np.full(128, -1, np.int32)
+        qpos[0] = 511
+        kpos = np.arange(512, dtype=np.int32)
+        kw = dict(causal=True, window=0)
+        blocks = dict(q_block=128, kv_block=128)
+    want = flash_attention_call(*_jax_inputs(arrays, "float32"), jnp.asarray(qpos),
+                                jnp.asarray(kpos), **kw, **blocks)
+    got = _port(arrays, qpos, kpos, "float32", **kw)
+    rows = _close(got, want, qpos, kpos, "float32", **kw)
+    # a row with no allowed key (padding) comes out as zeros
+    assert np.all(got[:, ~rows] == 0.0)
+
+
+def _ring_kpos(capacity, first, last):
+    """Slots of a ring of ``capacity`` after writing positions first..last."""
+    kpos = np.full(capacity, -1, np.int32)
+    for p in range(max(first, last - capacity + 1), last + 1):
+        kpos[p % capacity] = p
+    return kpos
+
+
+@pytest.mark.parametrize("case", [
+    # name, (B, S, T, H, KH, hd), window, qpos, kpos
+    ("ragged_gqa3", (2, 333, 333, 6, 2, 64), 0, None, None),
+    ("ragged_window", (1, 1000, 1000, 6, 2, 32), 64, None, None),
+    ("cross_lengths_holes", (1, 100, 1000, 6, 2, 32), 64, np.arange(900, 1000),
+     np.where(np.arange(1000) % 7 == 3, -1, np.arange(1000))),
+    ("mqa_decode", (2, 1, 517, 4, 1, 128), 0, np.array([400]),
+     np.where(np.arange(517) <= 400, np.arange(517), -1)),
+    ("ring_decode_window", (2, 1, 100, 6, 2, 64), 64, np.array([149]),
+     _ring_kpos(100, 0, 149)),
+    ("ring_rows", (1, 40, 100, 6, 2, 64), 0, np.arange(110, 150),
+     _ring_kpos(100, 0, 149)),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_sdpa(case, dtype):
+    name, (b, s, t, h, kh, hd), window, qpos, kpos = case
+    arrays = _qkv(sum(map(ord, name)), b, s, t, h, kh, hd)
+    qpos = np.arange(s, dtype=np.int32) if qpos is None else qpos.astype(np.int32)
+    kpos = np.arange(t, dtype=np.int32) if kpos is None else kpos.astype(np.int32)
+    q, k, v = _jax_inputs(arrays, dtype)
+    want = j_sdpa(q, k, v, jnp.asarray(qpos), jnp.asarray(kpos), causal=True,
+                  window=window, prefix_len=0)
+    got = _port(arrays, qpos, kpos, dtype, causal=True, window=window)
+    _close(got, want, qpos, kpos, dtype, window=window)
+
+
+def test_plain_chunks_agree(monkeypatch):
+    """The query-chunked plain version equals one unchunked pass (up to the
+    BLAS's blocking, which may change with the chunk's shape)."""
+    import repro_torch.kernels.flash_attention as fa
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 2, 97, 97, 6, 2, 32))
+    pos = torch.arange(97, dtype=torch.int32)
+    whole = flash_attention_plain(q, k, v, pos, pos, window=16)
+    monkeypatch.setattr(fa, "_PLAIN_SCORE_ELEMS", 2 * 6 * 97 * 10)   # 10 rows
+    chunked = flash_attention_plain(q, k, v, pos, pos, window=16)
+    torch.testing.assert_close(chunked, whole, rtol=1e-6, atol=1e-6)
+
+
+def _attend(q, k, v, ok, p_dtype=None):
+    """Masked attention summed in float64, p optionally rounded first."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    qg = q.double().reshape(b, s, kh, h // kh, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qg, k.double()) * hd ** -0.5
+    p = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).double()
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.double())
+    return o.reshape(b, s, h, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("variant", ["float64_sum", "p_in_bf16", "dropped_tile",
+                                     "causal_edge", "window_edge"])
+@pytest.mark.parametrize("shape", [
+    # (B, S, T, H, K, window of the window_edge variant)
+    (2, 1024, 1024, 6, 2, 64),
+    (4, 1, 16424, 15, 5, 1024),       # a decode step at the serve cache
+], ids=["prefill", "decode"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_limit_admits_rounding_but_not_a_wrong_kernel(variant, shape, dtype):
+    """The limit the card holds the kernel to (``flash_agrees``) admits
+    another float32-or-better sum of the same function and refuses a
+    kernel that rounds p to bf16, drops one key tile, or slips the causal
+    or window edge by one key on the last query tile, also where a row
+    sees 16 000 keys and its outputs are ~1e-2."""
+    b, s, t, h, kh, win = shape
+    q, k, v = (torch.from_numpy(a).to(T_DT[dtype])
+               for a in _qkv(7, b, s, t, h, kh, 64))
+    qpos = torch.arange(t - s - 1, t - 1, dtype=torch.int32)
+    kpos = torch.arange(t, dtype=torch.int32)
+    window = win if variant == "window_edge" else 0
+    ok = allowed_mask(qpos, kpos, True, window)
+    want = flash_attention_plain(q, k, v, qpos, kpos, window=window)
+    late = qpos[:, None] >= qpos[-1] - 63
+    qp, kp = qpos[:, None], kpos[None, :]
+    if variant == "dropped_tile":
+        ok = ok & ~(late & (kp >= 512) & (kp < 576))
+    elif variant == "causal_edge":
+        ok = ok | (late & (kp == qp + 1))
+    elif variant == "window_edge":
+        ok = ok | (late & (kp == qp - window))
+    got = _attend(q, k, v, ok, torch.bfloat16 if variant == "p_in_bf16" else None)
+    rows = allowed_mask(qpos, kpos, True, window).any(dim=1)
+    g, w = got[:, rows], want[:, rows]
+    assert flash_agrees(g, w) == (variant == "float64_sum"), flash_compare(g, w)
+
+
+def test_wrapper_refuses_other_devices():
+    q = torch.empty((1, 4, 2, 32), device="meta")
+    pos = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(q, q, q, pos, pos)
+
+
+def test_shipped_threshold_dispatch(monkeypatch):
+    """At the real BLOCKED_SDPA_THRESHOLD (8192): a prompt of 8200 and a
+    decode against a cache of 8203 take the blocked path in both packages."""
+    assert t_attention.BLOCKED_SDPA_THRESHOLD == j_attention.BLOCKED_SDPA_THRESHOLD == 8192
+    calls = {"jax": 0, "torch": 0}
+
+    def spy(mod, key):
+        inner = mod._sdpa_blocked
+
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return inner(*a, **kw)
+        monkeypatch.setattr(mod, "_sdpa_blocked", wrapped)
+
+    spy(j_attention, "jax")
+    spy(t_attention, "torch")
+    over = dict(d_model=384, num_heads=6, num_kv_heads=2, head_dim=64, num_layers=1)
+    jc = dataclasses.replace(j_get_config("smollm-360m").reduced(), **over)
+    tc = dataclasses.replace(t_get_config("smollm-360m").reduced(), **over)
+    ja, ta = JArch(jc), TArch(tc)
+    jp = ja.init(jax.random.PRNGKey(9))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    tol = dict(rtol=1e-5, atol=5e-5)
+    s, cap = 8200, 8203
+    tok = np.random.RandomState(10).randint(0, jc.vocab_size, (1, s)).astype(np.int32)
+    jlog, jcache = ja.prefill(jp, {"tokens": jnp.asarray(tok)}, capacity=cap)
+    tlog, tcache = ta.prefill(tp, {"tokens": torch.from_numpy(tok)}, capacity=cap)
+    assert calls == {"jax": 1, "torch": 1}
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **tol)
+    t = np.array([[5]], np.int32)
+    jlog, jcache = ja.decode(jp, jnp.asarray(t), jcache, jnp.int32(s))
+    tlog, tcache = ta.decode(tp, torch.from_numpy(t), tcache, s)
+    assert calls == {"jax": 2, "torch": 2}
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **tol)
+    (t_st,), (j_st,) = tcache.caches, jcache.caches
+    np.testing.assert_allclose(t_st.k.numpy(), np.asarray(j_st.k), **tol)
+    np.testing.assert_allclose(t_st.v.numpy(), np.asarray(j_st.v), **tol)
+    np.testing.assert_array_equal(t_st.pos.numpy(), np.asarray(j_st.pos))

@@ -1,4 +1,4 @@
-"""The port stands alone: importing it (and chip_smoke.py) loads no jax and no ``repro``.
+"""The port stands alone: importing it, chip_smoke.py and the port's examples loads no jax and no ``repro``.
 
 Checked in a fresh subprocess, so this test process's own jax import
 cannot mask a leak.
@@ -15,14 +15,15 @@ pytest.importorskip("torch")
 REPO = Path(__file__).resolve().parent.parent
 
 _CODE = r"""
-import importlib, importlib.util, json, pkgutil, sys
+import glob, importlib, importlib.util, json, pkgutil, sys
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in ["chip_smoke.py", *sorted(glob.glob("examples/*_torch.py"))]:
+    spec = importlib.util.spec_from_file_location(path.replace("/", "_")[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m.startswith("jaxlib.") or m == "repro"
@@ -50,5 +51,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.fed.runtime.sampling",
                 "repro_torch.fed.runtime.server",
                 "repro_torch.fed.runtime.transport",
-                "repro_torch.fed.simulation", "repro_torch.convert"):
+                "repro_torch.fed.simulation", "repro_torch.convert",
+                "repro_torch.models.config", "repro_torch.models.layers",
+                "repro_torch.models.mlp", "repro_torch.models.attention",
+                "repro_torch.models.lm", "repro_torch.models.api",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.launch.serve", "repro_torch.configs.registry"):
         assert mod in out["modules"]
