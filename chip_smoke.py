@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases (any failure exits non-zero and the final line is not printed):
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: the five CUDA sources with nvcc (in parallel), with ptxas's
+2. build: the seven CUDA sources with nvcc (in parallel), with ptxas's
    registers and spills per kernel;
 3. kernels against their plain PyTorch versions, on the card, at the MLP
    leaves, a SmolLM-360M-sized tied embedding (49152, 960) for k = 1 and
@@ -37,28 +37,37 @@ Phases (any failure exits non-zero and the final line is not printed):
 6. times from CUDA events: each kernel, its plain version and its bound,
    at the main paths' shapes and at the large leaf (cohorts 256, 1024 for
    both decodes; 16 clients for the encode and QSGD);
-7. flash attention against its plain version, on the card: bf16 and f32,
-   head_dim 32, 64 and 128, MHA, GQA with group 3 and MQA, causal and a
-   window of 64, ``kpos = -1`` holes and padding queries, ragged S = T of
-   333 and 1000, decode (S = 1) against T = 16 424, a wrapped ring
-   (unsorted kpos), and SmolLM-360M's prefill shape in both types; on
-   rows with an allowed key, f32 within ``tests/test_flash_kernel.py``'s
-   rtol 1e-3 / atol 2e-5, bf16 within 2^-7 of its row's largest |plain|
-   (at most one bf16 ulp) and with at most 1% of its elements changed
-   (``kernels.flash_attention.flash_agrees``);
-8. flash attention's times (CUDA events) at SmolLM-360M's prefill and
-   decode shapes, beside its bound, its plain version and
-   ``scaled_dot_product_attention`` (timed only, as a yardstick);
+7. flash attention against its plain version, on the card, through
+   ``flash_attention`` (which routes bf16 to the tensor-core prefill or
+   the split-KV decode, float32 to the float32 kernel or the split-KV
+   decode): bf16 and f32, head_dim 32, 64 and 128, MHA, GQA with group 3
+   and MQA, causal and a window of 64, ``kpos = -1`` holes and padding
+   queries, ragged S = T of 333 and 1000, decode (S = 1) against T =
+   16 424, a wrapped ring (unsorted kpos), and SmolLM-360M's prefill
+   shape in both types; on rows with an allowed key, f32 within
+   ``tests/test_flash_kernel.py``'s rtol 1e-3 / atol 2e-5, bf16 within
+   2^-7 of its row's largest |plain| (at most one bf16 ulp) and with at
+   most 1% of its elements changed (``kernels.flash_attention.flash_agrees``);
+8. the three flash kernels' times (CUDA events) in turns (kernel,
+   ``scaled_dot_product_attention``, kernel): the prefill kernel at
+   SmolLM-360M's prefill shape, the decode kernel at its decode shape,
+   the float32 kernel at the parity prefill (phase 9), each beside its
+   bound and its plain version (SDPA is timed only, as a yardstick);
 9. main path of the serving slice, card against CPU: SmolLM-360M at full
    width, depth cut to 2 layers, float32, batch 1, a prompt of 8448
    tokens and 4 decode steps against a cache of 8460 slots (both over
-   the 8192 threshold, so both phases launch the kernel); last-token
-   logits within ``PARITY_ATOL`` of the CPU run;
+   the 8192 threshold, so both phases launch a kernel: the float32
+   kernel at prefill, the split-KV decode at each step); last-token
+   logits within ``PARITY_ATOL`` of the CPU run; then the same in bf16 on
+   the card with the kernels (the tensor-core prefill, the split-KV
+   decode) against the same run with ``_sdpa_blocked`` taking the plain
+   version, logits within ``BF16_PARITY_RTOL`` of their largest;
 10. main path of the serving slice at full width and depth: SmolLM-360M,
    32 layers, bf16, batch 4, a prompt of 16 384 tokens and 32 greedy
    decode steps against a cache of 16 424 slots through
-   ``launch/serve.py``'s steps, timed; the flash counter must read
-   32 + 32 × 32.
+   ``launch/serve.py``'s steps, timed, with the host's enqueue time
+   beside each phase's; the flash counter must read 32 + 32 × 32, the
+   prefill kernel's 32 and the decode kernel's 32 × 32.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -133,6 +142,16 @@ PARITY_CAPACITY = PARITY_PROMPT + PARITY_GEN + 8       # 8460 slots
 # 8451; the logits are of magnitude ≈ 3, so 1e-3 is far above sum-order
 # noise (≈ 1e-5) and far below a wrong mask or position (≈ 1e-1).
 PARITY_ATOL = 1e-3
+# bf16, kernels against the plain version, both on the card: each flash
+# output may differ by one bf16 ulp (≤ 2^-8 relative) in ≤ 1% of its
+# elements, and two bf16 layers and the tied logits carry such flips on;
+# 5% of the largest logit (~12 ulps at that scale) admits that and
+# refuses a wrong head, mask or position, which moves logits by their
+# own magnitude.
+BF16_PARITY_RTOL = 0.05
+# The flash kernels' names in the report, by flash_route's route.
+FLASH_KERNELS = {"prefill": "flash_prefill", "decode": "flash_decode",
+                 "f32": "flash_attention"}
 
 
 class Smoke:
@@ -141,7 +160,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.gen = torch.Generator(device=self.dev).manual_seed(0)
         self.errs = {"encode": 0.0, "fused": 0.0, "rec": 0.0, "qsgd": 0.0,
-                     "flash": 0.0}
+                     **dict.fromkeys(FLASH_KERNELS.values(), 0.0)}
         self.enc_ratio = 0.0     # largest encode error / its tolerance
         self.checks = 0
         self.group = ""
@@ -259,8 +278,10 @@ class Smoke:
             flash_attention,
             flash_attention_plain,
             flash_compare,
+            flash_route,
         )
         torch = self.torch
+        kernel = FLASH_KERNELS[flash_route(s, h, kh, dtype)]
         q = self.randn(b, s, h, hd).to(dtype)
         k = self.randn(b, t, kh, hd).to(dtype)
         v = self.randn(b, t, kh, hd).to(dtype)
@@ -274,7 +295,7 @@ class Smoke:
         rows = allowed_mask(qpos, kpos, True, window).any(dim=1)
         name = str(dtype).removeprefix("torch.")
         g, w = got[:, rows], want[:, rows]
-        what = (f"B={b} S={s} T={t} H={h} K={kh} hd={hd} {name} "
+        what = (f"{kernel} B={b} S={s} T={t} H={h} K={kh} hd={hd} {name} "
                 f"window={window}")
         if not rows.any():
             raise AssertionError(f"flash check without an allowed row: {what}")
@@ -283,7 +304,7 @@ class Smoke:
             raise AssertionError(f"flash disagrees: {what} max err {err}, "
                                  f"{ratio} of its limit, {changed} of the "
                                  "elements changed")
-        self._record("flash", f"{name} hd={hd}", err, bool(torch.equal(g, w)),
+        self._record(kernel, f"{name} hd={hd}", err, bool(torch.equal(g, w)),
                      ratio, changed)
 
     def _record(self, kernel, family, err, bitwise, ratio=0.0, changed=0.0):
@@ -308,7 +329,7 @@ class Smoke:
                 elif kernel == "qsgd":
                     what = (f"max |kernel q - plain q| {err!r}, levels and q "
                             "bitwise equal to plain")
-                elif kernel == "flash":
+                elif kernel in FLASH_KERNELS.values():
                     what = (f"max |kernel - plain| {err!r}, at most {ratio!r} "
                             f"of its limit, at most {changed!r} of a check's "
                             f"elements changed, bitwise equal to plain: {bitwise}")
@@ -979,15 +1000,19 @@ def phase_flash(s: Smoke):
         torch.cuda.empty_cache()
     s.report()
     torch.cuda.empty_cache()
-    worst = {}
+    worst, counts = {}, dict.fromkeys(FLASH_KERNELS.values(), 0)
     for (_, kernel, family), st in s.stats.items():
-        if kernel == "flash":
-            dt = family.split()[0]
-            w = worst.setdefault(dt, [0.0, 0.0])
+        if kernel in counts:
+            counts[kernel] += st[0]
+            w = worst.setdefault(f"{kernel} {family.split()[0]}", [0.0, 0.0])
             w[0], w[1] = max(w[0], st[3]), max(w[1], st[4])
-    print(f"flash: all {s.checks - n0} checks ok in {time.perf_counter() - t0:.1f} s; "
-          f"max |err| {s.errs['flash']!r}; max err over its limit and max "
-          f"share changed: {json.dumps(worst)}", flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f"flash checks per kernel {counts}: a kernel was "
+                             "never checked")
+    print(f"flash: all {s.checks - n0} checks ok in {time.perf_counter() - t0:.1f} s "
+          f"(per kernel {json.dumps(counts)}); max |err| "
+          f"{json.dumps({k: s.errs[k] for k in counts})}; max err over its limit "
+          f"and max share changed: {json.dumps(worst)}", flush=True)
 
 
 def _flash_bound(b, s_len, t, h, kh, hd, elem, pairs):
@@ -1001,84 +1026,122 @@ def _flash_bound(b, s_len, t, h, kh, hd, elem, pairs):
 
 
 def phase_flash_times(s: Smoke):
-    """CUDA-event times of flash attention at the serve shapes."""
+    """CUDA-event times of the three flash kernels, each at the shape the
+    main paths give it, in turns with SDPA."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from repro_torch.kernels.flash_attention import (
-        allowed_mask,
-        flash_attention,
-        flash_attention_plain,
-    )
+    import repro_torch.kernels.flash_attention as fa
 
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
              SDPBackend.CUDNN_ATTENTION]
     rows = {}
-    b, h, kh, hd = SERVE_BATCH, 15, 5, 64
+    h, kh, hd = 15, 5, 64
     filled = SERVE_PROMPT + SERVE_GEN // 2
     i32 = dict(dtype=torch.int32, device=s.dev)
-    shapes = {
-        "prefill": (SERVE_PROMPT, SERVE_PROMPT, torch.arange(SERVE_PROMPT, **i32),
-                    torch.arange(SERVE_PROMPT, **i32)),
-        "decode": (1, SERVE_CAPACITY, torch.tensor([filled - 1], **i32),
+    shapes = {   # route -> (batch, S, T, dtype, qpos, kpos)
+        "prefill": (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, torch.bfloat16,
+                    torch.arange(SERVE_PROMPT, **i32), torch.arange(SERVE_PROMPT, **i32)),
+        "decode": (SERVE_BATCH, 1, SERVE_CAPACITY, torch.bfloat16,
+                   torch.tensor([filled - 1], **i32),
                    torch.where(torch.arange(SERVE_CAPACITY, **i32) < filled,
                                torch.arange(SERVE_CAPACITY, **i32), -1)),
+        "f32": (1, PARITY_PROMPT, PARITY_PROMPT, torch.float32,
+                torch.arange(PARITY_PROMPT, **i32), torch.arange(PARITY_PROMPT, **i32)),
     }
-    for name, (s_len, t, qpos, kpos) in shapes.items():
-        q = s.randn(b, s_len, h, hd).bfloat16()
-        k = s.randn(b, t, kh, hd).bfloat16()
-        v = s.randn(b, t, kh, hd).bfloat16()
-        reps = 3 if name == "prefill" else 50
-        tt = {}
-        tt["plain"] = s.time_ms(lambda: flash_attention_plain(q, k, v, qpos, kpos),
-                                reps=1, warmup=1)
-        for turn in ("kernel", "kernel2"):
-            tt[turn] = s.time_ms(lambda: flash_attention(q, k, v, qpos, kpos),
-                                 reps=reps, warmup=1)
+    for route, (b, s_len, t, dtype, qpos, kpos) in shapes.items():
+        if fa.flash_route(s_len, h, kh, dtype) != route:
+            raise AssertionError(f"flash times: the {route} shape routes elsewhere")
+        kernel_fn = _flash_counters()[route]
+        q = s.randn(b, s_len, h, hd).to(dtype)
+        k = s.randn(b, t, kh, hd).to(dtype)
+        v = s.randn(b, t, kh, hd).to(dtype)
+        reps = 50 if route == "decode" else 3
         # The yardstick: one PyTorch call on the same inputs in its own
         # layout (transposed outside the timed region), held to its fused
         # backends so that it never materialises the (S, T) scores.  Never
         # used by the port.
+        # float32 has no fused backend with GQA: its K/V heads are
+        # repeated to H outside the timed region.
+        gqa = dtype == torch.bfloat16
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        kw = (dict(is_causal=True) if name == "prefill"
-              else dict(attn_mask=(kpos >= 0)[None, None, None, :]))
+        if not gqa:
+            kt, vt = (x.repeat_interleave(h // kh, dim=1) for x in (kt, vt))
+        kw = (dict(attn_mask=(kpos >= 0)[None, None, None, :]) if route == "decode"
+              else dict(is_causal=True))
 
         def lib():
             with sdpa_kernel(fused):
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      enable_gqa=True, **kw)
-        ref = lib().transpose(1, 2).float()
-        lib_err = float((ref - flash_attention(q, k, v, qpos, kpos).float()).abs().max())
+                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=gqa, **kw)
+
+        def kern():
+            return fa.flash_attention(q, k, v, qpos, kpos)
+
+        tt = {"plain": s.time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, kpos),
+                                 reps=1, warmup=1)}
+        before = kernel_fn.launches
+        tt["kernel"] = s.time_ms(kern, reps=reps, warmup=1)
         tt["library"] = s.time_ms(lib, reps=reps, warmup=1)
-        pairs = int(allowed_mask(qpos, kpos, True, 0).sum()) * b * h
-        bound, by = _flash_bound(b, s_len, t, h, kh, hd, 2, pairs)
-        rows[name] = dict(shape=dict(B=b, S=s_len, T=t, H=h, K=kh, hd=hd,
-                                     dtype="bfloat16"),
-                          allowed_pairs=pairs,
-                          ms=(tt["kernel"] + tt["kernel2"]) / 2,
-                          kernel_turns_ms=[tt["kernel"], tt["kernel2"]],
-                          plain_ms=tt["plain"], library_ms=tt["library"],
-                          library_max_abs_diff=lib_err, bound_ms=bound,
-                          bound_by=by, tflops=4 * hd * pairs
-                          / ((tt["kernel"] + tt["kernel2"]) / 2 * 1e-3) / 1e12)
-        print(f"flash times ({name}): " + json.dumps(rows[name]), flush=True)
+        tt["kernel2"] = s.time_ms(kern, reps=reps, warmup=1)
+        if kernel_fn.launches - before != 2 * (reps + 1):
+            raise AssertionError(f"flash times: {route} timed another kernel")
+        ref = lib().transpose(1, 2).float()
+        lib_err = float((ref - kern().float()).abs().max())
+        pairs = int(fa.allowed_mask(qpos, kpos, True, 0).sum()) * b * h
+        bound, by = _flash_bound(b, s_len, t, h, kh, hd, dtype.itemsize, pairs)
+        ms = (tt["kernel"] + tt["kernel2"]) / 2
+        rows[route] = dict(kernel=FLASH_KERNELS[route],
+                           shape=dict(B=b, S=s_len, T=t, H=h, K=kh, hd=hd,
+                                      dtype=str(dtype).removeprefix("torch.")),
+                           allowed_pairs=pairs, ms=ms,
+                           kernel_turns_ms=[tt["kernel"], tt["kernel2"]],
+                           plain_ms=tt["plain"], library_ms=tt["library"],
+                           library_max_abs_diff=lib_err, bound_ms=bound,
+                           bound_by=by, tflops=4 * hd * pairs / (ms * 1e-3) / 1e12,
+                           gbytes_per_s=(dtype.itemsize * (2 * b * s_len * h * hd
+                                                           + 2 * b * t * kh * hd)
+                                         / (ms * 1e-3) / 1e9))
+        print(f"flash times ({route}): " + json.dumps(rows[route]), flush=True)
         del q, k, v, qt, kt, vt, ref
         torch.cuda.empty_cache()
     return rows
 
 
+def _flash_counters():
+    import repro_torch.kernels.flash_attention as fa
+
+    return {"all": fa.flash_attention, "prefill": fa.flash_prefill,
+            "decode": fa.flash_decode, "f32": fa.flash_f32}
+
+
+def _serve_logits(arch, params, tokens, feed):
+    """Prefill and the decode steps of ``feed``; → (batch, steps + 1, vocab)."""
+    import torch
+
+    out, caches = arch.prefill(params, {"tokens": tokens}, capacity=PARITY_CAPACITY)
+    steps = [out]
+    for i in range(feed.shape[0]):
+        out, caches = arch.decode(params, feed[i], caches, tokens.shape[1] + i)
+        steps.append(out)
+    return torch.cat([x.float().cpu() for x in steps], dim=1)
+
+
 def phase_serve_parity(s: Smoke):
-    """SmolLM-360M at full width, 2 layers, f32: card against CPU."""
+    """SmolLM-360M at full width, 2 layers: f32 card against CPU, then bf16
+    with the kernels against bf16 with the plain version, both on the
+    card.  → the float32 kernel's launches on this path."""
     import numpy as np
     import torch
 
+    import repro_torch.models.attention as attention
     from repro_torch.configs.registry import get_config
     from repro_torch.core.tree import tree_map
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models.api import Arch
 
     t0 = time.perf_counter()
+    counters = _flash_counters()
     cfg = dataclasses.replace(get_config(SERVE_ARCH), num_layers=PARITY_LAYERS,
                               dtype="float32")
     arch = Arch(cfg)
@@ -1090,24 +1153,19 @@ def phase_serve_parity(s: Smoke):
     feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1)))
     logits = {}
     for dev in (s.dev, cpu):
-        flash_attention.launches = 0
-        out, caches = arch.prefill(params[dev], {"tokens": tokens.to(dev)},
-                                   capacity=PARITY_CAPACITY)
-        steps = [out]
-        for i in range(PARITY_GEN):
-            out, caches = arch.decode(params[dev], feed[i].to(dev), caches,
-                                      PARITY_PROMPT + i)
-            steps.append(out)
-        logits[dev] = torch.cat([x.float().cpu() for x in steps], dim=1)
+        for fn in counters.values():
+            fn.launches = 0
+        logits[dev] = _serve_logits(arch, params[dev], tokens.to(dev), feed.to(dev))
         if dev == s.dev:
             torch.cuda.synchronize()
-            launches = flash_attention.launches
-    want = PARITY_LAYERS * (1 + PARITY_GEN)
+            launches = {k: fn.launches for k, fn in counters.items()}
+    want = {"all": PARITY_LAYERS * (1 + PARITY_GEN), "prefill": 0,
+            "decode": PARITY_LAYERS * PARITY_GEN, "f32": PARITY_LAYERS}
     if launches != want:
-        raise AssertionError(f"serve parity: {launches} flash launches on the "
+        raise AssertionError(f"serve parity: flash launches {launches} on the "
                              f"card, expected {want}")
-    if flash_attention.launches:
-        raise AssertionError("serve parity: the CPU run launched the kernel")
+    if any(fn.launches for fn in counters.values()):
+        raise AssertionError("serve parity: the CPU run launched a kernel")
     err = float((logits[s.dev] - logits[cpu]).abs().max())
     scale = float(logits[cpu].abs().max())
     if not (err <= PARITY_ATOL and bool(torch.isfinite(logits[s.dev]).all())):
@@ -1118,10 +1176,52 @@ def phase_serve_parity(s: Smoke):
           f"float32, prompt {PARITY_PROMPT} + {PARITY_GEN} decode steps "
           f"(cache {PARITY_CAPACITY}): card vs CPU max |dlogits| {err!r} "
           f"(tolerance {PARITY_ATOL}; logits up to {scale!r}), same argmax "
-          f"{bool(top)}, flash launches {launches}, "
+          f"{bool(top)}, flash launches {json.dumps(launches)}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    f32_launches = launches["f32"]
+
+    # bf16: the kernels against the plain version, both on the card.
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    arch = Arch(cfg)
+    params = arch.init(seed=0, device=s.dev)
+    tokens, feed = tokens.to(s.dev), feed.to(s.dev)
+    for fn in counters.values():
+        fn.launches = 0
+    kern = _serve_logits(arch, params, tokens, feed)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    blocked = attention._sdpa_blocked
+
+    def plain_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
+        return flash_attention_plain(q, k, v, qpos.to(torch.int32), kpos.to(torch.int32),
+                                     causal=causal, window=window)
+    attention._sdpa_blocked = plain_blocked
+    try:
+        plain = _serve_logits(arch, params, tokens, feed)
+    finally:
+        attention._sdpa_blocked = blocked
+    want = {"all": PARITY_LAYERS * (1 + PARITY_GEN), "prefill": PARITY_LAYERS,
+            "decode": PARITY_LAYERS * PARITY_GEN, "f32": 0}
+    if launches != want or counters["all"].launches != want["all"]:
+        raise AssertionError(f"bf16 serve check: flash launches {launches}, "
+                             f"expected {want} (and none from the plain run)")
+    err = float((kern - plain).abs().max())
+    scale = float(plain.abs().max())
+    top = float(kern.argmax(-1).eq(plain.argmax(-1)).float().mean())
+    if not (err <= BF16_PARITY_RTOL * scale and bool(torch.isfinite(kern).all())):
+        raise AssertionError(f"bf16 serve check: kernel logits differ from the "
+                             f"plain version's by {err} (limit {BF16_PARITY_RTOL} "
+                             f"of {scale})")
+    print(f"bf16 serve check: {cfg.name} at full width, {PARITY_LAYERS} layers, "
+          f"bfloat16 on the card, prompt {PARITY_PROMPT} + {PARITY_GEN} decode "
+          f"steps: kernels vs plain max |dlogits| {err!r} (limit "
+          f"{BF16_PARITY_RTOL} of {scale!r}), same argmax at {top!r} of the "
+          f"steps, flash launches {json.dumps(launches)}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     del params
     torch.cuda.empty_cache()
+    return f32_launches
 
 
 def phase_serve(s: Smoke, flash_rows):
@@ -1129,7 +1229,6 @@ def phase_serve(s: Smoke, flash_rows):
     import torch
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import make_decode_step, make_prefill_step
     from repro_torch.models.api import Arch
 
@@ -1152,24 +1251,32 @@ def phase_serve(s: Smoke, flash_rows):
     torch.cuda.reset_peak_memory_stats()
 
     fns = _kernel_fns()
-    for fn in (*fns.values(), flash_attention):
+    counters = _flash_counters()
+    for fn in (*fns.values(), *counters.values()):
         fn.launches = 0
+    # The host's enqueue time (until a step returns, before the device is
+    # waited for) beside the step's time: equal, the step is host-bound.
     t0 = time.perf_counter()
     tok, caches = prefill(params, {"tokens": tokens})
+    prefill_enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     generated = [tok]
+    decode_enqueue_s = 0.0
     t0 = time.perf_counter()
     for i in range(SERVE_GEN):
+        t1 = time.perf_counter()
         tok, caches = decode(params, tok.reshape(b, 1), caches, SERVE_PROMPT + i)
+        decode_enqueue_s += time.perf_counter() - t1
         generated.append(tok.reshape(b))
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = {k: fn.launches for k, fn in counters.items()}
     stray = {k: fn.launches for k, fn in fns.items() if fn.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    want = cfg.num_layers * (1 + SERVE_GEN)
+    want = {"all": cfg.num_layers * (1 + SERVE_GEN), "prefill": cfg.num_layers,
+            "decode": cfg.num_layers * SERVE_GEN, "f32": 0}
     if launches != want or stray:
         raise AssertionError(f"serve: flash launches {launches} (expected "
                              f"{want}), other kernels {stray}")
@@ -1188,6 +1295,8 @@ def phase_serve(s: Smoke, flash_rows):
                capacity=SERVE_CAPACITY, init_s=init_s, prefill_s=prefill_s,
                prompt_tokens_per_s=b * SERVE_PROMPT / prefill_s,
                decode_ms_per_token=decode_s / SERVE_GEN * 1e3,
+               prefill_enqueue_s=prefill_enqueue_s,
+               decode_enqueue_ms_per_step=decode_enqueue_s / SERVE_GEN * 1e3,
                decode_tokens_per_s=b * SERVE_GEN / decode_s,
                flash_launches=launches,
                flash_ms_per_prefill_layer=pre, flash_ms_per_decode_layer=dec,
@@ -1229,9 +1338,10 @@ def main() -> int:
     times.update(phase_times_runtime(s))
     phase_flash(s)
     flash_rows = phase_flash_times(s)
-    phase_serve_parity(s)
+    f32_launches = phase_serve_parity(s)
     serve_launches = phase_serve(s, flash_rows)
-    fr = flash_rows["prefill"]
+    flash_launches = {"prefill": serve_launches["prefill"],
+                      "decode": serve_launches["decode"], "f32": f32_launches}
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",
@@ -1253,13 +1363,19 @@ def main() -> int:
              replaces="src/repro/kernels/qsgd_quant.py:31",
              launches=rt_launches["qsgd"], max_abs_err=s.errs["qsgd"],
              library_ms=None, **times["qsgd"]),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:40",
-             launches=serve_launches, max_abs_err=s.errs["flash"],
-             ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
-             bound_by=fr["bound_by"], library_ms=fr["library_ms"]),
     ]
+    # The flash kernels: prefill and decode carry the serve path (launches
+    # from phase 10); the float32 kernel carries the parity path's
+    # prefill (launches from phase 9).
+    for route, kernel in FLASH_KERNELS.items():
+        fr = flash_rows[route]
+        kernels.append(dict(
+            name=kernel, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{kernel}.cu",
+            replaces="src/repro/kernels/flash_attention.py:40",
+            launches=flash_launches[route], max_abs_err=s.errs[kernel],
+            ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
+            bound_by=fr["bound_by"], library_ms=fr["library_ms"]))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

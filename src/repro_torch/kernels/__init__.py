@@ -10,7 +10,10 @@
 * :mod:`qsgd_quant` — QSGD quantize→dequantize for a cohort, one leaf
   per call (``csrc/qsgd_quant.cu``).
 * :mod:`flash_attention` — causal flash attention, forward, for the LLM
-  serving path's long prefills and decodes (``csrc/flash_attention.cu``).
+  serving path's long prefills and decodes: bf16 prefill on the tensor
+  cores (``csrc/flash_prefill.cu``), split-KV decode
+  (``csrc/flash_decode.cu``), float32 on the CUDA cores
+  (``csrc/flash_attention.cu``).
 * :mod:`common` — the direction chain in plain torch (``csrc/chain.cuh``
   is its CUDA twin) and the wrappers' checks.
 * :mod:`ops` — parameter trees → per-leaf kernel calls.

@@ -1,24 +1,27 @@
-// Causal flash attention, forward, for sm_90a.
+// Causal flash attention, forward, float32, for sm_90a.
 //
 // Replaces src/repro/kernels/flash_attention.py::_flash_kernel (the Pallas
-// TPU kernel).  It computes that kernel's function, not its block
-// structure:
+// TPU kernel) for float32 inputs whose S·G rows per kv head are more than
+// the split-KV decode (csrc/flash_decode.cu) takes; bf16 goes to the
+// tensor-core kernel (csrc/flash_prefill.cu).  See
+// kernels/flash_attention.py::flash_route.  It computes that kernel's
+// function, not its block structure:
 //
 //   out[b, s, h] = Σ_t softmax_t(q[b,s,h]·k[b,t,kv] · scale) · v[b,t,kv]
 //
 // over the allowed keys t: kpos[t] >= 0, kpos[t] <= qpos[s] when causal,
 // kpos[t] > qpos[s] - window when a window is set; kv = h / (H / KH).  The
-// online softmax keeps m, l and the accumulator in float32, and p stays
-// float32 before P·V.  A row with no allowed key gets 0 (the Pallas kernel
-// averages V over its masked keys there; no caller keeps such rows).
-// Layouts are the reference's: q and out (B, S, H, hd), k and v
-// (B, T, KH, hd), all contiguous; qpos (S,) and kpos (T,) int32.
+// online softmax keeps m, l and the accumulator in float32.  A row with no
+// allowed key gets 0 (the Pallas kernel averages V over its masked keys
+// there; no caller keeps such rows).  Layouts are the reference's: q and
+// out (B, S, H, hd), k and v (B, T, KH, hd), all contiguous; qpos (S,) and
+// kpos (T,) int32.
 //
-// What bounds it: at SmolLM-360M's prefill (hd 64) it does 4·hd flops per
-// allowed (query, key) pair on 2·hd·2 bytes per key read from L2, so it is
-// bound by arithmetic; the tensor cores would give 989 TFLOP/s in bf16,
-// this first version uses float32 FMAs on the CUDA cores (67 TFLOP/s
-// peak).  wgmma, TMA and a split-KV decode are later work.
+// What bounds it: 4·hd flops per allowed (query, key) pair on 2·hd·4 bytes
+// per key read from L2, so it is bound by arithmetic.  It uses float32
+// FMAs on the CUDA cores (67 TFLOP/s peak): TF32 on the tensor cores
+// would not meet float32's tolerance, and float32 serves the card-vs-CPU
+// parity, not serving.
 //
 // Design:
 // * One block of 128 threads per (tile of query rows, kv head, batch).
@@ -29,16 +32,15 @@
 //   16 accumulator values in registers, as four float4s interleaved so
 //   that the lanes of a row read 64 contiguous bytes of shared memory.  A
 //   score is the lanes' partial dots summed by __shfl_xor_sync.
-// * K and V tiles of 4096/hd keys are converted to float32 into shared
-//   memory (32 KB).  A tile is skipped when none of its keys is allowed
-//   for any row of the block; that is decided from the tile's kpos values,
-//   never from its index, so a wrapped ring buffer (unsorted kpos) is
-//   safe.  Both ragged edges are masked here: rows past S·G are idle,
-//   keys past T read as masked zeros.
+// * K and V tiles of 4096/hd keys are staged in shared memory (32 KB).  A
+//   tile is skipped when none of its keys is allowed for any row of the
+//   block; that is decided from the tile's kpos values, never from its
+//   index, so a wrapped ring buffer (unsorted kpos) is safe.  Both ragged
+//   edges are masked here: rows past S·G are idle, keys past T read as
+//   masked zeros.
 // * Scores are scaled after the dot and masked before the max; exp is
 //   the IEEE expf (never fast math).  FMAs are written as fmaf, so the
 //   library's global -fmad=false does not split them.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -56,40 +58,13 @@ __device__ __forceinline__ float4 load4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) {
     *reinterpret_cast<float4*>(p) = x;
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&a);
-    u.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = u;
-}
-
-// 16 bytes of a K or V row → float32 in shared memory.
+// 16 bytes of a K or V row → shared memory.
 __device__ __forceinline__ void stage16(const float* src, float* dst) {
     store4(dst, load4(src));
-}
-
-__device__ __forceinline__ void stage16(const __nv_bfloat16* src, float* dst) {
-    const uint4 u = *reinterpret_cast<const uint4*>(src);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-        dst[2 * i] = f.x;
-        dst[2 * i + 1] = f.y;
-    }
 }
 
 __device__ __forceinline__ bool key_allowed(int kp, int qp, int causal, int window) {
@@ -306,24 +281,16 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// float32 only.  Returns the launch's cudaError_t.
 int fs_flash_attention(const void* q, const void* k, const void* v,
                        const int* qpos, const int* kpos, void* out, int B,
-                       int S, int H, int KH, int T, int hd, int dtype,
-                       float scale, int causal, int window, void* stream) {
+                       int S, int H, int KH, int T, int hd, float scale,
+                       int causal, int window, void* stream) {
     if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0) {
         return (int)cudaErrorInvalidValue;
     }
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) {
-        return launch_hd<float>(hd, q, k, v, qpos, kpos, out, B, S, H, KH, T,
-                                scale, causal, window, st);
-    }
-    if (dtype == 1) {
-        return launch_hd<__nv_bfloat16>(hd, q, k, v, qpos, kpos, out, B, S, H,
-                                        KH, T, scale, causal, window, st);
-    }
-    return (int)cudaErrorInvalidValue;
+    return launch_hd<float>(hd, q, k, v, qpos, kpos, out, B, S, H, KH, T, scale,
+                            causal, window, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

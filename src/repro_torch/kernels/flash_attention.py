@@ -1,17 +1,29 @@
 """Causal flash attention, forward: the port of ``repro/kernels/flash_attention.py``.
 
-The CUDA kernel is ``csrc/flash_attention.cu`` (its note gives the design
-and the bound); this module holds its plain PyTorch version and the
-wrapper.  Both compute ``_flash_kernel``'s function::
+Three CUDA kernels compute it, chosen by :func:`flash_route`, a fixed
+function of the shape and the dtype (each source's note gives its design
+and its bound):
+
+* ``csrc/flash_decode.cu`` (:func:`flash_decode`): split-KV, bf16 and
+  float32, when S·G (query positions × query heads per kv head) is at
+  most ``DECODE_MAX_ROWS`` — a decode step;
+* ``csrc/flash_prefill.cu`` (:func:`flash_prefill`): bf16 on the tensor
+  cores (wgmma, TMA), for every other bf16 shape — prefill;
+* ``csrc/flash_attention.cu`` (:func:`flash_f32`): float32 on the CUDA
+  cores, for every other float32 shape.
+
+This module holds their plain PyTorch version and the wrapper.  All
+compute ``_flash_kernel``'s function::
 
     out[b, s, h] = Σ_t softmax_t(q[b, s, h] · k[b, t, h // G] · hd^-0.5) · v[b, t, h // G]
 
 over the allowed keys t: ``kpos[t] >= 0``, ``kpos[t] <= qpos[s]`` when
 ``causal``, and ``kpos[t] > qpos[s] - window`` when ``window`` is set;
 G = H / K query heads share a kv head.  Scores, the softmax and p are
-float32, and p stays float32 before P·V (``_sdpa_blocked`` in the
-reference rounds p to V's dtype; in bf16 the two differ within bf16's
-tolerance).  The output is in q's dtype.
+float32, and p keeps float32 precision in P·V (the prefill kernel
+splits it into two bf16 halves, p_hi + p_lo, for the tensor cores;
+``_sdpa_blocked`` in the reference rounds p to V's dtype, which in bf16
+differs within bf16's tolerance).  The output is in q's dtype.
 
 Layouts are the reference's: q (B, S, H, hd), k and v (B, T, K, hd),
 qpos (S,) and kpos (T,) int32.  Unlike the Pallas wrapper, no multiple
@@ -31,12 +43,16 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_cuda_tensor, raise_on_cuda_error
 
-__all__ = ["HEAD_DIMS", "flash_attention", "flash_attention_plain",
-           "allowed_mask", "flash_compare", "flash_agrees"]
+__all__ = ["HEAD_DIMS", "DECODE_MAX_ROWS", "decode_partition", "flash_attention",
+           "flash_attention_plain", "flash_route", "flash_prefill", "flash_decode",
+           "flash_f32", "allowed_mask", "flash_compare", "flash_agrees"]
 
-# head_dim values the CUDA kernel is instantiated for.
+# head_dim values the CUDA kernels are instantiated for.
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The split-KV decode takes at most this many rows (S·G) per kv head: a
+# decode step of every configuration the port serves (G ≤ 8).
+DECODE_MAX_ROWS = 8
 
 # Score elements per query chunk in the plain version (bounds its memory).
 _PLAIN_SCORE_ELEMS = 1 << 26
@@ -117,15 +133,94 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _lib():
-    lib = _build.library("flash_attention")
+def flash_route(s: int, h: int, kh: int, dtype: torch.dtype) -> str:
+    """Which kernel computes a call: ``"decode"`` (split-KV) when S·G is at
+    most ``DECODE_MAX_ROWS``, else ``"prefill"`` (bf16, tensor cores) or
+    ``"f32"`` (float32, CUDA cores)."""
+    if s * (h // kh) <= DECODE_MAX_ROWS:
+        return "decode"
+    return "prefill" if dtype == torch.bfloat16 else "f32"
+
+
+def decode_partition(hd: int, dtype: torch.dtype) -> int:
+    """Keys per partition of the split-KV decode: 32 KB of K (and of V),
+    256 keys at hd 64 in bf16 (``csrc/flash_decode.cu``'s partition_keys)."""
+    return 32768 // (hd * dtype.itemsize)
+
+
+def _lib(name: str, fn: str, argtypes):
+    lib = _build.library(name)
     if not getattr(lib, "_fs_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fs_flash_attention.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                           i, f, i, i, p]
-        lib.fs_flash_attention.restype = i
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
         lib._fs_typed = True
     return lib
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def flash_prefill(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
+    """Launch ``csrc/flash_prefill.cu`` (bf16) into ``out``; the inputs are
+    checked by :func:`flash_attention`."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    lib = _lib("flash_prefill", "fs_flash_prefill",
+               [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P])
+    with torch.cuda.device(q.device):
+        err = lib.fs_flash_prefill(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), out.data_ptr(), b, s, h, kh, t, hd, hd ** -0.5,
+            int(causal), int(window), _stream(q.device))
+    raise_on_cuda_error("fs_flash_prefill", err)
+    flash_prefill.launches += 1
+
+
+def flash_decode(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
+    """Launch ``csrc/flash_decode.cu``'s split pass and its combine into
+    ``out``, with float32 scratch for the partials; the inputs are checked
+    by :func:`flash_attention`."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    part = decode_partition(hd, q.dtype)
+    nparts = -(-t // part)
+    rows = b * kh * s * (h // kh) * nparts
+    pm = torch.empty(rows, dtype=torch.float32, device=q.device)
+    pl = torch.empty(rows, dtype=torch.float32, device=q.device)
+    pacc = torch.empty(rows * hd, dtype=torch.float32, device=q.device)
+    lib = _lib("flash_decode", "fs_flash_decode",
+               [_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _I, _P])
+    with torch.cuda.device(q.device):
+        err = lib.fs_flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), out.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+            pacc.data_ptr(), b, s, h, kh, t, hd, _DTYPE_CODES[q.dtype], hd ** -0.5,
+            int(causal), int(window), part, nparts, _stream(q.device))
+    raise_on_cuda_error("fs_flash_decode", err)
+    flash_decode.launches += 1
+
+
+def flash_f32(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
+    """Launch ``csrc/flash_attention.cu`` (float32) into ``out``; the inputs
+    are checked by :func:`flash_attention`."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    lib = _lib("flash_attention", "fs_flash_attention",
+               [_P] * 6 + [_I] * 6 + [_F, _I, _I, _P])
+    with torch.cuda.device(q.device):
+        err = lib.fs_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+            kpos.data_ptr(), out.data_ptr(), b, s, h, kh, t, hd, hd ** -0.5,
+            int(causal), int(window), _stream(q.device))
+    raise_on_cuda_error("fs_flash_attention", err)
+    flash_f32.launches += 1
+
+
+_KERNELS = {"prefill": flash_prefill, "decode": flash_decode, "f32": flash_f32}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,8 +228,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """→ (B, S, H, hd) in q's dtype.
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.  ``flash_attention.launches`` counts kernel launches.
+    A CUDA tensor launches the kernel :func:`flash_route` names (or
+    raises); a CPU tensor takes the plain version.
+    ``flash_attention.launches`` counts the calls that launched a kernel;
+    ``flash_prefill.launches``, ``flash_decode.launches`` and
+    ``flash_f32.launches`` count each kernel's.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, qpos, kpos, causal=causal,
@@ -172,16 +270,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if t == 0:
         return out.zero_()
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fs_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-            kpos.data_ptr(), out.data_ptr(), b, s, h, kh, t, hd,
-            _DTYPE_CODES[q.dtype], hd ** -0.5, int(causal), int(window), stream)
-    raise_on_cuda_error("fs_flash_attention", err)
+    _KERNELS[flash_route(s, h, kh, q.dtype)](q, k, v, qpos, kpos, out, causal,
+                                             window)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_prefill.launches = 0
+flash_decode.launches = 0
+flash_f32.launches = 0

@@ -105,7 +105,7 @@ def _sdpa_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     """Flash attention: online softmax over key tiles, one kernel launch.
 
     The reference's ``_sdpa_blocked`` is the pure-JAX form of the same
-    algorithm; here it is ``kernels.flash_attention``, whose kernel has
+    algorithm; here it is ``kernels.flash_attention``, whose kernels have
     no prefix-bidirectional mask.  A prefix on the CPU falls back to the
     plain ``_sdpa`` (the same function, unblocked); on the card it raises
     until the VLM family brings its own kernel path.

@@ -20,8 +20,13 @@ kernel lands on the server's bits.  Flash attention is held against its
 plain version on rows with an allowed key by ``flash_agrees``: float32
 within ``tests/test_flash_kernel.py``'s rtol 1e-3 / atol 2e-5, bfloat16
 within 2^-7 of its row's largest |plain| (one bf16 ulp at most) with at
-most 1% of the elements changed; and the serving path on the card
-against the same path on the CPU, with the kernel's launches counted.
+most 1% of the elements changed; each of its three kernels (the bf16
+tensor-core prefill, the split-KV decode, the float32 kernel) is reached
+through ``flash_route`` and its own launch counter.  The serving path on
+the card runs against the same path on the CPU (float32) and against the
+plain version on the card (bf16, logits within 5% of their largest: one
+bf16 ulp in up to 1% of the attention outputs, carried through two
+layers), with each kernel's launches counted.
 """
 import numpy as np
 import pytest
@@ -49,12 +54,14 @@ from repro_torch.kernels.seeded_reconstruct import (  # noqa: E402
     reconstruct_apply_clients,
     reconstruct_plain,
 )
+import repro_torch.kernels.flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     allowed_mask,
     flash_agrees,
     flash_attention,
     flash_attention_plain,
     flash_compare,
+    flash_route,
 )
 from repro_torch.models.mlp_classifier import init_mlp  # noqa: E402
 from torch_parity import cuda_device, seeds_np  # noqa: E402,F401
@@ -318,6 +325,98 @@ def test_cuda_flash_smollm_prefill_shape(cuda_device, dtype):
     _check_flash(cuda_device, 1, 16384, 16384, 15, 5, 64, dtype)
 
 
+_ROUTES = {"prefill": "flash_prefill", "decode": "flash_decode", "f32": "flash_f32"}
+
+
+def _check_route(dev, route, b, s, t, h, kh, hd, dtype, *args, **kw):
+    """_check_flash, and the call launched the kernel ``route`` names."""
+    assert flash_route(s, h, kh, dtype) == route
+    fn = getattr(fa, _ROUTES[route])
+    before = fn.launches
+    _check_flash(dev, b, s, t, h, kh, hd, dtype, *args, **kw)
+    assert fn.launches == before + 1
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (4, 1)], ids=["mha", "gqa3", "mqa"])
+@pytest.mark.parametrize("window", [0, 64])
+def test_cuda_flash_prefill_kernel(cuda_device, hd, heads, window):
+    """The bf16 tensor-core kernel: S = 200 against T = 333 (neither a
+    multiple of its 128-row or key tile), and kpos holes with padding
+    queries."""
+    h, kh = heads
+    _check_route(cuda_device, "prefill", 2, 200, 333, h, kh, hd, torch.bfloat16,
+                 window, seed=5)
+    kpos = torch.arange(333, dtype=torch.int32)
+    kpos[::7] = -1
+    qpos = torch.arange(333, dtype=torch.int32)
+    qpos[:50] = -1
+    _check_route(cuda_device, "prefill", 1, 333, 333, h, kh, hd, torch.bfloat16,
+                 window, qpos, kpos, 6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_kernel(cuda_device, dtype):
+    """The split-KV decode: 16 424 slots (not a multiple of its 256-key
+    partition) with 24 empty, a wrapped ring of 1000 under windows 0, 64
+    and 1000, two query rows of GQA 3, and hd 32 and 128."""
+    kpos = torch.where(torch.arange(16424) < 16400, torch.arange(16424), -1).int()
+    _check_route(cuda_device, "decode", 4, 1, 16424, 15, 5, 64, dtype,
+                 qpos=torch.tensor([16399], dtype=torch.int32), kpos=kpos)
+    ring = _ring(1000, 1499)
+    for window in (0, 64, 1000):
+        _check_route(cuda_device, "decode", 2, 1, 1000, 6, 2, 64, dtype, window,
+                     torch.tensor([1499], dtype=torch.int32), ring, 7)
+    _check_route(cuda_device, "decode", 2, 2, 1000, 6, 2, 64, dtype, 0,
+                 torch.tensor([1498, 1499], dtype=torch.int32), ring, 8)
+    for hd in (32, 128):
+        _check_route(cuda_device, "decode", 2, 1, 1000, 8, 1, hd, dtype, 64,
+                     torch.tensor([1499], dtype=torch.int32), ring, 9)
+
+
+def test_cuda_flash_counters_on_serve(cuda_device, monkeypatch):
+    """A short bf16 serve run (2 layers, prompt 200, 4 decode steps, the
+    blocked threshold at 64) launches the prefill kernel once per layer
+    and the decode kernel once per layer and step, and its logits stay
+    within 5% of their largest from the same run through the plain
+    version on the card."""
+    import dataclasses
+
+    import repro_torch.models.attention as t_attention
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import Arch
+
+    monkeypatch.setattr(t_attention, "BLOCKED_SDPA_THRESHOLD", 64)
+    cfg = dataclasses.replace(get_config("smollm-360m"), num_layers=2,
+                              dtype="bfloat16")
+    arch = Arch(cfg)
+    params = arch.init(seed=0, device=cuda_device)
+    tok = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                                            (2, 200))).to(cuda_device)
+
+    def run():
+        logits, caches = arch.prefill(params, {"tokens": tok}, capacity=212)
+        steps = [logits]
+        for i in range(4):
+            nxt = torch.full((2, 1), 7 + i, device=cuda_device)
+            logits, caches = arch.decode(params, nxt, caches, 200 + i)
+            steps.append(logits)
+        return torch.stack([x.float().cpu() for x in steps])
+
+    counters = [flash_attention, fa.flash_prefill, fa.flash_decode, fa.flash_f32]
+    before = [f.launches for f in counters]
+    got = run()
+    assert [f.launches - n for f, n in zip(counters, before)] == [10, 2, 8, 0]
+
+    def plain(q, k, v, qpos, kpos, *, causal, window, prefix_len):
+        return flash_attention_plain(q, k, v, qpos.int(), kpos.int(), causal=causal,
+                                     window=window)
+    monkeypatch.setattr(t_attention, "_sdpa_blocked", plain)
+    want = run()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 0.05 * float(want.abs().max())
+
+
 def test_cuda_flash_checks_inputs(cuda_device):
     q = torch.zeros((1, 8, 4, 64), device=cuda_device)
     k = torch.zeros((1, 8, 2, 64), device=cuda_device)
@@ -362,7 +461,7 @@ def test_cuda_serve_matches_cpu(cuda_device, monkeypatch):
     dev_params = tree_map(lambda t: t.to(cuda_device), params)
     tok = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size,
                                                             (2, 200)))
-    before = flash_attention.launches
+    before = [f.launches for f in (flash_attention, fa.flash_f32, fa.flash_decode)]
     out = {}
     for dev, p in (("cpu", params), ("cuda", dev_params)):
         logits, caches = arch.prefill(p, {"tokens": tok.to(dev)}, capacity=212)
@@ -372,6 +471,8 @@ def test_cuda_serve_matches_cpu(cuda_device, monkeypatch):
             logits, caches = arch.decode(p, nxt, caches, 200 + i)
             steps.append(logits)
         out[dev] = torch.stack([x.cpu() for x in steps])
-    assert flash_attention.launches - before == 2 + 2 * 4
+    # float32: the prefill on the float32 kernel, each decode step split-KV
+    assert [f.launches - n for f, n in zip(
+        (flash_attention, fa.flash_f32, fa.flash_decode), before)] == [2 + 2 * 4, 2, 8]
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-3)
 

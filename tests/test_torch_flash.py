@@ -20,6 +20,15 @@ At the shipped ``BLOCKED_SDPA_THRESHOLD`` (8192), one layer of the GQA
 variant of reduced SmolLM serves a prompt of 8200 tokens and one decode
 step in both packages: both take the blocked path, and logits and
 caches agree (float32, atol 5e-5 + rtol 1e-5: sum order only).
+
+The card's kernels are emulated here in plain torch where their
+arithmetic differs from the plain version: the prefill kernel's split
+of p into two bf16 halves for P·V (``p_hi_lo_bf16``, which the card's
+limit ``flash_agrees`` must admit), and the split-KV decode's partials
+per key partition merged in partition order (held against the plain
+version by ``flash_agrees`` and against the Pallas kernel in interpret
+mode by the float32 tolerance above).  ``flash_route``, the dispatch
+between the three kernels, is checked at the serve shapes.
 """
 import dataclasses
 
@@ -40,11 +49,14 @@ from repro.models.attention import _sdpa as j_sdpa  # noqa: E402
 from repro_torch.configs.registry import get_config as t_get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    DECODE_MAX_ROWS,
     allowed_mask,
+    decode_partition,
     flash_agrees,
     flash_attention,
     flash_attention_plain,
     flash_compare,
+    flash_route,
 )
 from repro_torch.models.api import Arch as TArch  # noqa: E402
 
@@ -173,8 +185,10 @@ def test_plain_chunks_agree(monkeypatch):
     torch.testing.assert_close(chunked, whole, rtol=1e-6, atol=1e-6)
 
 
-def _attend(q, k, v, ok, p_dtype=None):
-    """Masked attention summed in float64, p optionally rounded first."""
+def _attend(q, k, v, ok, p_dtype=None, p_split=False):
+    """Masked attention summed in float64, p optionally rounded first, or
+    split into bf16(p) + bf16(p - bf16(p)) from float32 as the prefill
+    kernel feeds it to the tensor cores."""
     b, s, h, hd = q.shape
     kh = k.shape[2]
     qg = q.double().reshape(b, s, kh, h // kh, hd)
@@ -182,12 +196,17 @@ def _attend(q, k, v, ok, p_dtype=None):
     p = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1)
     if p_dtype is not None:
         p = p.to(p_dtype).double()
+    if p_split:
+        p32 = p.float()
+        hi = p32.to(torch.bfloat16)
+        lo = (p32 - hi.float()).to(torch.bfloat16)
+        p = hi.double() + lo.double()
     o = torch.einsum("bkgst,btkd->bskgd", p, v.double())
     return o.reshape(b, s, h, hd).to(q.dtype)
 
 
 @pytest.mark.parametrize("variant", ["float64_sum", "p_in_bf16", "dropped_tile",
-                                     "causal_edge", "window_edge"])
+                                     "causal_edge", "window_edge", "p_hi_lo_bf16"])
 @pytest.mark.parametrize("shape", [
     # (B, S, T, H, K, window of the window_edge variant)
     (2, 1024, 1024, 6, 2, 64),
@@ -196,10 +215,11 @@ def _attend(q, k, v, ok, p_dtype=None):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_limit_admits_rounding_but_not_a_wrong_kernel(variant, shape, dtype):
     """The limit the card holds the kernel to (``flash_agrees``) admits
-    another float32-or-better sum of the same function and refuses a
-    kernel that rounds p to bf16, drops one key tile, or slips the causal
-    or window edge by one key on the last query tile, also where a row
-    sees 16 000 keys and its outputs are ~1e-2."""
+    another float32-or-better sum of the same function, and the prefill
+    kernel's p_hi + p_lo split, and refuses a kernel that rounds p to
+    bf16, drops one key tile, or slips the causal or window edge by one
+    key on the last query tile, also where a row sees 16 000 keys and its
+    outputs are ~1e-2."""
     b, s, t, h, kh, win = shape
     q, k, v = (torch.from_numpy(a).to(T_DT[dtype])
                for a in _qkv(7, b, s, t, h, kh, 64))
@@ -216,10 +236,150 @@ def test_kernel_limit_admits_rounding_but_not_a_wrong_kernel(variant, shape, dty
         ok = ok | (late & (kp == qp + 1))
     elif variant == "window_edge":
         ok = ok | (late & (kp == qp - window))
-    got = _attend(q, k, v, ok, torch.bfloat16 if variant == "p_in_bf16" else None)
+    got = _attend(q, k, v, ok, torch.bfloat16 if variant == "p_in_bf16" else None,
+                  p_split=variant == "p_hi_lo_bf16")
     rows = allowed_mask(qpos, kpos, True, window).any(dim=1)
     g, w = got[:, rows], want[:, rows]
-    assert flash_agrees(g, w) == (variant == "float64_sum"), flash_compare(g, w)
+    admitted = variant in ("float64_sum", "p_hi_lo_bf16")
+    assert flash_agrees(g, w) == admitted, flash_compare(g, w)
+
+
+def _split_kv(q, k, v, qpos, kpos, *, causal=True, window=0, part=None):
+    """The split-KV decode's arithmetic in plain torch: float32 partials
+    (m, l, acc) per partition of ``part`` keys (the kernel's by default),
+    an empty partition's m at -inf, merged in partition order by a
+    log-sum-exp rescale."""
+    b, s, h, hd = q.shape
+    part = part or decode_partition(hd, q.dtype)
+    t, kh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, s, kh, h // kh, hd)
+    kf, vf = k.float(), v.float()
+    ok = allowed_mask(qpos, kpos, causal, window)
+    parts = []
+    for t0 in range(0, t, part):
+        cut = slice(t0, min(t, t0 + part))
+        sc = torch.einsum("bskgd,btkd->bkgst", qg, kf[:, cut]) * hd ** -0.5
+        sc = sc.masked_fill(~ok[:, cut], float("-inf"))
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - torch.where(m == float("-inf"), 0.0, m)[..., None])
+        parts.append((m, p.sum(dim=-1), torch.einsum("bkgst,btkd->bkgsd", p, vf[:, cut])))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    shift = torch.where(top == float("-inf"), 0.0, top)
+    total = torch.zeros_like(top)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l, a in parts:
+        w = torch.exp(m - shift)
+        total = total + l * w
+        acc = acc + a * w[..., None]
+    o = torch.where(total[..., None] > 0, acc / total[..., None], 0.0)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [
+    # name, (B, S, T, H, KH, hd), window, qpos, kpos, keys per partition
+    ("masked_partitions", (2, 1, 1000, 6, 2, 64), 0, np.array([499]),
+     np.where(np.arange(1000) < 500, np.arange(1000), -1), 64),
+    ("ragged_T", (2, 1, 1000, 15, 5, 64), 0, np.array([999]), None, 96),
+    ("ring_window_64", (2, 1, 1000, 6, 2, 64), 64, np.array([1499]),
+     _ring_kpos(1000, 500, 1499), 96),
+    ("ring_window_1000", (2, 1, 1000, 6, 2, 32), 1000, np.array([1499]),
+     _ring_kpos(1000, 500, 1499), 96),
+    ("two_rows_gqa4", (1, 2, 517, 8, 2, 128), 0, np.array([300, 301]),
+     np.where(np.arange(517) % 9 == 4, -1, np.arange(517)), 128),
+    ("serve_cache", (4, 1, 16424, 15, 5, 64), 0, np.array([16399]),
+     np.where(np.arange(16424) < 16400, np.arange(16424), -1), None),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_kv_matches_plain(case, dtype):
+    """The decode kernel's split-and-combine against the plain version,
+    held by the card's limit: wholly masked partitions, T not a multiple
+    of the partition, windows over a wrapped ring, two query rows."""
+    name, (b, s, t, h, kh, hd), window, qpos, kpos, part = case
+    arrays = _qkv(sum(map(ord, name)), b, s, t, h, kh, hd)
+    q, k, v = (torch.from_numpy(a).to(T_DT[dtype]) for a in arrays)
+    qpos = torch.from_numpy(qpos.astype(np.int32))
+    kpos = torch.arange(t, dtype=torch.int32) if kpos is None else torch.from_numpy(
+        kpos.astype(np.int32))
+    got = _split_kv(q, k, v, qpos, kpos, window=window, part=part)
+    want = flash_attention_plain(q, k, v, qpos, kpos, window=window)
+    rows = allowed_mask(qpos, kpos, True, window).any(dim=1)
+    assert bool(rows.all())
+    assert flash_agrees(got, want), flash_compare(got, want)
+
+
+def test_split_kv_row_without_keys_is_zero():
+    """A row that no partition serves (a padding query before every key)
+    comes out as zeros, with no NaN from the empty merges."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(11, 2, 2, 600, 6, 2, 64))
+    qpos = torch.tensor([-1, 450], dtype=torch.int32)
+    kpos = torch.from_numpy(_ring_kpos(600, 0, 899))     # positions 300..899
+    got = _split_kv(q, k, v, qpos, kpos, part=128)
+    want = flash_attention_plain(q, k, v, qpos, kpos)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[:, 0] == 0).all()) and bool((want[:, 0] == 0).all())
+    torch.testing.assert_close(got[:, 1], want[:, 1], **TOL["float32"])
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_split_kv_matches_pallas(window):
+    """Against the Pallas kernel in interpret mode: one real query (the
+    rest of the Pallas block padding) over 512 slots with holes, in
+    partitions of 96 keys."""
+    b, t, h, kh, hd = 2, 512, 4, 2, 64
+    arrays = _qkv(12, b, 128, t, h, kh, hd)
+    qpos = np.full(128, -1, np.int32)
+    qpos[0] = 480
+    kpos = np.where(np.arange(t) % 7 == 2, -1, np.arange(t)).astype(np.int32)
+    want = flash_attention_call(*_jax_inputs(arrays, "float32"), jnp.asarray(qpos),
+                                jnp.asarray(kpos), causal=True, window=window,
+                                q_block=128, kv_block=128)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got = _split_kv(q[:, :1], k, v, torch.from_numpy(qpos[:1]), torch.from_numpy(kpos),
+                    window=window, part=96)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, :1], **TOL["float32"])
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-8b", "qwen1.5-4b",
+                                  "minitron-8b"])
+def test_route_at_serve_shapes(arch):
+    """Decode (S = 1) of every served configuration goes to the split-KV
+    kernel in both types; a bf16 prefill over the blocked threshold to
+    the tensor-core kernel, a float32 one to the float32 kernel."""
+    cfg = t_get_config(arch)
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    for dtype in (torch.bfloat16, torch.float32):
+        assert flash_route(1, h, kh, dtype) == "decode"
+    assert flash_route(16384, h, kh, torch.bfloat16) == "prefill"
+    assert flash_route(8448, h, kh, torch.float32) == "f32"
+
+
+def test_route_rule():
+    """The rule is S·G ≤ DECODE_MAX_ROWS, whatever the type; a decode
+    partition holds 32 KB of K."""
+    assert DECODE_MAX_ROWS == 8
+    assert [decode_partition(hd, torch.bfloat16) for hd in (32, 64, 128)] == [512, 256, 128]
+    assert [decode_partition(hd, torch.float32) for hd in (32, 64, 128)] == [256, 128, 64]
+    for s, h, kh, want in ((1, 15, 5, "decode"), (2, 12, 3, "decode"),
+                           (3, 15, 5, "prefill"), (8, 4, 4, "decode"),
+                           (9, 4, 4, "prefill"), (1, 48, 4, "prefill"),
+                           (333, 6, 2, "prefill")):
+        assert flash_route(s, h, kh, torch.bfloat16) == want
+        assert flash_route(s, h, kh, torch.float32) == ("f32" if want == "prefill"
+                                                         else want)
+
+
+def test_cpu_call_counts_no_launch():
+    """On CPU tensors the wrapper takes the plain version and no kernel
+    counter moves."""
+    import repro_torch.kernels.flash_attention as fa
+
+    q, k, v = (torch.from_numpy(a) for a in _qkv(13, 1, 1, 40, 6, 2, 32))
+    pos = torch.arange(40, dtype=torch.int32)
+    before = [f.launches for f in (flash_attention, fa.flash_prefill,
+                                   fa.flash_decode, fa.flash_f32)]
+    flash_attention(q, k, v, pos[-1:], pos)
+    assert before == [f.launches for f in (flash_attention, fa.flash_prefill,
+                                           fa.flash_decode, fa.flash_f32)]
 
 
 def test_wrapper_refuses_other_devices():
