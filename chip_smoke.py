@@ -67,7 +67,30 @@ Phases (any failure exits non-zero and the final line is not printed):
    decode steps against a cache of 16 424 slots through
    ``launch/serve.py``'s steps, timed, with the host's enqueue time
    beside each phase's; the flash counter must read 32 + 32 × 32, the
-   prefill kernel's 32 and the decode kernel's 32 × 32.
+   prefill kernel's 32 and the decode kernel's 32 × 32;
+11. the four FedScalar/QSGD kernels on bf16 leaves against their plain
+   versions, at SmolLM-360M's 11 leaves (its real bf16 weights; the
+   stacked leaves as 2-D views, such as (32, 2560, 960) as 81 920 rows):
+   rademacher at every leaf (encode N = 1, decode and fused close N = 4,
+   QSGD N = 1), all four families at the embedding and the stacked FFN
+   leaf.  Close and decode bitwise for the ±1/±2 families (gaussian within
+   rtol/atol 1e-5 plus one bf16 ulp, where the float32 values round
+   apart); the encode within ``encode_tolerance``; QSGD bitwise;
+12. main path of the training slice, card against CPU: SmolLM-360M at
+   full width, 2 layers, float32, ``launch/train.py``'s ``train_step``
+   for one round (N = 4 clients, S = 2 local steps, per-step batch 1 ×
+   512 tokens): loss, every client's r and the new params within the
+   limits stated at ``TRAIN_LOSS_ATOL``;
+13. main path of the training slice at full width and depth: SmolLM-360M,
+   32 layers, bf16, random weights from seed 0, rademacher, k = 1, N = 4,
+   S = 2, per-step batch 1 × 4096 tokens (``train_4k``'s sequence; its
+   global batch of 256 cut to 8 sequences per round), local lr 0.05,
+   server lr 1; a warm-up round, then 3 timed rounds: round s, local-SGD
+   s, training tokens/s, encode and close ms (CUDA events) beside their
+   bounds, launches, peak GiB, loss, r_rms and uploaded scalars; the
+   warm-up round's close held bitwise against its plain version on the
+   card given that round's params, rs and seeds; the trained bf16 model
+   saved and restored through ``repro_torch.checkpoint``, bit for bit.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -76,6 +99,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -149,6 +173,21 @@ PARITY_ATOL = 1e-3
 # refuses a wrong head, mask or position, which moves logits by their
 # own magnitude.
 BF16_PARITY_RTOL = 0.05
+# Training slice: SmolLM-360M through launch/train.py (rademacher, k = 1).
+TRAIN_ARCH = "smollm-360m"
+TRAIN_CLIENTS, TRAIN_STEPS, TRAIN_PER_STEP, TRAIN_SEQ = 4, 2, 1, 4096
+TRAIN_LR, TRAIN_ROUNDS = 0.05, 3          # timed rounds, after one warm-up
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 512
+# Card against CPU, float32, one round.  The loss (≈ 10.8) differs only by
+# sum order (cuBLAS against the CPU's GEMMs, the embedding's atomic
+# scatter-add in the backward): 1e-4 is far above that (≈ 1e-6) and far
+# below a wrong gradient.  Each r sums d products of δ = ψ_S − x, whose
+# elements each of the S local steps may round one float32 ulp apart
+# (≤ 2⁻²⁴|w|, random signs over d elements, so ~2⁻²⁴·‖x‖₂ in all); the
+# limit is 16 times S of those plus 1e-4·|r| for the gradients' sum order.
+# The new params may then differ by Σₙ|Δrₙ|/N (each element moves by
+# Σ rₙvₙ/N, |v| = 1) plus 1e-6.
+TRAIN_LOSS_ATOL, TRAIN_R_ULPS, TRAIN_R_RTOL = 1e-4, 16, 1e-4
 # The flash kernels' names in the report, by flash_route's route.
 FLASH_KERNELS = {"prefill": "flash_prefill", "decode": "flash_decode",
                  "f32": "flash_attention"}
@@ -220,11 +259,8 @@ class Smoke:
         want = fused_apply_plain(x2d, sp, rp, tag, lo, hi, family, masked, ro,
                                  co, orig_cols)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if family in EXACT:
-            ok = torch.equal(got, want)
-        else:
-            ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+        err = float((got.float() - want.float()).abs().max())
+        ok = _decode_agrees(family, got, want)
         if not ok or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"fused disagrees: {what} max err {err}")
         self._record("fused", family, err, bool(torch.equal(got, want)))
@@ -243,11 +279,8 @@ class Smoke:
         want = reconstruct_plain(x2d, seeds, rs, tag, scale, lo, hi, family,
                                  masked, ro, co, orig_cols)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if family in EXACT:
-            ok = torch.equal(got, want)
-        else:
-            ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+        err = float((got.float() - want.float()).abs().max())
+        ok = _decode_agrees(family, got, want)
         if not ok or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"rec disagrees: {what} max err {err}")
         self._record("rec", family, err, bool(torch.equal(got, want)))
@@ -256,14 +289,14 @@ class Smoke:
         from repro_torch.kernels.qsgd_quant import qsgd_quantize, qsgd_quantize_plain
         torch = self.torch
         n = x.shape[0]
-        norms = torch.linalg.vector_norm(x.reshape(n, -1), dim=1)
+        norms = torch.linalg.vector_norm(x.reshape(n, -1).float(), dim=1)
         norms = torch.where(norms == 0, torch.ones_like(norms), norms)
         levels = (1 << (bits - 1)) - 1
         q, lv = qsgd_quantize(x, seeds, norms, levels, True, True)
         qp, lp = qsgd_quantize_plain(x, seeds, norms, levels, True, True)
         torch.cuda.synchronize()
-        err = float((q - qp).abs().max())
-        ok = torch.equal(q, qp) and torch.equal(lv, lp)
+        err = float((q.float() - qp.float()).abs().max())
+        ok = q.dtype == x.dtype and torch.equal(q, qp) and torch.equal(lv, lp)
         if not ok or not bool(torch.isfinite(q).all()):
             raise AssertionError(f"qsgd disagrees: {what} max err {err}, "
                                  f"levels equal {torch.equal(lv, lp)}")
@@ -356,6 +389,20 @@ class Smoke:
         return start.elapsed_time(end) / reps
 
 
+def _decode_agrees(family, got, want):
+    """Close and decode against their plain version: bitwise for the ±1/±2
+    families; gaussian within rtol/atol 1e-5 of the float32 values, plus
+    one bf16 ulp (2⁻⁷·|y|) on a bf16 leaf, where those round apart."""
+    import torch
+
+    if got.dtype != want.dtype:
+        return False
+    if family in EXACT:
+        return torch.equal(got, want)
+    rtol = 1e-5 + (2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0)
+    return bool(torch.allclose(got.float(), want.float(), rtol=rtol, atol=1e-5))
+
+
 def _bound_ms(nbytes, shapes, n, k):
     """Least time: bytes over HBM, or each op class over its own rate."""
     d = sum(r * c for r, c in shapes)
@@ -367,14 +414,16 @@ def _bound_ms(nbytes, shapes, n, k):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _encode_bound(shapes, n, k):
+def _encode_bound(shapes, n, k, elem=4):
+    """x read once (``elem`` bytes per element), r written."""
     d = sum(r * c for r, c in shapes)
-    return _bound_ms(4 * n * d + 4 * n * k * len(shapes), shapes, n, k)
+    return _bound_ms(elem * n * d + 4 * n * k * len(shapes), shapes, n, k)
 
 
-def _fused_bound(shapes, n, k):
+def _fused_bound(shapes, n, k, elem=4):
+    """x read and y written once (``elem`` bytes each), seeds and rs."""
     d = sum(r * c for r, c in shapes)
-    return _bound_ms(8 * d + len(shapes) * n * (4 + 4 * k), shapes, n, k)
+    return _bound_ms(2 * elem * d + len(shapes) * n * (4 + 4 * k), shapes, n, k)
 
 
 # The per-client decode does the fused close's work in another order.
@@ -1015,12 +1064,16 @@ def phase_flash(s: Smoke):
           f"and max share changed: {json.dumps(worst)}", flush=True)
 
 
-def _flash_bound(b, s_len, t, h, kh, hd, elem, pairs):
-    """Least time: 4·hd flops per allowed pair at the bf16 tensor rate, or
-    q, k, v, out and the positions once over HBM."""
-    flops = 4 * hd * pairs
+def _flash_bound(route, b, s_len, t, h, kh, hd, elem, pairs):
+    """Least time: the allowed pairs' arithmetic, or q, k, v, out and the
+    positions once over HBM.  bf16 routes: 4·hd flops per pair at the bf16
+    tensor rate; the float32 kernel (CUDA cores, no TF32): 2·hd FMAs per
+    pair (q·k and p·v) at the float32 FMA issue rate."""
     nbytes = elem * (2 * b * s_len * h * hd + 2 * b * t * kh * hd) + 4 * (s_len + t)
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    if route == "f32":
+        t_ops = 2 * hd * pairs / FP32_OPS_PER_S * 1e3
+    else:
+        t_ops = 4 * hd * pairs / BF16_FLOPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1089,7 +1142,8 @@ def phase_flash_times(s: Smoke):
         ref = lib().transpose(1, 2).float()
         lib_err = float((ref - kern().float()).abs().max())
         pairs = int(fa.allowed_mask(qpos, kpos, True, 0).sum()) * b * h
-        bound, by = _flash_bound(b, s_len, t, h, kh, hd, dtype.itemsize, pairs)
+        bound, by = _flash_bound(route, b, s_len, t, h, kh, hd, dtype.itemsize,
+                                 pairs)
         ms = (tt["kernel"] + tt["kernel2"]) / 2
         rows[route] = dict(kernel=FLASH_KERNELS[route],
                            shape=dict(B=b, S=s_len, T=t, H=h, K=kh, hd=hd,
@@ -1309,6 +1363,366 @@ def phase_serve(s: Smoke, flash_rows):
     return launches
 
 
+def _train_counters():
+    """The launch counters the training slice may move, by kernel."""
+    fns = _kernel_fns()
+    return {**fns, **{f"flash_{k}": fn for k, fn in _flash_counters().items()}}
+
+
+def phase_train_kernels(s: Smoke):
+    """The FedScalar/QSGD kernels on bf16 leaves at SmolLM-360M's shapes."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.projection import leaf_layout
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.api import Arch
+
+    t0 = time.perf_counter()
+    n0 = s.checks
+    params = Arch(get_config(TRAIN_ARCH)).init(seed=1, device=s.dev)
+    layout = leaf_layout(params)
+    zero = torch.zeros(1, device=s.dev)
+    big = ((49152, 960), (81920, 960))
+    s.group = ("train kernels, bf16, SmolLM-360M's 11 leaves (rademacher; "
+               "encode N=1, decode and fused close N=4, QSGD N=1 bits 8)")
+    for ll, w in zip(layout, tree_leaves(params)):
+        x2d = w.reshape(ll.rows, ll.cols)
+        hi = zero + float(ll.size)
+        delta = (s.randn(1, ll.rows, ll.cols) * 1e-3).to(torch.bfloat16)
+        sd, rs = s.seeds(TRAIN_CLIENTS), s.randn(TRAIN_CLIENTS, 1) * 0.3
+        what = f"train leaf {ll.shape} as {ll.rows}x{ll.cols}"
+        s.check_encode(delta, s.seeds(1), ll.tag, zero, hi, "rademacher", False,
+                       what=what)
+        s.check_rec(x2d, sd, rs, ll.tag, 1.0 / TRAIN_CLIENTS, "rademacher", zero,
+                    hi, False, what=what)
+        s.check_fused(x2d, sd, rs, ll.tag, 1.0 / TRAIN_CLIENTS, "rademacher",
+                      zero, hi, False, what=what)
+        s.check_qsgd(delta, s.seeds(1), 8, what=what)
+    s.report()
+    s.group = ("train kernels, bf16, all families at the embedding (49152x960) "
+               "and the stacked FFN leaf (32, 2560, 960) as 81920x960; QSGD bits 2, 4")
+    for ll, w in zip(layout, tree_leaves(params)):
+        if (ll.rows, ll.cols) not in big:
+            continue
+        x2d = w.reshape(ll.rows, ll.cols)
+        hi = zero + float(ll.size)
+        delta = (s.randn(1, ll.rows, ll.cols) * 1e-3).to(torch.bfloat16)
+        for family in FAMILIES:
+            sd, rs = s.seeds(TRAIN_CLIENTS), s.randn(TRAIN_CLIENTS, 1) * 0.3
+            what = f"train leaf {ll.shape} {family}"
+            s.check_encode(delta, s.seeds(1), ll.tag, zero, hi, family, False,
+                           what=what)
+            s.check_rec(x2d, sd, rs, ll.tag, 1.0 / TRAIN_CLIENTS, family, zero,
+                        hi, False, what=what)
+            s.check_fused(x2d, sd, rs, ll.tag, 1.0 / TRAIN_CLIENTS, family, zero,
+                          hi, False, what=what)
+        for bits in (2, 4):
+            s.check_qsgd(delta, s.seeds(1), bits, what=f"train leaf {ll.shape}")
+        del delta
+    s.report()
+    del params
+    torch.cuda.empty_cache()
+    print(f"train kernels (bf16): all {s.checks - n0} checks ok in "
+          f"{time.perf_counter() - t0:.1f} s (at most {s.enc_ratio!r} of the "
+          "encode's tolerance over the run)", flush=True)
+
+
+def phase_train_parity(s: Smoke):
+    """SmolLM-360M at full width, 2 layers, float32: one train_step round on
+    the card against the same round on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.models.api import Arch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_PARITY_LAYERS,
+                              dtype="float32")
+    arch = Arch(cfg)
+    cpu = torch.device("cpu")
+    params = {cpu: arch.init(seed=0, device=cpu)}
+    params[s.dev] = tree_map(lambda x: x.to(s.dev), params[cpu])
+    n, st = TRAIN_CLIENTS, TRAIN_STEPS
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (n * st * TRAIN_PER_STEP, TRAIN_PARITY_SEQ + 1)))
+    step = make_train_step(arch, FLRunConfig(num_virtual_clients=n, local_steps=st,
+                                             local_lr=TRAIN_LR, server_lr=1.0))
+    counters = _train_counters()
+    out, launches, secs = {}, {}, {}
+    for dev in (s.dev, cpu):
+        for fn in counters.values():
+            fn.launches = 0
+        t1 = time.perf_counter()
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+        out[dev] = step(params[dev], batch, 0)
+        if dev == s.dev:
+            torch.cuda.synchronize()
+        secs[dev.type] = time.perf_counter() - t1
+        launches[dev.type] = {k: fn.launches for k, fn in counters.items()
+                              if fn.launches}
+    leaves = len(tree_leaves(params[cpu]))
+    want = {"encode": 2 * leaves * n, "rec": leaves}
+    if launches != {"cuda": want, "cpu": {}}:
+        raise AssertionError(f"train parity: launches {launches}, expected "
+                             f"{want} on the card and none on the CPU")
+    (p_g, m_g), (p_c, m_c) = out[s.dev], out[cpu]
+    dloss = abs(float(m_g["loss"]) - float(m_c["loss"]))
+    r_g, r_c = m_g["r"].cpu().double(), m_c["r"].double()
+    norm = float(torch.sqrt(sum((w.double() ** 2).sum() for w in tree_leaves(params[cpu]))))
+    r_tol = TRAIN_R_ULPS * st * 2.0 ** -24 * norm + TRAIN_R_RTOL * r_c.abs()
+    dr = (r_g - r_c).abs()
+    p_tol = float(dr.sum()) / n + 1e-6
+    dp = max(float((a.cpu() - b).abs().max())
+             for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)))
+    finite = all(bool(torch.isfinite(w).all()) for w in tree_leaves(p_g))
+    if not (dloss <= TRAIN_LOSS_ATOL and bool((dr <= r_tol).all()) and dp <= p_tol
+            and finite and torch.equal(m_g["seeds"].cpu(), m_c["seeds"])):
+        raise AssertionError(
+            f"train parity: card vs CPU |dloss| {dloss} (limit {TRAIN_LOSS_ATOL}), "
+            f"|dr| {dr.flatten().tolist()} (limits {r_tol.flatten().tolist()}), "
+            f"|dparams| {dp} (limit {p_tol}), finite {finite}")
+    print("train parity: " + json.dumps(dict(
+        arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, clients=n,
+        local_steps=st, per_step_batch=TRAIN_PER_STEP, seq=TRAIN_PARITY_SEQ,
+        loss_card=float(m_g["loss"]), loss_cpu=float(m_c["loss"]),
+        abs_dloss=dloss, loss_limit=TRAIN_LOSS_ATOL,
+        r_card=r_g.flatten().tolist(), r_cpu=r_c.flatten().tolist(),
+        max_dr_over_limit=float((dr / r_tol).max()),
+        max_abs_dparams=dp, dparams_limit=p_tol, launches_card=launches["cuda"],
+        card_s=secs["cuda"], cpu_s=secs["cpu"],
+        total_s=time.perf_counter() - t0)), flush=True)
+    del out, params
+    torch.cuda.empty_cache()
+
+
+def phase_train(s: Smoke):
+    """SmolLM-360M at full width and depth through launch/train.py, timed."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import repro_torch.kernels.ops as ops
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.projection import leaf_layout
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.models.api import Arch
+
+    cfg = get_config(TRAIN_ARCH)
+    arch = Arch(cfg)
+    t0 = time.perf_counter()
+    params = arch.init(seed=0, device=s.dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layout = leaf_layout(params)
+    shapes = [(ll.rows, ll.cols) for ll in layout]
+    d = sum(ll.size for ll in layout)
+    n, st = TRAIN_CLIENTS, TRAIN_STEPS
+    gb = n * st * TRAIN_PER_STEP
+    step = make_train_step(arch, FLRunConfig(num_virtual_clients=n, local_steps=st,
+                                             local_lr=TRAIN_LR, server_lr=1.0))
+    enc_b, enc_by = _encode_bound(shapes, n, 1, elem=2)
+    close_b, close_by = _fused_bound(shapes, n, 1, elem=2)
+
+    # CUDA events around the round's encode and close calls, read after it.
+    events = {"encode": [], "close": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            events[name].append((e0, e1))
+            return out
+        return call
+
+    originals = (ops.project_tree_kernel, ops.server_update_kernel)
+    ops.project_tree_kernel = timed("encode", originals[0])
+    ops.server_update_kernel = timed("close", originals[1])
+    counters = _train_counters()
+    rows, close_check = [], None
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        for rnd in range(1 + TRAIN_ROUNDS):
+            toks = torch.randint(0, cfg.vocab_size, (gb, TRAIN_SEQ + 1),
+                                 generator=s.gen, device=s.dev)
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            for v in events.values():
+                v.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            new, m = step(params, batch, rnd)
+            torch.cuda.synchronize()
+            round_s = time.perf_counter() - t1
+            enc_ms = sum(a.elapsed_time(b) for a, b in events["encode"])
+            close_ms = sum(a.elapsed_time(b) for a, b in events["close"])
+            row = dict(round=rnd, warmup=rnd == 0, round_s=round_s,
+                       local_sgd_s=round_s - (enc_ms + close_ms) / 1e3,
+                       train_tokens_per_s=gb * TRAIN_SEQ / round_s,
+                       encode_ms=enc_ms, encode_bound_ms=enc_b, encode_bound_by=enc_by,
+                       close_ms=close_ms, close_bound_ms=close_b,
+                       close_bound_by=close_by, loss=float(m["loss"]),
+                       r_rms=float(m["r_rms"]),
+                       uploaded_scalars=m["uploaded_scalars"])
+            print("train: " + json.dumps(row), flush=True)
+            rows.append(row)
+            if rnd == 0:
+                close_check = _train_close_check(s, params, new, m, layout)
+                torch.cuda.reset_peak_memory_stats()
+            params = new
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    finally:
+        ops.project_tree_kernel, ops.server_update_kernel = originals
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rounds = 1 + TRAIN_ROUNDS
+    want = {"encode": 2 * len(layout) * n * rounds, "rec": len(layout) * rounds}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    if not (all(r["uploaded_scalars"] == 2 * n for r in rows)
+            and all(w.dtype == torch.bfloat16 for w in tree_leaves(params))
+            and math.isfinite(rows[0]["loss"])):
+        raise AssertionError(f"train: wrong uploads, dtypes or warm-up loss {rows[0]}")
+
+    kernel_only = _train_kernel_times(s, params, layout)
+
+    # Checkpoint: save and restore the trained bf16 model, bit for bit.
+    out_dir = REPO / "checkpoints"           # git-ignored
+    out_dir.mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=out_dir)
+    try:
+        t1 = time.perf_counter()
+        save_checkpoint(ckpt, params, step=rounds, metadata={"arch": cfg.name})
+        save_s = time.perf_counter() - t1
+        restored, ck_step, meta = restore_checkpoint(ckpt, params, device=s.dev)
+        restore_s = time.perf_counter() - t1 - save_s
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(tree_leaves(restored), tree_leaves(params)))
+    if not (same and ck_step == rounds and meta == {"arch": cfg.name}):
+        raise AssertionError("train: checkpoint did not restore bit for bit")
+    timed_rows = rows[1:]
+    summary = dict(
+        arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, d=d,
+        leaves=len(layout), clients=n, local_steps=st,
+        per_step_batch=TRAIN_PER_STEP, seq=TRAIN_SEQ, local_lr=TRAIN_LR,
+        timed_rounds=TRAIN_ROUNDS, init_s=init_s,
+        round_s=[r["round_s"] for r in timed_rows],
+        local_sgd_s=[r["local_sgd_s"] for r in timed_rows],
+        train_tokens_per_s=[r["train_tokens_per_s"] for r in timed_rows],
+        encode_ms=[r["encode_ms"] for r in timed_rows], encode_bound_ms=enc_b,
+        close_ms=[r["close_ms"] for r in timed_rows], close_bound_ms=close_b,
+        kernel_share_of_round=[(r["encode_ms"] + r["close_ms"]) / (r["round_s"] * 1e3)
+                               for r in timed_rows],
+        kernel_only=kernel_only,
+        launches=launches, peak_gib=peak_gib, close_check=close_check,
+        checkpoint=dict(save_s=save_s, restore_s=restore_s, bitwise=same))
+    print("train summary: " + json.dumps(summary), flush=True)
+    del params, restored, new
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _device_ms(fns, reps=3):
+    """Device time of one pass over ``fns`` (CUDA events), the host kept out
+    of it: a ~0.1 s spin kernel holds the stream while the host queues every
+    launch, so the events time the kernels alone."""
+    import torch
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        for fn in fns:
+            fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _train_kernel_times(s, params, layout):
+    """The round's encode and close split into the kernels' device time (one
+    client's encode and the close over the 11 leaves, ``_device_ms``) and
+    the host's enqueue time of one tree-level call (no wait for the
+    device); the plain versions' times at the same shapes beside them."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.seeded_projection import project_blocks, project_blocks_plain
+    from repro_torch.kernels.seeded_reconstruct import (
+        reconstruct_apply_clients,
+        reconstruct_plain,
+    )
+
+    n = TRAIN_CLIENTS
+    zero = torch.zeros(1, device=s.dev)
+    sd1, sdn, rs = s.seeds(1), s.seeds(n), s.randn(n, 1) * 0.3
+    enc_fns, close_fns = [], []
+    enc_plain = close_plain = 0.0
+    for ll, w in zip(layout, tree_leaves(params)):
+        hi = zero + float(ll.size)
+        x3d, x2d = w.reshape(1, ll.rows, ll.cols), w.reshape(ll.rows, ll.cols)
+        enc_fns.append(lambda x3d=x3d, tag=ll.tag, hi=hi: project_blocks(
+            x3d, sd1, tag, zero, hi))
+        close_fns.append(lambda x2d=x2d, tag=ll.tag, hi=hi: reconstruct_apply_clients(
+            x2d, sdn, rs, tag, 1.0 / n, lo=zero, hi=hi))
+        enc_plain += s.time_ms(lambda: project_blocks_plain(
+            x3d, sd1, ll.tag, zero, hi), reps=1, warmup=0)
+        close_plain += s.time_ms(lambda: reconstruct_plain(
+            x2d, sdn, rs, ll.tag, 1.0 / n, zero, hi), reps=1, warmup=0)
+    enc, close = _device_ms(enc_fns), _device_ms(close_fns)
+    delta = tree_map(lambda w: w.unsqueeze(0), params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.project_tree_kernel(delta, sd1)
+    enc_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.server_update_kernel(params, rs, sdn, 1.0)
+    close_host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dict(encode_device_ms_per_client=enc, encode_device_ms_per_round=n * enc,
+                encode_enqueue_ms_per_client=enc_host * 1e3,
+                encode_plain_ms_per_client=enc_plain,
+                close_device_ms=close, close_enqueue_ms=close_host * 1e3,
+                close_plain_ms=close_plain)
+
+
+def _train_close_check(s, params, new, metrics, layout):
+    """The round's close held against its plain version on the card, bitwise,
+    given that round's params, rs and seeds (leaf by leaf)."""
+    import torch
+
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.seeded_reconstruct import reconstruct_plain
+
+    rs, scale = ops.fold_upload_weights(metrics["r"], 1.0, None,
+                                        ProjectionMode.FULL, None)
+    lo = torch.zeros(1, device=s.dev)
+    for ll, x, y in zip(layout, tree_leaves(params), tree_leaves(new)):
+        want = reconstruct_plain(x.reshape(ll.rows, ll.cols), metrics["seeds"], rs,
+                                 ll.tag, scale, lo, lo + float(ll.size))
+        if not torch.equal(y.reshape(ll.rows, ll.cols), want):
+            raise AssertionError(f"train: the close differs from its plain "
+                                 f"version at leaf {ll.tag} {ll.shape}")
+    torch.cuda.synchronize()
+    return dict(leaves=len(layout), bitwise=True)
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1340,13 +1754,17 @@ def main() -> int:
     flash_rows = phase_flash_times(s)
     f32_launches = phase_serve_parity(s)
     serve_launches = phase_serve(s, flash_rows)
+    phase_train_kernels(s)
+    phase_train_parity(s)
+    train_launches = phase_train(s)
     flash_launches = {"prefill": serve_launches["prefill"],
                       "decode": serve_launches["decode"], "f32": f32_launches}
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",
              replaces="src/repro/kernels/seeded_projection.py:57",
-             launches=launches["encode"], max_abs_err=s.errs["encode"],
+             launches=launches["encode"] + train_launches["encode"],
+             max_abs_err=s.errs["encode"],
              library_ms=None, **times["encode"]),
         dict(name="reconstruct_apply", route="cuda",
              source="src/repro_torch/kernels/csrc/reconstruct_apply.cu",
@@ -1356,7 +1774,8 @@ def main() -> int:
         dict(name="seeded_reconstruct", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_reconstruct.cu",
              replaces="src/repro/kernels/seeded_reconstruct.py:60",
-             launches=rt_launches["rec"], max_abs_err=s.errs["rec"],
+             launches=rt_launches["rec"] + train_launches["rec"],
+             max_abs_err=s.errs["rec"],
              library_ms=None, **times["rec"]),
         dict(name="qsgd_quant", route="cuda",
              source="src/repro_torch/kernels/csrc/qsgd_quant.cu",

@@ -32,6 +32,7 @@ from repro_torch.core.fedscalar import make_local_sgd, round_seeds_for
 from repro_torch.core.prng import fold_seed, u32
 from repro_torch.core.projection import tree_size, view2d
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.kernels.common import LEAF_DTYPES
 from repro_torch.kernels.qsgd_quant import QSGD_TAG, qsgd_quantize
 
 __all__ = [
@@ -102,8 +103,10 @@ def quantize_cohort(x: torch.Tensor, seeds: torch.Tensor, levels: int,
         norms = leaf_norm(x3d, batched=True)
     norms = norms.to(device=x.device, dtype=torch.float32).reshape(n).contiguous()
     folded = fold_seed(u32(seeds, x.device), tag).reshape(n).contiguous()
-    q, lv = qsgd_quantize(x3d.to(torch.float32) if x3d.dtype != torch.float32
-                          else x3d, folded, norms, levels, want_q, want_levels)
+    # float32 and bf16 leaves reach the kernel as they are (it reads them as
+    # float32 and rounds q once to their dtype); other dtypes go as float32.
+    q, lv = qsgd_quantize(x3d if x3d.dtype in LEAF_DTYPES else x3d.to(torch.float32),
+                          folded, norms, levels, want_q, want_levels)
     if q is not None:
         q = q.to(x.dtype).reshape(x.shape)
     if lv is not None:

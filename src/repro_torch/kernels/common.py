@@ -28,13 +28,16 @@ from repro_torch.core.prng import (
     splitmix32,
 )
 
-__all__ = ["DIST_NAMES", "DIST_CODES", "fold_seed", "row_state",
+__all__ = ["DIST_NAMES", "DIST_CODES", "LEAF_DTYPES", "fold_seed", "row_state",
            "tile_from_state", "gen_tile", "seeds_as_u32_bits",
            "check_cuda_tensor", "raise_on_cuda_error"]
 
 # Family names as the kernels take them; the code is the CUDA switch value.
 DIST_NAMES = ("rademacher", "gaussian", "sparse_rademacher", "hadamard")
 DIST_CODES = {name: i for i, name in enumerate(DIST_NAMES)}
+# Leaf dtypes the FedScalar and QSGD kernels read and write, with their
+# ``fs::DType`` codes (csrc/chain.cuh); arithmetic is float32 either way.
+LEAF_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def row_state(seed_folded: torch.Tensor, row: torch.Tensor,
@@ -86,13 +89,15 @@ def seeds_as_u32_bits(seeds: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32).contiguous()
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
-                      ndim: int, device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``ndim`` on ``device``."""
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype, ndim: int,
+                      device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``ndim`` on ``device`` whose
+    dtype is ``dtype`` (or one of them, for a collection)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    allowed = (dtype,) if isinstance(dtype, torch.dtype) else tuple(dtype)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {allowed}")
     if t.dim() != ndim:
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():

@@ -11,9 +11,25 @@
 // the precise logf/cosf/sqrtf (never --use_fast_math); they may differ
 // from the reference's by an ulp, which the tests allow for.
 #pragma once
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace fs {
+
+// Leaf element types the FedScalar and QSGD kernels take (the wrappers'
+// dtype code): the TPU kernels read x.astype(float32) and write
+// o_ref.dtype, so a bf16 leaf is widened exactly on load and the float32
+// result is rounded to nearest-even once on store, as astype does.
+enum DType : int { F32 = 0, BF16 = 1 };
+
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_rn(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_rn(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
 
 enum Dist : int { RADEMACHER = 0, GAUSSIAN = 1, SPARSE_RADEMACHER = 2, HADAMARD = 3 };
 

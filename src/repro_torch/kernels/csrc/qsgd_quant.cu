@@ -10,15 +10,17 @@
 //   signed = sign(x) * level                       (the wire's level code)
 //   q      = ((norm * sign(x)) * level) / L
 //
-// with seed the leaf-folded client seed and (row, col) the coordinates of
+// x is float32 or bf16 (widened exactly on load); q is written in x's
+// dtype (rounded once, as the TPU kernel's q.astype(o_ref.dtype)) and
+// the levels in float32.  With seed the leaf-folded client seed and (row, col) the coordinates of
 // the leaf's 2-D view.  The norm is computed outside the kernel, as in the
 // reference, and arrives with a zero norm already replaced by 1.  Every
 // float op is an _rn intrinsic (IEEE division, no fast math) and the file
 // is built with -fmad=false, so the result equals the plain version bit
 // for bit.
 //
-// Bound on this card: per element the kernel reads 4 bytes of x and writes
-// 4 bytes of q and/or 4 bytes of levels, against one SplitMix32 round (the
+// Bound on this card: per element the kernel reads 4 bytes of x (bf16: 2)
+// and writes 4 bytes of q (bf16: 2) and/or 4 bytes of levels, against one SplitMix32 round (the
 // seed and row rounds are hoisted) and about ten float ops.  That is a few
 // integer ops per byte, below the card's ops-to-bytes ratio, so it is bound
 // by HBM: the design keeps to one pass that reads x once and writes both
@@ -39,9 +41,10 @@ constexpr int TILE_C = 128;
 constexpr int TILE_R = 4;
 constexpr uint32_t QSGD_TAG = 0x7FEB352Du;   // repro.core.qsgd.QSGD_TAG
 
+template <typename T>
 __global__ void __launch_bounds__(TILE_C * TILE_R)
-qsgd_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
-            const float* __restrict__ norms, float* __restrict__ q,
+qsgd_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
+            const float* __restrict__ norms, T* __restrict__ q,
             float* __restrict__ lv, int rows, int cols, int levels,
             uint32_t row_offset, uint32_t col_offset) {
   __shared__ uint32_t s_state[TILE_R];
@@ -58,7 +61,7 @@ qsgd_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
   if (r >= rows || c >= cols) return;
 
   const size_t idx = ((size_t)n * rows + r) * cols + c;
-  const float xv = x[idx];
+  const float xv = fs::load_f32(x + idx);
   const float norm = norms[n];
   const float fl = (float)levels;
   const float u = fs::uniform01(fs::splitmix32(s_state[threadIdx.y] ^ (col_offset + (uint32_t)c)));
@@ -67,25 +70,43 @@ qsgd_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
   const float level = __fadd_rn(lo, (u < __fsub_rn(scaled, lo)) ? 1.0f : 0.0f);
   const float sign = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : 0.0f);
   if (lv != nullptr) lv[idx] = __fmul_rn(sign, level);
-  if (q != nullptr) q[idx] = __fdiv_rn(__fmul_rn(__fmul_rn(norm, sign), level), fl);
+  if (q != nullptr)
+    fs::store_rn(q + idx, __fdiv_rn(__fmul_rn(__fmul_rn(norm, sign), level), fl));
+}
+
+template <typename T>
+int launch(const void* x, const uint32_t* seeds, const float* norms, void* q,
+           float* lv, int n, int rows, int cols, int levels,
+           uint32_t row_offset, uint32_t col_offset, cudaStream_t st) {
+  const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R, n);
+  const dim3 block(TILE_C, TILE_R);
+  qsgd_kernel<T><<<grid, block, 0, st>>>(
+      static_cast<const T*>(x), seeds, norms, static_cast<T*>(q), lv, rows, cols,
+      levels, row_offset, col_offset);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int fs_qsgd_max_rows() { return 65535 * TILE_R; }
 
-// x, q, lv: (n, rows, cols) float32 (q or lv may be null); seeds: (n,)
-// leaf-folded uint32; norms: (n,) float32, nonzero.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int fs_qsgd(const float* x, const uint32_t* seeds, const float* norms,
-                       float* q, float* lv, int n, int rows, int cols, int levels,
-                       uint32_t row_offset, uint32_t col_offset, void* stream) {
+// x, q: (n, rows, cols) of dtype (fs::F32 or fs::BF16), lv: the same
+// shape in float32 (q or lv may be null); seeds: (n,) leaf-folded uint32;
+// norms: (n,) float32, nonzero.  Returns cudaGetLastError() after the
+// launch.
+extern "C" int fs_qsgd(const void* x, const uint32_t* seeds, const float* norms,
+                       void* q, float* lv, int n, int rows, int cols, int levels,
+                       uint32_t row_offset, uint32_t col_offset, int dtype,
+                       void* stream) {
   if (n <= 0 || rows <= 0 || cols <= 0) return (int)cudaSuccess;
   if (n > 65535 || (rows + TILE_R - 1) / TILE_R > 65535 || (q == nullptr && lv == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R, n);
-  const dim3 block(TILE_C, TILE_R);
-  qsgd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      x, seeds, norms, q, lv, rows, cols, levels, row_offset, col_offset);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == fs::F32)
+    return launch<float>(x, seeds, norms, q, lv, n, rows, cols, levels,
+                         row_offset, col_offset, st);
+  if (dtype == fs::BF16)
+    return launch<__nv_bfloat16>(x, seeds, norms, q, lv, n, rows, cols, levels,
+                                 row_offset, col_offset, st);
+  return (int)cudaErrorInvalidValue;
 }

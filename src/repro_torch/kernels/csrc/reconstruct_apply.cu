@@ -6,13 +6,14 @@
 // a multiple of CHUNK = 16, and for each block b and each chunk c, in
 // order, the 16 products (r * v) * mask are summed left to right from
 // the first product, that sum is added to a float32 accumulator, and
-// the result is a bare y = x + acc.  Every float op is an _rn intrinsic
+// the result is a bare y = x + acc (x widened to float32, y rounded once
+// to x's dtype, float32 or bf16).  Every float op is an _rn intrinsic
 // and the file is built with -fmad=false, so nothing is contracted into
 // an FMA: the result equals the plain version bit for bit for the ±1/±2
 // families.
 //
 // Bound on this card: the kernel reads x and writes y, 8 bytes per
-// element (8*d), but does about N*k*d*(one SplitMix32 round + value map
+// element (8*d; 4*d for bf16), but does about N*k*d*(one SplitMix32 round + value map
 // + mul + add) integer and float ops.  From a cohort of a few clients
 // up it is bound by the ALUs, not by HBM: that is the point of
 // regenerating v from seeds instead of reading it (the TPU kernel's
@@ -39,11 +40,11 @@ constexpr int TILE_C = 32;
 constexpr int TILE_R = 8;
 constexpr int CHUNK = 16;   // FUSED_CHUNK: part of the numeric spec
 
-template <int DIST, bool MASKED>
+template <typename T, int DIST, bool MASKED>
 __global__ void __launch_bounds__(TILE_C * TILE_R)
-fused_apply_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
+fused_apply_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
                    const float* __restrict__ rs, const float* __restrict__ lo,
-                   const float* __restrict__ hi, float* __restrict__ y,
+                   const float* __restrict__ hi, T* __restrict__ y,
                    int num_chunks, int k, int rows, int cols, uint32_t leaf_tag,
                    uint32_t row_offset, uint32_t col_offset, int orig_cols) {
   __shared__ uint32_t s_seed[CHUNK];
@@ -97,25 +98,59 @@ fused_apply_kernel(const float* __restrict__ x, const uint32_t* __restrict__ see
   }
   if (valid) {
     const size_t idx = (size_t)r * cols + c;
-    y[idx] = __fadd_rn(x[idx], acc);
+    fs::store_rn(y + idx, __fadd_rn(fs::load_f32(x + idx), acc));
   }
 }
 
-template <int DIST>
-void launch(bool masked, dim3 grid, cudaStream_t st, const float* x,
+template <typename T, int DIST>
+void launch(bool masked, dim3 grid, cudaStream_t st, const T* x,
             const uint32_t* seeds, const float* rs, const float* lo,
-            const float* hi, float* y, int num_chunks, int k, int rows,
-            int cols, uint32_t leaf_tag, uint32_t row_offset,
-            uint32_t col_offset, int orig_cols) {
+            const float* hi, T* y, int num_chunks, int k, int rows, int cols,
+            uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
+            int orig_cols) {
   const dim3 block(TILE_C, TILE_R);
   if (masked)
-    fused_apply_kernel<DIST, true><<<grid, block, 0, st>>>(
+    fused_apply_kernel<T, DIST, true><<<grid, block, 0, st>>>(
         x, seeds, rs, lo, hi, y, num_chunks, k, rows, cols, leaf_tag,
         row_offset, col_offset, orig_cols);
   else
-    fused_apply_kernel<DIST, false><<<grid, block, 0, st>>>(
+    fused_apply_kernel<T, DIST, false><<<grid, block, 0, st>>>(
         x, seeds, rs, lo, hi, y, num_chunks, k, rows, cols, leaf_tag,
         row_offset, col_offset, orig_cols);
+}
+
+template <typename T>
+bool launch_dist(int dist, bool masked, dim3 grid, cudaStream_t st,
+                 const void* xv, const uint32_t* seeds, const float* rs,
+                 const float* lo, const float* hi, void* yv, int num_chunks,
+                 int k, int rows, int cols, uint32_t leaf_tag,
+                 uint32_t row_offset, uint32_t col_offset, int orig_cols) {
+  const T* x = static_cast<const T*>(xv);
+  T* y = static_cast<T*>(yv);
+  switch (dist) {
+    case fs::RADEMACHER:
+      launch<T, fs::RADEMACHER>(masked, grid, st, x, seeds, rs, lo, hi, y,
+                                num_chunks, k, rows, cols, leaf_tag, row_offset,
+                                col_offset, orig_cols);
+      return true;
+    case fs::GAUSSIAN:
+      launch<T, fs::GAUSSIAN>(masked, grid, st, x, seeds, rs, lo, hi, y,
+                              num_chunks, k, rows, cols, leaf_tag, row_offset,
+                              col_offset, orig_cols);
+      return true;
+    case fs::SPARSE_RADEMACHER:
+      launch<T, fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, rs, lo, hi, y,
+                                       num_chunks, k, rows, cols, leaf_tag,
+                                       row_offset, col_offset, orig_cols);
+      return true;
+    case fs::HADAMARD:
+      launch<T, fs::HADAMARD>(masked, grid, st, x, seeds, rs, lo, hi, y,
+                              num_chunks, k, rows, cols, leaf_tag, row_offset,
+                              col_offset, orig_cols);
+      return true;
+    default:
+      return false;
+  }
 }
 
 }  // namespace
@@ -124,39 +159,30 @@ extern "C" int fs_fused_chunk() { return CHUNK; }
 
 extern "C" int fs_fused_max_rows() { return 65535 * TILE_R; }
 
-// x, y: (rows, cols) float32; seeds: (n_pad,) uint32; rs: (n_pad, k)
-// float32 with the scale folded in; n_pad is a multiple of CHUNK.
-// Returns cudaGetLastError() after the launch.
-extern "C" int fs_fused_apply(const float* x, const uint32_t* seeds,
+// x, y: (rows, cols) of dtype (fs::F32 or fs::BF16); seeds: (n_pad,)
+// uint32; rs: (n_pad, k) float32 with the scale folded in; n_pad is a
+// multiple of CHUNK.  Returns cudaGetLastError() after the launch.
+extern "C" int fs_fused_apply(const void* x, const uint32_t* seeds,
                               const float* rs, const float* lo, const float* hi,
-                              float* y, int n_pad, int k, int rows, int cols,
+                              void* y, int n_pad, int k, int rows, int cols,
                               uint32_t leaf_tag, uint32_t row_offset,
                               uint32_t col_offset, int orig_cols, int masked,
-                              int dist, void* stream) {
+                              int dist, int dtype, void* stream) {
   if (n_pad % CHUNK != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int num_chunks = n_pad / CHUNK;
   const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R);
-  switch (dist) {
-    case fs::RADEMACHER:
-      launch<fs::RADEMACHER>(masked, grid, st, x, seeds, rs, lo, hi, y, num_chunks,
-                             k, rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
-      break;
-    case fs::GAUSSIAN:
-      launch<fs::GAUSSIAN>(masked, grid, st, x, seeds, rs, lo, hi, y, num_chunks,
-                           k, rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
-      break;
-    case fs::SPARSE_RADEMACHER:
-      launch<fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, rs, lo, hi, y,
-                                    num_chunks, k, rows, cols, leaf_tag,
+  bool ok;
+  if (dtype == fs::F32)
+    ok = launch_dist<float>(dist, masked, grid, st, x, seeds, rs, lo, hi, y,
+                            num_chunks, k, rows, cols, leaf_tag, row_offset,
+                            col_offset, orig_cols);
+  else if (dtype == fs::BF16)
+    ok = launch_dist<__nv_bfloat16>(dist, masked, grid, st, x, seeds, rs, lo, hi,
+                                    y, num_chunks, k, rows, cols, leaf_tag,
                                     row_offset, col_offset, orig_cols);
-      break;
-    case fs::HADAMARD:
-      launch<fs::HADAMARD>(masked, grid, st, x, seeds, rs, lo, hi, y, num_chunks,
-                           k, rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  else
+    ok = false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -2,14 +2,15 @@
 //
 // Replaces the TPU kernel repro/kernels/seeded_projection.py::_proj_kernel.
 // One launch covers every client of a round for one leaf: x is
-// (N, rows, cols) float32, seeds (N,) uint32 round seeds, and the
-// result is (N, k).  Per-block seeds are derived here as
+// (N, rows, cols) float32 or bf16 (widened exactly on load, as the TPU
+// kernel's x.astype(float32)), seeds (N,) uint32 round seeds, and the
+// result is float32 (N, k).  Per-block seeds are derived here as
 // fold_seed(splitmix32(seed ^ (PROJ_SALT + j)), leaf_tag), and v is
 // regenerated from (seed, row, col) by the factored chain of chain.cuh:
 // it never exists in device memory.
 //
-// Bound on this card: the kernel must read x once, 4 bytes per element
-// per client (4*d*N bytes), and writes N*k floats.  The chain costs one
+// Bound on this card: the kernel must read x once, 4 bytes (bf16: 2) per
+// element per client, and writes N*k floats.  The chain costs one
 // SplitMix32 round (~10 integer ops) plus the value map per element per
 // block; at k = 1 that sits near the ratio where the 3.35 TB/s of HBM
 // and the integer ALUs take about the same time.
@@ -45,9 +46,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int DIST, bool MASKED>
+template <typename T, int DIST, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-project_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
+project_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
                const float* __restrict__ lo, const float* __restrict__ hi,
                float* __restrict__ partials, int k, int rows, int cols,
                uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
@@ -76,7 +77,7 @@ project_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
   }
 
   const uint32_t s = fs::block_leaf_seed(seeds[n], (uint32_t)b, leaf_tag);
-  const float* xn = x + (size_t)n * rows * cols;
+  const T* xn = x + (size_t)n * rows * cols;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int r_end = min(r0 + TILE_ROWS, rows);
@@ -84,11 +85,11 @@ project_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
   for (int r = r0 + warp; r < r_end; r += WARPS) {
     const uint32_t row = row_offset + (uint32_t)r;
     const fs::RowState st = fs::row_state<DIST>(s, row);
-    const float* xr = xn + (size_t)r * cols;
+    const T* xr = xn + (size_t)r * cols;
     const float rowf = __fmul_rn(__uint2float_rn(row), fcols);
     for (int c = lane; c < cols; c += 32) {
       const uint32_t col = col_offset + (uint32_t)c;
-      float p = __fmul_rn(xr[c], fs::value_from_state<DIST>(st, col));
+      float p = __fmul_rn(fs::load_f32(xr + c), fs::value_from_state<DIST>(st, col));
       if (MASKED) {
         const float flat = __fadd_rn(rowf, __uint2float_rn(col));
         p = __fmul_rn(p, (flat >= lo_b && flat < hi_b) ? 1.0f : 0.0f);
@@ -120,57 +121,82 @@ __global__ void sum_partials_kernel(const float* __restrict__ partials,
   if (lane == 0) out[w] = acc;
 }
 
-template <int DIST>
-void launch(bool masked, dim3 grid, cudaStream_t st, const float* x,
+template <typename T, int DIST>
+void launch(bool masked, dim3 grid, cudaStream_t st, const T* x,
             const uint32_t* seeds, const float* lo, const float* hi,
             float* partials, int k, int rows, int cols, uint32_t leaf_tag,
             uint32_t row_offset, uint32_t col_offset, int orig_cols) {
   if (masked)
-    project_kernel<DIST, true><<<grid, THREADS, 0, st>>>(
+    project_kernel<T, DIST, true><<<grid, THREADS, 0, st>>>(
         x, seeds, lo, hi, partials, k, rows, cols, leaf_tag, row_offset,
         col_offset, orig_cols);
   else
-    project_kernel<DIST, false><<<grid, THREADS, 0, st>>>(
+    project_kernel<T, DIST, false><<<grid, THREADS, 0, st>>>(
         x, seeds, lo, hi, partials, k, rows, cols, leaf_tag, row_offset,
         col_offset, orig_cols);
+}
+
+template <typename T>
+bool launch_dist(int dist, bool masked, dim3 grid, cudaStream_t st,
+                 const void* xv, const uint32_t* seeds, const float* lo,
+                 const float* hi, float* partials, int k, int rows, int cols,
+                 uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
+                 int orig_cols) {
+  const T* x = static_cast<const T*>(xv);
+  switch (dist) {
+    case fs::RADEMACHER:
+      launch<T, fs::RADEMACHER>(masked, grid, st, x, seeds, lo, hi, partials, k,
+                                rows, cols, leaf_tag, row_offset, col_offset,
+                                orig_cols);
+      return true;
+    case fs::GAUSSIAN:
+      launch<T, fs::GAUSSIAN>(masked, grid, st, x, seeds, lo, hi, partials, k,
+                              rows, cols, leaf_tag, row_offset, col_offset,
+                              orig_cols);
+      return true;
+    case fs::SPARSE_RADEMACHER:
+      launch<T, fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, lo, hi,
+                                       partials, k, rows, cols, leaf_tag,
+                                       row_offset, col_offset, orig_cols);
+      return true;
+    case fs::HADAMARD:
+      launch<T, fs::HADAMARD>(masked, grid, st, x, seeds, lo, hi, partials, k,
+                              rows, cols, leaf_tag, row_offset, col_offset,
+                              orig_cols);
+      return true;
+    default:
+      return false;
+  }
 }
 
 }  // namespace
 
 extern "C" int fs_project_tile_rows() { return TILE_ROWS; }
 
-// partials: (n, k, ceil(rows / TILE_ROWS)) float32 scratch; out: (n, k).
+// x: (n, rows, cols) of dtype (fs::F32 or fs::BF16); partials: (n, k,
+// ceil(rows / TILE_ROWS)) float32 scratch; out: (n, k) float32.
 // Returns cudaGetLastError() after both launches.
-extern "C" int fs_project(const float* x, const uint32_t* seeds,
+extern "C" int fs_project(const void* x, const uint32_t* seeds,
                           const float* lo, const float* hi, float* partials,
                           float* out, int n, int k, int rows, int cols,
                           uint32_t leaf_tag, uint32_t row_offset,
                           uint32_t col_offset, int orig_cols, int masked,
-                          int dist, void* stream) {
+                          int dist, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int num_tiles = (rows + TILE_ROWS - 1) / TILE_ROWS;
   dim3 grid(num_tiles, k, n);
-  switch (dist) {
-    case fs::RADEMACHER:
-      launch<fs::RADEMACHER>(masked, grid, st, x, seeds, lo, hi, partials, k,
-                             rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
-      break;
-    case fs::GAUSSIAN:
-      launch<fs::GAUSSIAN>(masked, grid, st, x, seeds, lo, hi, partials, k,
-                           rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
-      break;
-    case fs::SPARSE_RADEMACHER:
-      launch<fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, lo, hi, partials,
-                                    k, rows, cols, leaf_tag, row_offset,
-                                    col_offset, orig_cols);
-      break;
-    case fs::HADAMARD:
-      launch<fs::HADAMARD>(masked, grid, st, x, seeds, lo, hi, partials, k,
-                           rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  bool ok;
+  if (dtype == fs::F32)
+    ok = launch_dist<float>(dist, masked, grid, st, x, seeds, lo, hi, partials,
+                            k, rows, cols, leaf_tag, row_offset, col_offset,
+                            orig_cols);
+  else if (dtype == fs::BF16)
+    ok = launch_dist<__nv_bfloat16>(dist, masked, grid, st, x, seeds, lo, hi,
+                                    partials, k, rows, cols, leaf_tag,
+                                    row_offset, col_offset, orig_cols);
+  else
+    ok = false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nk = n * k;

@@ -8,7 +8,8 @@
 //   v   = v[n,b](row, col)        seed fold_seed(splitmix32(xi ^ (PROJ_SALT + b)), tag)
 //   v   = v * mask_b              (BLOCK mode only: 0/1 flat-index mask)
 //   acc = acc + r[n,b] * v
-//   y   = x + scale * acc
+//   y   = x + scale * acc     (x widened to float32; y rounded once to
+//                              x's dtype, float32 or bf16, with _rn)
 //
 // The reference zero-pads the cohort to a multiple of min(32, N); padded
 // slots add r * v = +-0, which leaves acc unchanged (acc starts at +0 and
@@ -19,7 +20,8 @@
 // the result equals the plain version bit for bit for the +-1/+-2
 // families.  There are no atomics: the same inputs give the same bits.
 //
-// Bound on this card: x is read and y written once (8 bytes per element),
+// Bound on this card: x is read and y written once (8 bytes per element,
+// 4 for bf16),
 // against N*k*(one SplitMix32 round + value map + multiply + add) integer
 // and float ops per element.  From a few clients up it is bound by the
 // ALUs, exactly as the fused close (reconstruct_apply.cu) is: both do the
@@ -43,12 +45,12 @@ constexpr int TILE_C = 32;
 constexpr int TILE_R = 8;
 constexpr int CHUNK = 32;   // CLIENT_CHUNK of the reference
 
-template <int DIST, bool MASKED>
+template <typename T, int DIST, bool MASKED>
 __global__ void __launch_bounds__(TILE_C * TILE_R)
-rec_apply_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds,
+rec_apply_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
                  const float* __restrict__ rs, float scale,
                  const float* __restrict__ lo, const float* __restrict__ hi,
-                 float* __restrict__ y, int n, int k, int rows, int cols,
+                 T* __restrict__ y, int n, int k, int rows, int cols,
                  uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
                  int orig_cols) {
   __shared__ uint32_t s_seed[CHUNK];
@@ -99,25 +101,59 @@ rec_apply_kernel(const float* __restrict__ x, const uint32_t* __restrict__ seeds
   }
   if (valid) {
     const size_t idx = (size_t)r * cols + c;
-    y[idx] = __fadd_rn(x[idx], __fmul_rn(scale, acc));
+    fs::store_rn(y + idx, __fadd_rn(fs::load_f32(x + idx), __fmul_rn(scale, acc)));
   }
 }
 
-template <int DIST>
-void launch(bool masked, dim3 grid, cudaStream_t st, const float* x,
+template <typename T, int DIST>
+void launch(bool masked, dim3 grid, cudaStream_t st, const T* x,
             const uint32_t* seeds, const float* rs, float scale, const float* lo,
-            const float* hi, float* y, int n, int k, int rows, int cols,
+            const float* hi, T* y, int n, int k, int rows, int cols,
             uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
             int orig_cols) {
   const dim3 block(TILE_C, TILE_R);
   if (masked)
-    rec_apply_kernel<DIST, true><<<grid, block, 0, st>>>(
+    rec_apply_kernel<T, DIST, true><<<grid, block, 0, st>>>(
         x, seeds, rs, scale, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
         col_offset, orig_cols);
   else
-    rec_apply_kernel<DIST, false><<<grid, block, 0, st>>>(
+    rec_apply_kernel<T, DIST, false><<<grid, block, 0, st>>>(
         x, seeds, rs, scale, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
         col_offset, orig_cols);
+}
+
+template <typename T>
+bool launch_dist(int dist, bool masked, dim3 grid, cudaStream_t st,
+                 const void* xv, const uint32_t* seeds, const float* rs,
+                 float scale, const float* lo, const float* hi, void* yv, int n,
+                 int k, int rows, int cols, uint32_t leaf_tag,
+                 uint32_t row_offset, uint32_t col_offset, int orig_cols) {
+  const T* x = static_cast<const T*>(xv);
+  T* y = static_cast<T*>(yv);
+  switch (dist) {
+    case fs::RADEMACHER:
+      launch<T, fs::RADEMACHER>(masked, grid, st, x, seeds, rs, scale, lo, hi, y,
+                                n, k, rows, cols, leaf_tag, row_offset,
+                                col_offset, orig_cols);
+      return true;
+    case fs::GAUSSIAN:
+      launch<T, fs::GAUSSIAN>(masked, grid, st, x, seeds, rs, scale, lo, hi, y,
+                              n, k, rows, cols, leaf_tag, row_offset, col_offset,
+                              orig_cols);
+      return true;
+    case fs::SPARSE_RADEMACHER:
+      launch<T, fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, rs, scale, lo,
+                                       hi, y, n, k, rows, cols, leaf_tag,
+                                       row_offset, col_offset, orig_cols);
+      return true;
+    case fs::HADAMARD:
+      launch<T, fs::HADAMARD>(masked, grid, st, x, seeds, rs, scale, lo, hi, y,
+                              n, k, rows, cols, leaf_tag, row_offset, col_offset,
+                              orig_cols);
+      return true;
+    default:
+      return false;
+  }
 }
 
 }  // namespace
@@ -126,43 +162,32 @@ extern "C" int fs_rec_chunk() { return CHUNK; }
 
 extern "C" int fs_rec_max_rows() { return 65535 * TILE_R; }
 
-// x, y: (rows, cols) float32; seeds: (n,) uint32 round seeds (unfolded);
-// rs: (n, k) float32 with every aggregation weight folded in; lo/hi: (k,)
-// leaf-local flat bounds.  Returns cudaGetLastError() after the launch.
-extern "C" int fs_rec_apply(const float* x, const uint32_t* seeds,
+// x, y: (rows, cols) of dtype (fs::F32 or fs::BF16); seeds: (n,) uint32
+// round seeds (unfolded); rs: (n, k) float32 with every aggregation weight
+// folded in; lo/hi: (k,) leaf-local flat bounds.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int fs_rec_apply(const void* x, const uint32_t* seeds,
                             const float* rs, float scale, const float* lo,
-                            const float* hi, float* y, int n, int k, int rows,
+                            const float* hi, void* y, int n, int k, int rows,
                             int cols, uint32_t leaf_tag, uint32_t row_offset,
                             uint32_t col_offset, int orig_cols, int masked,
-                            int dist, void* stream) {
+                            int dist, int dtype, void* stream) {
   if (rows <= 0 || cols <= 0) return (int)cudaSuccess;
   if (n < 0 || k <= 0 || (rows + TILE_R - 1) / TILE_R > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R);
-  switch (dist) {
-    case fs::RADEMACHER:
-      launch<fs::RADEMACHER>(masked, grid, st, x, seeds, rs, scale, lo, hi, y, n,
-                             k, rows, cols, leaf_tag, row_offset, col_offset,
-                             orig_cols);
-      break;
-    case fs::GAUSSIAN:
-      launch<fs::GAUSSIAN>(masked, grid, st, x, seeds, rs, scale, lo, hi, y, n,
-                           k, rows, cols, leaf_tag, row_offset, col_offset,
-                           orig_cols);
-      break;
-    case fs::SPARSE_RADEMACHER:
-      launch<fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, rs, scale, lo,
-                                    hi, y, n, k, rows, cols, leaf_tag,
+  bool ok;
+  if (dtype == fs::F32)
+    ok = launch_dist<float>(dist, masked, grid, st, x, seeds, rs, scale, lo, hi,
+                            y, n, k, rows, cols, leaf_tag, row_offset,
+                            col_offset, orig_cols);
+  else if (dtype == fs::BF16)
+    ok = launch_dist<__nv_bfloat16>(dist, masked, grid, st, x, seeds, rs, scale,
+                                    lo, hi, y, n, k, rows, cols, leaf_tag,
                                     row_offset, col_offset, orig_cols);
-      break;
-    case fs::HADAMARD:
-      launch<fs::HADAMARD>(masked, grid, st, x, seeds, rs, scale, lo, hi, y, n,
-                           k, rows, cols, leaf_tag, row_offset, col_offset,
-                           orig_cols);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  else
+    ok = false;
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

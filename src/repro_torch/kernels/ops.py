@@ -27,6 +27,7 @@ from repro_torch.core.directions import block_bounds, check_block_mask_domain
 from repro_torch.core.prng import Distribution
 from repro_torch.core.projection import ProjectionMode, leaf_layout
 from repro_torch.core.tree import tree_leaves, tree_unflatten
+from repro_torch.kernels.common import LEAF_DTYPES
 from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
 from repro_torch.kernels.seeded_projection import project_blocks
 from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients
@@ -98,7 +99,12 @@ def project_tree_kernel(
     num_blocks: int = 1,
     mode: ProjectionMode = ProjectionMode.FULL,
 ) -> torch.Tensor:
-    """Encode every client: leaves with a leading client axis → float32 ``(N, k)``."""
+    """Encode every client: leaves with a leading client axis → float32 ``(N, k)``.
+
+    float32 and bf16 leaves reach the kernel as they are (it reads them
+    as float32, as the reference's kernel does); other dtypes are cast
+    to float32 first.
+    """
     leaves = tree_leaves(deltas)
     n = leaves[0].shape[0]
     per_client = [leaf[0] for leaf in leaves]
@@ -107,7 +113,9 @@ def project_tree_kernel(
     masked = mode == ProjectionMode.BLOCK and num_blocks > 1
     acc = None
     for ll, leaf in zip(layout, leaves):
-        x3d = leaf.reshape(n, ll.rows, ll.cols).to(torch.float32).contiguous()
+        if leaf.dtype not in LEAF_DTYPES:
+            leaf = leaf.to(torch.float32)
+        x3d = leaf.reshape(n, ll.rows, ll.cols).contiguous()
         lo, hi = _bounds(ll, total, num_blocks, mode, leaf.device)
         r = project_blocks(x3d, seeds, ll.tag, lo, hi, distribution.value,
                            masked, orig_cols=ll.cols)

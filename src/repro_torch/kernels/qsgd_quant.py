@@ -19,6 +19,9 @@ the reference's op order (float32 throughout)::
     q      = ((norm · sign(x)) · level) / L      (= norm · signed / L)
 
 ``(row, col)`` are the coordinates of the 2-D view, with ``sign(0) = 0``.
+``x`` is read as float32 and ``q`` rounded once to x's dtype (float32 or
+bf16 on the card, as the reference writes ``o_ref.dtype``); the levels
+are float32.
 Both versions give the same bits for the same norms.
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from repro_torch.core.prng import U32_MASK, hash_u32, uniform01
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
+    LEAF_DTYPES,
     check_cuda_tensor,
     raise_on_cuda_error,
     seeds_as_u32_bits,
@@ -83,7 +87,7 @@ def _lib():
     lib = _build.library("qsgd_quant")
     if not getattr(lib, "_fs_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fs_qsgd.argtypes = [p, p, p, p, p, i, i, i, i, u, u, p]
+        lib.fs_qsgd.argtypes = [p, p, p, p, p, i, i, i, i, u, u, i, p]
         lib.fs_qsgd.restype = i
         lib.fs_qsgd_max_rows.argtypes = []
         lib.fs_qsgd_max_rows.restype = i
@@ -109,7 +113,7 @@ def qsgd_quantize(x: torch.Tensor, seeds: torch.Tensor, norms: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
-    check_cuda_tensor("x", x, torch.float32, 3, dev)
+    check_cuda_tensor("x", x, LEAF_DTYPES, 3, dev)
     check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
     check_cuda_tensor("norms", norms, torch.float32, 1, dev)
     n, rows, cols = x.shape
@@ -122,7 +126,7 @@ def qsgd_quantize(x: torch.Tensor, seeds: torch.Tensor, norms: torch.Tensor,
     if n > 65535 or rows > lib.fs_qsgd_max_rows():
         raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's launch grid")
     q = torch.empty_like(x) if want_q else None
-    lv = torch.empty_like(x) if want_levels else None
+    lv = torch.empty(x.shape, dtype=torch.float32, device=dev) if want_levels else None
     seeds32 = seeds_as_u32_bits(seeds)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -130,7 +134,7 @@ def qsgd_quantize(x: torch.Tensor, seeds: torch.Tensor, norms: torch.Tensor,
             x.data_ptr(), seeds32.data_ptr(), norms.data_ptr(),
             q.data_ptr() if want_q else None, lv.data_ptr() if want_levels else None,
             n, rows, cols, levels, row_offset & U32_MASK, col_offset & U32_MASK,
-            stream)
+            LEAF_DTYPES[x.dtype], stream)
     raise_on_cuda_error("fs_qsgd", err)
     qsgd_quantize.launches += 1
     return q, lv

@@ -11,7 +11,8 @@ The numeric spec is the reference's:
     for block b, then chunk c, in order:
       s = p₀ + p₁ + … + p₁₅  (left to right),  pᵢ = (rᵢ_b · vᵢ_b) · mask_b
       acc = acc + s                            # float32
-    y = x + acc
+    y = x + acc                                # x read as float32, y cast
+                                               # once to x's dtype
 
 The reference oracle (``repro.kernels.ref.server_update_fused_ref``)
 reduces each chunk with XLA's CPU sum, which is that same left fold;
@@ -28,6 +29,7 @@ from repro_torch.core.prng import PROJ_SALT, U32_MASK, splitmix32
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     DIST_CODES,
+    LEAF_DTYPES,
     check_cuda_tensor,
     fold_seed,
     gen_tile,
@@ -104,7 +106,8 @@ def _lib():
     lib = _build.library("reconstruct_apply")
     if not getattr(lib, "_fs_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fs_fused_apply.argtypes = [p, p, p, p, p, p, i, i, i, i, u, u, u, i, i, i, p]
+        lib.fs_fused_apply.argtypes = [p, p, p, p, p, p, i, i, i, i, u, u, u, i, i,
+                                       i, i, p]
         lib.fs_fused_apply.restype = i
         for name in ("fs_fused_chunk", "fs_fused_max_rows"):
             getattr(lib, name).argtypes = []
@@ -126,8 +129,9 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
     """→ ``x + Σₙⱼ (scale·rₙⱼ)·vₙⱼ`` for one leaf's 2-D view (shape/dtype of x2d).
 
     ``seeds`` are the ``(N,)`` round seeds (int64 words), ``rs`` the
-    ``(N,)`` or ``(N, k)`` float32 scalars.  A CUDA tensor launches the
-    kernel (or raises); a CPU tensor takes the plain version.
+    ``(N,)`` or ``(N, k)`` float32 scalars; ``x2d`` is float32 or bf16.
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version.
     ``fused_reconstruct_apply.launches`` counts kernel launches.
     """
     rs = rs.to(torch.float32)
@@ -151,7 +155,7 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
     if x2d.device.type != "cuda":
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
-    check_cuda_tensor("x2d", x2d, torch.float32, 2, dev)
+    check_cuda_tensor("x2d", x2d, LEAF_DTYPES, 2, dev)
     check_cuda_tensor("seeds", seeds_p, torch.int64, 1, dev)
     rs_p = rs_p.contiguous()
     check_cuda_tensor("rs", rs_p, torch.float32, 2, dev)
@@ -174,7 +178,7 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
             hi.data_ptr(), y.data_ptr(), rs_p.shape[0], k, rows, cols,
             leaf_tag & U32_MASK, row_offset & U32_MASK, col_offset & U32_MASK,
             cols if orig_cols is None else orig_cols, int(masked),
-            DIST_CODES[distribution], stream)
+            DIST_CODES[distribution], LEAF_DTYPES[x2d.dtype], stream)
     raise_on_cuda_error("fs_fused_apply", err)
     fused_reconstruct_apply.launches += 1
     return y

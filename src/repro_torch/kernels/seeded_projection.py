@@ -5,8 +5,9 @@ kernel is ``csrc/seeded_projection.cu`` (its note gives the design and
 the bound); this module holds its plain PyTorch version and the wrapper.
 
 One call covers one leaf for all N clients: ``x`` is ``(N, rows, cols)``
-float32, ``seeds`` the ``(N,)`` round seeds as int64 words, and the
-result is float32 ``(N, k)`` — the reference's per-client call under
+float32 or bf16 (read as float32, as the reference's ``x.astype(float32)``),
+``seeds`` the ``(N,)`` round seeds as int64 words, and the result is
+float32 ``(N, k)`` — the reference's per-client call under
 ``vmap``.  Per-block seeds are ``fold_seed(block_seed(seed, j), leaf_tag)``;
 ``lo``/``hi`` are leaf-local flat bounds (float32 ``(k,)``) applied only
 when ``masked`` (BLOCK mode with k > 1).  The sum order is not part of
@@ -29,6 +30,7 @@ from repro_torch.core.prng import U32_MASK, block_seed
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     DIST_CODES,
+    LEAF_DTYPES,
     check_cuda_tensor,
     fold_seed,
     gen_tile,
@@ -105,7 +107,8 @@ def _lib():
     lib = _build.library("seeded_projection")
     if not getattr(lib, "_fs_typed", False):
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fs_project.argtypes = [p, p, p, p, p, p, i, i, i, i, u, u, u, i, i, i, p]
+        lib.fs_project.argtypes = [p, p, p, p, p, p, i, i, i, i, u, u, u, i, i, i,
+                                   i, p]
         lib.fs_project.restype = i
         lib.fs_project_tile_rows.argtypes = []
         lib.fs_project_tile_rows.restype = i
@@ -130,7 +133,7 @@ def project_blocks(x: torch.Tensor, seeds: torch.Tensor, leaf_tag: int,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
-    check_cuda_tensor("x", x, torch.float32, 3, dev)
+    check_cuda_tensor("x", x, LEAF_DTYPES, 3, dev)
     check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
     check_cuda_tensor("lo", lo, torch.float32, 1, dev)
     check_cuda_tensor("hi", hi, torch.float32, 1, dev)
@@ -155,7 +158,7 @@ def project_blocks(x: torch.Tensor, seeds: torch.Tensor, leaf_tag: int,
             partials.data_ptr(), out.data_ptr(), n, k, rows, cols,
             leaf_tag & U32_MASK, row_offset & U32_MASK, col_offset & U32_MASK,
             cols if orig_cols is None else orig_cols, int(masked),
-            DIST_CODES[distribution], stream)
+            DIST_CODES[distribution], LEAF_DTYPES[x.dtype], stream)
     raise_on_cuda_error("fs_project", err)
     project_blocks.launches += 2     # project_kernel, sum_partials_kernel
     return out

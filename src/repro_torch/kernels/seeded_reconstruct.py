@@ -15,7 +15,8 @@ The numeric spec is the reference kernel's, float32 throughout::
                                                 folded with the leaf tag)
       v = v · mask_b                           (BLOCK mode only)
       acc = acc + r[n,b] · v
-    y = x + scale · acc                        (then cast to x's dtype)
+    y = x + scale · acc                        (x read as float32, y cast
+                                                once to x's dtype)
 
 Unlike the fused close (:mod:`reconstruct_apply`) the clients are added
 one by one and the scale is applied once at the end, so the two agree
@@ -34,6 +35,7 @@ from repro_torch.core.prng import PROJ_SALT, U32_MASK, splitmix32
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     DIST_CODES,
+    LEAF_DTYPES,
     check_cuda_tensor,
     fold_seed,
     gen_tile,
@@ -110,7 +112,7 @@ def _lib():
     if not getattr(lib, "_fs_typed", False):
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
         lib.fs_rec_apply.argtypes = [p, p, p, f, p, p, p, i, i, i, i, u, u, u, i,
-                                     i, i, p]
+                                     i, i, i, p]
         lib.fs_rec_apply.restype = i
         for name in ("fs_rec_chunk", "fs_rec_max_rows"):
             getattr(lib, name).argtypes = []
@@ -130,6 +132,8 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
                               col_offset: int = 0,
                               orig_cols: int | None = None) -> torch.Tensor:
     """→ ``x + scale·Σₙⱼ rₙⱼ·vₙⱼ`` for one leaf's 2-D view (shape/dtype of x2d).
+
+    ``x2d`` is float32 or bf16 on the card (any float dtype on the CPU).
 
     ``seeds`` are the ``(N,)`` round seeds (int64 words, unfolded), ``rs``
     the ``(N,)`` or ``(N, k)`` float32 scalars with every aggregation
@@ -155,7 +159,7 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
     if x2d.device.type != "cuda":
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
-    check_cuda_tensor("x2d", x2d, torch.float32, 2, dev)
+    check_cuda_tensor("x2d", x2d, LEAF_DTYPES, 2, dev)
     check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
     rs = rs.contiguous()
     check_cuda_tensor("rs", rs, torch.float32, 2, dev)
@@ -178,7 +182,7 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
             lo.data_ptr(), hi.data_ptr(), y.data_ptr(), n, k, rows, cols,
             leaf_tag & U32_MASK, row_offset & U32_MASK, col_offset & U32_MASK,
             cols if orig_cols is None else orig_cols, int(masked),
-            DIST_CODES[distribution], stream)
+            DIST_CODES[distribution], LEAF_DTYPES[x2d.dtype], stream)
     raise_on_cuda_error("fs_rec_apply", err)
     reconstruct_apply_clients.launches += 1
     return y

@@ -4,15 +4,15 @@ Counterpart of ``repro/models/api.py``.  ``Arch`` wraps a ModelConfig
 with the serving entry points:
 
 * ``init(seed, device)``                  → params
+* ``loss(params, batch)``                 → scalar CE  (train shapes)
 * ``prefill(params, batch, capacity)``    → (logits, caches)
 * ``decode(params, token, caches, pos)``  → (logits, caches), caches
   updated in place
 * ``init_caches(batch, capacity, device)``
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  ``loss`` waits for the LLM training slice, and
-``input_specs``/``param_shapes`` for the meta-device dry run (ROADMAP
-A11).
+``device="cpu"``.  ``input_specs``/``param_shapes`` wait for the
+meta-device dry run (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -51,6 +51,10 @@ class Arch:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         return lm.init_lm(self.cfg, gen)
+
+    # ---------------- training ----------------
+    def loss(self, params, batch, window: Optional[int] = None):
+        return lm.lm_loss(params, self.cfg, batch, window=window)
 
     # ---------------- serving ----------------
     def prefill(self, params, batch, capacity: int, window: Optional[int] = None):

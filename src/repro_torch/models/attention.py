@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import allowed_mask, flash_attention
 from repro_torch.models.layers import apply_rope, init_linear, linear, rope_freqs
 
@@ -50,7 +51,9 @@ def init_attention(gen: torch.Generator, cfg):
     }
 
 
-def init_cache(cfg, batch: int, capacity: int, dtype=None, device="cpu") -> KVCache:
+def init_cache(cfg, batch: int, capacity: int, dtype=None, device="cuda") -> KVCache:
+    """Empty ring cache on ``device`` (the card unless the caller names the CPU)."""
+    device = resolve_device(device)
     hd = cfg.resolved_head_dim
     dt = dtype or cfg.torch_dtype
     return KVCache(
@@ -108,8 +111,19 @@ def _sdpa_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     algorithm; here it is ``kernels.flash_attention``, whose kernels have
     no prefix-bidirectional mask.  A prefix on the CPU falls back to the
     plain ``_sdpa`` (the same function, unblocked); on the card it raises
-    until the VLM family brings its own kernel path.
+    until the VLM family brings its own kernel path.  The kernels have no
+    backward yet: on the card, with grad enabled and any of q/k/v
+    requiring grad, this raises rather than return an output that
+    autograd cannot reach.  The CPU's plain version stays differentiable.
     """
+    if q.is_cuda and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        # The kernel writes a fresh tensor with no grad_fn: training would
+        # go on with zero gradients for Q, K and V.
+        raise NotImplementedError(
+            "no flash-attention backward kernel yet: training above "
+            "BLOCKED_SDPA_THRESHOLD tokens waits for it (ROADMAP, next: the "
+            "flash backward)")
     if prefix_len:
         if q.is_cuda:
             raise NotImplementedError(

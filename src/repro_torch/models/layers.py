@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "init_linear",
     "linear",
@@ -44,7 +46,10 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def init_norm(d: int, kind: str = "rmsnorm", dtype=torch.bfloat16, device="cpu"):
+def init_norm(d: int, kind: str = "rmsnorm", dtype=torch.bfloat16, device="cuda"):
+    """Unit scale (and zero bias) on ``device`` (the card unless the caller
+    names the CPU)."""
+    device = resolve_device(device)
     p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
     if kind == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=dtype, device=device)

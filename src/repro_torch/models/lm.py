@@ -1,4 +1,4 @@
-"""Decoder-only LM stack, dense family: prefill and decode.
+"""Decoder-only LM stack, dense family: training loss, prefill and decode.
 
 Counterpart of the dense path of ``repro/models/lm.py``.  Layers are
 grouped into **periods** as in the reference (period = 1 for the dense
@@ -12,20 +12,28 @@ federated-LLM training slice will project over these leaves and the leaf
 ordinal seeds every direction (``core/tree.py``): leaf order and shapes
 must stay those of ``jax.tree_util.tree_leaves`` on the reference's tree.
 
-Entry points: ``lm_forward`` (no cache), ``lm_prefill`` (forward + fill
-the KV caches) and ``lm_decode`` (one token against the caches, which it
-updates in place).  The Mamba and MoE branches and ``lm_loss`` come with
-their slices and raise ``NotImplementedError`` here.  The reference's
-``constrain(...)`` calls are sharding hints that are no-ops off a mesh;
-one card has none, so they are dropped.
+Entry points: ``lm_loss`` (next-token cross-entropy over ``lm_forward``,
+the training shapes), ``lm_prefill`` (forward + fill the KV caches) and
+``lm_decode`` (one token against the caches, which it updates in place).
+``lm_forward`` runs each period under ``torch.utils.checkpoint`` by
+default, as the reference runs its scan body under ``jax.checkpoint``:
+only period-boundary activations are kept for the backward pass.  The
+Mamba and MoE branches come with their slices and raise
+``NotImplementedError`` here.  The reference's ``constrain(...)`` calls
+are sharding hints that are no-ops off a mesh; one card has none, so
+they are dropped.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.tree import tree_leaves, tree_unflatten
+from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache, attention, init_attention, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -41,6 +49,7 @@ __all__ = [
     "period_structure",
     "init_lm",
     "lm_forward",
+    "lm_loss",
     "lm_prefill",
     "lm_decode",
     "LayerCaches",
@@ -167,20 +176,56 @@ def _period_slice(period, i: int):
     return [take(p) for p in period]
 
 
+def _period_body(cfg, kinds, like, positions, window, x, *leaves):
+    """One period's sublayers; its params arrive as ``leaves`` in the
+    sorted-key order of ``like`` (so a checkpoint sees them as inputs)."""
+    period_slice = tree_unflatten(like, list(leaves))
+    for pos, (kind, ffn_kind) in enumerate(kinds):
+        x, _ = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
+                             positions, window, cfg.prefix_bidirectional)
+    return x
+
+
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
-               window: Optional[int] = None):
-    """Forward without caches → logits (B, S_total, V) in float32."""
+               window: Optional[int] = None, remat: bool = True):
+    """Training-mode forward without caches → logits (B, S_total, V), float32.
+
+    With ``remat`` each period runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` with the
+    period's param slices passed as inputs: the backward pass recomputes
+    the period from its input activation (the reference's
+    ``jax.checkpoint(period_body)``).  The values are the same either way.
+    """
     plen, nper, kinds = period_structure(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     win = cfg.window if window is None else window
     for i in range(nper):
         period_slice = _period_slice(params["period"], i)
-        for pos, (kind, ffn_kind) in enumerate(kinds):
-            x, _ = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
-                                 positions, win, cfg.prefix_bidirectional)
+        body = functools.partial(_period_body, cfg, kinds, period_slice,
+                                 positions, win)
+        leaves = tree_leaves(period_slice)
+        if remat:
+            x = checkpoint(body, x, *leaves, use_reentrant=False)
+        else:
+            x = body(x, *leaves)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x)
+
+
+def lm_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy.  batch: dict(tokens, labels[, embeds]).
+
+    Frontends prepend non-text positions, so only the trailing
+    ``labels.shape[1]`` positions are scored, as in the reference.
+    """
+    logits = lm_forward(params, cfg, tokens=batch.get("tokens"),
+                        embeds=batch.get("embeds"), window=window)
+    labels = batch["labels"]
+    logits = logits[:, -labels.shape[1]:]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.take_along_dim(logp, labels[..., None].to(torch.int64), dim=-1)
+    return torch.mean(nll)
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +237,9 @@ class LayerCaches(NamedTuple):
     caches: tuple  # tuple over period positions; each a KVCache stacked
 
 
-def init_lm_caches(cfg: ModelConfig, batch: int, capacity: int, device="cpu"):
-    """Empty caches, stacked over periods per period-position."""
+def init_lm_caches(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):
+    """Empty caches on ``device``, stacked over periods per period-position."""
+    device = resolve_device(device)
     plen, nper, kinds = period_structure(cfg)
     _check_dense(kinds)
     out = []

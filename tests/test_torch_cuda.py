@@ -476,3 +476,146 @@ def test_cuda_serve_matches_cpu(cuda_device, monkeypatch):
         (flash_attention, fa.flash_f32, fa.flash_decode), before)] == [2 + 2 * 4, 2, 8]
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-3)
 
+
+
+# ---------------------------------------------------------------------------
+# bf16 leaves (the training slice) and the training path
+# ---------------------------------------------------------------------------
+
+def _bf16_decode_close(family, got, want):
+    """Bitwise for the ±1/±2 families; gaussian within rtol/atol 1e-5 plus one
+    bf16 ulp, where the float32 values round apart."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    if family == "gaussian":
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-5 + 2.0 ** -7,
+                                   atol=1e-5)
+    else:
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("shape", [(1, 960), (300, 700), (2560, 960)])
+def test_cuda_bf16_kernels_match_plain(cuda_device, family, shape):
+    """Encode, decode, fused close and QSGD on bf16 leaves against their
+    plain versions (the train path's N = 1 encode and N = 4 close)."""
+    rng = np.random.RandomState(shape[0] + len(family))
+    rows, cols = shape
+    x = torch.from_numpy(rng.randn(rows, cols).astype(np.float32) * 0.05
+                         ).to(torch.bfloat16)
+    delta = torch.from_numpy(rng.randn(1, rows, cols).astype(np.float32) * 1e-3
+                             ).to(torch.bfloat16)
+    seeds = torch.from_numpy(seeds_np(rng, 4).astype(np.int64))
+    rs = torch.from_numpy(rng.randn(4, 1).astype(np.float32))
+    lo, hi = torch.zeros(1), torch.full((1,), float(rows * cols))
+    on = [t.to(cuda_device) for t in (x, delta, seeds, rs, lo, hi)]
+
+    want = project_blocks_plain(delta, seeds[:1], 3, lo, hi, family,
+                                dtype=torch.float64)
+    got = project_blocks(on[1], on[2][:1], 3, on[4], on[5], family)
+    assert ((got.cpu().double() - want).abs() <= encode_tolerance(delta, family)).all()
+
+    want = reconstruct_plain(x, seeds, rs, 3, 0.25, lo, hi, family)
+    got = reconstruct_apply_clients(on[0], on[2], on[3], 3, 0.25, family,
+                                    lo=on[4], hi=on[5])
+    _bf16_decode_close(family, got.cpu(), want)
+
+    sp, rp = pad_cohort(seeds, rs * 0.25)
+    want = fused_apply_plain(x, sp, rp, 3, lo, hi, family)
+    got = fused_reconstruct_apply(on[0], on[2], on[3], 3, 0.25, family,
+                                  lo=on[4], hi=on[5])
+    _bf16_decode_close(family, got.cpu(), want)
+
+    norms = torch.linalg.vector_norm(delta.reshape(1, -1).float(), dim=1)
+    qp, lp = qsgd_quantize_plain(delta, seeds[:1], norms, 127, True, True)
+    q, lv = qsgd_quantize(on[1], on[2][:1], norms.to(cuda_device), 127, True, True)
+    assert q.dtype == torch.bfloat16 and lv.dtype == torch.float32
+    assert torch.equal(q.cpu().view(torch.int16), qp.view(torch.int16))
+    assert torch.equal(lv.cpu(), lp)
+
+
+def test_cuda_bf16_tree_ops_launch_without_a_float32_copy(cuda_device):
+    """``ops.project_tree_kernel`` and the closes take bf16 leaves as they are."""
+    p = {k: v.to(torch.bfloat16) for k, v in _params(2).items()}
+    rng = np.random.RandomState(5)
+    deltas = {k: (0.01 * torch.from_numpy(rng.randn(3, *v.shape).astype(np.float32))
+                  ).to(torch.bfloat16) for k, v in p.items()}
+    seeds = torch.from_numpy(seeds_np(rng, 3).astype(np.int64))
+    r_cpu = ops.project_tree_kernel(deltas, seeds)
+    r_card = ops.project_tree_kernel(
+        {k: v.to(cuda_device) for k, v in deltas.items()}, seeds.to(cuda_device))
+    torch.testing.assert_close(r_card.cpu(), r_cpu, rtol=1e-5, atol=1e-6)
+    p_card = {k: v.to(cuda_device) for k, v in p.items()}
+    for close in (ops.server_update_kernel, ops.server_update_fused):
+        want = close(p, r_cpu, seeds, 1.0)
+        got = close(p_card, r_cpu.to(cuda_device), seeds.to(cuda_device), 1.0)
+        for k in p:
+            assert got[k].dtype == torch.bfloat16
+            assert torch.equal(got[k].cpu().view(torch.int16),
+                               want[k].view(torch.int16))
+
+
+def test_cuda_sdpa_blocked_refuses_autograd(cuda_device):
+    """The flash kernels have no backward: a gradient through _sdpa_blocked
+    on the card raises instead of returning a tensor autograd cannot reach."""
+    from repro_torch.models.attention import _sdpa_blocked
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 40, 3, 64, generator=g).to(cuda_device)
+               for _ in range(3))
+    pos = torch.arange(40, device=cuda_device)
+    out = _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+    assert out.shape == q.shape and not out.requires_grad
+    for leaf in (q, k, v):
+        leaf.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="backward"):
+            _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+        leaf.requires_grad_(False)
+    with torch.no_grad():
+        q.requires_grad_(True)
+        _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_train_step_matches_cpu(cuda_device, dtype):
+    """One train_step of a reduced GQA SmolLM on the card against the CPU:
+    the encode and decode kernels launch (2 per leaf and client, 1 per leaf),
+    the loss agrees within 1e-4 (float32) / 2e-2 (bf16: activations round at
+    the card's own points), and the card's close equals its plain version
+    on the card bitwise, given the card's params, rs and seeds."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels.seeded_reconstruct import reconstruct_plain
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.models.api import Arch
+
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), d_model=384,
+                              num_heads=6, num_kv_heads=2, head_dim=64, dtype=dtype)
+    arch = Arch(cfg)
+    params = arch.init(seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                                             (8, 33)))
+    step = make_train_step(arch, FLRunConfig(num_virtual_clients=4, local_steps=2,
+                                             local_lr=0.05))
+    out = {}
+    enc0, rec0 = project_blocks.launches, reconstruct_apply_clients.launches
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        out[dev] = (p, *step(p, {"tokens": toks[:, :-1].to(dev),
+                                 "labels": toks[:, 1:].to(dev)}, 2))
+    leaves = len(tree_leaves(params))
+    assert project_blocks.launches - enc0 == 2 * leaves * 4
+    assert reconstruct_apply_clients.launches - rec0 == leaves
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert abs(float(out["cuda"][2]["loss"]) - float(out["cpu"][2]["loss"])) <= tol
+    p, new, m = out["cuda"]
+    assert torch.equal(m["seeds"].cpu(), out["cpu"][2]["seeds"])
+    from repro_torch.core.projection import leaf_layout
+
+    lo = torch.zeros(1, device=cuda_device)
+    for ll, x, y in zip(leaf_layout(p), tree_leaves(p), tree_leaves(new)):
+        want = reconstruct_plain(x.reshape(ll.rows, ll.cols), m["seeds"], m["r"],
+                                 ll.tag, 0.25, lo, lo + float(ll.size))
+        assert y.dtype == x.dtype
+        assert torch.equal(y.reshape(ll.rows, ll.cols), want)

@@ -1,4 +1,4 @@
-"""The port stands alone: importing it, chip_smoke.py and the port's examples loads no jax and no ``repro``.
+"""The port stands alone: importing it, chip_smoke.py and the port's examples loads no jax, no ``repro``, and neither ``msgpack`` nor ``ml_dtypes`` (the card's machine has neither).
 
 Checked in a fresh subprocess, so this test process's own jax import
 cannot mask a leak.
@@ -27,8 +27,9 @@ for path in ["chip_smoke.py", *sorted(glob.glob("examples/*_torch.py"))]:
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib"
                 or m.startswith("jaxlib.") or m == "repro"
-                or m.startswith("repro."))
-print(json.dumps({"modules": names, "leaked": leaked}))
+                or m.startswith("repro.") or m.split(".")[0] in ("msgpack", "ml_dtypes"))
+print(json.dumps({"modules": names, "leaked": leaked,
+                  "scripts": sorted(glob.glob("examples/*_torch.py"))}))
 """
 
 
@@ -40,6 +41,8 @@ def test_port_imports_neither_jax_nor_reference():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
+    assert {"examples/federated_llm_torch.py",
+            "examples/centralized_baseline_torch.py"} <= set(out["scripts"])
     for mod in ("repro_torch.core.prng", "repro_torch.kernels.ops",
                 "repro_torch.kernels.seeded_projection",
                 "repro_torch.kernels.reconstruct_apply",
@@ -56,5 +59,10 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.models.mlp", "repro_torch.models.attention",
                 "repro_torch.models.lm", "repro_torch.models.api",
                 "repro_torch.kernels.flash_attention",
-                "repro_torch.launch.serve", "repro_torch.configs.registry"):
+                "repro_torch.launch.serve", "repro_torch.configs.registry",
+                "repro_torch.launch.train", "repro_torch.optim",
+                "repro_torch.optim.adam", "repro_torch.optim.sgd",
+                "repro_torch.optim.schedule", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.msgpack_ckpt",
+                "repro_torch.checkpoint.msgpack_codec"):
         assert mod in out["modules"]

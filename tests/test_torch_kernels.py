@@ -436,3 +436,177 @@ def test_new_wrappers_reject_other_devices_and_bad_requests():
     with pytest.raises(ValueError, match="lo/hi"):
         reconstruct_apply_clients(torch.zeros(2, 3), torch.zeros(1, dtype=torch.int64),
                                   torch.zeros(1, 2), 0, 1.0, masked=True)
+
+
+# ---------------------------------------------------------------------------
+# bf16 leaves: the TPU kernels read x.astype(float32) and write o_ref.dtype,
+# and so do the port's plain versions (the CUDA kernels' specs).  Held
+# against the reference's kernels in interpret mode on bf16 inputs, with
+# the float32 cases' rules: the encode within 1e-6·Σ|x|·max|v|; the fused
+# close bitwise against the reference's oracle and mirror (gaussian within
+# one bf16 ulp, 2⁻⁷·|y|, plus 1e-5); the decode bitwise against the
+# reference kernel's FMA emulated from the port's own sum, then rounded to
+# bf16 (gaussian within one bf16 ulp plus 1e-5); QSGD's q (bf16) and
+# levels bitwise against ``repro.core.qsgd`` given its norms.
+# ---------------------------------------------------------------------------
+
+def _bf16(a):
+    """numpy float32 → (bf16 torch tensor, its float32 values as numpy)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+    return t, t.to(torch.float32).numpy()
+
+
+def _bf16_ulp_close(got, want):
+    got = got.to(torch.float32).numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want, np.float32)
+    assert (np.abs(got - want) <= 2.0 ** -7 * np.abs(want) + 1e-5).all()
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", MODES)
+def test_encode_plain_bf16_matches_reference_kernel(family, k, mode):
+    rng = np.random.RandomState(k + len(family) + 50)
+    total = sum(int(np.prod(s)) for s in MLP_SHAPES)
+    masked = mode == "block" and k > 1
+    offset = 0
+    for tag, shape in enumerate(MLP_SHAPES):
+        rows, cols = _view2(shape)
+        xt, xv = _bf16(rng.randn(1, rows, cols))
+        seeds = seeds_np(rng, 1)
+        lo, hi = _bounds(offset, rows * cols, total, k, mode)
+        got = project_blocks_plain(
+            xt, torch.from_numpy(seeds.astype(np.int64)), tag,
+            torch.from_numpy(lo), torch.from_numpy(hi), family, masked).numpy()
+        assert got.dtype == np.float32
+        br, bc = min(256, -(-rows // 8) * 8), min(512, -(-cols // 128) * 128)
+        xp = np.zeros((-(-rows // br) * br, -(-cols // bc) * bc), np.float32)
+        xp[:rows, :cols] = xv[0]
+        jseeds = jnp.stack([j_block_seed(int(seeds[0]), j) for j in range(k)])
+        want = np.asarray(projection_blocks_kernel_call(
+            jnp.asarray(xp, jnp.bfloat16), jseeds, tag, jnp.asarray(lo),
+            jnp.asarray(hi), family, (br, bc), orig_cols=cols, interpret=True,
+            masked=masked))
+        tol = 1e-6 * np.abs(xv).sum() * VMAX[family]
+        assert np.abs(got[0] - want).max() <= tol, shape
+        offset += rows * cols
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("n,k,mode", [(40, 1, "full"), (16, 8, "block")])
+def test_fused_plain_bf16_matches_reference_oracle_and_mirror(jax_kernels, family,
+                                                             n, k, mode):
+    rng = np.random.RandomState(n + k + 60)
+    p = {key: jnp.asarray(v, jnp.bfloat16) for key, v in mlp_params_np(n).items()}
+    rs = rng.randn(n, k).astype(np.float32)
+    seeds = seeds_np(rng, n)
+    args = (jnp.asarray(rs), jnp.asarray(seeds), 0.7, JD(family))
+    oracle = jax_kernels.ref.server_update_fused_ref(p, *args, k, JM(mode))
+    mirror = jax_kernels.ops.server_update_fused(p, *args, mode=JM(mode),
+                                                 use_pallas=False)
+    got = ops.server_update_fused(
+        params_from_jax({key: np.asarray(v) for key, v in p.items()}, "cpu"),
+        torch.from_numpy(rs), torch.from_numpy(seeds.astype(np.int64)), 0.7,
+        TD(family), mode=TM(mode))
+    for want in (oracle, mirror):
+        for key in p:
+            assert got[key].dtype == torch.bfloat16
+            w = np.array(want[key])
+            if family == "gaussian":
+                _bf16_ulp_close(got[key], w.astype(np.float32))
+            else:
+                np.testing.assert_array_equal(got[key].view(torch.int16).numpy(),
+                                              w.view(np.int16), err_msg=key)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("rows,cols,n,k,mode,ro,co", REC_CASES)
+def test_rec_plain_bf16_matches_reference_kernel(jax_kernels, family, rows, cols,
+                                                 n, k, mode, ro, co):
+    from repro.kernels.seeded_reconstruct import reconstruct_kernel_call
+
+    rng = np.random.RandomState(rows + n + 70)
+    masked = mode == "block"
+    xt, xv = _bf16(rng.randn(rows, cols))
+    seeds = seeds_np(rng, n)
+    rs = rng.randn(n, k).astype(np.float32)
+    orig_cols = cols + 3 if ro or co else cols
+    lo, hi = _bounds(100, rows * orig_cols, 3 * rows * orig_cols, k, mode)
+    scale = 0.05
+    br, bc = -(-rows // 8) * 8, -(-cols // 128) * 128
+    xp = np.zeros((br, bc), np.float32)
+    xp[:rows, :cols] = xv
+    want = np.array(reconstruct_kernel_call(
+        jnp.asarray(xp, jnp.bfloat16), jnp.asarray(seeds), jnp.asarray(rs), 6,
+        scale, family, (br, bc), ro, co, interpret=True, lo=jnp.asarray(lo),
+        hi=jnp.asarray(hi), orig_cols=orig_cols, masked=masked))[:rows, :cols]
+    args = (torch.from_numpy(seeds.astype(np.int64)), torch.from_numpy(rs), 6)
+    bounds = (torch.from_numpy(lo), torch.from_numpy(hi), family, masked, ro,
+              co, orig_cols)
+    got = reconstruct_plain(xt, *args, scale, *bounds)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    if family == "gaussian":
+        _bf16_ulp_close(got, want.astype(np.float32))
+        return
+    acc = reconstruct_plain(torch.zeros(rows, cols), *args, 1.0, *bounds)
+    fma = (xv.astype(np.float64) + float(np.float32(scale))
+           * acc.numpy().astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(
+        torch.from_numpy(fma).to(torch.bfloat16).view(torch.int16).numpy(),
+        want.view(np.int16))
+    _bf16_ulp_close(got, want.astype(np.float32))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(64, 24), (300, 70)])
+def test_qsgd_plain_bf16_matches_reference_quantizer(bits, shape):
+    from repro.core import qsgd as jq
+    from repro.core.prng import fold_seed as j_fold_seed
+
+    rng = np.random.RandomState(bits * 11 + shape[0])
+    n, levels, tag = 4, (1 << (bits - 1)) - 1, 5
+    xt, xv = _bf16(rng.randn(n, *shape) * 0.02)
+    xt[2] = 0.0
+    seeds = seeds_np(rng, n)
+    want_q, want_l, want_n = [], [], []
+    for i in range(n):
+        xj = jnp.asarray(xv[i] if i != 2 else np.zeros(shape, np.float32),
+                         jnp.bfloat16)
+        lv, nm = jq.quantize_levels(xj, jnp.uint32(seeds[i]), levels, tag)
+        want_l.append(np.asarray(lv))
+        want_n.append(float(nm))
+        want_q.append(np.array(jq.quantize_leaf(xj, jnp.uint32(seeds[i]),
+                                                levels, tag)).view(np.int16))
+    folded = np.asarray([int(j_fold_seed(jnp.uint32(s), tag)) for s in seeds])
+    q, lv = qsgd_quantize_plain(xt, torch.from_numpy(folded),
+                                torch.tensor(want_n, dtype=torch.float32),
+                                levels, True, True)
+    assert q.dtype == torch.bfloat16 and lv.dtype == torch.float32
+    assert torch.equal(lv, torch.from_numpy(np.stack(want_l)))
+    np.testing.assert_array_equal(q.view(torch.int16).numpy(), np.stack(want_q))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_qsgd_roundtrip_kernel_bf16_matches_oracles(jax_kernels, bits):
+    """bf16 tree: the port's round trip (q rounded once to bf16) bitwise
+    against its own longhand oracle, within one bf16 ulp of the reference's
+    interpret-mode kernel (whose q is an f32 ulp off its core quantizer),
+    and within ‖x‖/L per level flip of the reference's core round trip."""
+    rng = np.random.RandomState(bits + 20)
+    tree = {"w": (rng.randn(64, 24) * 0.01).astype(np.float32),
+            "b": (rng.randn(24) * 0.01).astype(np.float32)}
+    jtree = {k: jnp.asarray(v, jnp.bfloat16) for k, v in tree.items()}
+    tt = params_from_jax({k: np.asarray(v) for k, v in jtree.items()}, "cpu")
+    got = ops.qsgd_roundtrip_kernel(tt, 11, bits)
+    port_oracle = ref.qsgd_roundtrip_ref(tt, 11, bits)
+    ref_kernel = jax_kernels.ops.qsgd_roundtrip_kernel(jtree, jnp.uint32(11), bits,
+                                                       interpret=True)
+    ref_core = jax_kernels.ref.qsgd_roundtrip_ref(jtree, jnp.uint32(11), bits)
+    for k in tree:
+        assert got[k].dtype == torch.bfloat16
+        assert torch.equal(got[k].view(torch.int16), port_oracle[k].view(torch.int16))
+        a = got[k].to(torch.float32).numpy()
+        _bf16_ulp_close(a, np.asarray(ref_kernel[k], np.float32))
+        xf = np.asarray(jtree[k], np.float32)
+        bound = np.linalg.norm(xf) / ((1 << (bits - 1)) - 1)
+        assert (np.abs(a - np.asarray(ref_core[k], np.float32))
+                <= bound * (1 + 2.0 ** -7) + 1e-9).all(), k

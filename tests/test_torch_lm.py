@@ -232,7 +232,7 @@ def test_attention_ring_wrap(path, dtype, request):
     rng = np.random.RandomState(5)
     x = rng.randn(b, s + 6, jc.d_model).astype(np.float32)
     jcache = j_attention.init_cache(jc, b, cap)
-    tcache = t_attention.init_cache(tc, b, cap)
+    tcache = t_attention.init_cache(tc, b, cap, device="cpu")
     tol = LOGIT_TOL[dtype] if dtype == "float32" else dict(rtol=2e-2, atol=3e-2)
     for lo, hi in [(0, s)] + [(i, i + 1) for i in range(s, s + 6)]:
         pos = np.arange(lo, hi, dtype=np.int32)
