@@ -88,9 +88,30 @@ Phases (any failure exits non-zero and the final line is not printed):
    server lr 1; a warm-up round, then 3 timed rounds: round s, local-SGD
    s, training tokens/s, encode and close ms (CUDA events) beside their
    bounds, launches, peak GiB, loss, r_rms and uploaded scalars; the
-   warm-up round's close held bitwise against its plain version on the
-   card given that round's params, rs and seeds; the trained bf16 model
+   warm-up round's close held bitwise against ``server_aggregate`` and its
+   plain version on the card given that round's params, rs and seeds;
+   the trained bf16 model
    saved and restored through ``repro_torch.checkpoint``, bit for bit.
+
+14. the tree launches (after phase 3): ``ops.project_tree_kernel`` and
+   ``ops.server_update_fused`` against their plain tree versions on the
+   MLP tree (one launch each) and a 70-leaf tree (two launches: the leaf
+   table holds 64), float32 and bf16, all four families, k = 1, FULL 8
+   and BLOCK 8; the encode within ``tree_encode_tolerance`` and the same
+   bits on a rerun, the close bitwise for the ±1/±2 families; then leaves
+   past the old launch grids: 524 288 × 1 through the fused close and the
+   per-client decode, 262 144 × 2 through QSGD, bitwise; and in phase 11,
+   SmolLM-360M's 11 bf16 leaves in one launch (encode N = 1, k = 1 and
+   FULL 8; close N = 4) and its 2-layer leaves under 2²⁴ elements in
+   BLOCK 8.  Phase 6 times the MLP round through the tree entry points
+   (one launch for the close, two for the encode) with and without the
+   host's enqueue, and phase 13 the train round's encode and close the
+   same way;
+15. training above the blocked-attention threshold (after phase 12):
+   SmolLM-360M at full width, 2 layers, float32, 8448 tokens under
+   autograd: loss and gradients through ``_sdpa_blocked`` (the plain
+   blocked recurrence) against the plain ``_sdpa``; phase 13's close
+   (per-client rounding) is held bitwise against ``server_aggregate``.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -188,6 +209,12 @@ TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 512
 # The new params may then differ by Σₙ|Δrₙ|/N (each element moves by
 # Σ rₙvₙ/N, |v| = 1) plus 1e-6.
 TRAIN_LOSS_ATOL, TRAIN_R_ULPS, TRAIN_R_RTOL = 1e-4, 16, 1e-4
+# Training above the 8192-token threshold (C2): 2 layers, float32, one
+# sequence of 8448 tokens.  The blocked online softmax and the plain
+# softmax over all keys differ only in rounding (≈ 1e-6 relative), so the
+# loss within 1e-5 and each gradient within 1e-4 of its leaf's largest
+# |gradient|; a lost chunk or a wrong mask moves them by far more.
+TRAIN_LONG_SEQ, TRAIN_LONG_LOSS_ATOL, TRAIN_LONG_GRAD_RTOL = 8448, 1e-5, 1e-4
 # The flash kernels' names in the report, by flash_route's route.
 FLASH_KERNELS = {"prefill": "flash_prefill", "decode": "flash_decode",
                  "f32": "flash_attention"}
@@ -339,6 +366,80 @@ class Smoke:
                                  "elements changed")
         self._record(kernel, f"{name} hd={hd}", err, bool(torch.equal(g, w)),
                      ratio, changed)
+
+    def check_tree_encode(self, deltas, seeds, family, k, mode, what=""):
+        """``ops.project_tree_kernel`` (one tree launch and its reduction per
+        group of 64 leaves) against the tree's plain version summed in
+        float64, within ``tree_encode_tolerance``; the same bits on a rerun."""
+        from repro_torch.core.prng import Distribution
+        from repro_torch.core.projection import ProjectionMode
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.seeded_projection import (
+            project_blocks,
+            project_tree_plain,
+            tree_encode_tolerance,
+        )
+        from repro_torch.kernels.tree import tree_plan
+        torch = self.torch
+        leaves = tree_leaves(deltas)
+        n = leaves[0].shape[0]
+        mode = ProjectionMode(mode)
+        plan = tree_plan("encode", [tuple(x.shape[1:]) for x in leaves],
+                         [x.dtype for x in leaves], k, mode, self.dev)
+        before = project_blocks.launches
+        got = ops.project_tree_kernel(deltas, seeds, Distribution(family), k, mode)
+        again = ops.project_tree_kernel(deltas, seeds, Distribution(family), k, mode)
+        launches = project_blocks.launches - before
+        want = project_tree_plain(leaves, seeds, plan, family, dtype=torch.float64)
+        torch.cuda.synchronize()
+        if launches != 4 * len(plan.groups) or not torch.equal(got, again):
+            raise AssertionError(f"tree encode: {launches} launches for "
+                                 f"{len(plan.groups)} groups, or not "
+                                 f"deterministic: {what}")
+        views = [x.reshape(n, ll.rows, ll.cols) for ll, x in zip(plan.layout, leaves)]
+        err = (got.double() - want).abs()
+        ratio = float((err / tree_encode_tolerance(views, family)).max())
+        if not ratio <= 1.0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"tree encode disagrees: {what} max err "
+                                 f"{float(err.max())}, {ratio} of its tolerance")
+        self.enc_ratio = max(self.enc_ratio, ratio)
+        self._record("encode", family, float(err.max()), False)
+
+    def check_tree_close(self, params, seeds, rs, family, k, mode, what=""):
+        """``ops.server_update_fused`` (one tree launch per group of 64
+        leaves) against the plain tree close, leaf by leaf."""
+        from repro_torch.core.prng import Distribution
+        from repro_torch.core.projection import ProjectionMode
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.reconstruct_apply import (
+            fused_reconstruct_apply,
+            fused_tree_plain,
+        )
+        from repro_torch.kernels.tree import tree_plan
+        torch = self.torch
+        mode = ProjectionMode(mode)
+        leaves = tree_leaves(params)
+        plan = tree_plan("close", [tuple(x.shape) for x in leaves],
+                         [x.dtype for x in leaves], k, mode, self.dev)
+        before = fused_reconstruct_apply.launches
+        got = tree_leaves(ops.server_update_fused(params, rs, seeds, 0.9,
+                                                  Distribution(family), mode=mode))
+        launches = fused_reconstruct_apply.launches - before
+        frs, scale = ops.fold_upload_weights(rs, 0.9, None, mode, None)
+        want = fused_tree_plain(leaves, seeds, frs, scale, plan, family)
+        torch.cuda.synchronize()
+        if launches != len(plan.groups):
+            raise AssertionError(f"tree close: {launches} launches for "
+                                 f"{len(plan.groups)} groups: {what}")
+        err, same = 0.0, True
+        for g, w in zip(got, want):
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            same = same and bool(torch.equal(g, w))
+            if not _decode_agrees(family, g, w) or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"tree close disagrees: {what} max err {err}")
+        self._record("fused", family, err, same)
 
     def _record(self, kernel, family, err, bitwise, ratio=0.0, changed=0.0):
         self.errs[kernel] = max(self.errs[kernel], err)
@@ -642,6 +743,74 @@ def phase_kernels_runtime(s: Smoke):
           f"qsgd {s.errs['qsgd']!r}", flush=True)
 
 
+def _tree_shapes(n_leaves):
+    """The MLP's leaf shapes, repeated to ``n_leaves`` leaves, with a wide
+    SmolLM-width leaf every seventh (ragged and 16-byte-multiple columns)."""
+    shapes = [(24,), (12,), (10,), (64, 24), (24, 12), (12, 10), (33, 960)]
+    return [shapes[i % len(shapes)] for i in range(n_leaves)]
+
+
+def _rand_tree(s: Smoke, shapes, dtype, lead=()):
+    return {f"l{i:03d}": (s.randn(*lead, *sh) * 0.1).to(dtype)
+            for i, sh in enumerate(shapes)}
+
+
+def phase_tree_kernels(s: Smoke):
+    """The tree launches of the encode and the fused close against their
+    plain versions; the narrow leaves past the old launch grids (C1)."""
+    import torch
+
+    t0 = time.perf_counter()
+    n0 = s.checks
+    s.group = ("tree launches, the MLP tree (6 leaves, one launch): float32 and "
+               "bf16, all families, k=1, FULL 8, BLOCK 8; encode N=20, close "
+               "N=20 (and N=1000 at k=1)")
+    mlp = [(24,), (12,), (10,), (64, 24), (24, 12), (12, 10)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for family in FAMILIES:
+            for k, mode in ((1, "full"), (8, "full"), (8, "block")):
+                what = f"mlp tree {str(dtype)[6:]} {family} k={k} {mode}"
+                s.check_tree_encode(_rand_tree(s, mlp, dtype, (20,)), s.seeds(20),
+                                    family, k, mode, what)
+                params = _rand_tree(s, mlp, dtype)
+                for n in ((20, 1000) if k == 1 else (20,)):
+                    s.check_tree_close(params, s.seeds(n), s.randn(n, k), family,
+                                       k, mode, f"{what} n={n}")
+    s.report()
+    s.group = ("tree launches, a 70-leaf tree (two launches: the table holds 64): "
+               "float32 and bf16, rademacher and hadamard, FULL 8 and BLOCK 8; "
+               "encode and close N=20")
+    shapes = _tree_shapes(70)
+    for dtype in (torch.float32, torch.bfloat16):
+        for family in ("rademacher", "hadamard"):
+            for k, mode in ((8, "full"), (8, "block")):
+                what = f"70-leaf tree {str(dtype)[6:]} {family} k={k} {mode}"
+                s.check_tree_encode(_rand_tree(s, shapes, dtype, (20,)), s.seeds(20),
+                                    family, k, mode, what)
+                s.check_tree_close(_rand_tree(s, shapes, dtype), s.seeds(20),
+                                   s.randn(20, k), family, k, mode, what)
+    s.report()
+    s.group = ("narrow leaves past the old grid limits (C1): 524288x1 through "
+               "the fused close and the per-client decode (N=20), 262144x2 "
+               "through QSGD (N=2); float32 and bf16")
+    zero = torch.zeros(1, device=s.dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x2d = s.randn(524_288, 1).to(dtype)
+        hi = zero + float(x2d.numel())
+        for family in FAMILIES:
+            sd, rs = s.seeds(20), s.randn(20, 1)
+            s.check_fused(x2d, sd, rs, 3, 0.05, family, zero, hi, False,
+                          what=f"narrow 524288x1 {dtype} {family}")
+            s.check_rec(x2d, sd, rs, 3, 0.05, family, zero, hi, False,
+                        what=f"narrow 524288x1 {dtype} {family}")
+        s.check_qsgd((s.randn(2, 262_144, 2) * 0.01).to(dtype), s.seeds(2), 8,
+                     what=f"narrow 262144x2 {dtype}")
+    s.report()
+    torch.cuda.empty_cache()
+    print(f"tree kernels: all {s.checks - n0} checks ok in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _kernel_fns():
     from repro_torch.kernels.qsgd_quant import qsgd_quantize
     from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
@@ -804,44 +973,57 @@ def phase_times(s: Smoke):
     """CUDA-event times of each kernel, its plain version, and its bound."""
     import torch
 
+    from repro_torch.core.prng import Distribution
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.kernels import ops
     from repro_torch.kernels.reconstruct_apply import (
         fused_apply_plain,
         fused_reconstruct_apply,
+        fused_tree_plain,
         pad_cohort,
     )
     from repro_torch.kernels.seeded_projection import (
         project_blocks,
         project_blocks_plain,
+        project_tree_plain,
     )
+    from repro_torch.kernels.tree import tree_plan
 
+    # The main path's round: the 6 MLP leaves, N = 20, k = 1, one tree
+    # launch each for the encode (plus its reduction) and the fused close,
+    # through the entry points run_simulation calls.
     mlp = [(1, 24), (1, 12), (1, 10), (64, 24), (24, 12), (12, 10)]
     n, k = 20, 1
     one = torch.ones(1, device=s.dev)
     zero = torch.zeros(1, device=s.dev)
-    enc_args = [(s.randn(n, r, c), s.seeds(n), tag, zero, one * (r * c))
-                for tag, (r, c) in enumerate(mlp)]
+    deltas = {f"l{tag}": s.randn(n, r, c) for tag, (r, c) in enumerate(mlp)}
+    params = {f"l{tag}": s.randn(r, c) for tag, (r, c) in enumerate(mlp)}
     seeds = s.seeds(n)
-    rs = s.randn(n, k) * (1.0 / n)
-    sp, rp = pad_cohort(seeds, rs)
-    fus_args = [(s.randn(r, c), tag, one * 0, one * (r * c))
-                for tag, (r, c) in enumerate(mlp)]
+    rs = s.randn(n, k)
+    d_leaves = [deltas[key] for key in sorted(deltas)]
+    p_leaves = [params[key] for key in sorted(params)]
+    f32 = [torch.float32] * len(mlp)
+    enc_plan = tree_plan("encode", mlp, f32, k, ProjectionMode.FULL, s.dev)
+    fus_plan = tree_plan("close", mlp, f32, k, ProjectionMode.FULL, s.dev)
+    rd = Distribution.RADEMACHER
 
     def enc_kernel():
-        for a in enc_args:
-            project_blocks(*a)
+        ops.project_tree_kernel(deltas, seeds, rd)
 
     def enc_plain():
-        for a in enc_args:
-            project_blocks_plain(*a)
+        project_tree_plain(d_leaves, seeds, enc_plan)
 
     def fus_kernel():
-        for x2d, tag, lo, hi in fus_args:
-            fused_reconstruct_apply(x2d, seeds, rs, tag, 1.0, lo=lo, hi=hi)
+        ops.server_update_fused(params, rs, seeds, 1.0, rd)
 
     def fus_plain():
-        for x2d, tag, lo, hi in fus_args:
-            fused_apply_plain(x2d, sp, rp, tag, lo, hi)
+        fused_tree_plain(p_leaves, seeds, rs, 1.0 / n, fus_plan)
 
+    e0, f0 = project_blocks.launches, fused_reconstruct_apply.launches
+    enc_kernel()
+    fus_kernel()
+    per_round = {"encode": project_blocks.launches - e0,
+                 "fused": fused_reconstruct_apply.launches - f0}
     # plain, kernel, kernel, plain: two turns each, on one card.
     t = {}
     for name, fn in (("enc_plain", enc_plain), ("enc_kernel", enc_kernel),
@@ -849,10 +1031,17 @@ def phase_times(s: Smoke):
                      ("fus_plain", fus_plain), ("fus_kernel", fus_kernel),
                      ("fus_kernel2", fus_kernel), ("fus_plain2", fus_plain)):
         t[name] = s.time_ms(fn, reps=50)
+    # The same calls with the host kept out (the device's own time), and
+    # the host's enqueue time of one call.
+    t["enc_device"] = _device_ms([enc_kernel], reps=20)
+    t["fus_device"] = _device_ms([fus_kernel], reps=20)
+    t["enc_enqueue"] = _enqueue_ms(enc_kernel)
+    t["fus_enqueue"] = _enqueue_ms(fus_kernel)
     enc_b, enc_by = _encode_bound(mlp, n, k)
     fus_b, fus_by = _fused_bound(mlp, n, k)
-    print("times (main path, one round: 6 MLP leaves, N=20, k=1, rademacher): "
-          + json.dumps(t), flush=True)
+    print("times (main path, one round: 6 MLP leaves, N=20, k=1, rademacher; "
+          f"launches per round {json.dumps(per_round)}): " + json.dumps(t),
+          flush=True)
 
     rows = []
     r, c = LARGE
@@ -882,6 +1071,9 @@ def phase_times(s: Smoke):
                          ms=kf, plain_ms=pf, bound_ms=b, bound_by=by))
     print("times (large leaf, rademacher): " + json.dumps({"rows": rows}),
           flush=True)
+    if per_round != {"encode": 2, "fused": 1}:
+        raise AssertionError(f"times: a round took {per_round} launches, "
+                             "expected one tree launch each (and the reduction)")
     return {
         "encode": dict(ms=(t["enc_kernel"] + t["enc_kernel2"]) / 2,
                        plain_ms=(t["enc_plain"] + t["enc_plain2"]) / 2,
@@ -1375,7 +1567,7 @@ def phase_train_kernels(s: Smoke):
 
     from repro_torch.configs.registry import get_config
     from repro_torch.core.projection import leaf_layout
-    from repro_torch.core.tree import tree_leaves
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.models.api import Arch
 
     t0 = time.perf_counter()
@@ -1421,7 +1613,34 @@ def phase_train_kernels(s: Smoke):
             s.check_qsgd(delta, s.seeds(1), bits, what=f"train leaf {ll.shape}")
         del delta
     s.report()
-    del params
+    s.group = ("train tree launches, bf16: SmolLM-360M's 11 leaves in one launch "
+               "(rademacher, hadamard; encode N=1 k=1 and FULL 8, close N=4 k=1), "
+               "and its 2-layer leaves under 2**24 elements (10 leaves; BLOCK 8)")
+    for family in ("rademacher", "hadamard"):
+        deltas = tree_map(lambda w: (s.randn(1, *w.shape) * 1e-3).to(torch.bfloat16),
+                          params)
+        for k in (1, 8):
+            s.check_tree_encode(deltas, s.seeds(1), family, k, "full",
+                                f"smollm-360m 11 leaves {family} k={k}")
+        del deltas
+        s.check_tree_close(params, s.seeds(TRAIN_CLIENTS),
+                           s.randn(TRAIN_CLIENTS, 1) * 0.3, family, 1, "full",
+                           f"smollm-360m 11 leaves {family}")
+        torch.cuda.empty_cache()
+    small = Arch(dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2,
+                                     dtype="bfloat16")).init(seed=2, device=s.dev)
+    small = {f"l{i:02d}": w for i, w in enumerate(tree_leaves(small))
+             if w.numel() <= 1 << 24}
+    for family in ("rademacher", "hadamard"):
+        deltas = {key: (s.randn(1, *w.shape) * 1e-3).to(torch.bfloat16)
+                  for key, w in small.items()}
+        s.check_tree_encode(deltas, s.seeds(1), family, 8, "block",
+                            f"smollm-360m 2-layer {len(small)} leaves {family} BLOCK 8")
+        s.check_tree_close(small, s.seeds(TRAIN_CLIENTS),
+                           s.randn(TRAIN_CLIENTS, 8) * 0.3, family, 8, "block",
+                           f"smollm-360m 2-layer {len(small)} leaves {family} BLOCK 8")
+    s.report()
+    del params, small
     torch.cuda.empty_cache()
     print(f"train kernels (bf16): all {s.checks - n0} checks ok in "
           f"{time.perf_counter() - t0:.1f} s (at most {s.enc_ratio!r} of the "
@@ -1465,7 +1684,7 @@ def phase_train_parity(s: Smoke):
         launches[dev.type] = {k: fn.launches for k, fn in counters.items()
                               if fn.launches}
     leaves = len(tree_leaves(params[cpu]))
-    want = {"encode": 2 * leaves * n, "rec": leaves}
+    want = {"encode": 2 * n, "rec": leaves}     # one tree launch per client
     if launches != {"cuda": want, "cpu": {}}:
         raise AssertionError(f"train parity: launches {launches}, expected "
                              f"{want} on the card and none on the CPU")
@@ -1496,6 +1715,86 @@ def phase_train_parity(s: Smoke):
         card_s=secs["cuda"], cpu_s=secs["cpu"],
         total_s=time.perf_counter() - t0)), flush=True)
     del out, params
+    torch.cuda.empty_cache()
+
+
+def phase_train_long(s: Smoke):
+    """Training above the blocked-attention threshold on the card (C2):
+    SmolLM-360M at full width, 2 layers, float32, one sequence of
+    TRAIN_LONG_SEQ tokens; the loss and every gradient through
+    ``_sdpa_blocked`` (the reference's blocked recurrence in plain torch,
+    under autograd) against the same through the plain ``_sdpa``."""
+    import numpy as np
+    import torch
+
+    import repro_torch.models.attention as attention
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_unflatten
+    from repro_torch.models.api import Arch
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_PARITY_LAYERS,
+                              dtype="float32")
+    arch = Arch(cfg)
+    params = arch.init(seed=3, device=s.dev)
+    toks = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (1, TRAIN_LONG_SEQ + 1))).to(s.dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    counters = _flash_counters()
+    plain_blocked = attention._sdpa_blocked_plain
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return plain_blocked(*args, **kwargs)
+
+    def loss_and_grads():
+        leaves = [w.detach().requires_grad_(True) for w in tree_leaves(params)]
+        p = tree_unflatten(params, leaves)
+        loss = arch.loss(p, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return float(loss), grads
+
+    for fn in counters.values():
+        fn.launches = 0
+    attention._sdpa_blocked_plain = counted
+    try:
+        blocked = loss_and_grads()
+    finally:
+        attention._sdpa_blocked_plain = plain_blocked
+    blocked_s = time.perf_counter() - t0
+    flash = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    threshold = attention.BLOCKED_SDPA_THRESHOLD
+    attention.BLOCKED_SDPA_THRESHOLD = TRAIN_LONG_SEQ + 1
+    try:
+        t1 = time.perf_counter()
+        plain = loss_and_grads()
+        plain_s = time.perf_counter() - t1
+    finally:
+        attention.BLOCKED_SDPA_THRESHOLD = threshold
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(blocked[1], plain[1]))
+    dloss = abs(blocked[0] - plain[0])
+    # forward and the recomputation in the backward (remat), per layer
+    if calls[0] != 2 * cfg.num_layers or flash:
+        raise AssertionError(f"train long: blocked recurrence taken {calls[0]} "
+                             f"times (expected {2 * cfg.num_layers}), flash "
+                             f"launches {flash}")
+    if not (dloss <= TRAIN_LONG_LOSS_ATOL and worst <= TRAIN_LONG_GRAD_RTOL
+            and all(bool(torch.isfinite(g).all()) for g in blocked[1])):
+        raise AssertionError(f"train long: |dloss| {dloss} (limit "
+                             f"{TRAIN_LONG_LOSS_ATOL}), worst gradient "
+                             f"{worst} of its leaf's largest (limit "
+                             f"{TRAIN_LONG_GRAD_RTOL})")
+    print("train long: " + json.dumps(dict(
+        arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, seq=TRAIN_LONG_SEQ,
+        threshold=threshold, loss_blocked=blocked[0], loss_plain=plain[0],
+        abs_dloss=dloss, loss_limit=TRAIN_LONG_LOSS_ATOL,
+        max_grad_err_over_leaf_max=worst, grad_limit=TRAIN_LONG_GRAD_RTOL,
+        blocked_recurrence_calls=calls[0], blocked_s=blocked_s, plain_s=plain_s,
+        total_s=time.perf_counter() - t0)), flush=True)
+    del params, blocked, plain
     torch.cuda.empty_cache()
 
 
@@ -1583,7 +1882,7 @@ def phase_train(s: Smoke):
         ops.project_tree_kernel, ops.server_update_kernel = originals
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rounds = 1 + TRAIN_ROUNDS
-    want = {"encode": 2 * len(layout) * n * rounds, "rec": len(layout) * rounds}
+    want = {"encode": 2 * n * rounds, "rec": len(layout) * rounds}
     if launches != want:
         raise AssertionError(f"train: launches {launches}, expected {want}")
     if not (all(r["uploaded_scalars"] == 2 * n for r in rows)
@@ -1651,76 +1950,96 @@ def _device_ms(fns, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def _train_kernel_times(s, params, layout):
-    """The round's encode and close split into the kernels' device time (one
-    client's encode and the close over the 11 leaves, ``_device_ms``) and
-    the host's enqueue time of one tree-level call (no wait for the
-    device); the plain versions' times at the same shapes beside them."""
+def _enqueue_ms(fn, reps=5):
+    """The host's time to enqueue one call of ``fn`` (no wait for the device),
+    the least of ``reps`` calls after a warm-up."""
     import torch
 
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best * 1e3
+
+
+def _train_kernel_times(s, params, layout):
+    """The round's encode and close split into the kernels' device time (one
+    client's tree encode, and the close over the 11 leaves in the train
+    step's per-client-rounding mode, ``_device_ms``) and the host's enqueue
+    time of one call; the plain versions' times at the same shapes beside
+    them."""
+    import torch
+
+    from repro_torch.core.prng import Distribution
+    from repro_torch.core.projection import ProjectionMode
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.kernels import ops
-    from repro_torch.kernels.seeded_projection import project_blocks, project_blocks_plain
-    from repro_torch.kernels.seeded_reconstruct import (
-        reconstruct_apply_clients,
-        reconstruct_plain,
-    )
+    from repro_torch.kernels.seeded_projection import project_tree_plain
+    from repro_torch.kernels.seeded_reconstruct import reconstruct_plain
+    from repro_torch.kernels.tree import tree_plan
 
     n = TRAIN_CLIENTS
-    zero = torch.zeros(1, device=s.dev)
     sd1, sdn, rs = s.seeds(1), s.seeds(n), s.randn(n, 1) * 0.3
-    enc_fns, close_fns = [], []
-    enc_plain = close_plain = 0.0
-    for ll, w in zip(layout, tree_leaves(params)):
-        hi = zero + float(ll.size)
-        x3d, x2d = w.reshape(1, ll.rows, ll.cols), w.reshape(ll.rows, ll.cols)
-        enc_fns.append(lambda x3d=x3d, tag=ll.tag, hi=hi: project_blocks(
-            x3d, sd1, tag, zero, hi))
-        close_fns.append(lambda x2d=x2d, tag=ll.tag, hi=hi: reconstruct_apply_clients(
-            x2d, sdn, rs, tag, 1.0 / n, lo=zero, hi=hi))
-        enc_plain += s.time_ms(lambda: project_blocks_plain(
-            x3d, sd1, ll.tag, zero, hi), reps=1, warmup=0)
-        close_plain += s.time_ms(lambda: reconstruct_plain(
-            x2d, sdn, rs, ll.tag, 1.0 / n, zero, hi), reps=1, warmup=0)
-    enc, close = _device_ms(enc_fns), _device_ms(close_fns)
     delta = tree_map(lambda w: w.unsqueeze(0), params)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ops.project_tree_kernel(delta, sd1)
-    enc_host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ops.server_update_kernel(params, rs, sdn, 1.0)
-    close_host = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dict(encode_device_ms_per_client=enc, encode_device_ms_per_round=n * enc,
-                encode_enqueue_ms_per_client=enc_host * 1e3,
+    leaves = tree_leaves(delta)
+    plan = tree_plan("encode", [ll.shape for ll in layout], [w.dtype for w in leaves],
+                     1, ProjectionMode.FULL, s.dev)
+    rd = Distribution.RADEMACHER
+
+    def enc():
+        ops.project_tree_kernel(delta, sd1)
+
+    def close():
+        ops.server_update_kernel(params, rs, sdn, 1.0, rd, per_client_rounding=True)
+
+    enc_plain = s.time_ms(lambda: project_tree_plain(leaves, sd1, plan), reps=1,
+                          warmup=0)
+    close_plain = 0.0
+    for ll, w in zip(layout, tree_leaves(params)):
+        x2d = w.reshape(ll.rows, ll.cols)
+        close_plain += s.time_ms(lambda: reconstruct_plain(
+            x2d, sdn, rs, ll.tag, 1.0, None, None, per_client_rounding=True,
+            div=float(n)), reps=1, warmup=0)
+    enc_dev, close_dev = _device_ms([enc]), _device_ms([close])
+    return dict(encode_device_ms_per_client=enc_dev,
+                encode_device_ms_per_round=n * enc_dev,
+                encode_enqueue_ms_per_client=_enqueue_ms(enc),
                 encode_plain_ms_per_client=enc_plain,
-                close_device_ms=close, close_enqueue_ms=close_host * 1e3,
+                close_device_ms=close_dev, close_enqueue_ms=_enqueue_ms(close),
                 close_plain_ms=close_plain)
 
 
 def _train_close_check(s, params, new, metrics, layout):
-    """The round's close held against its plain version on the card, bitwise,
-    given that round's params, rs and seeds (leaf by leaf)."""
+    """The round's close (per-client rounding, C4) held bitwise against the
+    port's plain ``server_aggregate`` on the card and against the kernel's
+    plain version, given that round's params, rs and seeds."""
     import torch
 
-    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.core.fedscalar import FedScalarConfig, server_aggregate
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.kernels import ops
     from repro_torch.kernels.seeded_reconstruct import reconstruct_plain
 
-    rs, scale = ops.fold_upload_weights(metrics["r"], 1.0, None,
-                                        ProjectionMode.FULL, None)
-    lo = torch.zeros(1, device=s.dev)
-    for ll, x, y in zip(layout, tree_leaves(params), tree_leaves(new)):
-        want = reconstruct_plain(x.reshape(ll.rows, ll.cols), metrics["seeds"], rs,
-                                 ll.tag, scale, lo, lo + float(ll.size))
+    rs, seeds = metrics["r"], metrics["seeds"]
+    agg = tree_leaves(server_aggregate(params, rs, seeds,
+                                       FedScalarConfig(server_lr=1.0)))
+    for ll, x, y, a in zip(layout, tree_leaves(params), tree_leaves(new), agg):
+        if not torch.equal(y, a):
+            raise AssertionError(f"train: the close differs from server_aggregate "
+                                 f"at leaf {ll.tag} {ll.shape}")
+        want = reconstruct_plain(x.reshape(ll.rows, ll.cols), seeds, rs, ll.tag, 1.0,
+                                 None, None, per_client_rounding=True,
+                                 div=float(rs.shape[0]))
         if not torch.equal(y.reshape(ll.rows, ll.cols), want):
             raise AssertionError(f"train: the close differs from its plain "
                                  f"version at leaf {ll.tag} {ll.shape}")
+    del agg
     torch.cuda.synchronize()
-    return dict(leaves=len(layout), bitwise=True)
+    return dict(leaves=len(layout), bitwise_server_aggregate=True,
+                bitwise_plain=True)
 
 
 def main() -> int:
@@ -1744,6 +2063,7 @@ def main() -> int:
     s = Smoke(torch)
     phase_kernels(s)
     phase_kernels_runtime(s)
+    phase_tree_kernels(s)
     launches = phase_main_path(s)
     rt_launches, _ = phase_runtime(s)
     for k in ("encode", "fused"):
@@ -1756,6 +2076,7 @@ def main() -> int:
     serve_launches = phase_serve(s, flash_rows)
     phase_train_kernels(s)
     phase_train_parity(s)
+    phase_train_long(s)
     train_launches = phase_train(s)
     flash_launches = {"prefill": serve_launches["prefill"],
                       "decode": serve_launches["decode"], "f32": f32_launches}

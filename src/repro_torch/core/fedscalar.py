@@ -177,7 +177,15 @@ def server_aggregate(params: Any, rs: torch.Tensor, seeds: torch.Tensor,
                                cfg.num_projections, cfg.mode,
                                block_weights=block_weights)
         total = tree_map(lambda a, r_: a + r_.to(torch.float32), total, rec)
-    ghat = tree_map(lambda t: t / n, total) if weights is None else total
+    # Divided by a device tensor: CUDA takes a division by a Python number
+    # as a multiply by its reciprocal, the CPU (and the reference) as a
+    # division; a tensor divisor is an IEEE division on both.
+    if weights is None:
+        n_f = torch.tensor(float(n), dtype=torch.float32,
+                           device=tree_leaves(params)[0].device)
+        ghat = tree_map(lambda t: t / n_f, total)
+    else:
+        ghat = total
     return tree_map(lambda p, g: (p + cfg.server_lr * g).to(p.dtype),
                     params, ghat)
 

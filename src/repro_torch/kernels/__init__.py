@@ -1,9 +1,9 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
 * :mod:`seeded_projection` — client encode ``r = ⟨δ, v(ξ)⟩`` for a whole
-  cohort per leaf (``csrc/seeded_projection.cu``).
-* :mod:`reconstruct_apply` — fused server close ``y = x + Σ r·v``
-  (``csrc/reconstruct_apply.cu``).
+  cohort, one launch per tree (``csrc/seeded_projection.cu``).
+* :mod:`reconstruct_apply` — fused server close ``y = x + Σ r·v``, one
+  launch per tree (``csrc/reconstruct_apply.cu``).
 * :mod:`seeded_reconstruct` — per-client server decode, the federation
   runtime's large-cohort apply and digest replay
   (``csrc/seeded_reconstruct.cu``).
@@ -16,7 +16,10 @@
   (``csrc/flash_attention.cu``).
 * :mod:`common` — the direction chain in plain torch (``csrc/chain.cuh``
   is its CUDA twin) and the wrappers' checks.
-* :mod:`ops` — parameter trees → per-leaf kernel calls.
+* :mod:`tree` — the leaf table a tree launch carries (``csrc/tree.cuh``)
+  and the cached per-layout launch plans.
+* :mod:`ops` — parameter trees → tree launches (the per-client decode
+  and QSGD: per-leaf launches).
 * :mod:`ref` — plain-torch oracles.
 * :mod:`_build` — nvcc build and ctypes load, on first use.
 

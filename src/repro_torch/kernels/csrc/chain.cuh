@@ -31,6 +31,49 @@ __device__ __forceinline__ void store_rn(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// 16-byte vector accesses: element j of a uint4 holding V = 16 / sizeof(T)
+// leaf elements, widened exactly (bf16 is the high half of a float32), and
+// V float32 values rounded once to T and packed back (j compile-time
+// after unrolling, so nothing leaves the registers).
+template <typename T> struct VecOf { static constexpr int V = 16 / (int)sizeof(T); };
+
+__device__ __forceinline__ uint32_t vec_word(const uint4& w, int i) {
+  return i == 0 ? w.x : (i == 1 ? w.y : (i == 2 ? w.z : w.w));
+}
+template <typename T>
+__device__ __forceinline__ float vec_f32(const uint4& w, int j);
+template <>
+__device__ __forceinline__ float vec_f32<float>(const uint4& w, int j) {
+  return __uint_as_float(vec_word(w, j));
+}
+template <>
+__device__ __forceinline__ float vec_f32<__nv_bfloat16>(const uint4& w, int j) {
+  const uint32_t word = vec_word(w, j >> 1);
+  return __uint_as_float((j & 1) ? (word & 0xFFFF0000u) : (word << 16));
+}
+template <typename T>
+__device__ __forceinline__ uint4 vec_pack(const float (&v)[VecOf<T>::V]);
+template <>
+__device__ __forceinline__ uint4 vec_pack<float>(const float (&v)[4]) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+template <>
+__device__ __forceinline__ uint4 vec_pack<__nv_bfloat16>(const float (&v)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i]))
+           | ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1])) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// x rounded to T and widened back: the value a T leaf would store.
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 enum Dist : int { RADEMACHER = 0, GAUSSIAN = 1, SPARSE_RADEMACHER = 2, HADAMARD = 3 };
 
 constexpr uint32_t TAG_U1 = 0x9E3779B9u;

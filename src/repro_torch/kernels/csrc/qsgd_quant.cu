@@ -27,7 +27,9 @@
 // outputs from registers, with coalesced rows.
 //
 // Design.  Grid (column tiles, row tiles, clients); a thread block is
-// TILE_R rows by TILE_C columns, one thread per element.  The first TILE_R
+// TILE_R rows by TILE_C columns, one thread per element, and the blocks
+// walk the row tiles with a grid-stride loop (gridDim.y is at most
+// 65 535; a leaf may have more row tiles).  The first TILE_R
 // threads hoist the chain's seed and row rounds for the tile's rows into
 // shared memory, so each element pays one mixer round.
 #include <cuda_runtime.h>
@@ -50,35 +52,42 @@ qsgd_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
   __shared__ uint32_t s_state[TILE_R];
   const int n = blockIdx.z;
   const int c = blockIdx.x * TILE_C + threadIdx.x;
-  const int r = blockIdx.y * TILE_R + threadIdx.y;
   const int tid = threadIdx.y * TILE_C + threadIdx.x;
-  if (tid < TILE_R) {
-    const uint32_t row = row_offset + (uint32_t)(blockIdx.y * TILE_R + tid);
-    // hash_u32(seed, row, col, tag): the first two of its three rounds.
-    s_state[tid] = fs::splitmix32(fs::splitmix32(seeds[n] ^ QSGD_TAG) ^ row);
-  }
-  __syncthreads();
-  if (r >= rows || c >= cols) return;
-
-  const size_t idx = ((size_t)n * rows + r) * cols + c;
-  const float xv = fs::load_f32(x + idx);
+  const int row_tiles = (rows + TILE_R - 1) / TILE_R;
   const float norm = norms[n];
   const float fl = (float)levels;
-  const float u = fs::uniform01(fs::splitmix32(s_state[threadIdx.y] ^ (col_offset + (uint32_t)c)));
-  const float scaled = __fmul_rn(__fdiv_rn(fabsf(xv), norm), fl);
-  const float lo = floorf(scaled);
-  const float level = __fadd_rn(lo, (u < __fsub_rn(scaled, lo)) ? 1.0f : 0.0f);
-  const float sign = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : 0.0f);
-  if (lv != nullptr) lv[idx] = __fmul_rn(sign, level);
-  if (q != nullptr)
-    fs::store_rn(q + idx, __fdiv_rn(__fmul_rn(__fmul_rn(norm, sign), level), fl));
+  for (int tr = blockIdx.y; tr < row_tiles; tr += gridDim.y) {
+    __syncthreads();   // the previous row tile's reads of s_state are done
+    if (tid < TILE_R) {
+      const uint32_t row = row_offset + (uint32_t)(tr * TILE_R + tid);
+      // hash_u32(seed, row, col, tag): the first two of its three rounds.
+      s_state[tid] = fs::splitmix32(fs::splitmix32(seeds[n] ^ QSGD_TAG) ^ row);
+    }
+    __syncthreads();
+    const int r = tr * TILE_R + threadIdx.y;
+    if (r >= rows || c >= cols) continue;
+
+    const size_t idx = ((size_t)n * rows + r) * cols + c;
+    const float xv = fs::load_f32(x + idx);
+    const float u = fs::uniform01(
+        fs::splitmix32(s_state[threadIdx.y] ^ (col_offset + (uint32_t)c)));
+    const float scaled = __fmul_rn(__fdiv_rn(fabsf(xv), norm), fl);
+    const float lo = floorf(scaled);
+    const float level = __fadd_rn(lo, (u < __fsub_rn(scaled, lo)) ? 1.0f : 0.0f);
+    const float sign = xv > 0.0f ? 1.0f : (xv < 0.0f ? -1.0f : 0.0f);
+    if (lv != nullptr) lv[idx] = __fmul_rn(sign, level);
+    if (q != nullptr)
+      fs::store_rn(q + idx, __fdiv_rn(__fmul_rn(__fmul_rn(norm, sign), level), fl));
+  }
 }
 
 template <typename T>
 int launch(const void* x, const uint32_t* seeds, const float* norms, void* q,
            float* lv, int n, int rows, int cols, int levels,
            uint32_t row_offset, uint32_t col_offset, cudaStream_t st) {
-  const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R, n);
+  const int row_tiles = (rows + TILE_R - 1) / TILE_R;
+  const dim3 grid((cols + TILE_C - 1) / TILE_C, row_tiles < 65535 ? row_tiles : 65535,
+                  n);
   const dim3 block(TILE_C, TILE_R);
   qsgd_kernel<T><<<grid, block, 0, st>>>(
       static_cast<const T*>(x), seeds, norms, static_cast<T*>(q), lv, rows, cols,
@@ -87,8 +96,6 @@ int launch(const void* x, const uint32_t* seeds, const float* norms, void* q,
 }
 
 }  // namespace
-
-extern "C" int fs_qsgd_max_rows() { return 65535 * TILE_R; }
 
 // x, q: (n, rows, cols) of dtype (fs::F32 or fs::BF16), lv: the same
 // shape in float32 (q or lv may be null); seeds: (n,) leaf-folded uint32;
@@ -99,7 +106,7 @@ extern "C" int fs_qsgd(const void* x, const uint32_t* seeds, const float* norms,
                        uint32_t row_offset, uint32_t col_offset, int dtype,
                        void* stream) {
   if (n <= 0 || rows <= 0 || cols <= 0) return (int)cudaSuccess;
-  if (n > 65535 || (rows + TILE_R - 1) / TILE_R > 65535 || (q == nullptr && lv == nullptr))
+  if (n > 65535 || (q == nullptr && lv == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == fs::F32)

@@ -2,37 +2,51 @@
 //
 // Replaces the TPU kernel repro/kernels/reconstruct_apply.py::_fused_kernel.
 // The numeric spec is the reference's (reconstruct_apply.py docstring):
-// the scale is folded into rs on the host, the cohort is zero-padded to
-// a multiple of CHUNK = 16, and for each block b and each chunk c, in
-// order, the 16 products (r * v) * mask are summed left to right from
-// the first product, that sum is added to a float32 accumulator, and
-// the result is a bare y = x + acc (x widened to float32, y rounded once
-// to x's dtype, float32 or bf16).  Every float op is an _rn intrinsic
-// and the file is built with -fmad=false, so nothing is contracted into
-// an FMA: the result equals the plain version bit for bit for the ±1/±2
-// families.
+// the scale is folded into rs (f32(scale) * r, one rounding, here at
+// staging), the cohort is zero-padded to a multiple of CHUNK = 16, and
+// for each block b and each chunk c, in order, the 16 products
+// (r * v) * mask are summed left to right from the first product, that
+// sum is added to a float32 accumulator, and the result is a bare
+// y = x + acc (x widened to float32, y rounded once to x's dtype, float32
+// or bf16).  Every float op is an _rn intrinsic and the file is built
+// with -fmad=false, so nothing is contracted into an FMA: the result
+// equals the plain version bit for bit for the +-1/+-2 families.
+//
+// The padded slots are not computed.  A padded slot has r = +0, so its
+// product is +-0 and leaves a nonzero partial sum unchanged; a partial
+// sum that is +-0 may change sign, but acc starts at +0 and a
+// round-to-nearest sum is -0 only when both terms are, so acc never
+// holds -0 and acc + (+0) = acc + (-0).  The bits are those of the
+// padded spec.
 //
 // Bound on this card: the kernel reads x and writes y, 8 bytes per
-// element (8*d; 4*d for bf16), but does about N*k*d*(one SplitMix32 round + value map
-// + mul + add) integer and float ops.  From a cohort of a few clients
-// up it is bound by the ALUs, not by HBM: that is the point of
-// regenerating v from seeds instead of reading it (the TPU kernel's
-// design, seeded_reconstruct.py).
+// element (8*d; 4*d for bf16), but does about N*k*d*(one SplitMix32
+// round + value map + mul + add) integer and float ops.  From a cohort
+// of a few clients up it is bound by the ALUs, not by HBM: that is the
+// point of regenerating v from seeds instead of reading it (the TPU
+// kernel's design, seeded_reconstruct.py).
 //
-// Design.  One thread per output element; a thread block is a tile of
-// TILE_R rows by TILE_C columns.  For each (block, chunk) the first
-// CHUNK threads derive the chunk's per-block leaf-folded seeds
-// fold_seed(splitmix32(seed ^ (PROJ_SALT + b)), leaf_tag) and stage its
-// scalars in shared memory, then CHUNK * TILE_R threads hoist the row
-// rounds of the chain for (client, row), so each element pays one mixer
-// round per client.  In BLOCK mode a tile none of whose elements lies in
-// block b skips that block, as the TPU kernel skips a tile that cannot
-// meet the block; inside a tile the float32 flat-index mask multiplies
-// each product, as in the reference.
+// Design.  One launch covers every leaf of a tree (the leaf table of
+// tree.cuh); blocks walk the flat tile space of all leaves with a
+// grid-stride loop, which also leaves no limit on a leaf's rows.  A
+// tile is TILE_R rows by TILE_C * V columns of one leaf, V = 16 bytes of
+// the leaf's type (4 float32, 8 bf16); each thread owns V consecutive
+// columns of one row and reads x and writes y with one 16-byte access
+// where the leaf's rows are 16-byte aligned (else V scalar accesses).
+// For each (block, chunk) the first threads derive the chunk's per-block
+// leaf-folded seeds fold_seed(splitmix32(seed ^ (PROJ_SALT + b)),
+// leaf_tag) and stage its scaled scalars in shared memory, then
+// CHUNK * TILE_R threads hoist the row rounds of the chain for (client,
+// row), so each element pays one mixer round per client, and the staging
+// is shared by the V columns of a thread.  In BLOCK mode a tile none of
+// whose elements lies in block b skips that block, as the TPU kernel
+// skips a tile that cannot meet the block; inside a tile the float32
+// flat-index mask multiplies each product, as in the reference.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chain.cuh"
+#include "tree.cuh"
 
 namespace {
 
@@ -40,149 +54,178 @@ constexpr int TILE_C = 32;
 constexpr int TILE_R = 8;
 constexpr int CHUNK = 16;   // FUSED_CHUNK: part of the numeric spec
 
+struct Staging {
+  uint32_t seed[CHUNK];
+  float r[CHUNK];
+  fs::RowState state[CHUNK][TILE_R];
+};
+
 template <typename T, int DIST, bool MASKED>
-__global__ void __launch_bounds__(TILE_C * TILE_R)
-fused_apply_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
-                   const float* __restrict__ rs, const float* __restrict__ lo,
-                   const float* __restrict__ hi, T* __restrict__ y,
-                   int num_chunks, int k, int rows, int cols, uint32_t leaf_tag,
-                   uint32_t row_offset, uint32_t col_offset, int orig_cols) {
-  __shared__ uint32_t s_seed[CHUNK];
-  __shared__ float s_r[CHUNK];
-  __shared__ fs::RowState s_state[CHUNK][TILE_R];
+__device__ void close_tile(const fs::TreeLeaf& L, int tr, int tc,
+                           const int64_t* __restrict__ seeds,
+                           const float* __restrict__ rs, float scale,
+                           const float* __restrict__ lo, const float* __restrict__ hi,
+                           int n, int k, Staging& sh) {
+  constexpr int V = fs::VecOf<T>::V;
+  const int tx = threadIdx.x % TILE_C;
+  const int ty = threadIdx.x / TILE_C;
+  const int tid = threadIdx.x;
+  const int r = tr * TILE_R + ty;
+  const int c0 = (tc * TILE_C + tx) * V;
+  const bool live = r < L.rows && c0 < L.cols;
+  const uint32_t row = L.row_offset + (uint32_t)r;
+  const float rowf = __fmul_rn(__uint2float_rn(row), __int2float_rn(L.orig_cols));
 
-  const int c = blockIdx.x * TILE_C + threadIdx.x;
-  const int r = blockIdx.y * TILE_R + threadIdx.y;
-  const int tid = threadIdx.y * TILE_C + threadIdx.x;
-  const bool valid = r < rows && c < cols;
-  const uint32_t row = row_offset + (uint32_t)r;
-  const uint32_t col = col_offset + (uint32_t)c;
-  const float flat = __fadd_rn(__fmul_rn(__uint2float_rn(row), __int2float_rn(orig_cols)),
-                               __uint2float_rn(col));
-
-  float acc = 0.0f;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
   for (int b = 0; b < k; ++b) {
-    float mask = 1.0f;
+    float mask[V];
     if (MASKED) {
-      const bool in_block = flat >= lo[b] && flat < hi[b];
-      mask = in_block ? 1.0f : 0.0f;
-      if (!__syncthreads_or(valid && in_block)) continue;   // uniform per tile
+      const float lo_b = lo[b], hi_b = hi[b];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float flat = __fadd_rn(rowf, __uint2float_rn(L.col_offset + (uint32_t)(c0 + j)));
+        const bool in_block = flat >= lo_b && flat < hi_b;
+        mask[j] = in_block ? 1.0f : 0.0f;
+        any = any || (live && c0 + j < L.cols && in_block);
+      }
+      if (!__syncthreads_or(any)) continue;   // uniform per tile
     }
-    for (int ch = 0; ch < num_chunks; ++ch) {
+    for (int base = 0; base < n; base += CHUNK) {
+      const int m = min(CHUNK, n - base);
       __syncthreads();   // the previous chunk's shared reads are done
-      if (tid < CHUNK) {
-        const size_t i = (size_t)ch * CHUNK + tid;
-        s_seed[tid] = fs::block_leaf_seed(seeds[i], (uint32_t)b, leaf_tag);
-        s_r[tid] = rs[i * k + b];
+      if (tid < m) {
+        const size_t i = (size_t)base + tid;
+        sh.seed[tid] = fs::block_leaf_seed((uint32_t)seeds[i], (uint32_t)b, L.tag);
+        sh.r[tid] = __fmul_rn(scale, rs[i * k + b]);
       }
       __syncthreads();
-      if (tid < CHUNK * TILE_R) {
+      if (tid < m * TILE_R) {
         const int i = tid / TILE_R;
         const int rr = tid % TILE_R;
-        s_state[i][rr] = fs::row_state<DIST>(
-            s_seed[i], row_offset + (uint32_t)(blockIdx.y * TILE_R + rr));
+        sh.state[i][rr] = fs::row_state<DIST>(
+            sh.seed[i], L.row_offset + (uint32_t)(tr * TILE_R + rr));
       }
       __syncthreads();
-      if (valid) {
-        float s = 0.0f;
+      if (live) {
+        float s[V] = {};
+#pragma unroll 4
+        for (int i = 0; i < m; ++i) {
+          const fs::RowState st = sh.state[i][ty];
+          const float ri = sh.r[i];
 #pragma unroll
-        for (int i = 0; i < CHUNK; ++i) {
-          float p = __fmul_rn(s_r[i],
-                              fs::value_from_state<DIST>(s_state[i][threadIdx.y], col));
-          if (MASKED) p = __fmul_rn(p, mask);
-          s = (i == 0) ? p : __fadd_rn(s, p);
+          for (int j = 0; j < V; ++j) {
+            float p = __fmul_rn(ri, fs::value_from_state<DIST>(
+                                        st, L.col_offset + (uint32_t)(c0 + j)));
+            if (MASKED) p = __fmul_rn(p, mask[j]);
+            s[j] = i == 0 ? p : __fadd_rn(s[j], p);
+          }
         }
-        acc = __fadd_rn(acc, s);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = __fadd_rn(acc[j], s[j]);
       }
     }
   }
-  if (valid) {
-    const size_t idx = (size_t)r * cols + c;
-    fs::store_rn(y + idx, __fadd_rn(fs::load_f32(x + idx), acc));
+  if (!live) return;
+  const size_t idx = (size_t)r * L.cols + c0;
+  const T* x = static_cast<const T*>(L.x) + idx;
+  T* y = static_cast<T*>(L.y) + idx;
+  if (L.vec) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(x));
+    float out[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) out[j] = __fadd_rn(fs::vec_f32<T>(w, j), acc[j]);
+    *reinterpret_cast<uint4*>(y) = fs::vec_pack<T>(out);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (c0 + j < L.cols) fs::store_rn(y + j, __fadd_rn(fs::load_f32(x + j), acc[j]));
   }
 }
 
-template <typename T, int DIST>
-void launch(bool masked, dim3 grid, cudaStream_t st, const T* x,
-            const uint32_t* seeds, const float* rs, const float* lo,
-            const float* hi, T* y, int num_chunks, int k, int rows, int cols,
-            uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
-            int orig_cols) {
-  const dim3 block(TILE_C, TILE_R);
+template <int DIST, bool MASKED>
+__global__ void __launch_bounds__(TILE_C * TILE_R)
+fused_tree_kernel(const __grid_constant__ fs::TreeTable table,
+                  const int64_t* __restrict__ seeds, const float* __restrict__ rs,
+                  float scale, const float* __restrict__ lo,
+                  const float* __restrict__ hi, int n, int k) {
+  __shared__ Staging sh;
+  for (int t = blockIdx.x; t < table.num_tiles; t += gridDim.x) {
+    const int l = fs::find_leaf(table, t);
+    const fs::TreeLeaf& L = table.leaf[l];
+    const int local = t - L.tile0;
+    const int tr = local / L.col_tiles;
+    const int tc = local % L.col_tiles;
+    const float* lo_l = MASKED ? lo + (size_t)l * k : nullptr;
+    const float* hi_l = MASKED ? hi + (size_t)l * k : nullptr;
+    if (L.dtype == fs::BF16)
+      close_tile<__nv_bfloat16, DIST, MASKED>(L, tr, tc, seeds, rs, scale, lo_l, hi_l,
+                                              n, k, sh);
+    else
+      close_tile<float, DIST, MASKED>(L, tr, tc, seeds, rs, scale, lo_l, hi_l, n, k,
+                                      sh);
+    __syncthreads();   // the next tile's staging waits for this tile's reads
+  }
+}
+
+template <int DIST>
+void launch(bool masked, int blocks, cudaStream_t st, const fs::TreeTable& table,
+            const int64_t* seeds, const float* rs, float scale, const float* lo,
+            const float* hi, int n, int k) {
   if (masked)
-    fused_apply_kernel<T, DIST, true><<<grid, block, 0, st>>>(
-        x, seeds, rs, lo, hi, y, num_chunks, k, rows, cols, leaf_tag,
-        row_offset, col_offset, orig_cols);
+    fused_tree_kernel<DIST, true><<<blocks, TILE_C * TILE_R, 0, st>>>(
+        table, seeds, rs, scale, lo, hi, n, k);
   else
-    fused_apply_kernel<T, DIST, false><<<grid, block, 0, st>>>(
-        x, seeds, rs, lo, hi, y, num_chunks, k, rows, cols, leaf_tag,
-        row_offset, col_offset, orig_cols);
-}
-
-template <typename T>
-bool launch_dist(int dist, bool masked, dim3 grid, cudaStream_t st,
-                 const void* xv, const uint32_t* seeds, const float* rs,
-                 const float* lo, const float* hi, void* yv, int num_chunks,
-                 int k, int rows, int cols, uint32_t leaf_tag,
-                 uint32_t row_offset, uint32_t col_offset, int orig_cols) {
-  const T* x = static_cast<const T*>(xv);
-  T* y = static_cast<T*>(yv);
-  switch (dist) {
-    case fs::RADEMACHER:
-      launch<T, fs::RADEMACHER>(masked, grid, st, x, seeds, rs, lo, hi, y,
-                                num_chunks, k, rows, cols, leaf_tag, row_offset,
-                                col_offset, orig_cols);
-      return true;
-    case fs::GAUSSIAN:
-      launch<T, fs::GAUSSIAN>(masked, grid, st, x, seeds, rs, lo, hi, y,
-                              num_chunks, k, rows, cols, leaf_tag, row_offset,
-                              col_offset, orig_cols);
-      return true;
-    case fs::SPARSE_RADEMACHER:
-      launch<T, fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, rs, lo, hi, y,
-                                       num_chunks, k, rows, cols, leaf_tag,
-                                       row_offset, col_offset, orig_cols);
-      return true;
-    case fs::HADAMARD:
-      launch<T, fs::HADAMARD>(masked, grid, st, x, seeds, rs, lo, hi, y,
-                              num_chunks, k, rows, cols, leaf_tag, row_offset,
-                              col_offset, orig_cols);
-      return true;
-    default:
-      return false;
-  }
+    fused_tree_kernel<DIST, false><<<blocks, TILE_C * TILE_R, 0, st>>>(
+        table, seeds, rs, scale, lo, hi, n, k);
 }
 
 }  // namespace
 
 extern "C" int fs_fused_chunk() { return CHUNK; }
 
-extern "C" int fs_fused_max_rows() { return 65535 * TILE_R; }
+// Tile shape for the wrapper's flat tile space: TILE_R rows by
+// TILE_C * (16 / element bytes) columns.
+extern "C" int fs_fused_tile_rows() { return TILE_R; }
+extern "C" int fs_fused_tile_threads() { return TILE_C; }
 
-// x, y: (rows, cols) of dtype (fs::F32 or fs::BF16); seeds: (n_pad,)
-// uint32; rs: (n_pad, k) float32 with the scale folded in; n_pad is a
-// multiple of CHUNK.  Returns cudaGetLastError() after the launch.
-extern "C" int fs_fused_apply(const void* x, const uint32_t* seeds,
-                              const float* rs, const float* lo, const float* hi,
-                              void* y, int n_pad, int k, int rows, int cols,
-                              uint32_t leaf_tag, uint32_t row_offset,
-                              uint32_t col_offset, int orig_cols, int masked,
-                              int dist, int dtype, void* stream) {
-  if (n_pad % CHUNK != 0) return (int)cudaErrorInvalidValue;
+extern "C" int fs_fused_table_bytes() { return (int)sizeof(fs::TreeTable); }
+
+// table: the leaves of this launch (x and y of each, host memory; copied
+// into the launch by value); seeds: (n,) int64 round seeds (low 32 bits
+// used); rs: (n, k) float32 with every weight folded in but the scale;
+// lo, hi: (table.num_leaves, k) float32 leaf-local block bounds, read only
+// when masked (may be null otherwise).  The cohort is not padded: the
+// kernel computes the padded spec's bits without the padded slots.
+// Returns cudaGetLastError() after the launch.
+extern "C" int fs_fused_tree(const fs::TreeTable* table, const int64_t* seeds,
+                             const float* rs, float scale, const float* lo,
+                             const float* hi, int n, int k, int masked, int dist,
+                             void* stream) {
+  if (n < 0 || k <= 0 || table->num_leaves <= 0
+      || table->num_leaves > fs::MAX_TREE_LEAVES)
+    return (int)cudaErrorInvalidValue;
+  if (table->num_tiles <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const int num_chunks = n_pad / CHUNK;
-  const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R);
-  bool ok;
-  if (dtype == fs::F32)
-    ok = launch_dist<float>(dist, masked, grid, st, x, seeds, rs, lo, hi, y,
-                            num_chunks, k, rows, cols, leaf_tag, row_offset,
-                            col_offset, orig_cols);
-  else if (dtype == fs::BF16)
-    ok = launch_dist<__nv_bfloat16>(dist, masked, grid, st, x, seeds, rs, lo, hi,
-                                    y, num_chunks, k, rows, cols, leaf_tag,
-                                    row_offset, col_offset, orig_cols);
-  else
-    ok = false;
-  if (!ok) return (int)cudaErrorInvalidValue;
+  const int blocks = fs::grid_blocks(table->num_tiles, 1);
+  switch (dist) {
+    case fs::RADEMACHER:
+      launch<fs::RADEMACHER>(masked, blocks, st, *table, seeds, rs, scale, lo, hi, n, k);
+      break;
+    case fs::GAUSSIAN:
+      launch<fs::GAUSSIAN>(masked, blocks, st, *table, seeds, rs, scale, lo, hi, n, k);
+      break;
+    case fs::SPARSE_RADEMACHER:
+      launch<fs::SPARSE_RADEMACHER>(masked, blocks, st, *table, seeds, rs, scale, lo,
+                                    hi, n, k);
+      break;
+    case fs::HADAMARD:
+      launch<fs::HADAMARD>(masked, blocks, st, *table, seeds, rs, scale, lo, hi, n, k);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

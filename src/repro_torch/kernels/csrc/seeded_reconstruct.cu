@@ -28,8 +28,24 @@
 // same work per (element, client, block); only the order of the adds
 // differs.
 //
+// Per-client rounding (modes ROUND_ONE for k = 1 and ROUND_ANY; the LLM
+// train step's close): the reference's server_aggregate rounds each
+// client's reconstruction to the leaf dtype before its float32 sum, and
+// divides by N after it.  In this mode the clients come first, one by
+// one, and within a client the blocks b = 0..k-1:
+//
+//   part = 0;  part = part + r[n,b] * (v[n,b] * mask_b)  for each b
+//   acc  = acc + round_to_leaf_dtype(part)
+//   y    = x + scale * (acc / div)     (scale = server_lr; div = N, or 1
+//                                       with aggregation weights)
+//
+// bit for bit the port's core/fedscalar.server_aggregate for the +-1/+-2
+// families (on a float32 leaf the rounding is the identity).
+//
 // Design.  One thread per output element; a thread block is a tile of
-// TILE_R rows by TILE_C columns.  Clients are staged CHUNK at a time: the
+// TILE_R rows by TILE_C columns, and the blocks walk the row tiles with a
+// grid-stride loop (gridDim.y is at most 65 535; a leaf may have more row
+// tiles).  Clients are staged CHUNK at a time: the
 // first CHUNK threads derive the chunk's per-block leaf-folded seeds and
 // stage its scalars in shared memory, then CHUNK * TILE_R threads hoist
 // the chain's row rounds for (client, row), so each element pays one
@@ -45,10 +61,15 @@ constexpr int TILE_C = 32;
 constexpr int TILE_R = 8;
 constexpr int CHUNK = 32;   // CLIENT_CHUNK of the reference
 
-template <typename T, int DIST, bool MASKED>
+// MODE: PLAIN, ROUND_ONE (per-client rounding, k = 1: a client's
+// reconstruction is its one product, so no per-client partial is kept)
+// or ROUND_ANY (per-client rounding, any k).
+enum Mode : int { PLAIN = 0, ROUND_ONE = 1, ROUND_ANY = 2 };
+
+template <typename T, int DIST, bool MASKED, int MODE>
 __global__ void __launch_bounds__(TILE_C * TILE_R)
-rec_apply_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
-                 const float* __restrict__ rs, float scale,
+rec_apply_kernel(const T* __restrict__ x, const int64_t* __restrict__ seeds,
+                 const float* __restrict__ rs, float scale, float div,
                  const float* __restrict__ lo, const float* __restrict__ hi,
                  T* __restrict__ y, int n, int k, int rows, int cols,
                  uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
@@ -58,28 +79,23 @@ rec_apply_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
   __shared__ fs::RowState s_state[CHUNK][TILE_R];
 
   const int c = blockIdx.x * TILE_C + threadIdx.x;
-  const int r = blockIdx.y * TILE_R + threadIdx.y;
   const int tid = threadIdx.y * TILE_C + threadIdx.x;
-  const bool valid = r < rows && c < cols;
-  const uint32_t row = row_offset + (uint32_t)r;
   const uint32_t col = col_offset + (uint32_t)c;
-  const float flat = __fadd_rn(__fmul_rn(__uint2float_rn(row), __int2float_rn(orig_cols)),
-                               __uint2float_rn(col));
+  const int row_tiles = (rows + TILE_R - 1) / TILE_R;
+  for (int tr = blockIdx.y; tr < row_tiles; tr += gridDim.y) {
+    const int r = tr * TILE_R + threadIdx.y;
+    const bool valid = r < rows && c < cols;
+    const uint32_t row = row_offset + (uint32_t)r;
+    const float flat = __fadd_rn(
+        __fmul_rn(__uint2float_rn(row), __int2float_rn(orig_cols)), __uint2float_rn(col));
 
-  float acc = 0.0f;
-  for (int b = 0; b < k; ++b) {
-    float mask = 1.0f;
-    if (MASKED) {
-      const bool in_block = flat >= lo[b] && flat < hi[b];
-      mask = in_block ? 1.0f : 0.0f;
-      if (!__syncthreads_or(valid && in_block)) continue;   // uniform per tile
-    }
-    for (int base = 0; base < n; base += CHUNK) {
-      const int m = min(CHUNK, n - base);
+    // Stage chunk [base, base + m) of block b: per-block leaf-folded seeds,
+    // scalars, and the row rounds of the chain for (client, row).
+    auto stage = [&](int base, int m, int b) {
       __syncthreads();   // the previous chunk's shared reads are done
       if (tid < m) {
         const size_t i = (size_t)base + tid;
-        s_seed[tid] = fs::block_leaf_seed(seeds[i], (uint32_t)b, leaf_tag);
+        s_seed[tid] = fs::block_leaf_seed((uint32_t)seeds[i], (uint32_t)b, leaf_tag);
         s_r[tid] = rs[i * k + b];
       }
       __syncthreads();
@@ -87,105 +103,166 @@ rec_apply_kernel(const T* __restrict__ x, const uint32_t* __restrict__ seeds,
         const int i = tid / TILE_R;
         const int rr = tid % TILE_R;
         s_state[i][rr] = fs::row_state<DIST>(
-            s_seed[i], row_offset + (uint32_t)(blockIdx.y * TILE_R + rr));
+            s_seed[i], row_offset + (uint32_t)(tr * TILE_R + rr));
       }
       __syncthreads();
-      if (valid) {
-        for (int i = 0; i < m; ++i) {
-          float v = fs::value_from_state<DIST>(s_state[i][threadIdx.y], col);
-          if (MASKED) v = __fmul_rn(v, mask);
-          acc = __fadd_rn(acc, __fmul_rn(s_r[i], v));
+    };
+    // False when no element of this tile lies in block b (uniform per tile).
+    auto meets = [&](int b, float& mask) {
+      if (!MASKED) return true;
+      const bool in_block = flat >= lo[b] && flat < hi[b];
+      mask = in_block ? 1.0f : 0.0f;
+      return __syncthreads_or(valid && in_block) != 0;
+    };
+
+    float acc = 0.0f;
+    if (MODE != ROUND_ANY) {
+      // ROUND_ONE: part = 0 + r * v differs from r * v only for -0, whose
+      // rounding adds +-0 to an acc that is never -0: the same sum.
+      for (int b = 0; b < k; ++b) {
+        float mask = 1.0f;
+        if (!meets(b, mask)) continue;
+        for (int base = 0; base < n; base += CHUNK) {
+          const int m = min(CHUNK, n - base);
+          stage(base, m, b);
+          if (valid) {
+            for (int i = 0; i < m; ++i) {
+              float v = fs::value_from_state<DIST>(s_state[i][threadIdx.y], col);
+              if (MASKED) v = __fmul_rn(v, mask);
+              const float p = __fmul_rn(s_r[i], v);
+              acc = __fadd_rn(acc, MODE == ROUND_ONE ? fs::round_as(p, x) : p);
+            }
+          }
+        }
+      }
+    } else {
+      for (int base = 0; base < n; base += CHUNK) {
+        const int m = min(CHUNK, n - base);
+        float part[CHUNK];
+#pragma unroll
+        for (int i = 0; i < CHUNK; ++i) part[i] = 0.0f;
+        for (int b = 0; b < k; ++b) {
+          float mask = 1.0f;
+          if (!meets(b, mask)) continue;
+          stage(base, m, b);
+          if (valid) {
+#pragma unroll
+            for (int i = 0; i < CHUNK; ++i) {
+              if (i < m) {
+                float v = fs::value_from_state<DIST>(s_state[i][threadIdx.y], col);
+                if (MASKED) v = __fmul_rn(v, mask);
+                part[i] = __fadd_rn(part[i], __fmul_rn(s_r[i], v));
+              }
+            }
+          }
+        }
+        if (valid) {
+#pragma unroll
+          for (int i = 0; i < CHUNK; ++i)
+            if (i < m) acc = __fadd_rn(acc, fs::round_as(part[i], x));
         }
       }
     }
-  }
-  if (valid) {
-    const size_t idx = (size_t)r * cols + c;
-    fs::store_rn(y + idx, __fadd_rn(fs::load_f32(x + idx), __fmul_rn(scale, acc)));
+    if (valid) {
+      const size_t idx = (size_t)r * cols + c;
+      const float upd = MODE != PLAIN ? __fmul_rn(scale, __fdiv_rn(acc, div))
+                                      : __fmul_rn(scale, acc);
+      fs::store_rn(y + idx, __fadd_rn(fs::load_f32(x + idx), upd));
+    }
   }
 }
 
-template <typename T, int DIST>
+template <typename T, int DIST, int MODE>
 void launch(bool masked, dim3 grid, cudaStream_t st, const T* x,
-            const uint32_t* seeds, const float* rs, float scale, const float* lo,
-            const float* hi, T* y, int n, int k, int rows, int cols,
+            const int64_t* seeds, const float* rs, float scale, float div,
+            const float* lo, const float* hi, T* y, int n, int k, int rows, int cols,
             uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
             int orig_cols) {
   const dim3 block(TILE_C, TILE_R);
   if (masked)
-    rec_apply_kernel<T, DIST, true><<<grid, block, 0, st>>>(
-        x, seeds, rs, scale, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
+    rec_apply_kernel<T, DIST, true, MODE><<<grid, block, 0, st>>>(
+        x, seeds, rs, scale, div, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
         col_offset, orig_cols);
   else
-    rec_apply_kernel<T, DIST, false><<<grid, block, 0, st>>>(
-        x, seeds, rs, scale, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
+    rec_apply_kernel<T, DIST, false, MODE><<<grid, block, 0, st>>>(
+        x, seeds, rs, scale, div, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
         col_offset, orig_cols);
 }
 
+template <typename T, int DIST>
+void launch_round(bool round, bool masked, dim3 grid, cudaStream_t st, const T* x,
+                  const int64_t* seeds, const float* rs, float scale, float div,
+                  const float* lo, const float* hi, T* y, int n, int k, int rows,
+                  int cols, uint32_t leaf_tag, uint32_t row_offset,
+                  uint32_t col_offset, int orig_cols) {
+  if (round && k == 1)
+    launch<T, DIST, ROUND_ONE>(masked, grid, st, x, seeds, rs, scale, div, lo, hi, y,
+                               n, k, rows, cols, leaf_tag, row_offset, col_offset,
+                               orig_cols);
+  else if (round)
+    launch<T, DIST, ROUND_ANY>(masked, grid, st, x, seeds, rs, scale, div, lo, hi, y,
+                               n, k, rows, cols, leaf_tag, row_offset, col_offset,
+                               orig_cols);
+  else
+    launch<T, DIST, PLAIN>(masked, grid, st, x, seeds, rs, scale, div, lo, hi, y, n,
+                           k, rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
+}
+
 template <typename T>
-bool launch_dist(int dist, bool masked, dim3 grid, cudaStream_t st,
-                 const void* xv, const uint32_t* seeds, const float* rs,
-                 float scale, const float* lo, const float* hi, void* yv, int n,
-                 int k, int rows, int cols, uint32_t leaf_tag,
-                 uint32_t row_offset, uint32_t col_offset, int orig_cols) {
+bool launch_dist(int dist, bool round, bool masked, dim3 grid, cudaStream_t st,
+                 const void* xv, const int64_t* seeds, const float* rs, float scale,
+                 float div, const float* lo, const float* hi, void* yv, int n, int k,
+                 int rows, int cols, uint32_t leaf_tag, uint32_t row_offset,
+                 uint32_t col_offset, int orig_cols) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
+#define FS_REC_CASE(D)                                                            \
+  case D:                                                                         \
+    launch_round<T, D>(round, masked, grid, st, x, seeds, rs, scale, div, lo, hi, \
+                       y, n, k, rows, cols, leaf_tag, row_offset, col_offset,     \
+                       orig_cols);                                                \
+    return true;
   switch (dist) {
-    case fs::RADEMACHER:
-      launch<T, fs::RADEMACHER>(masked, grid, st, x, seeds, rs, scale, lo, hi, y,
-                                n, k, rows, cols, leaf_tag, row_offset,
-                                col_offset, orig_cols);
-      return true;
-    case fs::GAUSSIAN:
-      launch<T, fs::GAUSSIAN>(masked, grid, st, x, seeds, rs, scale, lo, hi, y,
-                              n, k, rows, cols, leaf_tag, row_offset, col_offset,
-                              orig_cols);
-      return true;
-    case fs::SPARSE_RADEMACHER:
-      launch<T, fs::SPARSE_RADEMACHER>(masked, grid, st, x, seeds, rs, scale, lo,
-                                       hi, y, n, k, rows, cols, leaf_tag,
-                                       row_offset, col_offset, orig_cols);
-      return true;
-    case fs::HADAMARD:
-      launch<T, fs::HADAMARD>(masked, grid, st, x, seeds, rs, scale, lo, hi, y,
-                              n, k, rows, cols, leaf_tag, row_offset, col_offset,
-                              orig_cols);
-      return true;
+    FS_REC_CASE(fs::RADEMACHER)
+    FS_REC_CASE(fs::GAUSSIAN)
+    FS_REC_CASE(fs::SPARSE_RADEMACHER)
+    FS_REC_CASE(fs::HADAMARD)
     default:
       return false;
   }
+#undef FS_REC_CASE
 }
 
 }  // namespace
 
 extern "C" int fs_rec_chunk() { return CHUNK; }
 
-extern "C" int fs_rec_max_rows() { return 65535 * TILE_R; }
-
-// x, y: (rows, cols) of dtype (fs::F32 or fs::BF16); seeds: (n,) uint32
-// round seeds (unfolded); rs: (n, k) float32 with every aggregation weight
-// folded in; lo/hi: (k,) leaf-local flat bounds.  Returns
+// x, y: (rows, cols) of dtype (fs::F32 or fs::BF16); seeds: (n,) int64
+// round seeds (unfolded; low 32 bits used); rs: (n, k) float32 with every
+// aggregation weight folded in; lo/hi: (k,) leaf-local flat bounds, read
+// only when masked (may be null otherwise); round selects per-client
+// rounding, with div the divisor of its final sum.  Returns
 // cudaGetLastError() after the launch.
-extern "C" int fs_rec_apply(const void* x, const uint32_t* seeds,
-                            const float* rs, float scale, const float* lo,
-                            const float* hi, void* y, int n, int k, int rows,
-                            int cols, uint32_t leaf_tag, uint32_t row_offset,
+extern "C" int fs_rec_apply(const void* x, const int64_t* seeds, const float* rs,
+                            float scale, float div, const float* lo, const float* hi,
+                            void* y, int n, int k, int rows, int cols,
+                            uint32_t leaf_tag, uint32_t row_offset,
                             uint32_t col_offset, int orig_cols, int masked,
-                            int dist, int dtype, void* stream) {
+                            int round, int dist, int dtype, void* stream) {
   if (rows <= 0 || cols <= 0) return (int)cudaSuccess;
-  if (n < 0 || k <= 0 || (rows + TILE_R - 1) / TILE_R > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (n < 0 || k <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((cols + TILE_C - 1) / TILE_C, (rows + TILE_R - 1) / TILE_R);
+  const int row_tiles = (rows + TILE_R - 1) / TILE_R;
+  const dim3 grid((cols + TILE_C - 1) / TILE_C, row_tiles < 65535 ? row_tiles : 65535);
   bool ok;
   if (dtype == fs::F32)
-    ok = launch_dist<float>(dist, masked, grid, st, x, seeds, rs, scale, lo, hi,
-                            y, n, k, rows, cols, leaf_tag, row_offset,
+    ok = launch_dist<float>(dist, round, masked, grid, st, x, seeds, rs, scale, div,
+                            lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
                             col_offset, orig_cols);
   else if (dtype == fs::BF16)
-    ok = launch_dist<__nv_bfloat16>(dist, masked, grid, st, x, seeds, rs, scale,
-                                    lo, hi, y, n, k, rows, cols, leaf_tag,
-                                    row_offset, col_offset, orig_cols);
+    ok = launch_dist<__nv_bfloat16>(dist, round, masked, grid, st, x, seeds, rs,
+                                    scale, div, lo, hi, y, n, k, rows, cols,
+                                    leaf_tag, row_offset, col_offset, orig_cols);
   else
     ok = false;
   if (!ok) return (int)cudaErrorInvalidValue;

@@ -1,0 +1,66 @@
+// The leaf table of a tree launch: one launch of the encode or the fused
+// close covers every leaf of a parameter tree (up to MAX_TREE_LEAVES; a
+// longer tree is split into several launches of the same kernel).
+//
+// The table travels by value as a __grid_constant__ kernel parameter
+// (3 592 bytes, under the classic 4 KB limit), so a launch needs no
+// host-to-device copy: the wrapper fills it on the host and the launch
+// carries it.  Blocks walk one flat tile space over all leaves with a
+// grid-stride loop; find_leaf maps a flat tile to its leaf.
+//
+// The struct layout is mirrored by kernels/tree.py (ctypes); both sides
+// check sizeof(TreeTable) at load time.
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fs {
+
+constexpr int MAX_TREE_LEAVES = 64;
+
+struct TreeLeaf {
+  const void* x;      // input: the encode's (n, rows, cols), the close's (rows, cols)
+  void* y;            // the close's output (rows, cols); unused by the encode
+  int rows, cols;     // the leaf's 2-D view
+  int orig_cols;      // row stride of the flat index that k-block masks use
+  int dtype;          // fs::DType
+  uint32_t tag;       // leaf ordinal (sorted-key order), folded into every seed
+  uint32_t row_offset, col_offset;   // coordinates of element (0, 0)
+  int vec;            // 1: every row is 16-byte aligned (vector loads)
+  int tile0;          // the leaf's first tile in the launch's flat tile space
+  int col_tiles;      // tiles across one row (the close; 1 for the encode)
+};
+
+struct TreeTable {
+  int num_leaves;
+  int num_tiles;      // tiles over all leaves of this launch
+  TreeLeaf leaf[MAX_TREE_LEAVES];
+};
+
+// The leaf that holds flat tile t: the last leaf whose first tile is <= t.
+__device__ __forceinline__ int find_leaf(const TreeTable& table, int t) {
+  int lo = 0, hi = table.num_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (table.leaf[mid].tile0 <= t) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Blocks for a grid-stride walk: enough to fill the card a few times over,
+// never more than there are tiles.
+inline int grid_blocks(int num_tiles, int per_tile_blocks) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+        || sms <= 0)
+      sms = 132;
+  }
+  long cap = (long)sms * 32 / (per_tile_blocks > 0 ? per_tile_blocks : 1);
+  if (cap < 1) cap = 1;
+  return (int)(num_tiles < cap ? num_tiles : cap);
+}
+
+}  // namespace fs

@@ -1,21 +1,24 @@
-"""Parameter trees → per-leaf kernel calls (port of ``repro/kernels/ops.py``).
+"""Parameter trees → tree launches of the kernels (port of ``repro/kernels/ops.py``).
 
 * ``project_tree_kernel``  ≡ ``repro.kernels.ops.project_tree_kernel``
-  under ``vmap``: every client's update in one call per leaf → ``(N, k)``.
+  under ``vmap``: every client's update in one tree launch → ``(N, k)``.
 * ``server_update_fused``  ≡ ``repro.kernels.ops.server_update_fused``:
-  the fused round close, bitwise equal to the reference's fused spec for
-  the ±1/±2 families.
+  the fused round close in one tree launch, bitwise equal to the
+  reference's fused spec for the ±1/±2 families.
 * ``server_update_kernel`` ≡ ``repro.kernels.ops.server_update_kernel``:
   the per-client decode (clients added one by one, scale applied last),
-  the federation runtime's large-cohort apply and its digest replay.
+  the federation runtime's large-cohort apply and its digest replay, one
+  launch per leaf; with ``per_client_rounding`` the LLM train step's
+  close, bitwise the reference's ``server_aggregate``.
 * ``qsgd_roundtrip_kernel`` ≡ ``repro.kernels.ops.qsgd_roundtrip_kernel``:
   the QSGD quantize→dequantize round trip of one update tree.
 
-Each dispatches on the tensor's device inside the kernel wrappers: a
-CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
-version.  Leaves are viewed as (leading dims, last dim) matrices in
+Each dispatches on the tensors' device inside the kernel wrappers: CUDA
+tensors go to the hand-written kernels, CPU tensors to the plain
+versions.  Leaves are viewed as (leading dims, last dim) matrices in
 sorted-key order; the k-block partition is computed over the global
-flattened tree and translated to leaf-local flat bounds here.
+flattened tree and translated to leaf-local flat bounds once per tree
+layout (``kernels/tree.py``'s cached plans, kept on the device).
 """
 from __future__ import annotations
 
@@ -23,42 +26,18 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.directions import block_bounds, check_block_mask_domain
 from repro_torch.core.prng import Distribution
-from repro_torch.core.projection import ProjectionMode, leaf_layout
+from repro_torch.core.projection import ProjectionMode
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.kernels.common import LEAF_DTYPES
-from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
-from repro_torch.kernels.seeded_projection import project_blocks
+from repro_torch.kernels.reconstruct_apply import fused_tree
+from repro_torch.kernels.seeded_projection import project_tree
 from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients
+from repro_torch.kernels.tree import leaf_block_bounds, tree_plan
 
 __all__ = ["leaf_block_bounds", "fold_upload_weights", "project_tree_kernel",
            "server_update_kernel", "server_update_fused",
            "qsgd_roundtrip_kernel"]
-
-
-def leaf_block_bounds(
-    leaf_offset: int, leaf_size: int, total: int, num_blocks: int,
-    mode: ProjectionMode = ProjectionMode.BLOCK,
-) -> tuple[list[float], list[float]]:
-    """Leaf-local flat [lo, hi) of every global block (clamped, floats)."""
-    if mode != ProjectionMode.BLOCK or num_blocks == 1:
-        return [0.0] * num_blocks, [float(leaf_size)] * num_blocks
-    check_block_mask_domain(leaf_size)
-    los, his = [], []
-    for j in range(num_blocks):
-        blo, bhi = block_bounds(total, num_blocks, j)
-        lo = min(max(blo - leaf_offset, 0), leaf_size)
-        hi = min(max(bhi - leaf_offset, 0), leaf_size)
-        los.append(float(lo))
-        his.append(float(max(hi, lo)))
-    return los, his
-
-
-def _bounds(ll, total: int, k: int, mode: ProjectionMode, device):
-    lo, hi = leaf_block_bounds(ll.offset, ll.size, total, k, mode)
-    return (torch.tensor(lo, dtype=torch.float32, device=device),
-            torch.tensor(hi, dtype=torch.float32, device=device))
 
 
 def fold_upload_weights(
@@ -103,24 +82,16 @@ def project_tree_kernel(
 
     float32 and bf16 leaves reach the kernel as they are (it reads them
     as float32, as the reference's kernel does); other dtypes are cast
-    to float32 first.
+    to float32 first.  One tree launch (plus its reduction) per group of
+    ``tree.MAX_TREE_LEAVES`` leaves.
     """
-    leaves = tree_leaves(deltas)
-    n = leaves[0].shape[0]
-    per_client = [leaf[0] for leaf in leaves]
-    layout = leaf_layout(per_client)
-    total = layout[-1].end if layout else 0
-    masked = mode == ProjectionMode.BLOCK and num_blocks > 1
-    acc = None
-    for ll, leaf in zip(layout, leaves):
-        if leaf.dtype not in LEAF_DTYPES:
-            leaf = leaf.to(torch.float32)
-        x3d = leaf.reshape(n, ll.rows, ll.cols).contiguous()
-        lo, hi = _bounds(ll, total, num_blocks, mode, leaf.device)
-        r = project_blocks(x3d, seeds, ll.tag, lo, hi, distribution.value,
-                           masked, orig_cols=ll.cols)
-        acc = r if acc is None else acc + r
-    return acc
+    leaves = [leaf if leaf.dtype in LEAF_DTYPES else leaf.to(torch.float32)
+              for leaf in tree_leaves(deltas)]
+    leaves = [leaf if leaf.is_contiguous() else leaf.contiguous() for leaf in leaves]
+    plan = tree_plan("encode", [tuple(leaf.shape[1:]) for leaf in leaves],
+                     [leaf.dtype for leaf in leaves], num_blocks, mode,
+                     leaves[0].device)
+    return project_tree(leaves, seeds.to(torch.int64), plan, distribution.value)
 
 
 def server_update_fused(
@@ -133,21 +104,18 @@ def server_update_fused(
     mode: ProjectionMode = ProjectionMode.FULL,
     block_weights: torch.Tensor | None = None,
 ) -> Any:
-    """Fused round close: x ← x + (lr/N)·Σₙⱼ rₙⱼ vₙⱼ (or lr·Σ wₙ… with weights)."""
+    """Fused round close: x ← x + (lr/N)·Σₙⱼ rₙⱼ vₙⱼ (or lr·Σ wₙ… with weights).
+
+    One tree launch per group of ``tree.MAX_TREE_LEAVES`` leaves.
+    """
     rs, scale = fold_upload_weights(rs, server_lr, weights, mode, block_weights)
-    k = rs.shape[1]
-    leaves = tree_leaves(params)
-    layout = leaf_layout(params)
-    total = layout[-1].end if layout else 0
-    masked = mode == ProjectionMode.BLOCK and k > 1
-    out = []
-    for ll, leaf in zip(layout, leaves):
-        x2d = leaf.reshape(ll.rows, ll.cols).contiguous()
-        lo, hi = _bounds(ll, total, k, mode, leaf.device)
-        y = fused_reconstruct_apply(x2d, seeds, rs, ll.tag, scale,
-                                    distribution.value, lo=lo, hi=hi,
-                                    masked=masked, orig_cols=ll.cols)
-        out.append(y.reshape(ll.shape))
+    leaves = [leaf if leaf.is_contiguous() else leaf.contiguous()
+              for leaf in tree_leaves(params)]
+    plan = tree_plan("close", [tuple(leaf.shape) for leaf in leaves],
+                     [leaf.dtype for leaf in leaves], rs.shape[1], mode,
+                     leaves[0].device)
+    out = fused_tree(leaves, seeds.to(torch.int64), rs.contiguous(), scale, plan,
+                     distribution.value)
     return tree_unflatten(params, out)
 
 
@@ -160,27 +128,36 @@ def server_update_kernel(
     weights: torch.Tensor | None = None,
     mode: ProjectionMode = ProjectionMode.FULL,
     block_weights: torch.Tensor | None = None,
+    per_client_rounding: bool = False,
 ) -> Any:
     """Per-client decode: x ← x + (lr/N)·Σₙⱼ rₙⱼ vₙⱼ (or lr·Σ wₙ… with weights).
 
     Same contract as :func:`server_update_fused`; every weight is folded
     into the scalars and each leaf goes through
     :func:`repro_torch.kernels.seeded_reconstruct.reconstruct_apply_clients`.
+    ``per_client_rounding`` rounds each client's reconstruction to the
+    leaf dtype before the float32 sum and applies x + lr·(Σ/N) (Σ alone
+    with weights), as the reference's ``server_aggregate`` does.
     """
     rs, scale = fold_upload_weights(rs, server_lr, weights, mode, block_weights)
-    k = rs.shape[1]
+    n, k = rs.shape
+    rs = rs.contiguous()
+    div = 1.0
+    if per_client_rounding:
+        scale, div = server_lr, (float(n) if weights is None else 1.0)
     leaves = tree_leaves(params)
-    layout = leaf_layout(params)
-    total = layout[-1].end if layout else 0
-    masked = mode == ProjectionMode.BLOCK and k > 1
+    plan = tree_plan("close", [tuple(leaf.shape) for leaf in leaves],
+                     [leaf.dtype for leaf in leaves], k, mode, leaves[0].device)
     seeds = seeds.to(torch.int64)
     out = []
-    for ll, leaf in zip(layout, leaves):
+    for i, (ll, leaf) in enumerate(zip(plan.layout, leaves)):
         x2d = leaf.reshape(ll.rows, ll.cols).contiguous()
-        lo, hi = _bounds(ll, total, k, mode, leaf.device)
+        lo, hi = (plan.lo[i], plan.hi[i]) if plan.masked else (None, None)
         y = reconstruct_apply_clients(x2d, seeds, rs, ll.tag, scale,
                                       distribution.value, lo=lo, hi=hi,
-                                      masked=masked, orig_cols=ll.cols)
+                                      masked=plan.masked, orig_cols=ll.cols,
+                                      per_client_rounding=per_client_rounding,
+                                      div=div)
         out.append(y.reshape(ll.shape))
     return tree_unflatten(params, out)
 

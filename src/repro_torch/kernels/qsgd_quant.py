@@ -89,8 +89,6 @@ def _lib():
         p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
         lib.fs_qsgd.argtypes = [p, p, p, p, p, i, i, i, i, u, u, i, p]
         lib.fs_qsgd.restype = i
-        lib.fs_qsgd_max_rows.argtypes = []
-        lib.fs_qsgd_max_rows.restype = i
         lib._fs_typed = True
     return lib
 
@@ -122,9 +120,9 @@ def qsgd_quantize(x: torch.Tensor, seeds: torch.Tensor, norms: torch.Tensor,
                          f"not match x {tuple(x.shape)}")
     if not 1 <= levels <= 127:
         raise ValueError(f"levels {levels} outside 1..127 (bits 2..8)")
+    if n > 65535:
+        raise ValueError(f"x {tuple(x.shape)}: more clients than the launch grid holds")
     lib = _lib()
-    if n > 65535 or rows > lib.fs_qsgd_max_rows():
-        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's launch grid")
     q = torch.empty_like(x) if want_q else None
     lv = torch.empty(x.shape, dtype=torch.float32, device=dev) if want_levels else None
     seeds32 = seeds_as_u32_bits(seeds)

@@ -1,8 +1,11 @@
-"""Fused server close y = x + Σ_b Σ_chunks leftfold₁₆((r·v)·mask_b) — one pass per leaf.
+"""Fused server close y = x + Σ_b Σ_chunks leftfold₁₆((r·v)·mask_b) — one launch per tree.
 
 Port of ``repro/kernels/reconstruct_apply.py::_fused_kernel``.  The CUDA
 kernel is ``csrc/reconstruct_apply.cu``; this module holds its plain
-PyTorch version (the fused spec written out) and the wrapper.
+PyTorch version (the fused spec written out) and the wrappers:
+:func:`fused_tree` closes every leaf of a tree in one launch (one per
+group of ``tree.MAX_TREE_LEAVES`` leaves), :func:`fused_reconstruct_apply`
+one leaf's 2-D view, as a tree of one.
 
 The numeric spec is the reference's:
 
@@ -18,6 +21,9 @@ The reference oracle (``repro.kernels.ref.server_update_fused_ref``)
 reduces each chunk with XLA's CPU sum, which is that same left fold;
 ``torch.sum`` is not, so both versions here spell the 16 adds out.
 FUSED_CHUNK is a numerics constant: changing it changes output bits.
+The kernel folds the scale in as it stages each chunk and skips the
+padded slots, which leaves these bits unchanged (its note says why).
+``fused_reconstruct_apply.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -34,11 +40,17 @@ from repro_torch.kernels.common import (
     fold_seed,
     gen_tile,
     raise_on_cuda_error,
-    seeds_as_u32_bits,
+)
+from repro_torch.kernels.tree import (
+    CLOSE_TILE_ROWS,
+    CLOSE_TILE_THREADS,
+    TreePlan,
+    TreeTable,
+    single_table,
 )
 
-__all__ = ["FUSED_CHUNK", "fused_reconstruct_apply", "fused_apply_plain",
-           "pad_cohort"]
+__all__ = ["FUSED_CHUNK", "fused_tree", "fused_tree_plain",
+           "fused_reconstruct_apply", "fused_apply_plain", "pad_cohort"]
 
 FUSED_CHUNK = 16
 
@@ -102,20 +114,101 @@ def fused_apply_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
     return torch.cat(out) if len(out) > 1 else out[0]
 
 
+def fused_tree_plain(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
+                     plan: TreePlan, distribution: str = "rademacher") -> list:
+    """Plain version of a tree close: the cohort scaled and padded once,
+    then :func:`fused_apply_plain` leaf by leaf → the new leaves."""
+    rs = rs * torch.tensor(scale, dtype=torch.float32, device=rs.device)
+    seeds_p, rs_p = pad_cohort(seeds.to(torch.int64) & U32_MASK, rs)
+    out = []
+    for group in plan.groups:
+        for i in range(group.start, group.stop):
+            ll, x = plan.layout[i], leaves[i]
+            y = fused_apply_plain(x.reshape(ll.rows, ll.cols), seeds_p, rs_p,
+                                  ll.tag, plan.lo[i], plan.hi[i], distribution,
+                                  plan.masked)
+            out.append(y.reshape(x.shape))
+    return out
+
+
 def _lib():
     lib = _build.library("reconstruct_apply")
     if not getattr(lib, "_fs_typed", False):
-        p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-        lib.fs_fused_apply.argtypes = [p, p, p, p, p, p, i, i, i, i, u, u, u, i, i,
-                                       i, i, p]
-        lib.fs_fused_apply.restype = i
-        for name in ("fs_fused_chunk", "fs_fused_max_rows"):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fs_fused_tree.argtypes = [p, p, p, f, p, p, i, i, i, i, p]
+        lib.fs_fused_tree.restype = i
+        for name in ("fs_fused_chunk", "fs_fused_tile_rows", "fs_fused_tile_threads",
+                     "fs_fused_table_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        if lib.fs_fused_chunk() != FUSED_CHUNK:
-            raise RuntimeError("csrc/reconstruct_apply.cu disagrees on FUSED_CHUNK")
+        if (lib.fs_fused_chunk() != FUSED_CHUNK
+                or lib.fs_fused_tile_rows() != CLOSE_TILE_ROWS
+                or lib.fs_fused_tile_threads() != CLOSE_TILE_THREADS
+                or lib.fs_fused_table_bytes() != ctypes.sizeof(TreeTable)):
+            raise RuntimeError("csrc/reconstruct_apply.cu disagrees on FUSED_CHUNK, "
+                               "its tile or its leaf table")
         lib._fs_typed = True
     return lib
+
+
+def _check_cohort(seeds, rs, distribution, dev) -> tuple[int, int]:
+    check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
+    check_cuda_tensor("rs", rs, torch.float32, 2, dev)
+    n, k = rs.shape
+    if seeds.numel() != n:
+        raise ValueError(f"seeds {seeds.numel()} / rs {tuple(rs.shape)} disagree")
+    if distribution not in DIST_CODES:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    return n, k
+
+
+def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
+            lo: int | None, hi: int | None, masked: bool, distribution: str,
+            dev: torch.device) -> None:
+    n, k = rs.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().fs_fused_tree(ctypes.addressof(table), seeds.data_ptr(),
+                                   rs.data_ptr(), float(scale), lo, hi, n, k,
+                                   int(masked), DIST_CODES[distribution], stream)
+    raise_on_cuda_error("fs_fused_tree", err)
+    if table.num_tiles > 0:          # a table of empty leaves launches nothing
+        fused_reconstruct_apply.launches += 1
+
+
+def fused_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
+               plan: TreePlan, distribution: str = "rademacher") -> list:
+    """→ the new leaves ``x + Σₙⱼ (scale·rₙⱼ)·vₙⱼ`` of a tree, in leaf order.
+
+    ``leaves`` are the tree's leaves in sorted-key order with the shapes
+    and dtypes ``plan`` was made for; ``seeds`` the ``(N,)`` round seeds
+    (int64 words), ``rs`` the ``(N, k)`` float32 scalars with every weight
+    but ``scale`` folded in.  CUDA tensors take one launch per launch
+    group of ``plan`` (or raise); CPU tensors the plain version.
+    """
+    dev = rs.device
+    if dev.type == "cpu":
+        return fused_tree_plain(leaves, seeds, rs, scale, plan, distribution)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_cohort(seeds, rs, distribution, dev)
+    if rs.shape[1] != plan.k:
+        raise ValueError(f"rs {tuple(rs.shape)} does not have the plan's {plan.k} "
+                         "blocks")
+    for leaf, dtype in zip(leaves, plan.dtypes):
+        if leaf.device != dev or leaf.dtype != dtype or not leaf.is_contiguous():
+            raise ValueError(f"leaf {tuple(leaf.shape)} {leaf.dtype} on "
+                             f"{leaf.device} does not fit the plan ({dtype}, "
+                             f"contiguous, on {dev})")
+    out = [torch.empty_like(leaf) for leaf in leaves]
+    row_bytes = 4 * plan.k
+    for group in plan.groups:
+        sl = slice(group.start, group.stop)
+        _launch(group.table(leaves[sl], out[sl]), seeds, rs, scale,
+                plan.lo.data_ptr() + group.start * row_bytes,
+                plan.hi.data_ptr() + group.start * row_bytes, plan.masked,
+                distribution, dev)
+    return out
 
 
 def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
@@ -130,25 +223,23 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
 
     ``seeds`` are the ``(N,)`` round seeds (int64 words), ``rs`` the
     ``(N,)`` or ``(N, k)`` float32 scalars; ``x2d`` is float32 or bf16.
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.
-    ``fused_reconstruct_apply.launches`` counts kernel launches.
+    A CUDA tensor launches the kernel on a one-leaf table (or raises); a
+    CPU tensor takes the plain version.
     """
     rs = rs.to(torch.float32)
     if rs.dim() == 1:
         rs = rs[:, None]
-    # Spec line 1: fold the scale into the scalars, so the apply is a bare add.
-    rs = rs * torch.tensor(scale, dtype=torch.float32, device=rs.device)
     n, k = rs.shape
     rows, cols = x2d.shape
-    if lo is None or hi is None:
-        if masked:
-            raise ValueError("masked k-block calls must pass leaf-local lo/hi")
-        lo = torch.zeros((k,), dtype=torch.float32, device=x2d.device)
-        hi = torch.full((k,), float(rows) * float(cols), dtype=torch.float32,
-                        device=x2d.device)
-    seeds_p, rs_p = pad_cohort(seeds.to(torch.int64) & U32_MASK, rs)
+    if (lo is None or hi is None) and masked:
+        raise ValueError("masked k-block calls must pass leaf-local lo/hi")
     if x2d.device.type == "cpu":
+        if lo is None or hi is None:
+            lo = torch.zeros((k,), dtype=torch.float32)
+            hi = torch.full((k,), float(rows) * float(cols), dtype=torch.float32)
+        # Spec line 1: fold the scale into the scalars, so the apply is a bare add.
+        rs = rs * torch.tensor(scale, dtype=torch.float32)
+        seeds_p, rs_p = pad_cohort(seeds.to(torch.int64) & U32_MASK, rs)
         return fused_apply_plain(x2d, seeds_p, rs_p, leaf_tag, lo, hi,
                                  distribution, masked, row_offset, col_offset,
                                  orig_cols)
@@ -156,31 +247,20 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
     check_cuda_tensor("x2d", x2d, LEAF_DTYPES, 2, dev)
-    check_cuda_tensor("seeds", seeds_p, torch.int64, 1, dev)
-    rs_p = rs_p.contiguous()
-    check_cuda_tensor("rs", rs_p, torch.float32, 2, dev)
-    check_cuda_tensor("lo", lo, torch.float32, 1, dev)
-    check_cuda_tensor("hi", hi, torch.float32, 1, dev)
-    if seeds.numel() != n or lo.numel() != k or hi.numel() != k:
-        raise ValueError(f"seeds {seeds.numel()} / rs {tuple(rs.shape)} / "
-                         f"lo {lo.numel()} / hi {hi.numel()} disagree")
-    if distribution not in DIST_CODES:
-        raise ValueError(f"unknown distribution {distribution!r}")
-    lib = _lib()
-    if rows > lib.fs_fused_max_rows():
-        raise ValueError(f"{rows} rows exceed the kernel's launch grid")
+    rs = rs.contiguous()
+    _check_cohort(seeds, rs, distribution, dev)
+    if masked:
+        check_cuda_tensor("lo", lo, torch.float32, 1, dev)
+        check_cuda_tensor("hi", hi, torch.float32, 1, dev)
+        if lo.numel() != k or hi.numel() != k:
+            raise ValueError(f"lo {lo.numel()} / hi {hi.numel()} / rs "
+                             f"{tuple(rs.shape)} disagree")
     y = torch.empty_like(x2d)
-    seeds32 = seeds_as_u32_bits(seeds_p)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fs_fused_apply(
-            x2d.data_ptr(), seeds32.data_ptr(), rs_p.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), y.data_ptr(), rs_p.shape[0], k, rows, cols,
-            leaf_tag & U32_MASK, row_offset & U32_MASK, col_offset & U32_MASK,
-            cols if orig_cols is None else orig_cols, int(masked),
-            DIST_CODES[distribution], LEAF_DTYPES[x2d.dtype], stream)
-    raise_on_cuda_error("fs_fused_apply", err)
-    fused_reconstruct_apply.launches += 1
+    table = single_table("close", x2d, rows, cols,
+                         cols if orig_cols is None else orig_cols, leaf_tag,
+                         row_offset, col_offset, y)
+    _launch(table, seeds, rs, scale, lo.data_ptr() if masked else None,
+            hi.data_ptr() if masked else None, masked, distribution, dev)
     return y
 
 

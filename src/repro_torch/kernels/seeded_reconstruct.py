@@ -18,6 +18,18 @@ The numeric spec is the reference kernel's, float32 throughout::
     y = x + scale · acc                        (x read as float32, y cast
                                                 once to x's dtype)
 
+With ``per_client_rounding`` (the LLM train step's close, the reference's
+``server_aggregate`` on bf16 leaves) the clients come first::
+
+    for client n = 0..N−1, in order:
+      part = 0;  part = part + r[n,b] · (v_{n,b} · mask_b)  for b = 0..k−1
+      acc  = acc + f32(round_to_x_dtype(part))
+    y = x + scale · (acc / div)                (scale = server_lr, div = N,
+                                                or 1 with weights)
+
+which is the port's ``core.fedscalar.server_aggregate`` bit for bit for
+the ±1/±2 families.
+
 Unlike the fused close (:mod:`reconstruct_apply`) the clients are added
 one by one and the scale is applied once at the end, so the two agree
 within a tolerance, not bitwise.  The reference's fori oracle
@@ -40,7 +52,6 @@ from repro_torch.kernels.common import (
     fold_seed,
     gen_tile,
     raise_on_cuda_error,
-    seeds_as_u32_bits,
 )
 
 __all__ = ["CLIENT_CHUNK", "reconstruct_apply_clients", "reconstruct_plain",
@@ -63,11 +74,12 @@ def pad_clients(seeds: torch.Tensor, rs: torch.Tensor):
 
 
 def reconstruct_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
-                      leaf_tag: int, scale: float, lo: torch.Tensor,
-                      hi: torch.Tensor, distribution: str = "rademacher",
+                      leaf_tag: int, scale: float, lo: torch.Tensor | None,
+                      hi: torch.Tensor | None, distribution: str = "rademacher",
                       masked: bool = False, row_offset: int = 0,
-                      col_offset: int = 0,
-                      orig_cols: int | None = None) -> torch.Tensor:
+                      col_offset: int = 0, orig_cols: int | None = None,
+                      per_client_rounding: bool = False,
+                      div: float = 1.0) -> torch.Tensor:
     """Plain version of the kernel on ``(N,)`` int64 seeds and ``(N, k)`` rs."""
     rows, cols = x2d.shape
     seeds, rs = pad_clients(seeds.to(torch.int64) & U32_MASK,
@@ -80,29 +92,45 @@ def reconstruct_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
     salts = (PROJ_SALT + torch.arange(k, dtype=torch.int64, device=dev)) & U32_MASK
     folded = fold_seed(splitmix32(seeds[:, None] ^ salts[None, :]), leaf_tag)
     scale_f = torch.tensor(scale, dtype=torch.float32, device=dev)
+    div_f = torch.tensor(div, dtype=torch.float32, device=dev)
     slab = max(1, _PLAIN_SLAB_ELEMS // (CLIENT_CHUNK * max(cols, 1)))
     out = []
     for r0 in range(0, rows, slab):
         r1 = min(r0 + slab, rows)
         row = ((torch.arange(r0, r1, dtype=torch.int64, device=dev) + row_offset)
                & U32_MASK)[None, :, None]
+        masks = [None] * k
         if masked:
             flat = (row[0].to(torch.float32) * float(orig_cols)
                     + col[0].to(torch.float32))
+            masks = [((flat >= lo[b]) & (flat < hi[b])).to(torch.float32)
+                     for b in range(k)]
         acc = torch.zeros((r1 - r0, cols), dtype=torch.float32, device=dev)
-        for b in range(k):
-            mask = None
-            if masked:
-                mask = ((flat >= lo[b]) & (flat < hi[b])).to(torch.float32)
+        if not per_client_rounding:
+            for b in range(k):
+                for c in range(0, n_pad, CLIENT_CHUNK):
+                    v = gen_tile(folded[c:c + CLIENT_CHUNK, b, None, None], row,
+                                 col, distribution)
+                    if masks[b] is not None:
+                        v = v * masks[b]
+                    p = rs[c:c + CLIENT_CHUNK, b, None, None] * v
+                    for i in range(p.shape[0]):
+                        acc = acc + p[i]
+            y = x2d[r0:r1].to(torch.float32) + scale_f * acc
+        else:
             for c in range(0, n_pad, CLIENT_CHUNK):
-                v = gen_tile(folded[c:c + CLIENT_CHUNK, b, None, None], row, col,
-                             distribution)
-                if mask is not None:
-                    v = v * mask
-                p = rs[c:c + CLIENT_CHUNK, b, None, None] * v
-                for i in range(p.shape[0]):
-                    acc = acc + p[i]
-        y = x2d[r0:r1].to(torch.float32) + scale_f * acc
+                part = torch.zeros((min(CLIENT_CHUNK, n_pad - c), r1 - r0, cols),
+                                   dtype=torch.float32, device=dev)
+                for b in range(k):
+                    v = gen_tile(folded[c:c + CLIENT_CHUNK, b, None, None], row,
+                                 col, distribution)
+                    if masks[b] is not None:
+                        v = v * masks[b]
+                    part = part + rs[c:c + CLIENT_CHUNK, b, None, None] * v
+                part = part.to(x2d.dtype).to(torch.float32)
+                for i in range(part.shape[0]):
+                    acc = acc + part[i]
+            y = x2d[r0:r1].to(torch.float32) + scale_f * (acc / div_f)
         out.append(y.to(x2d.dtype))
     return torch.cat(out) if len(out) > 1 else out[0]
 
@@ -111,12 +139,11 @@ def _lib():
     lib = _build.library("seeded_reconstruct")
     if not getattr(lib, "_fs_typed", False):
         p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.fs_rec_apply.argtypes = [p, p, p, f, p, p, p, i, i, i, i, u, u, u, i,
-                                     i, i, i, p]
+        lib.fs_rec_apply.argtypes = [p, p, p, f, f, p, p, p, i, i, i, i, u, u, u, i,
+                                     i, i, i, i, p]
         lib.fs_rec_apply.restype = i
-        for name in ("fs_rec_chunk", "fs_rec_max_rows"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i
+        lib.fs_rec_chunk.argtypes = []
+        lib.fs_rec_chunk.restype = i
         if lib.fs_rec_chunk() != CLIENT_CHUNK:
             raise RuntimeError("csrc/seeded_reconstruct.cu disagrees on CLIENT_CHUNK")
         lib._fs_typed = True
@@ -130,32 +157,33 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
                               hi: torch.Tensor | None = None,
                               masked: bool = False, row_offset: int = 0,
                               col_offset: int = 0,
-                              orig_cols: int | None = None) -> torch.Tensor:
+                              orig_cols: int | None = None,
+                              per_client_rounding: bool = False,
+                              div: float = 1.0) -> torch.Tensor:
     """→ ``x + scale·Σₙⱼ rₙⱼ·vₙⱼ`` for one leaf's 2-D view (shape/dtype of x2d).
 
     ``x2d`` is float32 or bf16 on the card (any float dtype on the CPU).
 
     ``seeds`` are the ``(N,)`` round seeds (int64 words, unfolded), ``rs``
     the ``(N,)`` or ``(N, k)`` float32 scalars with every aggregation
-    weight already folded in.  A CUDA tensor launches the kernel (or
-    raises); a CPU tensor takes the plain version.
-    ``reconstruct_apply_clients.launches`` counts kernel launches.
+    weight already folded in; ``lo``/``hi`` the ``(k,)`` leaf-local block
+    bounds, needed only when ``masked``.  ``per_client_rounding`` takes
+    the train step's close, ``x + scale·(Σₙ round(Σⱼ rₙⱼ·vₙⱼ) / div)``.
+    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+    plain version.  ``reconstruct_apply_clients.launches`` counts kernel
+    launches.
     """
     rs = rs.to(torch.float32)
     if rs.dim() == 1:
         rs = rs[:, None]
     n, k = rs.shape
     rows, cols = x2d.shape
-    if lo is None or hi is None:
-        if masked:
-            raise ValueError("masked k-block calls must pass leaf-local lo/hi")
-        lo = torch.zeros((k,), dtype=torch.float32, device=x2d.device)
-        hi = torch.full((k,), float(rows) * float(cols), dtype=torch.float32,
-                        device=x2d.device)
+    if masked and (lo is None or hi is None):
+        raise ValueError("masked k-block calls must pass leaf-local lo/hi")
     if x2d.device.type == "cpu":
         return reconstruct_plain(x2d, seeds, rs, leaf_tag, scale, lo, hi,
                                  distribution, masked, row_offset, col_offset,
-                                 orig_cols)
+                                 orig_cols, per_client_rounding, div)
     if x2d.device.type != "cuda":
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
@@ -163,26 +191,27 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
     check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
     rs = rs.contiguous()
     check_cuda_tensor("rs", rs, torch.float32, 2, dev)
-    check_cuda_tensor("lo", lo, torch.float32, 1, dev)
-    check_cuda_tensor("hi", hi, torch.float32, 1, dev)
-    if seeds.numel() != n or lo.numel() != k or hi.numel() != k:
-        raise ValueError(f"seeds {seeds.numel()} / rs {tuple(rs.shape)} / "
-                         f"lo {lo.numel()} / hi {hi.numel()} disagree")
+    if masked:
+        check_cuda_tensor("lo", lo, torch.float32, 1, dev)
+        check_cuda_tensor("hi", hi, torch.float32, 1, dev)
+        if lo.numel() != k or hi.numel() != k:
+            raise ValueError(f"lo {lo.numel()} / hi {hi.numel()} / rs "
+                             f"{tuple(rs.shape)} disagree")
+    if seeds.numel() != n:
+        raise ValueError(f"seeds {seeds.numel()} / rs {tuple(rs.shape)} disagree")
     if distribution not in DIST_CODES:
         raise ValueError(f"unknown distribution {distribution!r}")
-    lib = _lib()
-    if rows > lib.fs_rec_max_rows():
-        raise ValueError(f"{rows} rows exceed the kernel's launch grid")
     y = torch.empty_like(x2d)
-    seeds32 = seeds_as_u32_bits(seeds)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fs_rec_apply(
-            x2d.data_ptr(), seeds32.data_ptr(), rs.data_ptr(), float(scale),
-            lo.data_ptr(), hi.data_ptr(), y.data_ptr(), n, k, rows, cols,
+        err = _lib().fs_rec_apply(
+            x2d.data_ptr(), seeds.data_ptr(), rs.data_ptr(), float(scale),
+            float(div), lo.data_ptr() if masked else None,
+            hi.data_ptr() if masked else None, y.data_ptr(), n, k, rows, cols,
             leaf_tag & U32_MASK, row_offset & U32_MASK, col_offset & U32_MASK,
             cols if orig_cols is None else orig_cols, int(masked),
-            DIST_CODES[distribution], LEAF_DTYPES[x2d.dtype], stream)
+            int(per_client_rounding), DIST_CODES[distribution],
+            LEAF_DTYPES[x2d.dtype], stream)
     raise_on_cuda_error("fs_rec_apply", err)
     reconstruct_apply_clients.launches += 1
     return y

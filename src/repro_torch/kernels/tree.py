@@ -1,0 +1,211 @@
+"""Leaf tables and launch plans for the tree launches of the encode and the fused close.
+
+One launch of ``csrc/seeded_projection.cu`` or ``csrc/reconstruct_apply.cu``
+covers every leaf of a parameter tree: it carries a leaf table
+(``csrc/tree.cuh``: data pointers, the 2-D view, leaf tag, offsets, dtype
+code and each leaf's first tile in one flat tile space) by value as a
+kernel parameter, so a launch copies nothing to the card.  A tree of
+more than :data:`MAX_TREE_LEAVES` leaves is split into several launches
+of the same kernel, in leaf order.
+
+A :class:`TreePlan` holds what does not change from call to call for one
+tree layout: the leaves' views and tags, each launch group's table with
+every field but the data pointers filled in, and the k-block bounds of
+every leaf, computed once and kept on the device.  Plans are cached per
+(kernel, leaf shapes and dtypes, k, mode, device), so a call's host work
+is filling in the pointers and launching.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from repro_torch.core.directions import block_bounds, check_block_mask_domain
+from repro_torch.core.projection import LeafLayout, ProjectionMode, view2d
+from repro_torch.kernels.common import LEAF_DTYPES
+
+__all__ = ["MAX_TREE_LEAVES", "ENCODE_TILE_ROWS", "CLOSE_TILE_ROWS",
+           "CLOSE_TILE_THREADS", "TreeLeaf", "TreeTable", "TreePlan",
+           "LaunchGroup", "leaf_block_bounds", "tree_plan", "single_table"]
+
+# csrc/tree.cuh's MAX_TREE_LEAVES.
+MAX_TREE_LEAVES = 64
+# Tile shapes: the encode's tile is ENCODE_TILE_ROWS rows of a leaf
+# (seeded_projection.cu's TILE_ROWS); the close's CLOSE_TILE_ROWS rows by
+# CLOSE_TILE_THREADS · (16 / element bytes) columns (reconstruct_apply.cu).
+ENCODE_TILE_ROWS = 32
+CLOSE_TILE_ROWS = 8
+CLOSE_TILE_THREADS = 32
+_KINDS = ("encode", "close")
+_PLAN_CACHE_MAX = 64
+
+
+class TreeLeaf(ctypes.Structure):
+    """``fs::TreeLeaf``."""
+
+    _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
+                ("rows", ctypes.c_int), ("cols", ctypes.c_int),
+                ("orig_cols", ctypes.c_int), ("dtype", ctypes.c_int),
+                ("tag", ctypes.c_uint32), ("row_offset", ctypes.c_uint32),
+                ("col_offset", ctypes.c_uint32), ("vec", ctypes.c_int),
+                ("tile0", ctypes.c_int), ("col_tiles", ctypes.c_int)]
+
+
+class TreeTable(ctypes.Structure):
+    """``fs::TreeTable``: the leaves of one launch."""
+
+    _fields_ = [("num_leaves", ctypes.c_int), ("num_tiles", ctypes.c_int),
+                ("leaf", TreeLeaf * MAX_TREE_LEAVES)]
+
+
+def leaf_block_bounds(
+    leaf_offset: int, leaf_size: int, total: int, num_blocks: int,
+    mode: ProjectionMode = ProjectionMode.BLOCK,
+) -> tuple[list[float], list[float]]:
+    """Leaf-local flat [lo, hi) of every global block (clamped, floats)."""
+    if mode != ProjectionMode.BLOCK or num_blocks == 1:
+        return [0.0] * num_blocks, [float(leaf_size)] * num_blocks
+    check_block_mask_domain(leaf_size)
+    los, his = [], []
+    for j in range(num_blocks):
+        blo, bhi = block_bounds(total, num_blocks, j)
+        lo = min(max(blo - leaf_offset, 0), leaf_size)
+        hi = min(max(bhi - leaf_offset, 0), leaf_size)
+        los.append(float(lo))
+        his.append(float(max(hi, lo)))
+    return los, his
+
+
+def _elem(dtype: torch.dtype) -> int:
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def _tiles(kind: str, rows: int, cols: int, dtype: torch.dtype) -> tuple[int, int]:
+    """→ (tiles of one leaf, tiles across one of its rows)."""
+    if rows == 0 or cols == 0:
+        return 0, 1
+    if kind == "encode":
+        return -(-rows // ENCODE_TILE_ROWS), 1
+    col_tiles = -(-cols // (CLOSE_TILE_THREADS * (16 // _elem(dtype))))
+    return -(-rows // CLOSE_TILE_ROWS) * col_tiles, col_tiles
+
+
+def _fill_static(entry: TreeLeaf, kind: str, rows: int, cols: int, orig_cols: int,
+                 dtype: torch.dtype, tag: int, row_offset: int, col_offset: int,
+                 tile0: int) -> int:
+    """Fill every field of ``entry`` but the pointers and ``vec``; → its tiles."""
+    tiles, col_tiles = _tiles(kind, rows, cols, dtype)
+    entry.rows, entry.cols, entry.orig_cols = rows, cols, orig_cols
+    entry.dtype = LEAF_DTYPES[dtype]
+    entry.tag = tag & 0xFFFFFFFF
+    entry.row_offset = row_offset & 0xFFFFFFFF
+    entry.col_offset = col_offset & 0xFFFFFFFF
+    entry.tile0, entry.col_tiles = tile0, col_tiles
+    return tiles
+
+
+def _vec(cols: int, dtype: torch.dtype, ptr: int) -> int:
+    """1 when every row of a leaf at ``ptr`` starts on a 16-byte boundary."""
+    return int(ptr % 16 == 0 and (cols * _elem(dtype)) % 16 == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchGroup:
+    """Leaves ``start:stop`` of a plan, launched together."""
+
+    start: int
+    stop: int
+    num_tiles: int
+    template: bytes          # the TreeTable with every pointer unset
+
+    def table(self, xs, ys=None) -> TreeTable:
+        """The launch's table with the leaves' (and outputs') pointers set."""
+        table = TreeTable.from_buffer_copy(self.template)
+        for i, x in enumerate(xs):
+            entry = table.leaf[i]
+            ptr = x.data_ptr()
+            entry.x = ptr
+            entry.vec = _vec(entry.cols, x.dtype, ptr) and (
+                ys is None or _vec(entry.cols, x.dtype, ys[i].data_ptr()))
+            if ys is not None:
+                entry.y = ys[i].data_ptr()
+        return table
+
+
+@dataclasses.dataclass(frozen=True)
+class TreePlan:
+    """What a tree launch needs besides the data, for one tree layout."""
+
+    kind: str
+    layout: tuple[LeafLayout, ...]
+    dtypes: tuple[torch.dtype, ...]
+    k: int
+    masked: bool
+    lo: torch.Tensor         # (L, k) float32 leaf-local block bounds, on the device
+    hi: torch.Tensor
+    groups: tuple[LaunchGroup, ...]
+
+
+_plans: dict = {}
+
+
+def tree_plan(kind: str, shapes, dtypes, k: int, mode: ProjectionMode,
+              device) -> TreePlan:
+    """The cached plan of ``kind`` ("encode" or "close") for leaves of these
+    per-client shapes and dtypes in sorted-key order."""
+    if kind not in _KINDS:
+        raise ValueError(kind)
+    device = torch.device(device)
+    key = (kind, tuple(shapes), tuple(dtypes), k, mode, device)
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) >= _PLAN_CACHE_MAX:
+            _plans.clear()
+        plan = _plans[key] = _build_plan(kind, key[1], key[2], k, mode, device)
+    return plan
+
+
+def _build_plan(kind, shapes, dtypes, k, mode, device) -> TreePlan:
+    layout, offset = [], 0
+    for tag, shape in enumerate(shapes):
+        rows, cols = view2d(shape)
+        layout.append(LeafLayout(tag=tag, shape=shape, rows=rows, cols=cols,
+                                 offset=offset, size=rows * cols))
+        offset += rows * cols
+    total = offset
+    bounds = [leaf_block_bounds(ll.offset, ll.size, total, k, mode)
+              for ll in layout]
+    lo = torch.tensor([b[0] for b in bounds], dtype=torch.float32).reshape(-1, k)
+    hi = torch.tensor([b[1] for b in bounds], dtype=torch.float32).reshape(-1, k)
+    groups = []
+    for start in range(0, len(layout), MAX_TREE_LEAVES):
+        stop = min(start + MAX_TREE_LEAVES, len(layout))
+        table = TreeTable()
+        tiles = 0
+        for i, ll in enumerate(layout[start:stop]):
+            tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols, ll.cols,
+                                  dtypes[start + i], ll.tag, 0, 0, tiles)
+        table.num_leaves, table.num_tiles = stop - start, tiles
+        groups.append(LaunchGroup(start, stop, tiles, bytes(table)))
+    return TreePlan(kind=kind, layout=tuple(layout), dtypes=tuple(dtypes), k=k,
+                    masked=mode == ProjectionMode.BLOCK and k > 1,
+                    lo=lo.to(device), hi=hi.to(device), groups=tuple(groups))
+
+
+def single_table(kind: str, x: torch.Tensor, rows: int, cols: int,
+                 orig_cols: int, tag: int, row_offset: int, col_offset: int,
+                 y: torch.Tensor | None = None) -> TreeTable:
+    """A one-leaf table: the leaf-level kernels are tree launches of one leaf."""
+    table = TreeTable()
+    entry = table.leaf[0]
+    table.num_tiles = _fill_static(entry, kind, rows, cols, orig_cols, x.dtype, tag,
+                                   row_offset, col_offset, 0)
+    table.num_leaves = 1
+    entry.x = x.data_ptr()
+    entry.vec = _vec(cols, x.dtype, x.data_ptr()) and (
+        y is None or _vec(cols, x.dtype, y.data_ptr()))
+    if y is not None:
+        entry.y = y.data_ptr()
+    return table

@@ -11,15 +11,15 @@ members, one after another:
     ``arch.loss`` (full-remat periods, as the reference's scanned layers);
   * its update δₙ = ψ_S − x is formed in the leaf dtype and never leaves
     the client: the encode kernel turns it into rₙ = ⟨δₙ, v(ξₙ)⟩
-    (``ops.project_tree_kernel``, one client per call);
+    (``ops.project_tree_kernel``, one tree launch per client);
   * the server regenerates every v(ξₙ) from its seed and applies
-    x ← x + (lr/N)·Σₙ rₙ·v(ξₙ) through the per-client decode kernel
-    (``ops.server_update_kernel``), which ``repro/kernels/ops.py`` declares
-    equal to ``server_aggregate``.  On bf16 leaves the reference's
-    ``server_aggregate`` rounds each client's reconstruction to bf16 before
-    its float32 sum; the decode, as the reference's kernel, keeps float32
-    to the end.  With rₙ·v exact in bf16 (bf16-representable rₙ and the
-    ±1/±2 families) the two agree bit for bit.
+    x ← x + lr·(Σₙ rₙ·v(ξₙ))/N through the per-client decode kernel in its
+    per-client-rounding mode (``ops.server_update_kernel(...,
+    per_client_rounding=True)``): as the reference's ``server_aggregate``
+    (``repro/launch/train.py``'s close), each client's reconstruction is
+    rounded to the leaf dtype before the float32 sum, so the close is
+    the port's ``server_aggregate`` bit for bit for the ±1/±2 families,
+    on bf16 leaves as on float32 ones.
 
 Sequential placement keeps one param copy and one delta alive besides the
 global params whatever the cohort size: the copy is updated in place and
@@ -127,7 +127,7 @@ def make_train_step(arch, fl: FLRunConfig, window: Optional[int] = None):
         with torch.no_grad():
             new_params = ops.server_update_kernel(
                 params, rs, seeds, pcfg.server_lr, pcfg.distribution,
-                mode=pcfg.mode)
+                mode=pcfg.mode, per_client_rounding=True)
         metrics = {
             "loss": torch.mean(torch.stack(losses)),
             "r_rms": torch.sqrt(torch.mean(rs.to(torch.float32) ** 2)),

@@ -8,7 +8,9 @@ cross-attention arrives with the enc-dec family.
 ``_sdpa`` is plain PyTorch.  ``_sdpa_blocked`` — taken, as in the
 reference, for prompts and caches longer than ``BLOCKED_SDPA_THRESHOLD``
 — is the hand-written flash-attention kernel on a CUDA tensor and its
-plain version on a CPU tensor.
+plain version on a CPU tensor; under autograd on the card, and with a
+prefix, it is the reference's blocked recurrence in plain torch
+(``_sdpa_blocked_plain``).
 
 The KV cache is a fixed-capacity ring buffer: ``pos`` records each
 slot's absolute token position (−1 = empty).  Unlike the reference,
@@ -102,35 +104,85 @@ def _sdpa(q, k, v, qpos, kpos, *, causal, window, prefix_len):
 # Prefill sequences (and decode caches) longer than this take the blocked
 # path — the full (S, T) score tensor at 32k² would be hundreds of GiB.
 BLOCKED_SDPA_THRESHOLD = 8192
+# The reference's chunk sizes of its blocked recurrence.
+_Q_CHUNK = 1024
+_KV_CHUNK = 2048
+
+
+def _sdpa_blocked_plain(q, k, v, qpos, kpos, *, causal, window, prefix_len,
+                        q_chunk: int = _Q_CHUNK, kv_chunk: int = _KV_CHUNK):
+    """The reference's ``_sdpa_blocked`` recurrence in plain torch.
+
+    Query chunks × KV chunks with the online softmax (running max m,
+    denominator l, accumulator acc), the reference's chunk sizes, padding
+    (padded keys at position −1, padded query rows sliced off) and
+    masking, so autograd reaches q, k and v.  Peak memory in the forward
+    is one (q_chunk × kv_chunk) score block per head; under autograd each
+    block's probabilities are kept for the backward.  Operands are upcast
+    to float32 as in :func:`_sdpa`, and the probabilities rounded to V's
+    dtype before P·V, as in the reference.
+    """
+    b, s, h, hd = q.shape
+    t, kheads = k.shape[1], k.shape[2]
+    g = h // kheads
+    scale = hd ** -0.5
+    qc, kc = min(q_chunk, s), min(kv_chunk, t)
+    ps, pt = (-s) % qc, (-t) % kc
+    if ps:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, ps))
+        qpos = torch.nn.functional.pad(qpos, (0, ps))
+    if pt:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pt))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pt))
+        kpos = torch.nn.functional.pad(kpos, (0, pt), value=-1)
+    nq, nk = (s + ps) // qc, (t + pt) // kc
+    outs = []
+    for qi in range(nq):
+        qblk = q[:, qi * qc:(qi + 1) * qc].reshape(b, qc, kheads, g, hd)
+        qblk = qblk.to(torch.float32)
+        qp = qpos[qi * qc:(qi + 1) * qc]
+        acc = torch.zeros((b, kheads, g, qc, hd), dtype=torch.float32, device=q.device)
+        m = torch.full((b, kheads, g, qc), -torch.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kheads, g, qc), dtype=torch.float32, device=q.device)
+        for ki in range(nk):
+            kblk = k[:, ki * kc:(ki + 1) * kc]
+            vblk = v[:, ki * kc:(ki + 1) * kc]
+            kp = kpos[ki * kc:(ki + 1) * kc]
+            sc = torch.einsum("bqkgd,btkd->bkgqt", qblk,
+                              kblk.to(torch.float32)) * scale
+            sc = _mask_logits(sc, qp, kp, causal=causal, window=window,
+                              prefix_len=prefix_len)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.exp(sc - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqt,btkd->bkgqd",
+                              p.to(vblk.dtype).to(torch.float32),
+                              vblk.to(torch.float32))
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)       # (B,K,G,qc,hd)
+        outs.append(out.permute(0, 3, 1, 2, 4))                 # (B,qc,K,G,hd)
+    out = torch.cat(outs, dim=1).reshape(b, s + ps, h, hd)
+    return out[:, :s].to(q.dtype)
 
 
 def _sdpa_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
-    """Flash attention: online softmax over key tiles, one kernel launch.
+    """Attention over more than ``BLOCKED_SDPA_THRESHOLD`` tokens.
 
-    The reference's ``_sdpa_blocked`` is the pure-JAX form of the same
-    algorithm; here it is ``kernels.flash_attention``, whose kernels have
-    no prefix-bidirectional mask.  A prefix on the CPU falls back to the
-    plain ``_sdpa`` (the same function, unblocked); on the card it raises
-    until the VLM family brings its own kernel path.  The kernels have no
-    backward yet: on the card, with grad enabled and any of q/k/v
-    requiring grad, this raises rather than return an output that
-    autograd cannot reach.  The CPU's plain version stays differentiable.
+    The reference's ``_sdpa_blocked`` is the pure-JAX online softmax over
+    query and KV chunks.  Here the flash-attention kernels take it
+    (``kernels.flash_attention``: the hand-written kernel on a CUDA
+    tensor, its plain version on a CPU tensor), except where they cannot:
+    with a prefix-bidirectional mask, which they do not have, and on the
+    card under autograd, where they have no backward.  Those take
+    :func:`_sdpa_blocked_plain`, the reference's recurrence itself.
     """
-    if q.is_cuda and torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad):
-        # The kernel writes a fresh tensor with no grad_fn: training would
-        # go on with zero gradients for Q, K and V.
-        raise NotImplementedError(
-            "no flash-attention backward kernel yet: training above "
-            "BLOCKED_SDPA_THRESHOLD tokens waits for it (ROADMAP, next: the "
-            "flash backward)")
-    if prefix_len:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "prefix-bidirectional attention above BLOCKED_SDPA_THRESHOLD "
-                "has no kernel yet (it arrives with the VLM family, ROADMAP A10)")
-        return _sdpa(q, k, v, qpos, kpos, causal=causal, window=window,
-                     prefix_len=prefix_len)
+    if prefix_len or (q.is_cuda and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _sdpa_blocked_plain(q, k, v, qpos, kpos, causal=causal,
+                                   window=window, prefix_len=prefix_len)
     return flash_attention(q, k, v, qpos.to(torch.int32).contiguous(),
                            kpos.to(torch.int32).contiguous(), causal=causal,
                            window=window)

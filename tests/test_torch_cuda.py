@@ -26,7 +26,15 @@ through ``flash_route`` and its own launch counter.  The serving path on
 the card runs against the same path on the CPU (float32) and against the
 plain version on the card (bf16, logits within 5% of their largest: one
 bf16 ulp in up to 1% of the attention outputs, carried through two
-layers), with each kernel's launches counted.
+layers), with each kernel's launches counted.  The tree launches of the
+encode and the fused close are held against their tree-level plain
+versions (the encode within ``tree_encode_tolerance``, and bitwise equal
+to the per-leaf launches summed in leaf order; the close as above), on
+trees of 6 and 70 leaves (two launches).  Leaves past the old launch
+grids (524 288 × 1, QSGD 262 144 × 2) are bitwise; the train step's
+close (per-client rounding) is bitwise equal to ``server_aggregate``;
+the plain blocked attention recurrence is held against the plain
+``_sdpa`` (values within 1e-5, gradients within 1e-4 of their largest).
 """
 import numpy as np
 import pytest
@@ -555,33 +563,214 @@ def test_cuda_bf16_tree_ops_launch_without_a_float32_copy(cuda_device):
 
 
 def test_cuda_sdpa_blocked_refuses_autograd(cuda_device):
-    """The flash kernels have no backward: a gradient through _sdpa_blocked
-    on the card raises instead of returning a tensor autograd cannot reach."""
-    from repro_torch.models.attention import _sdpa_blocked
+    """The flash kernels have no backward: under autograd on the card
+    _sdpa_blocked does not launch them (no tensor autograd cannot reach)
+    but takes the reference's blocked recurrence in plain torch, whose
+    gradients are the plain _sdpa's (float32, within 1e-4 of the largest
+    |gradient|); without autograd it launches the kernel."""
+    from repro_torch.models.attention import _sdpa, _sdpa_blocked
 
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 40, 3, 64, generator=g).to(cuda_device)
                for _ in range(3))
     pos = torch.arange(40, device=cuda_device)
+    before = flash_attention.launches
     out = _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
     assert out.shape == q.shape and not out.requires_grad
+    assert flash_attention.launches == before + 1
     for leaf in (q, k, v):
         leaf.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="backward"):
-            _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+        got = _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+        assert got.requires_grad
         leaf.requires_grad_(False)
+    assert flash_attention.launches == before + 1
     with torch.no_grad():
         q.requires_grad_(True)
         _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+    assert flash_attention.launches == before + 2
+
+
+@pytest.mark.parametrize("window,prefix_len", [(0, 0), (24, 0), (0, 13)])
+def test_cuda_blocked_plain_grads_match_sdpa(cuda_device, window, prefix_len):
+    """C2/C3: the plain blocked recurrence (small chunks, GQA, ragged
+    chunks) against the plain _sdpa on the card: values within 1e-5 and
+    q/k/v gradients within 1e-4 of the largest |gradient| (float32)."""
+    from repro_torch.models.attention import _sdpa, _sdpa_blocked_plain
+
+    g = torch.Generator().manual_seed(window + prefix_len)
+    q = torch.randn(2, 70, 6, 32, generator=g).to(cuda_device)
+    k, v = (torch.randn(2, 70, 2, 32, generator=g).to(cuda_device)
+            for _ in range(2))
+    dy = torch.randn(2, 70, 6, 32, generator=g).to(cuda_device)
+    pos = torch.arange(70, device=cuda_device)
+    kw = dict(causal=True, window=window, prefix_len=prefix_len)
+    res = []
+    for fn in (lambda *a: _sdpa_blocked_plain(*a, q_chunk=16, kv_chunk=32, **kw),
+               lambda *a: _sdpa(*a, **kw)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, pos, pos)
+        grads = torch.autograd.grad(out, leaves, dy)
+        res.append((out.detach(), grads))
+    (a, ga), (b, gb) = res
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    for x, y in zip(ga, gb):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the tree launches of the encode and the fused close
+# ---------------------------------------------------------------------------
+
+def _tree(n_leaves, seed, dtype, lead=()):
+    """A tree of ``n_leaves`` small leaves of mixed widths (1-D, ragged and
+    16-byte-multiple columns) → dict of CPU tensors."""
+    rng = np.random.RandomState(seed)
+    shapes = [(24,), (64, 24), (12, 10), (3, 2, 40), (7,), (33, 960)]
+    return {f"l{i:03d}": torch.from_numpy(
+        rng.randn(*lead, *shapes[i % len(shapes)]).astype(np.float32) * 0.1
+        ).to(dtype) for i in range(n_leaves)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", [(1, "full"), (8, "block")])
+@pytest.mark.parametrize("n_leaves", [6, 70])
+def test_cuda_tree_encode_matches_plain(cuda_device, dtype, family, k, mode,
+                                        n_leaves):
+    """One tree launch (two groups at 70 leaves) against the tree's plain
+    version summed in float64, within tree_encode_tolerance; bitwise equal
+    to the per-leaf kernel launches summed in leaf order, and to itself."""
+    from repro_torch.core.projection import leaf_layout
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+
+    dt = getattr(torch, dtype)
+    d = _tree(n_leaves, n_leaves + k, dt, lead=(5,))
+    seeds = torch.from_numpy(seeds_np(np.random.RandomState(k), 5).astype(np.int64))
+    leaves = tree_leaves(d)
+    plan = tree_plan("encode", [tuple(x.shape[1:]) for x in leaves],
+                     [x.dtype for x in leaves], k, ProjectionMode(mode), "cpu")
+    want = project_tree_plain(leaves, seeds, plan, family, dtype=torch.float64)
+    on = {key: x.to(cuda_device) for key, x in d.items()}
+    before = project_blocks.launches
+    got = ops.project_tree_kernel(on, seeds.to(cuda_device), Distribution(family),
+                                  k, ProjectionMode(mode))
+    assert project_blocks.launches - before == 2 * len(plan.groups)
+    again = ops.project_tree_kernel(on, seeds.to(cuda_device), Distribution(family),
+                                    k, ProjectionMode(mode))
+    assert torch.equal(got, again)
+    views = [x.reshape(5, ll.rows, ll.cols)
+             for ll, x in zip(leaf_layout({key: x[0] for key, x in d.items()}), leaves)]
+    assert ((got.cpu().double() - want).abs()
+            <= tree_encode_tolerance(views, family)).all()
+    acc = None
+    for i, (ll, x) in enumerate(zip(plan.layout, tree_leaves(on))):
+        r = project_blocks(x.reshape(5, ll.rows, ll.cols), seeds.to(cuda_device),
+                           ll.tag, plan.lo[i].to(cuda_device),
+                           plan.hi[i].to(cuda_device), family, plan.masked)
+        acc = r if acc is None else acc + r
+    assert torch.equal(got, acc)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", [(1, "full"), (8, "full"), (8, "block")])
+@pytest.mark.parametrize("n_leaves", [6, 70])
+def test_cuda_tree_close_matches_plain(cuda_device, dtype, family, k, mode,
+                                       n_leaves):
+    """One fused tree launch (two at 70 leaves) against the plain tree
+    close: bitwise for the ±1/±2 families (gaussian within rtol/atol 1e-5,
+    plus one bf16 ulp on bf16 leaves), for cohorts 4, 20 and 33."""
+    dt = getattr(torch, dtype)
+    p = _tree(n_leaves, n_leaves, dt)
+    rng = np.random.RandomState(k + n_leaves)
+    on = {key: x.to(cuda_device) for key, x in p.items()}
+    for n in (4, 20, 33):
+        rs = torch.from_numpy(rng.randn(n, k).astype(np.float32))
+        seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+        want = ops.server_update_fused(p, rs, seeds, 0.7, Distribution(family),
+                                       mode=ProjectionMode(mode))
+        before = fused_reconstruct_apply.launches
+        got = ops.server_update_fused(on, rs.to(cuda_device), seeds.to(cuda_device),
+                                      0.7, Distribution(family),
+                                      mode=ProjectionMode(mode))
+        assert fused_reconstruct_apply.launches - before == -(-n_leaves // 64)
+        for key in p:
+            if dt == torch.bfloat16:
+                _bf16_decode_close(family, got[key].cpu(), want[key])
+            else:
+                _assert_fused(family, got[key].cpu(), want[key])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_narrow_leaves_past_the_old_grid_limit(cuda_device, dtype):
+    """C1: a 524 288 × 1 leaf through the fused close and the per-client
+    decode, and a 262 144 × 2 leaf through QSGD, bitwise against their
+    plain versions (the old grids held 524 280 and 262 140 rows)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(524_288, 1).astype(np.float32)).to(dt)
+    seeds = torch.from_numpy(seeds_np(rng, 20).astype(np.int64))
+    rs = torch.from_numpy(rng.randn(20, 1).astype(np.float32))
+    on = [t.to(cuda_device) for t in (x, seeds, rs)]
+    sp, rp = pad_cohort(seeds, rs * torch.tensor(0.05))
+    lo, hi = torch.zeros(1), torch.full((1,), float(x.numel()))
+    want = fused_apply_plain(x, sp, rp, 3, lo, hi)
+    got = fused_reconstruct_apply(on[0], on[1], on[2], 3, 0.05)
+    assert torch.equal(got.cpu().view(torch.int16 if dtype == "bfloat16" else
+                                      torch.int32),
+                       want.view(torch.int16 if dtype == "bfloat16" else torch.int32))
+    want = reconstruct_plain(x, seeds, rs, 3, 0.05, lo, hi)
+    got = reconstruct_apply_clients(on[0], on[1], on[2], 3, 0.05)
+    assert torch.equal(got.cpu().float(), want.float())
+    q_in = torch.from_numpy(rng.randn(2, 262_144, 2).astype(np.float32) * 0.01
+                            ).to(dt)
+    qs = seeds[:2]
+    norms = torch.linalg.vector_norm(q_in.reshape(2, -1).float(), dim=1)
+    qp, lp = qsgd_quantize_plain(q_in, qs, norms, 127, True, True)
+    q, lv = qsgd_quantize(q_in.to(cuda_device), qs.to(cuda_device),
+                          norms.to(cuda_device), 127, True, True)
+    assert torch.equal(q.cpu().float(), qp.float()) and torch.equal(lv.cpu(), lp)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", ["rademacher", "sparse_rademacher", "hadamard"])
+@pytest.mark.parametrize("k,mode,n", [(1, "full", 4), (1, "full", 7),
+                                      (8, "full", 4), (8, "block", 4)])
+def test_cuda_train_close_equals_server_aggregate(cuda_device, dtype, family, k,
+                                                  mode, n):
+    """C4: the per-client-rounding close bitwise equal to the port's plain
+    server_aggregate on the card, float32 rs (not bf16-representable)."""
+    from repro_torch.core.fedscalar import FedScalarConfig, server_aggregate
+
+    dt = getattr(torch, dtype)
+    p = {key: x.to(cuda_device) for key, x in _tree(6, 3, dt).items()}
+    rng = np.random.RandomState(n + k)
+    rs = torch.from_numpy(rng.randn(n, k).astype(np.float32)).to(cuda_device)
+    seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64)).to(cuda_device)
+    cfg = FedScalarConfig(server_lr=0.9, distribution=Distribution(family),
+                          num_projections=k, mode=ProjectionMode(mode))
+    want = server_aggregate(p, rs, seeds, cfg)
+    got = ops.server_update_kernel(p, rs, seeds, 0.9, Distribution(family),
+                                   mode=ProjectionMode(mode),
+                                   per_client_rounding=True)
+    for key in p:
+        assert got[key].dtype == dt
+        assert torch.equal(got[key].float(), want[key].float()), key
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_train_step_matches_cpu(cuda_device, dtype):
     """One train_step of a reduced GQA SmolLM on the card against the CPU:
-    the encode and decode kernels launch (2 per leaf and client, 1 per leaf),
-    the loss agrees within 1e-4 (float32) / 2e-2 (bf16: activations round at
-    the card's own points), and the card's close equals its plain version
-    on the card bitwise, given the card's params, rs and seeds."""
+    the encode and decode kernels launch (one tree launch and its reduction
+    per client, 1 per leaf), the loss agrees within 1e-4 (float32) / 2e-2
+    (bf16: activations round at the card's own points), and the card's close
+    (per-client rounding) equals its plain version on the card bitwise,
+    given the card's params, rs and seeds."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -605,7 +794,7 @@ def test_cuda_train_step_matches_cpu(cuda_device, dtype):
         out[dev] = (p, *step(p, {"tokens": toks[:, :-1].to(dev),
                                  "labels": toks[:, 1:].to(dev)}, 2))
     leaves = len(tree_leaves(params))
-    assert project_blocks.launches - enc0 == 2 * leaves * 4
+    assert project_blocks.launches - enc0 == 2 * 4      # one tree launch per client
     assert reconstruct_apply_clients.launches - rec0 == leaves
     tol = 1e-4 if dtype == "float32" else 2e-2
     assert abs(float(out["cuda"][2]["loss"]) - float(out["cpu"][2]["loss"])) <= tol
@@ -613,9 +802,9 @@ def test_cuda_train_step_matches_cpu(cuda_device, dtype):
     assert torch.equal(m["seeds"].cpu(), out["cpu"][2]["seeds"])
     from repro_torch.core.projection import leaf_layout
 
-    lo = torch.zeros(1, device=cuda_device)
     for ll, x, y in zip(leaf_layout(p), tree_leaves(p), tree_leaves(new)):
         want = reconstruct_plain(x.reshape(ll.rows, ll.cols), m["seeds"], m["r"],
-                                 ll.tag, 0.25, lo, lo + float(ll.size))
+                                 ll.tag, 1.0, None, None, per_client_rounding=True,
+                                 div=4.0)
         assert y.dtype == x.dtype
         assert torch.equal(y.reshape(ll.rows, ll.cols), want)

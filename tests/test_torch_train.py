@@ -27,12 +27,19 @@ Tolerances, with their reasons:
   a difference of two bf16 params, and each of the S local steps rounds
   every element to bf16 — one ulp, ≤ 2⁻⁸|w|, of random sign, summed over
   d elements in r); the new params within Σₙ|Δrₙ|/N plus one bf16 ulp.
+  That bound is for the end-to-end comparison only: the encode itself is
+  held on the reference's own final δ of each client (captured at its
+  encode), each port r within ``tree_encode_tolerance`` of the
+  reference's, in both dtypes.
 * The close: the port's ``ops.server_update_kernel`` (plain on the CPU)
   equals the reference's ``server_aggregate`` bit for bit on float32
   leaves (N = 4, server_lr = 1, the ±1/±2 families).  On bf16 leaves
   the reference rounds each client's reconstruction rₙ·vₙ to bf16 before
   its float32 sum; with bf16-representable rₙ that rounding is exact and
-  the two are bitwise equal, so it is the whole difference.  Against
+  the two are bitwise equal, so it is the whole difference.  The train
+  step's close (``per_client_rounding``) takes that rounding and equals
+  ``server_aggregate`` bit for bit on both dtypes, k = 1, FULL 8 and
+  BLOCK 8.  Against
   the reference's own kernel (``ops.server_update_kernel``, interpret
   mode, on bf16 leaves) the port is bitwise equal to that kernel's
   fused multiply-add emulated from the port's own sum (the reference's
@@ -51,6 +58,7 @@ import jax.numpy as jnp  # noqa: E402
 import repro.launch.train as j_train  # noqa: E402
 from repro.configs import registry as j_registry  # noqa: E402
 from repro.core import fedscalar as j_fs  # noqa: E402
+from repro.core import projection as j_projection  # noqa: E402
 from repro.core.prng import Distribution as JD  # noqa: E402
 from repro.models import lm as j_lm  # noqa: E402
 from repro.models.api import Arch as JArch  # noqa: E402
@@ -59,6 +67,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.prng import Distribution as TD  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.seeded_projection import tree_encode_tolerance  # noqa: E402
 from repro_torch.launch.train import FLRunConfig, make_train_step  # noqa: E402
 from repro_torch.models import lm as t_lm  # noqa: E402
 from repro_torch.models.api import Arch as TArch  # noqa: E402
@@ -209,15 +218,23 @@ def test_arch_loss_is_lm_loss():
 # ---------------------------------------------------------------------------
 
 def _reference_step(monkeypatch, arch, params, batch, round_idx, fl):
-    """Reference ``make_train_step`` (not jitted), its rs captured at the close."""
-    seen = {}
+    """Reference ``make_train_step`` (not jitted), its rs captured at the close
+    and each client's final δ (with its seed) at the encode."""
+    seen = {"deltas": []}
     aggregate = j_train.server_aggregate
+    project = j_train.project_tree
 
     def spy(p, rs, seeds, pcfg):
         seen["rs"], seen["seeds"] = np.asarray(rs), np.asarray(seeds)
         return aggregate(p, rs, seeds, pcfg)
 
+    def spy_project(delta, seed, *args):
+        jax.debug.callback(lambda d, sd: seen["deltas"].append((d, int(sd))),
+                           delta, seed, ordered=True)
+        return project(delta, seed, *args)
+
     monkeypatch.setattr(j_train, "server_aggregate", spy)
+    monkeypatch.setattr(j_train, "project_tree", spy_project)
     new, metrics = j_train.make_train_step(arch, fl)(params, batch,
                                                       jnp.int32(round_idx))
     return new, metrics, seen
@@ -258,6 +275,21 @@ def test_train_step_matches_reference(case, monkeypatch):
     assert (np.abs(t_rs - j_rs) <= r_tol).all()
     np.testing.assert_allclose(float(t_m["r_rms"]), float(j_m["r_rms"]),
                                atol=float(np.max(r_tol)))
+    # The encode itself: each client's final δ as the reference materialises
+    # it (captured at its encode) through both encodes, the port's r within
+    # the encode's tolerance of the reference's (this sees a wrong r that
+    # the end-to-end bound admits).  The reference's own encode runs
+    # eagerly here: inside its train step XLA may keep δ = ψ_S − x in
+    # float32 instead of rounding it to bf16 (excess precision), which
+    # moves its r by up to ~1e-3 at this size.
+    assert len(seen["deltas"]) == n
+    for jd, sd in seen["deltas"]:
+        want = float(j_projection.project_tree(jd, jnp.uint32(sd))[0])
+        delta = tree_map(lambda w: w.unsqueeze(0), _carry(jd))
+        got = float(ops.project_tree_kernel(delta, torch.tensor([sd]))[0, 0])
+        views = [w.reshape(1, *_view2(w.shape[1:])) for w in tree_leaves(delta)]
+        tol = float(tree_encode_tolerance(views, "rademacher")[0, 0])
+        assert abs(got - want) <= tol
     dr = float(np.abs(t_rs - j_rs).sum()) / n
     for jw, tw in zip(jax.tree_util.tree_leaves(j_new), tree_leaves(t_new)):
         assert tw.dtype == tc.torch_dtype and tuple(tw.shape) == jw.shape
@@ -310,8 +342,16 @@ def test_close_is_server_aggregate_bitwise_float32(family):
         np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
 
 
+def _view2(shape):
+    rows = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+    return (rows, int(shape[-1]) if shape else 1)
+
+
 @pytest.mark.parametrize("family", EXACT)
 def test_bf16_close_differs_from_server_aggregate_only_by_its_rounding(family):
+    """The runtime's close (float32 to the end) differs from the reference's
+    ``server_aggregate`` on bf16 leaves only by its per-client rounding; the
+    train step's close, which takes that rounding, equals it bit for bit."""
     jp, rs, seeds = _close_inputs("bfloat16", 1)
     rs_bf16 = torch.from_numpy(rs).to(torch.bfloat16).to(torch.float32).numpy()
     assert not np.array_equal(rs_bf16, rs)
@@ -334,6 +374,44 @@ def test_bf16_close_differs_from_server_aggregate_only_by_its_rounding(family):
         assert (np.abs(a - b) <= per_client + 2.0 ** -7 * np.abs(a)).all()
         differs = differs or not np.array_equal(a, b)
     assert differs
+    # the train step's close rounds each client as the reference does
+    got = ops.server_update_kernel(
+        _carry(jp), torch.from_numpy(rs),
+        torch.from_numpy(seeds.astype(np.int64)), 1.0, TD(family),
+        per_client_rounding=True)
+    for jw, tw in zip(jax.tree_util.tree_leaves(want), tree_leaves(got)):
+        assert tw.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_f32(tw), _f32(jw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", EXACT)
+@pytest.mark.parametrize("k,mode,n,lr", [(1, "full", 4, 1.0), (1, "full", 3, 0.7),
+                                         (8, "full", 4, 1.0), (8, "block", 5, 0.9)])
+def test_train_close_is_server_aggregate_bitwise(dtype, family, k, mode, n, lr):
+    """The per-client-rounding close (the train step's) against the
+    reference's ``server_aggregate``, float32 rs: bitwise, on float32 and
+    bf16 leaves (a small tree; the train step's own leaves are held in
+    ``test_bf16_close_differs_from_server_aggregate_only_by_its_rounding``),
+    k = 1, FULL 8 and BLOCK 8, N = 3, 4, 5."""
+    from repro.core.projection import ProjectionMode as JM
+    from repro_torch.core.projection import ProjectionMode as TM
+
+    rng = np.random.RandomState(n + k)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jp = {name: jnp.asarray(rng.randn(*shape).astype(np.float32) * 0.1).astype(jdt)
+          for name, shape in (("b", (24,)), ("w", (64, 24)), ("z", (7, 40)))}
+    rs = (rng.randn(n, k) * 0.5).astype(np.float32)
+    seeds = seeds_np(rng, n)
+    cfg = j_fs.FedScalarConfig(server_lr=lr, distribution=JD(family),
+                               num_projections=k, mode=JM(mode))
+    want = j_fs.server_aggregate(jp, jnp.asarray(rs), jnp.asarray(seeds), cfg)
+    got = ops.server_update_kernel(
+        _carry(jp), torch.from_numpy(rs), torch.from_numpy(seeds.astype(np.int64)),
+        lr, TD(family), mode=TM(mode), per_client_rounding=True)
+    for jw, tw in zip(jax.tree_util.tree_leaves(want), tree_leaves(got)):
+        assert tw.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        np.testing.assert_array_equal(_f32(tw), _f32(jw))
 
 
 @pytest.mark.parametrize("family", EXACT)

@@ -1,0 +1,215 @@
+"""The tree launches' plain versions, on the CPU.
+
+``ops.project_tree_kernel`` and ``ops.server_update_fused`` plan one
+launch per tree (``kernels/tree.py``: a leaf table of at most 64 leaves;
+a longer tree is split into several launches, in leaf order).  On a CPU
+tensor each takes its tree-level plain version, which follows the same
+plan, group by group.  Held here:
+
+* against the per-leaf composition: the encode bitwise equal to the
+  leaves' ``project_blocks_plain`` summed in leaf order, the close
+  bitwise equal to ``fused_reconstruct_apply`` leaf by leaf, on a tree of
+  70 leaves (two launch groups), float32 and bf16, all four families,
+  FULL and BLOCK k = 8;
+* against the JAX reference, on a tree of 66 leaves (two launch groups):
+  the encode within 1e-6·Σ|x|·max|v| of ``repro.core.projection.
+  project_tree`` (the sum order is open); the close bitwise against
+  ``repro.kernels.ref.server_update_fused_ref`` for the ±1/±2 families
+  (gaussian within rtol/atol 1e-5, plus one bf16 ulp on bf16 leaves: the
+  reference's ``log``/``cos`` ulps scaled by the scalars);
+* the plans: groups, tiles, cached block bounds, and the k-block bounds
+  against the reference's ``leaf_block_bounds``.
+
+The CUDA kernels are held against these plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.prng import Distribution as JD  # noqa: E402
+from repro.core.projection import ProjectionMode as JM  # noqa: E402
+from repro.core.projection import project_tree as j_project_tree  # noqa: E402
+from repro_torch.core.prng import Distribution as TD  # noqa: E402
+from repro_torch.core.projection import ProjectionMode as TM  # noqa: E402
+from repro_torch.core.tree import tree_leaves  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply  # noqa: E402
+from repro_torch.kernels.seeded_projection import project_blocks_plain  # noqa: E402
+from repro_torch.kernels.tree import (  # noqa: E402
+    CLOSE_TILE_ROWS,
+    ENCODE_TILE_ROWS,
+    MAX_TREE_LEAVES,
+    TreeTable,
+    tree_plan,
+)
+from torch_parity import jax_kernels, seeds_np  # noqa: E402,F401
+
+FAMILIES = ["rademacher", "gaussian", "sparse_rademacher", "hadamard"]
+VMAX = {"rademacher": 1.0, "hadamard": 1.0, "sparse_rademacher": 2.0,
+        "gaussian": 6.7}
+BLOCKS = [(8, "full"), (8, "block")]
+DTYPES = ["float32", "bfloat16"]
+# 1-D, ragged and 16-byte-multiple columns, a 3-D leaf.
+SHAPES = [(24,), (3, 8), (10,), (2, 3, 4), (5, 12), (7,), (4, 40)]
+
+
+def _shapes(n_leaves):
+    return [SHAPES[i % len(SHAPES)] for i in range(n_leaves)]
+
+
+def _tree(shapes, rng, dtype, lead=()):
+    """{key: tensor} in sorted-key order of ``shapes``; bf16 values exact."""
+    dt = getattr(torch, dtype)
+    return {f"l{i:03d}": torch.from_numpy(
+        (rng.randn(*lead, *sh) * 0.3).astype(np.float32)).to(dt)
+        for i, sh in enumerate(shapes)}
+
+
+def _to_jax(tree):
+    return {k: jnp.asarray(v.to(torch.float32).numpy()).astype(
+        jnp.bfloat16 if v.dtype == torch.bfloat16 else jnp.float32)
+        for k, v in tree.items()}
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", BLOCKS)
+def test_tree_encode_plain_is_the_per_leaf_composition(dtype, family, k, mode):
+    rng = np.random.RandomState(k + len(family))
+    n = 3
+    d = _tree(_shapes(70), rng, dtype, lead=(n,))
+    seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+    got = ops.project_tree_kernel(d, seeds, TD(family), k, TM(mode))
+    assert got.shape == (n, k) and got.dtype == torch.float32
+    leaves = tree_leaves(d)
+    plan = tree_plan("encode", [x.shape[1:] for x in leaves],
+                     [x.dtype for x in leaves], k, TM(mode), "cpu")
+    assert [(g.start, g.stop) for g in plan.groups] == [(0, 64), (64, 70)]
+    total = sum(int(np.prod(sh)) for sh in _shapes(70))
+    acc = None
+    for i, (ll, x) in enumerate(zip(plan.layout, leaves)):
+        lo, hi = (torch.tensor(b, dtype=torch.float32) for b in
+                  ops.leaf_block_bounds(ll.offset, ll.size, total, k, TM(mode)))
+        r = project_blocks_plain(x.reshape(n, ll.rows, ll.cols), seeds, ll.tag,
+                                 lo, hi, family, mode == "block")
+        acc = r if acc is None else acc + r
+    assert torch.equal(got, acc)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", [(1, "full")] + BLOCKS)
+def test_tree_encode_plain_matches_reference(dtype, family, k, mode):
+    """66 leaves (two launch groups), one client."""
+    rng = np.random.RandomState(3 * k + len(family))
+    n = 1
+    d = _tree(_shapes(66), rng, dtype, lead=(n,))
+    seeds = seeds_np(rng, n)
+    got = ops.project_tree_kernel(d, torch.from_numpy(seeds.astype(np.int64)),
+                                  TD(family), k, TM(mode)).numpy()
+    jd = _to_jax(d)
+    for i in range(n):
+        want = np.asarray(j_project_tree({key: v[i] for key, v in jd.items()},
+                                         jnp.uint32(seeds[i]), JD(family), k,
+                                         JM(mode)))
+        x1 = sum(float(np.abs(_f32(v[i])).sum()) for v in d.values())
+        assert np.abs(got[i] - want).max() <= 1e-6 * x1 * VMAX[family]
+
+
+def _close_case(dtype, family, k, mode, n, seed, n_leaves=70):
+    rng = np.random.RandomState(seed)
+    p = _tree(_shapes(n_leaves), rng, dtype)
+    rs = (rng.randn(n, k)).astype(np.float32)
+    seeds = seeds_np(rng, n)
+    got = ops.server_update_fused(p, torch.from_numpy(rs),
+                                  torch.from_numpy(seeds.astype(np.int64)), 0.9,
+                                  TD(family), mode=TM(mode))
+    return p, rs, seeds, got
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", BLOCKS)
+def test_tree_close_plain_is_the_per_leaf_composition(dtype, family, k, mode):
+    n = 19
+    p, rs, seeds, got = _close_case(dtype, family, k, mode, n, 5 + k)
+    rs_f, scale = ops.fold_upload_weights(torch.from_numpy(rs), 0.9, None, TM(mode),
+                                          None)
+    total = sum(v.numel() for v in p.values())
+    offset = 0
+    for key in sorted(p):
+        x = p[key]
+        rows, cols = (1, x.shape[0]) if x.dim() == 1 else (
+            int(np.prod(x.shape[:-1])), x.shape[-1])
+        lo, hi = (torch.tensor(b, dtype=torch.float32) for b in
+                  ops.leaf_block_bounds(offset, x.numel(), total, k, TM(mode)))
+        want = fused_reconstruct_apply(
+            x.reshape(rows, cols), torch.from_numpy(seeds.astype(np.int64)), rs_f,
+            sorted(p).index(key), scale, family, lo=lo, hi=hi,
+            masked=mode == "block")
+        assert got[key].dtype == x.dtype
+        assert torch.equal(got[key].reshape(rows, cols), want)
+        offset += x.numel()
+
+
+@pytest.mark.parametrize("dtype,family", [("float32", "rademacher"),
+                                          ("bfloat16", "hadamard"),
+                                          ("float32", "gaussian"),
+                                          ("bfloat16", "sparse_rademacher")])
+def test_tree_close_plain_matches_reference_oracle(jax_kernels, dtype, family):
+    """66 leaves (two launch groups), k = 1, N = 3 (padded to 16); each
+    family once (the oracle regenerates every padded client leaf by leaf)."""
+    p, rs, seeds, got = _close_case(dtype, family, 1, "full", 3, 11, n_leaves=66)
+    want = jax_kernels.ref.server_update_fused_ref(
+        _to_jax(p), jnp.asarray(rs), jnp.asarray(seeds), 0.9, JD(family))
+    for key, w in want.items():
+        a, b = _f32(got[key]), _f32(w)
+        if family == "gaussian":
+            ulp = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+            np.testing.assert_allclose(a, b, rtol=1e-5 + ulp, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+def test_plans_split_cache_and_bound_blocks(jax_kernels):
+    shapes = _shapes(130)
+    f32 = [torch.float32] * 130
+    plan = tree_plan("encode", shapes, f32, 8, TM.BLOCK, "cpu")
+    assert plan is tree_plan("encode", shapes, f32, 8, TM.BLOCK, "cpu")
+    assert [(g.start, g.stop) for g in plan.groups] == [(0, 64), (64, 128),
+                                                        (128, 130)]
+    assert MAX_TREE_LEAVES == 64 and plan.masked and plan.lo.shape == (130, 8)
+    total = sum(ll.size for ll in plan.layout)
+    for i, ll in enumerate(plan.layout):
+        lo, hi = jax_kernels.ops.leaf_block_bounds(ll.offset, ll.size, total, 8,
+                                                   JM.BLOCK)
+        assert plan.lo[i].tolist() == lo and plan.hi[i].tolist() == hi
+    for g in plan.groups:
+        table = TreeTable.from_buffer_copy(g.template)
+        tiles = [-(-ll.rows // ENCODE_TILE_ROWS) for ll in plan.layout[g.start:g.stop]]
+        assert table.num_leaves == g.stop - g.start
+        assert table.num_tiles == g.num_tiles == sum(tiles)
+        assert [table.leaf[i].tile0 for i in range(table.num_leaves)] == \
+            list(np.cumsum([0] + tiles[:-1]))
+        assert [table.leaf[i].tag for i in range(table.num_leaves)] == \
+            list(range(g.start, g.stop))
+    close = tree_plan("close", [(3, 300), (1000, 2)], [torch.bfloat16,
+                                                      torch.float32], 1,
+                      TM.FULL, "cpu")
+    table = TreeTable.from_buffer_copy(close.groups[0].template)
+    # bf16: 8 columns a thread, 256 a tile; float32: 4 and 128
+    assert (table.leaf[0].col_tiles, table.leaf[1].col_tiles) == (2, 1)
+    assert table.leaf[1].tile0 == 2
+    assert table.num_tiles == 2 + -(-1000 // CLOSE_TILE_ROWS)
+    assert not close.masked and close.lo.tolist() == [[0.0], [0.0]]
+    assert close.hi.tolist() == [[900.0], [2000.0]]
