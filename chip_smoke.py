@@ -36,7 +36,9 @@ Phases (any failure exits non-zero and the final line is not printed):
    bit);
 6. times from CUDA events: each kernel, its plain version and its bound,
    at the main paths' shapes and at the large leaf (cohorts 256, 1024 for
-   both decodes; 16 clients for the encode and QSGD);
+   both decodes; 16 clients for the encode and QSGD); the runtime's
+   decode of a round through ``ops.server_update_kernel`` (one tree
+   launch) with its device and enqueue times apart;
 7. flash attention against its plain version, on the card, through
    ``flash_attention`` (which routes bf16 to the tensor-core prefill or
    the split-KV decode, float32 to the float32 kernel or the split-KV
@@ -89,7 +91,8 @@ Phases (any failure exits non-zero and the final line is not printed):
    s, training tokens/s, encode and close ms (CUDA events) beside their
    bounds, launches, peak GiB, loss, r_rms and uploaded scalars; the
    warm-up round's close held bitwise against ``server_aggregate`` and its
-   plain version on the card given that round's params, rs and seeds;
+   plain version on the card given that round's params, rs and seeds, and
+   one close launch per round;
    the trained bf16 model
    saved and restored through ``repro_torch.checkpoint``, bit for bit.
 
@@ -98,15 +101,17 @@ Phases (any failure exits non-zero and the final line is not printed):
    MLP tree (one launch each) and a 70-leaf tree (two launches: the leaf
    table holds 64), float32 and bf16, all four families, k = 1, FULL 8
    and BLOCK 8; the encode within ``tree_encode_tolerance`` and the same
-   bits on a rerun, the close bitwise for the ±1/±2 families; then leaves
-   past the old launch grids: 524 288 × 1 through the fused close and the
+   bits on a rerun, the close bitwise for the ±1/±2 families; the
+   per-client decode's tree launch (``ops.server_update_kernel``) on the
+   MLP tree (N = 20 and 1024) and the 70-leaf tree, plain and with
+   per-client rounding, bitwise; then leaves past the old launch grids: 524 288 × 1 through the fused close and the
    per-client decode, 262 144 × 2 through QSGD, bitwise; and in phase 11,
    SmolLM-360M's 11 bf16 leaves in one launch (encode N = 1, k = 1 and
    FULL 8; close N = 4) and its 2-layer leaves under 2²⁴ elements in
    BLOCK 8.  Phase 6 times the MLP round through the tree entry points
    (one launch for the close, two for the encode) with and without the
-   host's enqueue, and phase 13 the train round's encode and close the
-   same way;
+   host's enqueue, the runtime's decode (one launch) the same way, and
+   phase 13 the train round's encode and close (one launch) likewise;
 15. training above the blocked-attention threshold (after phase 12):
    SmolLM-360M at full width, 2 layers, float32, 8448 tokens under
    autograd: loss and gradients through ``_sdpa_blocked`` (the plain
@@ -440,6 +445,46 @@ class Smoke:
             if not _decode_agrees(family, g, w) or not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"tree close disagrees: {what} max err {err}")
         self._record("fused", family, err, same)
+
+    def check_tree_decode(self, params, seeds, rs, family, k, mode, rounding,
+                          what=""):
+        """``ops.server_update_kernel`` (one decode tree launch per group of
+        64 leaves) against the plain tree decode, leaf by leaf."""
+        from repro_torch.core.prng import Distribution
+        from repro_torch.core.projection import ProjectionMode
+        from repro_torch.core.tree import tree_leaves
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.seeded_reconstruct import (
+            reconstruct_apply_clients,
+            reconstruct_tree_plain,
+        )
+        from repro_torch.kernels.tree import tree_plan
+        torch = self.torch
+        mode = ProjectionMode(mode)
+        leaves = tree_leaves(params)
+        n = rs.shape[0]
+        plan = tree_plan("decode", [tuple(x.shape) for x in leaves],
+                         [x.dtype for x in leaves], k, mode, self.dev)
+        before = reconstruct_apply_clients.launches
+        got = tree_leaves(ops.server_update_kernel(params, rs, seeds, 0.9,
+                                                   Distribution(family), mode=mode,
+                                                   per_client_rounding=rounding))
+        launches = reconstruct_apply_clients.launches - before
+        frs, scale = ops.fold_upload_weights(rs, 0.9, None, mode, None)
+        scale, div = (0.9, float(n)) if rounding else (scale, 1.0)
+        want = reconstruct_tree_plain(leaves, seeds, frs, scale, div, plan, family,
+                                      rounding)
+        torch.cuda.synchronize()
+        if launches != len(plan.groups):
+            raise AssertionError(f"tree decode: {launches} launches for "
+                                 f"{len(plan.groups)} groups: {what}")
+        err, same = 0.0, True
+        for g, w in zip(got, want):
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            same = same and bool(torch.equal(g, w))
+            if not _decode_agrees(family, g, w) or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"tree decode disagrees: {what} max err {err}")
+        self._record("rec", family, err, same)
 
     def _record(self, kernel, family, err, bitwise, ratio=0.0, changed=0.0):
         self.errs[kernel] = max(self.errs[kernel], err)
@@ -790,6 +835,31 @@ def phase_tree_kernels(s: Smoke):
                 s.check_tree_close(_rand_tree(s, shapes, dtype), s.seeds(20),
                                    s.randn(20, k), family, k, mode, what)
     s.report()
+    s.group = ("tree launches of the per-client decode, the MLP tree (one launch, "
+               "one column a thread) and a 70-leaf tree (two launches): float32 and "
+               "bf16; plain (k=1, FULL 8, BLOCK 8), per-client rounding (k=1, "
+               "FULL 8, BLOCK 8; the ±1/±2 families); N=20, and N=1024 at k=1")
+    modes = [(1, "full", False), (8, "full", False), (8, "block", False),
+             (1, "full", True), (8, "full", True), (8, "block", True)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for family in FAMILIES:
+            params = _rand_tree(s, mlp, dtype)
+            for k, mode, rounding in modes:
+                if rounding and family not in EXACT:
+                    continue    # a gaussian ulp may round a client's sum apart
+                what = (f"mlp tree decode {str(dtype)[6:]} {family} k={k} {mode} "
+                        f"rounding={rounding}")
+                for n in ((20, 1024) if k == 1 else (20,)):
+                    s.check_tree_decode(params, s.seeds(n), s.randn(n, k), family, k,
+                                        mode, rounding, f"{what} n={n}")
+        for family in ("rademacher", "hadamard"):
+            params = _rand_tree(s, shapes, dtype)
+            for k, mode, rounding in modes:
+                s.check_tree_decode(params, s.seeds(20), s.randn(20, k), family, k,
+                                    mode, rounding,
+                                    f"70-leaf tree decode {str(dtype)[6:]} {family} "
+                                    f"k={k} {mode} rounding={rounding}")
+    s.report()
     s.group = ("narrow leaves past the old grid limits (C1): 524288x1 through "
                "the fused close and the per-client decode (N=20), 262144x2 "
                "through QSGD (N=2); float32 and bf16")
@@ -1088,32 +1158,39 @@ def phase_times_runtime(s: Smoke):
     """CUDA-event times of the per-client decode and QSGD kernels."""
     import torch
 
+    from repro_torch.core.prng import Distribution
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.kernels import ops
     from repro_torch.kernels.qsgd_quant import qsgd_quantize, qsgd_quantize_plain
     from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
     from repro_torch.kernels.seeded_reconstruct import (
         reconstruct_apply_clients,
         reconstruct_plain,
+        reconstruct_tree_plain,
     )
+    from repro_torch.kernels.tree import tree_plan
 
     one = torch.ones(1, device=s.dev)
     zero = torch.zeros(1, device=s.dev)
     # Main path: one round's apply at cohort 1000 (the bucket pads to 1024)
-    # over the 6 MLP leaves, and one round's qsgd encode (levels only).
+    # over the 6 MLP leaves through the tree entry the runtime calls (one
+    # decode launch), and one round's qsgd encode (levels only).
     n = 1024
     seeds = s.seeds(n)
-    rs = s.randn(n, 1) * (1.0 / n)
-    leaves = [(s.randn(r, c), tag, zero, one * (r * c))
-              for tag, (r, c) in enumerate(MLP)]
+    rs = s.randn(n, 1)
+    params = {f"l{tag}": s.randn(r, c) for tag, (r, c) in enumerate(MLP)}
+    p_leaves = [params[key] for key in sorted(params)]
+    plan = tree_plan("decode", MLP, [torch.float32] * len(MLP), 1,
+                     ProjectionMode.FULL, s.dev)
     qx = [s.randn(1000, r, c) * 0.01 for r, c in MLP]
     qs = s.seeds(1000)
+    rd = Distribution.RADEMACHER
 
     def rec_kernel():
-        for x2d, tag, lo, hi in leaves:
-            reconstruct_apply_clients(x2d, seeds, rs, tag, 1.0, lo=lo, hi=hi)
+        ops.server_update_kernel(params, rs, seeds, 1.0, rd)
 
     def rec_plain():
-        for x2d, tag, lo, hi in leaves:
-            reconstruct_plain(x2d, seeds, rs, tag, 1.0, lo, hi)
+        reconstruct_tree_plain(p_leaves, seeds, rs, 1.0 / n, 1.0, plan)
 
     def norms(x):   # the norm pass, outside the kernel as in the reference
         return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
@@ -1127,17 +1204,27 @@ def phase_times_runtime(s: Smoke):
             qsgd_quantize_plain(x, qs, norms(x), 127, want_q=False,
                                 want_levels=True)
 
+    r0 = reconstruct_apply_clients.launches
+    rec_kernel()
+    rec_launches = reconstruct_apply_clients.launches - r0
     t = {}
     for name, fn, reps in (("rec_plain", rec_plain, 3), ("rec_kernel", rec_kernel, 50),
                            ("rec_kernel2", rec_kernel, 50), ("rec_plain2", rec_plain, 3),
                            ("qsgd_plain", q_plain, 10), ("qsgd_kernel", q_kernel, 50),
                            ("qsgd_kernel2", q_kernel, 50), ("qsgd_plain2", q_plain, 10)):
         t[name] = s.time_ms(fn, reps=reps, warmup=1)
+    # The decode with the host kept out (the device's own time), and the
+    # host's enqueue time of one call.
+    t["rec_device"] = _device_ms([rec_kernel], reps=20)
+    t["rec_enqueue"] = _enqueue_ms(rec_kernel)
     rec_b, rec_by = _rec_bound(MLP, n, 1)
     q_b, q_by = _qsgd_bound(MLP, 1000, 1)
     print("times (runtime main path, one round: 6 MLP leaves; decode N=1024, "
-          "k=1; qsgd norm pass + levels, N=1000, bits=8): " + json.dumps(t),
-          flush=True)
+          f"k=1, {rec_launches} launch, V=1: {not plan.groups[0].vector}; qsgd "
+          "norm pass + levels, N=1000, bits=8): " + json.dumps(t), flush=True)
+    if rec_launches != 1:
+        raise AssertionError(f"times: the round's decode took {rec_launches} "
+                             "launches, expected one tree launch")
     del qx
 
     rows = []
@@ -1683,8 +1770,9 @@ def phase_train_parity(s: Smoke):
         secs[dev.type] = time.perf_counter() - t1
         launches[dev.type] = {k: fn.launches for k, fn in counters.items()
                               if fn.launches}
-    leaves = len(tree_leaves(params[cpu]))
-    want = {"encode": 2 * n, "rec": leaves}     # one tree launch per client
+    # the encode: one tree launch (and its reduction) per client; the close:
+    # one tree launch
+    want = {"encode": 2 * n, "rec": 1}
     if launches != {"cuda": want, "cpu": {}}:
         raise AssertionError(f"train parity: launches {launches}, expected "
                              f"{want} on the card and none on the CPU")
@@ -1882,7 +1970,7 @@ def phase_train(s: Smoke):
         ops.project_tree_kernel, ops.server_update_kernel = originals
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     rounds = 1 + TRAIN_ROUNDS
-    want = {"encode": 2 * n * rounds, "rec": len(layout) * rounds}
+    want = {"encode": 2 * n * rounds, "rec": rounds}   # one close launch a round
     if launches != want:
         raise AssertionError(f"train: launches {launches}, expected {want}")
     if not (all(r["uploaded_scalars"] == 2 * n for r in rows)

@@ -30,7 +30,7 @@ from repro_torch.core.prng import (
 
 __all__ = ["DIST_NAMES", "DIST_CODES", "LEAF_DTYPES", "fold_seed", "row_state",
            "tile_from_state", "gen_tile", "seeds_as_u32_bits",
-           "check_cuda_tensor", "raise_on_cuda_error"]
+           "check_cuda_tensor", "check_cohort", "raise_on_cuda_error"]
 
 # Family names as the kernels take them; the code is the CUDA switch value.
 DIST_NAMES = ("rademacher", "gaussian", "sparse_rademacher", "hadamard")
@@ -102,6 +102,20 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype, ndim: int,
         raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_cohort(seeds: torch.Tensor, rs: torch.Tensor, distribution: str,
+                 device: torch.device) -> tuple[int, int]:
+    """Raise unless ``seeds`` (N,) int64 and ``rs`` (N, k) float32 are a
+    cohort on ``device`` and ``distribution`` a family name; → (N, k)."""
+    check_cuda_tensor("seeds", seeds, torch.int64, 1, device)
+    check_cuda_tensor("rs", rs, torch.float32, 2, device)
+    n, k = rs.shape
+    if seeds.numel() != n:
+        raise ValueError(f"seeds {seeds.numel()} / rs {tuple(rs.shape)} disagree")
+    if distribution not in DIST_CODES:
+        raise ValueError(f"unknown distribution {distribution!r}")
+    return n, k
 
 
 def raise_on_cuda_error(fn: str, err: int) -> None:

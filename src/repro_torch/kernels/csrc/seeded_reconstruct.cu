@@ -20,14 +20,6 @@
 // the result equals the plain version bit for bit for the +-1/+-2
 // families.  There are no atomics: the same inputs give the same bits.
 //
-// Bound on this card: x is read and y written once (8 bytes per element,
-// 4 for bf16),
-// against N*k*(one SplitMix32 round + value map + multiply + add) integer
-// and float ops per element.  From a few clients up it is bound by the
-// ALUs, exactly as the fused close (reconstruct_apply.cu) is: both do the
-// same work per (element, client, block); only the order of the adds
-// differs.
-//
 // Per-client rounding (modes ROUND_ONE for k = 1 and ROUND_ANY; the LLM
 // train step's close): the reference's server_aggregate rounds each
 // client's reconstruction to the leaf dtype before its float32 sum, and
@@ -40,231 +32,287 @@
 //                                       with aggregation weights)
 //
 // bit for bit the port's core/fedscalar.server_aggregate for the +-1/+-2
-// families (on a float32 leaf the rounding is the identity).
+// families (on a float32 leaf the rounding is the identity).  ROUND_ONE
+// adds round(r * v) directly: part = 0 + r * v differs from r * v only
+// for -0, whose rounding adds +-0 to an acc that is never -0.
 //
-// Design.  One thread per output element; a thread block is a tile of
-// TILE_R rows by TILE_C columns, and the blocks walk the row tiles with a
-// grid-stride loop (gridDim.y is at most 65 535; a leaf may have more row
-// tiles).  Clients are staged CHUNK at a time: the
-// first CHUNK threads derive the chunk's per-block leaf-folded seeds and
-// stage its scalars in shared memory, then CHUNK * TILE_R threads hoist
-// the chain's row rounds for (client, row), so each element pays one
-// mixer round per client.
+// Bound on this card: x is read and y written once (8 bytes per element,
+// 4 for bf16), against N*k*(one SplitMix32 round + value map + multiply +
+// add) integer and float ops per element.  From a few clients up it is
+// bound by the ALUs, as the fused close (reconstruct_apply.cu) is: both
+// do the same work per (element, client, block); only the order of the
+// adds differs.
+//
+// Design.  One launch covers every leaf of a tree (the leaf table of
+// tree.cuh, passed by value); blocks walk one flat tile space over all
+// leaves with a grid-stride loop.  A tile is TILE_R rows by TILE_C * V
+// columns of one leaf; each thread owns V consecutive columns of one row.
+// V is chosen once per launch by the wrapper (kernels/tree.py's
+// decode_vector): 16 bytes of the leaf's type (4 float32, 8 bf16, with
+// 16-byte x/y accesses where the leaf's rows are aligned) when the launch
+// has enough tiles to fill the card, else 1 (a small tree such as the
+// paper MLP's, whose leaves are narrower than one vector tile).
+//
+// The tile's sum runs over a flat sequence of (client, block) pairs in the
+// mode's order: block-major for PLAIN, client-major for the rounding
+// modes, over the blocks the tile meets.  SLOTS pairs are staged at a time:
+// their scalars, and the chain's row rounds for each (pair, row) of the
+// tile, so an element pays one mixer round per pair and one staging serves
+// the V columns of a thread.  Two barriers per SLOTS pairs.  A rounding
+// mode keeps one partial sum per column, flushed into acc at each
+// client's last pair: no per-client arrays, whatever k is.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chain.cuh"
+#include "tree.cuh"
 
 namespace {
 
 constexpr int TILE_C = 32;
 constexpr int TILE_R = 8;
-constexpr int CHUNK = 32;   // CLIENT_CHUNK of the reference
+constexpr int THREADS = TILE_C * TILE_R;
+constexpr int SLOTS = 128;        // (client, block) pairs staged at once
+constexpr int MAX_LISTED = 64;    // blocks listed per tile; a larger k lists all
 
-// MODE: PLAIN, ROUND_ONE (per-client rounding, k = 1: a client's
-// reconstruction is its one product, so no per-client partial is kept)
-// or ROUND_ANY (per-client rounding, any k).
+// MODE: PLAIN, ROUND_ONE (per-client rounding, k = 1) or ROUND_ANY
+// (per-client rounding, any k).
 enum Mode : int { PLAIN = 0, ROUND_ONE = 1, ROUND_ANY = 2 };
 
-template <typename T, int DIST, bool MASKED, int MODE>
-__global__ void __launch_bounds__(TILE_C * TILE_R)
-rec_apply_kernel(const T* __restrict__ x, const int64_t* __restrict__ seeds,
-                 const float* __restrict__ rs, float scale, float div,
-                 const float* __restrict__ lo, const float* __restrict__ hi,
-                 T* __restrict__ y, int n, int k, int rows, int cols,
-                 uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
-                 int orig_cols) {
-  __shared__ uint32_t s_seed[CHUNK];
-  __shared__ float s_r[CHUNK];
-  __shared__ fs::RowState s_state[CHUNK][TILE_R];
+struct Staging {
+  fs::RowState state[SLOTS][TILE_R];
+  float r[SLOTS];
+  float lo[SLOTS], hi[SLOTS];     // MASKED: the pair's block bounds
+  int last[SLOTS];                // ROUND_ANY: the pair is its client's last
+  int blocks[MAX_LISTED];         // MASKED: the blocks this tile meets
+};
 
-  const int c = blockIdx.x * TILE_C + threadIdx.x;
-  const int tid = threadIdx.y * TILE_C + threadIdx.x;
-  const uint32_t col = col_offset + (uint32_t)c;
-  const int row_tiles = (rows + TILE_R - 1) / TILE_R;
-  for (int tr = blockIdx.y; tr < row_tiles; tr += gridDim.y) {
-    const int r = tr * TILE_R + threadIdx.y;
-    const bool valid = r < rows && c < cols;
-    const uint32_t row = row_offset + (uint32_t)r;
-    const float flat = __fadd_rn(
-        __fmul_rn(__uint2float_rn(row), __int2float_rn(orig_cols)), __uint2float_rn(col));
+template <typename T, int DIST, bool MASKED, int MODE, bool VEC>
+__device__ void decode_tile(const fs::TreeLeaf& L, int tr, int tc,
+                            const int64_t* __restrict__ seeds,
+                            const float* __restrict__ rs, float scale, float div,
+                            const float* __restrict__ lo, const float* __restrict__ hi,
+                            int n, int k, Staging& sh) {
+  constexpr int V = VEC ? fs::VecOf<T>::V : 1;
+  const int tx = threadIdx.x % TILE_C;
+  const int ty = threadIdx.x / TILE_C;
+  const int tid = threadIdx.x;
+  const int r = tr * TILE_R + ty;
+  const int c0 = (tc * TILE_C + tx) * V;
+  const bool live = r < L.rows && c0 < L.cols;
+  const uint32_t row = L.row_offset + (uint32_t)r;
+  const uint32_t tagmix = fs::splitmix32(L.tag);   // fold_seed's leaf half
 
-    // Stage chunk [base, base + m) of block b: per-block leaf-folded seeds,
-    // scalars, and the row rounds of the chain for (client, row).
-    auto stage = [&](int base, int m, int b) {
-      __syncthreads();   // the previous chunk's shared reads are done
-      if (tid < m) {
-        const size_t i = (size_t)base + tid;
-        s_seed[tid] = fs::block_leaf_seed((uint32_t)seeds[i], (uint32_t)b, leaf_tag);
-        s_r[tid] = rs[i * k + b];
+  uint32_t col[V];
+  float flat[V];
+  const float rowf =
+      MASKED ? __fmul_rn(__uint2float_rn(row), __int2float_rn(L.orig_cols)) : 0.0f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    col[j] = L.col_offset + (uint32_t)(c0 + j);
+    flat[j] = MASKED ? __fadd_rn(rowf, __uint2float_rn(col[j])) : 0.0f;
+  }
+
+  // The blocks this tile meets, in order: the others add only +-0.
+  const bool listed = MASKED && k <= MAX_LISTED;
+  int nb = k;
+  if (listed) {
+    nb = 0;
+    for (int b = 0; b < k; ++b) {
+      const float lo_b = lo[b], hi_b = hi[b];
+      bool any = false;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        any = any || (live && c0 + j < L.cols && flat[j] >= lo_b && flat[j] < hi_b);
+      if (__syncthreads_or(any)) {   // uniform per tile
+        if (tid == 0) sh.blocks[nb] = b;
+        ++nb;
       }
-      __syncthreads();
-      if (tid < m * TILE_R) {
-        const int i = tid / TILE_R;
-        const int rr = tid % TILE_R;
-        s_state[i][rr] = fs::row_state<DIST>(
-            s_seed[i], row_offset + (uint32_t)(tr * TILE_R + rr));
-      }
-      __syncthreads();
-    };
-    // False when no element of this tile lies in block b (uniform per tile).
-    auto meets = [&](int b, float& mask) {
-      if (!MASKED) return true;
-      const bool in_block = flat >= lo[b] && flat < hi[b];
-      mask = in_block ? 1.0f : 0.0f;
-      return __syncthreads_or(valid && in_block) != 0;
-    };
+    }
+  }
 
-    float acc = 0.0f;
-    if (MODE != ROUND_ANY) {
-      // ROUND_ONE: part = 0 + r * v differs from r * v only for -0, whose
-      // rounding adds +-0 to an acc that is never -0: the same sum.
-      for (int b = 0; b < k; ++b) {
-        float mask = 1.0f;
-        if (!meets(b, mask)) continue;
-        for (int base = 0; base < n; base += CHUNK) {
-          const int m = min(CHUNK, n - base);
-          stage(base, m, b);
-          if (valid) {
-            for (int i = 0; i < m; ++i) {
-              float v = fs::value_from_state<DIST>(s_state[i][threadIdx.y], col);
-              if (MASKED) v = __fmul_rn(v, mask);
-              const float p = __fmul_rn(s_r[i], v);
-              acc = __fadd_rn(acc, MODE == ROUND_ONE ? fs::round_as(p, x) : p);
-            }
+  float acc[V], part[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = part[j] = 0.0f;
+  const int pairs = n * nb;
+  for (int p0 = 0; p0 < pairs; p0 += SLOTS) {
+    const int m = min(SLOTS, pairs - p0);
+    __syncthreads();   // the previous stage's reads are done; sh.blocks is visible
+    for (int s = tid; s < m * TILE_R; s += THREADS) {
+      const int slot = s / TILE_R;
+      const int rr = s % TILE_R;
+      const int p = p0 + slot;
+      int i, j;
+      if (MODE == ROUND_ANY) { i = p / nb; j = p % nb; }
+      else                   { j = p / n;  i = p % n;  }
+      const int b = listed ? sh.blocks[j] : j;
+      const uint32_t seed = fs::splitmix32(
+          fs::splitmix32((uint32_t)seeds[i] ^ (fs::PROJ_SALT + (uint32_t)b)) ^ tagmix);
+      sh.state[slot][rr] =
+          fs::row_state<DIST>(seed, L.row_offset + (uint32_t)(tr * TILE_R + rr));
+      if (rr == 0) {
+        sh.r[slot] = rs[(size_t)i * k + b];
+        if (MASKED) {
+          sh.lo[slot] = lo[b];
+          sh.hi[slot] = hi[b];
+        }
+        if (MODE == ROUND_ANY) sh.last[slot] = j == nb - 1;
+      }
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll 4
+      for (int s = 0; s < m; ++s) {
+        const fs::RowState st = sh.state[s][ty];
+        const float ri = sh.r[s];
+        const float lo_s = MASKED ? sh.lo[s] : 0.0f;
+        const float hi_s = MASKED ? sh.hi[s] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          float v = fs::value_from_state<DIST>(st, col[j]);
+          if (MASKED) v = __fmul_rn(v, flat[j] >= lo_s && flat[j] < hi_s ? 1.0f : 0.0f);
+          const float prod = __fmul_rn(ri, v);
+          if (MODE == PLAIN)
+            acc[j] = __fadd_rn(acc[j], prod);
+          else if (MODE == ROUND_ONE)
+            acc[j] = __fadd_rn(acc[j], fs::round_as(prod, (const T*)nullptr));
+          else
+            part[j] = __fadd_rn(part[j], prod);
+        }
+        if (MODE == ROUND_ANY && sh.last[s]) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            acc[j] = __fadd_rn(acc[j], fs::round_as(part[j], (const T*)nullptr));
+            part[j] = 0.0f;
           }
         }
       }
-    } else {
-      for (int base = 0; base < n; base += CHUNK) {
-        const int m = min(CHUNK, n - base);
-        float part[CHUNK];
-#pragma unroll
-        for (int i = 0; i < CHUNK; ++i) part[i] = 0.0f;
-        for (int b = 0; b < k; ++b) {
-          float mask = 1.0f;
-          if (!meets(b, mask)) continue;
-          stage(base, m, b);
-          if (valid) {
-#pragma unroll
-            for (int i = 0; i < CHUNK; ++i) {
-              if (i < m) {
-                float v = fs::value_from_state<DIST>(s_state[i][threadIdx.y], col);
-                if (MASKED) v = __fmul_rn(v, mask);
-                part[i] = __fadd_rn(part[i], __fmul_rn(s_r[i], v));
-              }
-            }
-          }
-        }
-        if (valid) {
-#pragma unroll
-          for (int i = 0; i < CHUNK; ++i)
-            if (i < m) acc = __fadd_rn(acc, fs::round_as(part[i], x));
-        }
-      }
     }
-    if (valid) {
-      const size_t idx = (size_t)r * cols + c;
-      const float upd = MODE != PLAIN ? __fmul_rn(scale, __fdiv_rn(acc, div))
-                                      : __fmul_rn(scale, acc);
-      fs::store_rn(y + idx, __fadd_rn(fs::load_f32(x + idx), upd));
+  }
+  if (!live) return;
+  const size_t idx = (size_t)r * L.cols + c0;
+  const T* x = static_cast<const T*>(L.x) + idx;
+  T* y = static_cast<T*>(L.y) + idx;
+  float upd[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    upd[j] = MODE != PLAIN ? __fmul_rn(scale, __fdiv_rn(acc[j], div))
+                           : __fmul_rn(scale, acc[j]);
+  if constexpr (VEC) {
+    if (L.vec) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(x));
+      float out[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[j] = __fadd_rn(fs::vec_f32<T>(w, j), upd[j]);
+      *reinterpret_cast<uint4*>(y) = fs::vec_pack<T>(out);
+      return;
     }
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (c0 + j < L.cols) fs::store_rn(y + j, __fadd_rn(fs::load_f32(x + j), upd[j]));
+}
+
+template <int DIST, bool MASKED, int MODE, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+decode_tree_kernel(const __grid_constant__ fs::TreeTable table,
+                   const int64_t* __restrict__ seeds, const float* __restrict__ rs,
+                   float scale, float div, const float* __restrict__ lo,
+                   const float* __restrict__ hi, int n, int k) {
+  __shared__ Staging sh;
+  for (int t = blockIdx.x; t < table.num_tiles; t += gridDim.x) {
+    const int l = fs::find_leaf(table, t);
+    const fs::TreeLeaf& L = table.leaf[l];
+    const int local = t - L.tile0;
+    const int tr = local / L.col_tiles;
+    const int tc = local % L.col_tiles;
+    const float* lo_l = MASKED ? lo + (size_t)l * k : nullptr;
+    const float* hi_l = MASKED ? hi + (size_t)l * k : nullptr;
+    if (L.dtype == fs::BF16)
+      decode_tile<__nv_bfloat16, DIST, MASKED, MODE, VEC>(L, tr, tc, seeds, rs, scale,
+                                                         div, lo_l, hi_l, n, k, sh);
+    else
+      decode_tile<float, DIST, MASKED, MODE, VEC>(L, tr, tc, seeds, rs, scale, div,
+                                                 lo_l, hi_l, n, k, sh);
+    __syncthreads();   // the next tile's listing and staging wait for this tile
   }
 }
 
-template <typename T, int DIST, int MODE>
-void launch(bool masked, dim3 grid, cudaStream_t st, const T* x,
-            const int64_t* seeds, const float* rs, float scale, float div,
-            const float* lo, const float* hi, T* y, int n, int k, int rows, int cols,
-            uint32_t leaf_tag, uint32_t row_offset, uint32_t col_offset,
-            int orig_cols) {
-  const dim3 block(TILE_C, TILE_R);
-  if (masked)
-    rec_apply_kernel<T, DIST, true, MODE><<<grid, block, 0, st>>>(
-        x, seeds, rs, scale, div, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
-        col_offset, orig_cols);
-  else
-    rec_apply_kernel<T, DIST, false, MODE><<<grid, block, 0, st>>>(
-        x, seeds, rs, scale, div, lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
-        col_offset, orig_cols);
+struct Args {
+  const fs::TreeTable* table;
+  const int64_t* seeds;
+  const float* rs;
+  float scale, div;
+  const float* lo;
+  const float* hi;
+  int n, k;
+  int blocks;
+  cudaStream_t st;
+};
+
+template <int DIST, bool MASKED, int MODE, bool VEC>
+void launch(const Args& a) {
+  decode_tree_kernel<DIST, MASKED, MODE, VEC><<<a.blocks, THREADS, 0, a.st>>>(
+      *a.table, a.seeds, a.rs, a.scale, a.div, a.lo, a.hi, a.n, a.k);
 }
 
-template <typename T, int DIST>
-void launch_round(bool round, bool masked, dim3 grid, cudaStream_t st, const T* x,
-                  const int64_t* seeds, const float* rs, float scale, float div,
-                  const float* lo, const float* hi, T* y, int n, int k, int rows,
-                  int cols, uint32_t leaf_tag, uint32_t row_offset,
-                  uint32_t col_offset, int orig_cols) {
-  if (round && k == 1)
-    launch<T, DIST, ROUND_ONE>(masked, grid, st, x, seeds, rs, scale, div, lo, hi, y,
-                               n, k, rows, cols, leaf_tag, row_offset, col_offset,
-                               orig_cols);
-  else if (round)
-    launch<T, DIST, ROUND_ANY>(masked, grid, st, x, seeds, rs, scale, div, lo, hi, y,
-                               n, k, rows, cols, leaf_tag, row_offset, col_offset,
-                               orig_cols);
-  else
-    launch<T, DIST, PLAIN>(masked, grid, st, x, seeds, rs, scale, div, lo, hi, y, n,
-                           k, rows, cols, leaf_tag, row_offset, col_offset, orig_cols);
-}
-
-template <typename T>
-bool launch_dist(int dist, bool round, bool masked, dim3 grid, cudaStream_t st,
-                 const void* xv, const int64_t* seeds, const float* rs, float scale,
-                 float div, const float* lo, const float* hi, void* yv, int n, int k,
-                 int rows, int cols, uint32_t leaf_tag, uint32_t row_offset,
-                 uint32_t col_offset, int orig_cols) {
-  const T* x = static_cast<const T*>(xv);
-  T* y = static_cast<T*>(yv);
-#define FS_REC_CASE(D)                                                            \
-  case D:                                                                         \
-    launch_round<T, D>(round, masked, grid, st, x, seeds, rs, scale, div, lo, hi, \
-                       y, n, k, rows, cols, leaf_tag, row_offset, col_offset,     \
-                       orig_cols);                                                \
-    return true;
-  switch (dist) {
-    FS_REC_CASE(fs::RADEMACHER)
-    FS_REC_CASE(fs::GAUSSIAN)
-    FS_REC_CASE(fs::SPARSE_RADEMACHER)
-    FS_REC_CASE(fs::HADAMARD)
-    default:
-      return false;
+// ROUND_ONE takes no mask: it is the k = 1 mode, and one block spans the leaf.
+template <int DIST, bool VEC>
+void launch_mode(int mode, bool masked, const Args& a) {
+  if (mode == PLAIN) {
+    if (masked) launch<DIST, true, PLAIN, VEC>(a);
+    else        launch<DIST, false, PLAIN, VEC>(a);
+  } else if (mode == ROUND_ONE) {
+    launch<DIST, false, ROUND_ONE, VEC>(a);
+  } else {
+    if (masked) launch<DIST, true, ROUND_ANY, VEC>(a);
+    else        launch<DIST, false, ROUND_ANY, VEC>(a);
   }
-#undef FS_REC_CASE
+}
+
+template <int DIST>
+void launch_vec(bool vec, int mode, bool masked, const Args& a) {
+  if (vec) launch_mode<DIST, true>(mode, masked, a);
+  else     launch_mode<DIST, false>(mode, masked, a);
 }
 
 }  // namespace
 
-extern "C" int fs_rec_chunk() { return CHUNK; }
+// Tile shape and staging for the wrapper's checks: TILE_R rows by TILE_C
+// threads (each V columns); SLOTS pairs staged at once.
+extern "C" int fs_rec_tile_rows() { return TILE_R; }
+extern "C" int fs_rec_tile_threads() { return TILE_C; }
+extern "C" int fs_rec_slots() { return SLOTS; }
+extern "C" int fs_rec_table_bytes() { return (int)sizeof(fs::TreeTable); }
 
-// x, y: (rows, cols) of dtype (fs::F32 or fs::BF16); seeds: (n,) int64
-// round seeds (unfolded; low 32 bits used); rs: (n, k) float32 with every
-// aggregation weight folded in; lo/hi: (k,) leaf-local flat bounds, read
-// only when masked (may be null otherwise); round selects per-client
-// rounding, with div the divisor of its final sum.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int fs_rec_apply(const void* x, const int64_t* seeds, const float* rs,
-                            float scale, float div, const float* lo, const float* hi,
-                            void* y, int n, int k, int rows, int cols,
-                            uint32_t leaf_tag, uint32_t row_offset,
-                            uint32_t col_offset, int orig_cols, int masked,
-                            int round, int dist, int dtype, void* stream) {
-  if (rows <= 0 || cols <= 0) return (int)cudaSuccess;
-  if (n < 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int row_tiles = (rows + TILE_R - 1) / TILE_R;
-  const dim3 grid((cols + TILE_C - 1) / TILE_C, row_tiles < 65535 ? row_tiles : 65535);
-  bool ok;
-  if (dtype == fs::F32)
-    ok = launch_dist<float>(dist, round, masked, grid, st, x, seeds, rs, scale, div,
-                            lo, hi, y, n, k, rows, cols, leaf_tag, row_offset,
-                            col_offset, orig_cols);
-  else if (dtype == fs::BF16)
-    ok = launch_dist<__nv_bfloat16>(dist, round, masked, grid, st, x, seeds, rs,
-                                    scale, div, lo, hi, y, n, k, rows, cols,
-                                    leaf_tag, row_offset, col_offset, orig_cols);
-  else
-    ok = false;
-  if (!ok) return (int)cudaErrorInvalidValue;
+// table: the leaves of this launch (x and y of each, host memory; copied
+// into the launch by value), tiled with V = 16 / element bytes columns a
+// thread when vec, else 1; seeds: (n,) int64 round seeds (low 32 bits
+// used); rs: (n, k) float32 with every aggregation weight folded in;
+// lo, hi: (table.num_leaves, k) float32 leaf-local block bounds, read only
+// when masked (may be null otherwise); round selects per-client rounding,
+// with div the divisor of its final sum.  Returns cudaGetLastError()
+// after the launch.
+extern "C" int fs_rec_tree(const fs::TreeTable* table, const int64_t* seeds,
+                           const float* rs, float scale, float div, const float* lo,
+                           const float* hi, int n, int k, int masked, int round,
+                           int vec, int dist, void* stream) {
+  if (n < 0 || k <= 0 || table->num_leaves <= 0
+      || table->num_leaves > fs::MAX_TREE_LEAVES)
+    return (int)cudaErrorInvalidValue;
+  if (masked && (lo == nullptr || hi == nullptr)) return (int)cudaErrorInvalidValue;
+  if (table->num_tiles <= 0) return (int)cudaSuccess;
+  // A masked k = 1 call with rounding takes ROUND_ANY, which equals ROUND_ONE.
+  const int mode = !round ? PLAIN : (k == 1 && !masked ? ROUND_ONE : ROUND_ANY);
+  const Args a{table, seeds, rs, scale, div, lo, hi, n, k,
+               fs::grid_blocks(table->num_tiles, 1), (cudaStream_t)stream};
+  switch (dist) {
+    case fs::RADEMACHER:        launch_vec<fs::RADEMACHER>(vec, mode, masked, a); break;
+    case fs::GAUSSIAN:          launch_vec<fs::GAUSSIAN>(vec, mode, masked, a); break;
+    case fs::SPARSE_RADEMACHER: launch_vec<fs::SPARSE_RADEMACHER>(vec, mode, masked, a); break;
+    case fs::HADAMARD:          launch_vec<fs::HADAMARD>(vec, mode, masked, a); break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

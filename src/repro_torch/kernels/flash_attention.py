@@ -45,7 +45,8 @@ from repro_torch.kernels.common import check_cuda_tensor, raise_on_cuda_error
 
 __all__ = ["HEAD_DIMS", "DECODE_MAX_ROWS", "decode_partition", "flash_attention",
            "flash_attention_plain", "flash_route", "flash_prefill", "flash_decode",
-           "flash_f32", "allowed_mask", "flash_compare", "flash_agrees"]
+           "flash_f32", "allowed_mask", "flash_tile_class", "flash_compare",
+           "flash_agrees"]
 
 # head_dim values the CUDA kernels are instantiated for.
 HEAD_DIMS = (32, 64, 128)
@@ -76,12 +77,32 @@ def allowed_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     """(S, T) bool: key t is allowed for query s."""
     q = qpos.to(torch.int64)[:, None]
     k = kpos.to(torch.int64)[None, :]
-    ok = k >= 0
+    ok = (k >= 0).expand(q.shape[0], k.shape[1])
     if causal:
         ok = ok & (k <= q)
     if window:
         ok = ok & (k > q - window)
     return ok
+
+
+def flash_tile_class(qpos_rows, kpos_keys, causal: bool, window: int) -> str:
+    """How ``csrc/flash_attention.cu`` treats one key tile of one row block:
+    ``"skip"`` (no pair can be allowed), ``"unmasked"`` (every pair is) or
+    ``"masked"``, from the block's qpos min/max over its valid rows and the
+    tile's kpos min, max and min over ``kpos >= 0`` (slots past T count as
+    -1), never from the tile's position: the kernel's test, written out."""
+    q = [int(x) for x in qpos_rows]
+    kp = [int(x) for x in kpos_keys]
+    qmin, qmax = min(q), max(q)
+    kmin, kmax = min(kp), max(kp)
+    vmin = min((x for x in kp if x >= 0), default=2 ** 31 - 1)
+    if (kmax < 0 or (causal and vmin > qmax)
+            or (window and kmax <= qmin - window)):
+        return "skip"
+    if (kmin >= 0 and (not causal or kmax <= qmin)
+            and (not window or kmin > qmax - window)):
+        return "unmasked"
+    return "masked"
 
 
 def flash_compare(got: torch.Tensor, want: torch.Tensor):

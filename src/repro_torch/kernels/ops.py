@@ -8,7 +8,7 @@
 * ``server_update_kernel`` ≡ ``repro.kernels.ops.server_update_kernel``:
   the per-client decode (clients added one by one, scale applied last),
   the federation runtime's large-cohort apply and its digest replay, one
-  launch per leaf; with ``per_client_rounding`` the LLM train step's
+  tree launch; with ``per_client_rounding`` the LLM train step's
   close, bitwise the reference's ``server_aggregate``.
 * ``qsgd_roundtrip_kernel`` ≡ ``repro.kernels.ops.qsgd_roundtrip_kernel``:
   the QSGD quantize→dequantize round trip of one update tree.
@@ -32,7 +32,7 @@ from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.kernels.common import LEAF_DTYPES
 from repro_torch.kernels.reconstruct_apply import fused_tree
 from repro_torch.kernels.seeded_projection import project_tree
-from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients
+from repro_torch.kernels.seeded_reconstruct import reconstruct_tree
 from repro_torch.kernels.tree import leaf_block_bounds, tree_plan
 
 __all__ = ["leaf_block_bounds", "fold_upload_weights", "project_tree_kernel",
@@ -133,32 +133,24 @@ def server_update_kernel(
     """Per-client decode: x ← x + (lr/N)·Σₙⱼ rₙⱼ vₙⱼ (or lr·Σ wₙ… with weights).
 
     Same contract as :func:`server_update_fused`; every weight is folded
-    into the scalars and each leaf goes through
-    :func:`repro_torch.kernels.seeded_reconstruct.reconstruct_apply_clients`.
+    into the scalars, and one tree launch per group of
+    ``tree.MAX_TREE_LEAVES`` leaves decodes the tree
+    (:func:`repro_torch.kernels.seeded_reconstruct.reconstruct_tree`).
     ``per_client_rounding`` rounds each client's reconstruction to the
     leaf dtype before the float32 sum and applies x + lr·(Σ/N) (Σ alone
     with weights), as the reference's ``server_aggregate`` does.
     """
     rs, scale = fold_upload_weights(rs, server_lr, weights, mode, block_weights)
     n, k = rs.shape
-    rs = rs.contiguous()
     div = 1.0
     if per_client_rounding:
         scale, div = server_lr, (float(n) if weights is None else 1.0)
-    leaves = tree_leaves(params)
-    plan = tree_plan("close", [tuple(leaf.shape) for leaf in leaves],
+    leaves = [leaf if leaf.is_contiguous() else leaf.contiguous()
+              for leaf in tree_leaves(params)]
+    plan = tree_plan("decode", [tuple(leaf.shape) for leaf in leaves],
                      [leaf.dtype for leaf in leaves], k, mode, leaves[0].device)
-    seeds = seeds.to(torch.int64)
-    out = []
-    for i, (ll, leaf) in enumerate(zip(plan.layout, leaves)):
-        x2d = leaf.reshape(ll.rows, ll.cols).contiguous()
-        lo, hi = (plan.lo[i], plan.hi[i]) if plan.masked else (None, None)
-        y = reconstruct_apply_clients(x2d, seeds, rs, ll.tag, scale,
-                                      distribution.value, lo=lo, hi=hi,
-                                      masked=plan.masked, orig_cols=ll.cols,
-                                      per_client_rounding=per_client_rounding,
-                                      div=div)
-        out.append(y.reshape(ll.shape))
+    out = reconstruct_tree(leaves, seeds.to(torch.int64), rs.contiguous(), scale, div,
+                           plan, distribution.value, per_client_rounding)
     return tree_unflatten(params, out)
 
 

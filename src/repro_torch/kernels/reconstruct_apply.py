@@ -36,6 +36,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     DIST_CODES,
     LEAF_DTYPES,
+    check_cohort,
     check_cuda_tensor,
     fold_seed,
     gen_tile,
@@ -46,6 +47,7 @@ from repro_torch.kernels.tree import (
     CLOSE_TILE_THREADS,
     TreePlan,
     TreeTable,
+    check_leaves,
     single_table,
 )
 
@@ -151,17 +153,6 @@ def _lib():
     return lib
 
 
-def _check_cohort(seeds, rs, distribution, dev) -> tuple[int, int]:
-    check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
-    check_cuda_tensor("rs", rs, torch.float32, 2, dev)
-    n, k = rs.shape
-    if seeds.numel() != n:
-        raise ValueError(f"seeds {seeds.numel()} / rs {tuple(rs.shape)} disagree")
-    if distribution not in DIST_CODES:
-        raise ValueError(f"unknown distribution {distribution!r}")
-    return n, k
-
-
 def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
             lo: int | None, hi: int | None, masked: bool, distribution: str,
             dev: torch.device) -> None:
@@ -191,15 +182,8 @@ def fused_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
         return fused_tree_plain(leaves, seeds, rs, scale, plan, distribution)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _check_cohort(seeds, rs, distribution, dev)
-    if rs.shape[1] != plan.k:
-        raise ValueError(f"rs {tuple(rs.shape)} does not have the plan's {plan.k} "
-                         "blocks")
-    for leaf, dtype in zip(leaves, plan.dtypes):
-        if leaf.device != dev or leaf.dtype != dtype or not leaf.is_contiguous():
-            raise ValueError(f"leaf {tuple(leaf.shape)} {leaf.dtype} on "
-                             f"{leaf.device} does not fit the plan ({dtype}, "
-                             f"contiguous, on {dev})")
+    _, k = check_cohort(seeds, rs, distribution, dev)
+    check_leaves(plan, leaves, k, dev)
     out = [torch.empty_like(leaf) for leaf in leaves]
     row_bytes = 4 * plan.k
     for group in plan.groups:
@@ -248,7 +232,7 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
     dev = x2d.device
     check_cuda_tensor("x2d", x2d, LEAF_DTYPES, 2, dev)
     rs = rs.contiguous()
-    _check_cohort(seeds, rs, distribution, dev)
+    check_cohort(seeds, rs, distribution, dev)
     if masked:
         check_cuda_tensor("lo", lo, torch.float32, 1, dev)
         check_cuda_tensor("hi", hi, torch.float32, 1, dev)

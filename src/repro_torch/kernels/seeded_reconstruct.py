@@ -1,8 +1,11 @@
-"""Per-client server decode y = x + scale·Σ_b Σ_n r[n,b]·(v[n,b]·mask_b) — one pass per leaf.
+"""Per-client server decode y = x + scale·Σ_b Σ_n r[n,b]·(v[n,b]·mask_b) — one launch per tree.
 
 Port of ``repro/kernels/seeded_reconstruct.py::_rec_kernel``.  The CUDA
 kernel is ``csrc/seeded_reconstruct.cu``; this module holds its plain
-PyTorch version (the reference's arithmetic written out) and the wrapper.
+PyTorch version (the reference's arithmetic written out) and the
+wrappers: :func:`reconstruct_tree` decodes every leaf of a tree in one
+launch (one per group of ``tree.MAX_TREE_LEAVES`` leaves),
+:func:`reconstruct_apply_clients` one leaf's 2-D view, as a tree of one.
 
 The numeric spec is the reference kernel's, float32 throughout::
 
@@ -36,6 +39,10 @@ within a tolerance, not bitwise.  The reference's fori oracle
 (``ref.server_update_ref``) takes p + lr·(Σ/n) instead and is close, not
 equal.  Each element's value depends only on its own chain, so row slabs
 of the plain version and the kernel's tile skipping leave the bits alone.
+CLIENT_CHUNK is the reference's padding, not a sum order: the kernel
+stages its own number of (client, block) pairs at a time.
+``reconstruct_apply_clients.launches`` counts kernel launches (one per
+launch group).
 """
 from __future__ import annotations
 
@@ -48,14 +55,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
     DIST_CODES,
     LEAF_DTYPES,
+    check_cohort,
     check_cuda_tensor,
     fold_seed,
     gen_tile,
     raise_on_cuda_error,
 )
+from repro_torch.kernels.tree import (
+    CLOSE_TILE_ROWS,
+    CLOSE_TILE_THREADS,
+    TreePlan,
+    TreeTable,
+    check_leaves,
+    decode_vector,
+    single_table,
+)
 
-__all__ = ["CLIENT_CHUNK", "reconstruct_apply_clients", "reconstruct_plain",
-           "pad_clients"]
+__all__ = ["CLIENT_CHUNK", "reconstruct_tree", "reconstruct_tree_plain",
+           "reconstruct_apply_clients", "reconstruct_plain", "pad_clients"]
 
 CLIENT_CHUNK = 32
 
@@ -135,19 +152,89 @@ def reconstruct_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
     return torch.cat(out) if len(out) > 1 else out[0]
 
 
+def reconstruct_tree_plain(leaves, seeds: torch.Tensor, rs: torch.Tensor,
+                           scale: float, div: float, plan: TreePlan,
+                           distribution: str = "rademacher",
+                           per_client_rounding: bool = False) -> list:
+    """Plain version of a tree decode: :func:`reconstruct_plain` leaf by
+    leaf, with the plan's tags and block bounds → the new leaves."""
+    out = []
+    for i, (ll, x) in enumerate(zip(plan.layout, leaves)):
+        lo, hi = (plan.lo[i], plan.hi[i]) if plan.masked else (None, None)
+        y = reconstruct_plain(x.reshape(ll.rows, ll.cols), seeds, rs, ll.tag, scale,
+                              lo, hi, distribution, plan.masked,
+                              per_client_rounding=per_client_rounding, div=div)
+        out.append(y.reshape(x.shape))
+    return out
+
+
 def _lib():
     lib = _build.library("seeded_reconstruct")
     if not getattr(lib, "_fs_typed", False):
-        p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-        lib.fs_rec_apply.argtypes = [p, p, p, f, f, p, p, p, i, i, i, i, u, u, u, i,
-                                     i, i, i, i, p]
-        lib.fs_rec_apply.restype = i
-        lib.fs_rec_chunk.argtypes = []
-        lib.fs_rec_chunk.restype = i
-        if lib.fs_rec_chunk() != CLIENT_CHUNK:
-            raise RuntimeError("csrc/seeded_reconstruct.cu disagrees on CLIENT_CHUNK")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.fs_rec_tree.argtypes = [p, p, p, f, f, p, p, i, i, i, i, i, i, p]
+        lib.fs_rec_tree.restype = i
+        for name in ("fs_rec_tile_rows", "fs_rec_tile_threads", "fs_rec_table_bytes"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
+        if (lib.fs_rec_tile_rows() != CLOSE_TILE_ROWS
+                or lib.fs_rec_tile_threads() != CLOSE_TILE_THREADS
+                or lib.fs_rec_table_bytes() != ctypes.sizeof(TreeTable)):
+            raise RuntimeError("csrc/seeded_reconstruct.cu disagrees on its tile "
+                               "or its leaf table")
         lib._fs_typed = True
     return lib
+
+
+def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
+            div: float, lo: int | None, hi: int | None, masked: bool,
+            per_client_rounding: bool, vector: bool, distribution: str,
+            dev: torch.device) -> None:
+    n, k = rs.shape
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().fs_rec_tree(ctypes.addressof(table), seeds.data_ptr(),
+                                 rs.data_ptr(), float(scale), float(div), lo, hi, n,
+                                 k, int(masked), int(per_client_rounding),
+                                 int(vector), DIST_CODES[distribution], stream)
+    raise_on_cuda_error("fs_rec_tree", err)
+    if table.num_tiles > 0:          # a table of empty leaves launches nothing
+        reconstruct_apply_clients.launches += 1
+
+
+def reconstruct_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
+                     div: float, plan: TreePlan, distribution: str = "rademacher",
+                     per_client_rounding: bool = False) -> list:
+    """→ the new leaves ``x + scale·Σₙⱼ rₙⱼ·vₙⱼ`` of a tree, in leaf order
+    (``x + scale·(Σₙ round(Σⱼ rₙⱼ·vₙⱼ) / div)`` with ``per_client_rounding``).
+
+    ``leaves`` are the tree's leaves in sorted-key order with the shapes
+    and dtypes ``plan`` (a "decode" plan) was made for; ``seeds`` the
+    ``(N,)`` round seeds (int64 words), ``rs`` the ``(N, k)`` float32
+    scalars with every aggregation weight folded in.  CUDA tensors take
+    one launch per launch group of ``plan`` (or raise); CPU tensors the
+    plain version.
+    """
+    dev = rs.device
+    if dev.type == "cpu":
+        return reconstruct_tree_plain(leaves, seeds, rs, scale, div, plan,
+                                      distribution, per_client_rounding)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _, k = check_cohort(seeds, rs, distribution, dev)
+    if plan.kind != "decode":
+        raise ValueError(f"a {plan.kind} plan does not tile the decode")
+    check_leaves(plan, leaves, k, dev)
+    out = [torch.empty_like(leaf) for leaf in leaves]
+    row_bytes = 4 * plan.k
+    for group in plan.groups:
+        sl = slice(group.start, group.stop)
+        masked = plan.masked
+        _launch(group.table(leaves[sl], out[sl]), seeds, rs, scale, div,
+                plan.lo.data_ptr() + group.start * row_bytes if masked else None,
+                plan.hi.data_ptr() + group.start * row_bytes if masked else None,
+                masked, per_client_rounding, group.vector, distribution, dev)
+    return out
 
 
 def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
@@ -169,9 +256,8 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
     weight already folded in; ``lo``/``hi`` the ``(k,)`` leaf-local block
     bounds, needed only when ``masked``.  ``per_client_rounding`` takes
     the train step's close, ``x + scale·(Σₙ round(Σⱼ rₙⱼ·vₙⱼ) / div)``.
-    A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.  ``reconstruct_apply_clients.launches`` counts kernel
-    launches.
+    A CUDA tensor launches the kernel on a one-leaf table (or raises); a
+    CPU tensor takes the plain version.
     """
     rs = rs.to(torch.float32)
     if rs.dim() == 1:
@@ -188,32 +274,22 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
     check_cuda_tensor("x2d", x2d, LEAF_DTYPES, 2, dev)
-    check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
     rs = rs.contiguous()
-    check_cuda_tensor("rs", rs, torch.float32, 2, dev)
+    check_cohort(seeds, rs, distribution, dev)
     if masked:
         check_cuda_tensor("lo", lo, torch.float32, 1, dev)
         check_cuda_tensor("hi", hi, torch.float32, 1, dev)
         if lo.numel() != k or hi.numel() != k:
             raise ValueError(f"lo {lo.numel()} / hi {hi.numel()} / rs "
                              f"{tuple(rs.shape)} disagree")
-    if seeds.numel() != n:
-        raise ValueError(f"seeds {seeds.numel()} / rs {tuple(rs.shape)} disagree")
-    if distribution not in DIST_CODES:
-        raise ValueError(f"unknown distribution {distribution!r}")
     y = torch.empty_like(x2d)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().fs_rec_apply(
-            x2d.data_ptr(), seeds.data_ptr(), rs.data_ptr(), float(scale),
-            float(div), lo.data_ptr() if masked else None,
-            hi.data_ptr() if masked else None, y.data_ptr(), n, k, rows, cols,
-            leaf_tag & U32_MASK, row_offset & U32_MASK, col_offset & U32_MASK,
-            cols if orig_cols is None else orig_cols, int(masked),
-            int(per_client_rounding), DIST_CODES[distribution],
-            LEAF_DTYPES[x2d.dtype], stream)
-    raise_on_cuda_error("fs_rec_apply", err)
-    reconstruct_apply_clients.launches += 1
+    vector = decode_vector([(rows, cols, x2d.dtype)])
+    table = single_table("decode", x2d, rows, cols,
+                         cols if orig_cols is None else orig_cols, leaf_tag,
+                         row_offset, col_offset, y, vector)
+    _launch(table, seeds, rs, scale, div, lo.data_ptr() if masked else None,
+            hi.data_ptr() if masked else None, masked, per_client_rounding, vector,
+            distribution, dev)
     return y
 
 

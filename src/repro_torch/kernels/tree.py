@@ -1,12 +1,12 @@
-"""Leaf tables and launch plans for the tree launches of the encode and the fused close.
+"""Leaf tables and launch plans for the tree launches of the encode and the two closes.
 
-One launch of ``csrc/seeded_projection.cu`` or ``csrc/reconstruct_apply.cu``
-covers every leaf of a parameter tree: it carries a leaf table
-(``csrc/tree.cuh``: data pointers, the 2-D view, leaf tag, offsets, dtype
-code and each leaf's first tile in one flat tile space) by value as a
-kernel parameter, so a launch copies nothing to the card.  A tree of
-more than :data:`MAX_TREE_LEAVES` leaves is split into several launches
-of the same kernel, in leaf order.
+One launch of ``csrc/seeded_projection.cu``, ``csrc/reconstruct_apply.cu``
+or ``csrc/seeded_reconstruct.cu`` covers every leaf of a parameter tree:
+it carries a leaf table (``csrc/tree.cuh``: data pointers, the 2-D view,
+leaf tag, offsets, dtype code and each leaf's first tile in one flat
+tile space) by value as a kernel parameter, so a launch copies nothing
+to the card.  A tree of more than :data:`MAX_TREE_LEAVES` leaves is
+split into several launches of the same kernel, in leaf order.
 
 A :class:`TreePlan` holds what does not change from call to call for one
 tree layout: the leaves' views and tags, each launch group's table with
@@ -27,8 +27,9 @@ from repro_torch.core.projection import LeafLayout, ProjectionMode, view2d
 from repro_torch.kernels.common import LEAF_DTYPES
 
 __all__ = ["MAX_TREE_LEAVES", "ENCODE_TILE_ROWS", "CLOSE_TILE_ROWS",
-           "CLOSE_TILE_THREADS", "TreeLeaf", "TreeTable", "TreePlan",
-           "LaunchGroup", "leaf_block_bounds", "tree_plan", "single_table"]
+           "CLOSE_TILE_THREADS", "DECODE_MIN_TILES", "TreeLeaf", "TreeTable",
+           "TreePlan", "LaunchGroup", "leaf_block_bounds", "decode_vector",
+           "tree_plan", "check_leaves", "single_table"]
 
 # csrc/tree.cuh's MAX_TREE_LEAVES.
 MAX_TREE_LEAVES = 64
@@ -38,7 +39,17 @@ MAX_TREE_LEAVES = 64
 ENCODE_TILE_ROWS = 32
 CLOSE_TILE_ROWS = 8
 CLOSE_TILE_THREADS = 32
-_KINDS = ("encode", "close")
+# The per-client decode ("decode", seeded_reconstruct.cu) tiles as the
+# close does, CLOSE_TILE_ROWS rows by CLOSE_TILE_THREADS · V columns, and
+# chooses V once per launch: V = 16 / element bytes (a thread owns one
+# 16-byte vector of a row) when the launch then has at least
+# DECODE_MIN_TILES tiles, else V = 1.  Each thread walks the whole cohort
+# in order (the decode's sum order), so nothing but more threads shortens
+# a small tree's launch: the paper MLP's leaves are at most 24 columns
+# wide, and V = 4 there would idle three lanes in four.  DECODE_MIN_TILES
+# is two blocks for each of the H100's 132 SMs.
+DECODE_MIN_TILES = 2 * 132
+_KINDS = ("encode", "close", "decode")
 _PLAN_CACHE_MAX = 64
 
 
@@ -82,21 +93,31 @@ def _elem(dtype: torch.dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 4
 
 
-def _tiles(kind: str, rows: int, cols: int, dtype: torch.dtype) -> tuple[int, int]:
-    """→ (tiles of one leaf, tiles across one of its rows)."""
+def _tiles(kind: str, rows: int, cols: int, dtype: torch.dtype,
+           vector: bool = True) -> tuple[int, int]:
+    """→ (tiles of one leaf, tiles across one of its rows); ``vector`` False
+    gives the decode's tiles of one column a thread."""
     if rows == 0 or cols == 0:
         return 0, 1
     if kind == "encode":
         return -(-rows // ENCODE_TILE_ROWS), 1
-    col_tiles = -(-cols // (CLOSE_TILE_THREADS * (16 // _elem(dtype))))
+    per_thread = 16 // _elem(dtype) if vector else 1
+    col_tiles = -(-cols // (CLOSE_TILE_THREADS * per_thread))
     return -(-rows // CLOSE_TILE_ROWS) * col_tiles, col_tiles
+
+
+def decode_vector(leaves) -> bool:
+    """The decode's V rule for one launch over ``leaves``, an iterable of
+    (rows, cols, dtype): True (V = 16 / element bytes) when that gives at
+    least ``DECODE_MIN_TILES`` tiles, else False (V = 1)."""
+    return sum(_tiles("decode", r, c, dt)[0] for r, c, dt in leaves) >= DECODE_MIN_TILES
 
 
 def _fill_static(entry: TreeLeaf, kind: str, rows: int, cols: int, orig_cols: int,
                  dtype: torch.dtype, tag: int, row_offset: int, col_offset: int,
-                 tile0: int) -> int:
+                 tile0: int, vector: bool = True) -> int:
     """Fill every field of ``entry`` but the pointers and ``vec``; → its tiles."""
-    tiles, col_tiles = _tiles(kind, rows, cols, dtype)
+    tiles, col_tiles = _tiles(kind, rows, cols, dtype, vector)
     entry.rows, entry.cols, entry.orig_cols = rows, cols, orig_cols
     entry.dtype = LEAF_DTYPES[dtype]
     entry.tag = tag & 0xFFFFFFFF
@@ -119,6 +140,7 @@ class LaunchGroup:
     stop: int
     num_tiles: int
     template: bytes          # the TreeTable with every pointer unset
+    vector: bool = True      # the decode's V rule (decode_vector) for this launch
 
     def table(self, xs, ys=None) -> TreeTable:
         """The launch's table with the leaves' (and outputs') pointers set."""
@@ -153,8 +175,8 @@ _plans: dict = {}
 
 def tree_plan(kind: str, shapes, dtypes, k: int, mode: ProjectionMode,
               device) -> TreePlan:
-    """The cached plan of ``kind`` ("encode" or "close") for leaves of these
-    per-client shapes and dtypes in sorted-key order."""
+    """The cached plan of ``kind`` ("encode", "close" or "decode") for leaves
+    of these per-client shapes and dtypes in sorted-key order."""
     if kind not in _KINDS:
         raise ValueError(kind)
     device = torch.device(device)
@@ -182,26 +204,41 @@ def _build_plan(kind, shapes, dtypes, k, mode, device) -> TreePlan:
     groups = []
     for start in range(0, len(layout), MAX_TREE_LEAVES):
         stop = min(start + MAX_TREE_LEAVES, len(layout))
+        vector = kind != "decode" or decode_vector(
+            (ll.rows, ll.cols, dtypes[start + i])
+            for i, ll in enumerate(layout[start:stop]))
         table = TreeTable()
         tiles = 0
         for i, ll in enumerate(layout[start:stop]):
             tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols, ll.cols,
-                                  dtypes[start + i], ll.tag, 0, 0, tiles)
+                                  dtypes[start + i], ll.tag, 0, 0, tiles, vector)
         table.num_leaves, table.num_tiles = stop - start, tiles
-        groups.append(LaunchGroup(start, stop, tiles, bytes(table)))
+        groups.append(LaunchGroup(start, stop, tiles, bytes(table), vector))
     return TreePlan(kind=kind, layout=tuple(layout), dtypes=tuple(dtypes), k=k,
                     masked=mode == ProjectionMode.BLOCK and k > 1,
                     lo=lo.to(device), hi=hi.to(device), groups=tuple(groups))
 
 
+def check_leaves(plan: TreePlan, leaves, k: int, device: torch.device) -> None:
+    """Raise unless ``leaves`` are contiguous tensors on ``device`` with the
+    dtypes ``plan`` was made for, and ``k`` is its number of blocks."""
+    if k != plan.k:
+        raise ValueError(f"rs has {k} blocks, the {plan.kind} plan {plan.k}")
+    for leaf, dtype in zip(leaves, plan.dtypes):
+        if leaf.device != device or leaf.dtype != dtype or not leaf.is_contiguous():
+            raise ValueError(f"leaf {tuple(leaf.shape)} {leaf.dtype} on "
+                             f"{leaf.device} does not fit the plan ({dtype}, "
+                             f"contiguous, on {device})")
+
+
 def single_table(kind: str, x: torch.Tensor, rows: int, cols: int,
                  orig_cols: int, tag: int, row_offset: int, col_offset: int,
-                 y: torch.Tensor | None = None) -> TreeTable:
+                 y: torch.Tensor | None = None, vector: bool = True) -> TreeTable:
     """A one-leaf table: the leaf-level kernels are tree launches of one leaf."""
     table = TreeTable()
     entry = table.leaf[0]
     table.num_tiles = _fill_static(entry, kind, rows, cols, orig_cols, x.dtype, tag,
-                                   row_offset, col_offset, 0)
+                                   row_offset, col_offset, 0, vector)
     table.num_leaves = 1
     entry.x = x.data_ptr()
     entry.vec = _vec(cols, x.dtype, x.data_ptr()) and (

@@ -187,7 +187,7 @@ def test_cuda_rec_matches_plain(cuda_device, family, k, mode, n):
         {key: v.to(cuda_device) for key, v in p.items()}, rs.to(cuda_device),
         seeds.to(cuda_device), 0.9, Distribution(family),
         weights=w.to(cuda_device), mode=ProjectionMode(mode))
-    assert reconstruct_apply_clients.launches == before + len(p)
+    assert reconstruct_apply_clients.launches == before + 1    # one tree launch
     for key in p:
         _assert_fused(family, got[key].cpu(), want[key])
 
@@ -264,8 +264,8 @@ def test_cuda_digest_replay_through_rec_is_bit_identical(cuda_device):
                       kernel_cohort_threshold=8, downlink_mode="digest",
                       verify_replay=True),
         init_mlp(device="cuda"), make_client_datasets(xtr, ytr, 8), xte, yte)
-    # server apply and shadow replay: 6 leaves each, every round
-    assert reconstruct_apply_clients.launches - before == 2 * 3 * 6
+    # server apply and shadow replay: one tree launch each, every round
+    assert reconstruct_apply_clients.launches - before == 2 * 3
     assert np.isfinite(h["loss"]).all()
 
 
@@ -767,7 +767,7 @@ def test_cuda_train_close_equals_server_aggregate(cuda_device, dtype, family, k,
 def test_cuda_train_step_matches_cpu(cuda_device, dtype):
     """One train_step of a reduced GQA SmolLM on the card against the CPU:
     the encode and decode kernels launch (one tree launch and its reduction
-    per client, 1 per leaf), the loss agrees within 1e-4 (float32) / 2e-2
+    per client, one tree launch for the close), the loss agrees within 1e-4 (float32) / 2e-2
     (bf16: activations round at the card's own points), and the card's close
     (per-client rounding) equals its plain version on the card bitwise,
     given the card's params, rs and seeds."""
@@ -793,9 +793,8 @@ def test_cuda_train_step_matches_cpu(cuda_device, dtype):
         p = tree_map(lambda t: t.to(dev), params)
         out[dev] = (p, *step(p, {"tokens": toks[:, :-1].to(dev),
                                  "labels": toks[:, 1:].to(dev)}, 2))
-    leaves = len(tree_leaves(params))
     assert project_blocks.launches - enc0 == 2 * 4      # one tree launch per client
-    assert reconstruct_apply_clients.launches - rec0 == leaves
+    assert reconstruct_apply_clients.launches - rec0 == 1   # the close: one tree launch
     tol = 1e-4 if dtype == "float32" else 2e-2
     assert abs(float(out["cuda"][2]["loss"]) - float(out["cpu"][2]["loss"])) <= tol
     p, new, m = out["cuda"]
@@ -808,3 +807,154 @@ def test_cuda_train_step_matches_cpu(cuda_device, dtype):
                                  div=4.0)
         assert y.dtype == x.dtype
         assert torch.equal(y.reshape(ll.rows, ll.cols), want)
+
+
+# ---------------------------------------------------------------------------
+# the per-client decode as one tree launch, and the float32 flash kernel
+# ---------------------------------------------------------------------------
+
+# (family, k, mode, per-client rounding): every family in the plain mode;
+# the rounding modes (ROUND_ONE at k = 1, ROUND_ANY at k = 8) for the
+# ±1/±2 families, whose bits the train close must keep (a gaussian
+# value an ulp apart may round a client's bf16 sum the other way).
+_DECODE_CASES = ([(f, 1, "full", False) for f in FAMILIES]
+                 + [(f, 8, m, False) for f in FAMILIES for m in ("full", "block")]
+                 + [(f, k, m, True) for f in FAMILIES if f != "gaussian"
+                    for k, m in ((1, "full"), (8, "full"), (8, "block"))])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family,k,mode,rounding", _DECODE_CASES)
+@pytest.mark.parametrize("n_leaves", [6, 70])
+def test_cuda_tree_decode_matches_plain(cuda_device, dtype, family, k, mode, rounding,
+                                        n_leaves):
+    """``ops.server_update_kernel``: one decode tree launch (two at 70 leaves)
+    against the plain tree decode, bitwise for the ±1/±2 families (gaussian
+    within rtol/atol 1e-5, plus one bf16 ulp on bf16 leaves), in the plain
+    mode and both rounding modes, for cohorts 4 and 33, with aggregation
+    weights at 33."""
+    dt = getattr(torch, dtype)
+    p = _tree(n_leaves, n_leaves + 1, dt)
+    rng = np.random.RandomState(k + n_leaves + rounding)
+    on = {key: x.to(cuda_device) for key, x in p.items()}
+    for n in (4, 33):
+        rs = torch.from_numpy(rng.randn(n, k).astype(np.float32))
+        seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+        w = torch.from_numpy(rng.rand(n).astype(np.float32)) if n == 33 else None
+        kw = dict(mode=ProjectionMode(mode), per_client_rounding=rounding)
+        want = ops.server_update_kernel(p, rs, seeds, 0.7, Distribution(family),
+                                        weights=w, **kw)
+        before = reconstruct_apply_clients.launches
+        got = ops.server_update_kernel(
+            on, rs.to(cuda_device), seeds.to(cuda_device), 0.7, Distribution(family),
+            weights=None if w is None else w.to(cuda_device), **kw)
+        assert reconstruct_apply_clients.launches - before == -(-n_leaves // 64)
+        for key in p:
+            if dt == torch.bfloat16:
+                _bf16_decode_close(family, got[key].cpu(), want[key])
+            else:
+                _assert_fused(family, got[key].cpu(), want[key])
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_cuda_tree_decode_mlp_cohort_1024(cuda_device, family):
+    """The runtime's decode route: the MLP tree at the 1024 bucket in one
+    launch of one column a thread (the V rule's small end), bitwise."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.tree import tree_plan
+
+    p = _params(4)
+    rng = np.random.RandomState(11)
+    rs = torch.from_numpy(rng.randn(1024, 1).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, 1024).astype(np.int64))
+    leaves = tree_leaves(p)
+    plan = tree_plan("decode", [tuple(x.shape) for x in leaves],
+                     [x.dtype for x in leaves], 1, ProjectionMode.FULL, cuda_device)
+    assert [g.vector for g in plan.groups] == [False]
+    want = ops.server_update_kernel(p, rs, seeds, 1.0, Distribution(family))
+    before = reconstruct_apply_clients.launches
+    got = ops.server_update_kernel({key: v.to(cuda_device) for key, v in p.items()},
+                                   rs.to(cuda_device), seeds.to(cuda_device), 1.0,
+                                   Distribution(family))
+    assert reconstruct_apply_clients.launches == before + 1
+    for key in p:
+        _assert_fused(family, got[key].cpu(), want[key])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rounding", [False, True])
+def test_cuda_decode_offsets_and_narrow_leaf(cuda_device, dtype, rounding):
+    """The one-leaf decode with nonzero row/col offsets and BLOCK bounds,
+    and the narrow 524 288 × 1 leaf (C1), in the plain and the rounding
+    modes, bitwise against ``reconstruct_plain``."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(17 + rounding)
+    x = torch.from_numpy(rng.randn(37, 300).astype(np.float32)).to(dt)
+    rs = torch.from_numpy(rng.randn(45, 3).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, 45).astype(np.int64))
+    lo = torch.tensor([0.0, 5000.0, 9000.0])
+    hi = torch.tensor([5000.0, 9000.0, 20000.0])
+    kw = dict(per_client_rounding=rounding, div=45.0)
+    want = reconstruct_plain(x, seeds, rs, 2, 0.5, lo, hi, "rademacher", True, 40, 9,
+                             310, **kw)
+    got = reconstruct_apply_clients(
+        x.to(cuda_device), seeds.to(cuda_device), rs.to(cuda_device), 2, 0.5,
+        "rademacher", lo=lo.to(cuda_device), hi=hi.to(cuda_device), masked=True,
+        row_offset=40, col_offset=9, orig_cols=310, **kw)
+    assert torch.equal(got.cpu().float(), want.float())
+    x = torch.from_numpy(rng.randn(524_288, 1).astype(np.float32)).to(dt)
+    rs, seeds = rs[:20, :1], seeds[:20]
+    kw = dict(per_client_rounding=rounding, div=20.0)
+    want = reconstruct_plain(x, seeds, rs, 3, 0.05, None, None, **kw)
+    got = reconstruct_apply_clients(x.to(cuda_device), seeds.to(cuda_device),
+                                    rs.contiguous().to(cuda_device), 3, 0.05, **kw)
+    assert torch.equal(got.cpu().float(), want.float())
+
+
+def _check_f32(dev, b, s, t, h, kh, hd, *, causal=True, window=0, qpos=None,
+               kpos=None, seed=0):
+    """The float32 kernel (through ``flash_route``'s "f32") against the plain
+    version on the rows with an allowed key, ``flash_agrees`` (rtol 1e-3,
+    atol 2e-5); rows with none are zeros."""
+    assert flash_route(s, h, kh, torch.float32) == "f32"
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=g)
+               for shape in ((b, s, h, hd), (b, t, kh, hd), (b, t, kh, hd)))
+    qpos = torch.arange(t - s, t, dtype=torch.int32) if qpos is None else qpos
+    kpos = torch.arange(t, dtype=torch.int32) if kpos is None else kpos
+    args = [x.to(dev) for x in (q, k, v, qpos, kpos)]
+    before = fa.flash_f32.launches
+    got = flash_attention(*args, causal=causal, window=window)
+    want = flash_attention_plain(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_f32.launches == before + 1
+    rows = allowed_mask(qpos, kpos, causal, window).any(dim=1).to(dev)
+    assert bool(rows.any())
+    gr, wr = got[:, rows], want[:, rows]
+    assert flash_agrees(gr, wr), flash_compare(gr, wr)
+    assert bool((got[:, ~rows] == 0).all())
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (4, 1)], ids=["mha", "gqa3", "mqa"])
+def test_cuda_flash_f32_kernel(cuda_device, hd, heads):
+    """The register-tiled float32 kernel at S·G and T that its tiles (128
+    rows, 64 or 32 keys) do not divide: causal and not, a window, kpos -1
+    holes with padding queries, and a wrapped ring (unsorted kpos)."""
+    h, kh = heads
+    for window in (0, 64):
+        _check_f32(cuda_device, 2, 200, 333, h, kh, hd, window=window, seed=1)
+        _check_f32(cuda_device, 1, 77, 77, h, kh, hd, causal=False, window=window,
+                   seed=2)
+    kpos = torch.arange(333, dtype=torch.int32)
+    kpos[::7] = -1
+    qpos = torch.arange(333, dtype=torch.int32)
+    qpos[:50] = -1
+    _check_f32(cuda_device, 1, 333, 333, h, kh, hd, window=64, qpos=qpos, kpos=kpos,
+               seed=3)
+    _check_f32(cuda_device, 1, 333, 333, h, kh, hd, causal=False, qpos=qpos, kpos=kpos,
+               seed=4)
+    ring = _ring(1000, 1499)
+    for window in (0, 64, 1000):
+        _check_f32(cuda_device, 2, 300, 1000, h, kh, hd, window=window,
+                   qpos=torch.arange(1200, 1500, dtype=torch.int32), kpos=ring, seed=5)

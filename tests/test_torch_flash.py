@@ -29,6 +29,14 @@ per key partition merged in partition order (held against the plain
 version by ``flash_agrees`` and against the Pallas kernel in interpret
 mode by the float32 tolerance above).  ``flash_route``, the dispatch
 between the three kernels, is checked at the serve shapes.
+
+The float32 kernel classes each (row block, key tile) as "skip",
+"unmasked" or "masked" from position minima and maxima alone;
+``flash_tile_class`` is that test written out.  ``hypothesis`` holds it
+against ``allowed_mask`` on unsorted kpos with -1 holes, causal and not,
+with and without a window: a skipped tile has no allowed pair and an
+unmasked one no disallowed pair.  A tile-by-tile online softmax that
+skips and leaves unmasked as the classes say matches the plain version.
 """
 import dataclasses
 
@@ -39,6 +47,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
 
 import repro.models.attention as j_attention  # noqa: E402
 import repro_torch.models.attention as t_attention  # noqa: E402
@@ -57,6 +67,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain,
     flash_compare,
     flash_route,
+    flash_tile_class,
 )
 from repro_torch.models.api import Arch as TArch  # noqa: E402
 
@@ -427,3 +438,85 @@ def test_shipped_threshold_dispatch(monkeypatch):
     np.testing.assert_allclose(t_st.k.numpy(), np.asarray(j_st.k), **tol)
     np.testing.assert_allclose(t_st.v.numpy(), np.asarray(j_st.v), **tol)
     np.testing.assert_array_equal(t_st.pos.numpy(), np.asarray(j_st.pos))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@settings(max_examples=400, deadline=None)
+@given(qpos=st.lists(st.integers(-1, 80), min_size=1, max_size=12),
+                  kpos=st.lists(st.integers(-1, 80), min_size=1, max_size=12),
+                  window=st.one_of(st.just(0), st.integers(1, 50)))
+def test_tile_class_never_skips_or_unmasks_wrongly(causal, qpos, kpos, window):
+    cls = flash_tile_class(qpos, kpos, causal, window)
+    ok = allowed_mask(torch.tensor(qpos), torch.tensor(kpos), causal, window)
+    assert cls in ("skip", "unmasked", "masked")
+    if cls == "skip":
+        assert not bool(ok.any())
+    if cls == "unmasked":
+        assert bool(ok.all())
+
+
+def _tiled(q, k, v, qpos, kpos, causal, window, bm, bn):
+    """The kernel's tile walk in plain float32 torch: per (row block, key
+    tile) the class decides skip / no mask / mask; online softmax over the
+    tiles in order; a row without an allowed key gives zeros."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    rows = q.reshape(b, s, kh, g, hd).permute(0, 2, 1, 3, 4).reshape(b, kh, s * g, hd)
+    rpos = qpos.repeat_interleave(g)
+    out = torch.zeros_like(rows)
+    for r0 in range(0, s * g, bm):
+        qr, qp = rows[:, :, r0:r0 + bm], rpos[r0:r0 + bm]
+        m = torch.full(qr.shape[:-1], float("-inf"))
+        l = torch.zeros(qr.shape[:-1])
+        o = torch.zeros_like(qr)
+        for t0 in range(0, t, bn):
+            kp = torch.full((bn,), -1, dtype=kpos.dtype)
+            kp[:min(bn, t - t0)] = kpos[t0:t0 + bn]
+            cls = flash_tile_class(qp.tolist(), kp.tolist(), causal, window)
+            if cls == "skip":
+                continue
+            kt = torch.zeros((b, kh, bn, hd))
+            vt = torch.zeros((b, kh, bn, hd))
+            kt[:, :, :t - t0] = k[:, t0:t0 + bn].permute(0, 2, 1, 3)
+            vt[:, :, :t - t0] = v[:, t0:t0 + bn].permute(0, 2, 1, 3)
+            sc = torch.einsum("bkrd,bknd->bkrn", qr, kt) * hd ** -0.5
+            if cls == "masked":
+                sc = sc.masked_fill(~allowed_mask(qp, kp, causal, window), float("-inf"))
+            m_new = torch.maximum(m, sc.amax(-1))
+            m_use = torch.where(m_new == float("-inf"), torch.zeros_like(m_new), m_new)
+            corr = torch.exp(m - m_use)
+            p = torch.exp(sc - m_use[..., None])
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + torch.einsum("bkrn,bknd->bkrd", p, vt)
+            m = m_new
+        out[:, :, r0:r0 + bm] = torch.where(l[..., None] > 0, o / l[..., None],
+                                            torch.zeros_like(o))
+    return out.reshape(b, kh, s, g, hd).permute(0, 2, 1, 3, 4).reshape(b, s, h, hd)
+
+
+@pytest.mark.parametrize("case", ["causal", "window", "noncausal", "holes", "ring"])
+def test_tile_walk_matches_plain(case):
+    """The kernel's skip / unmasked / masked walk (row blocks of 16, key
+    tiles of 8 here) against the plain version, float32 rtol 1e-3 / atol
+    2e-5, on the rows with an allowed key (zeros elsewhere in both)."""
+    s, t, causal, window = 45, 45, True, 0
+    qpos = torch.arange(s, dtype=torch.int32)
+    kpos = torch.arange(t, dtype=torch.int32)
+    if case == "window":
+        window = 7
+    elif case == "noncausal":
+        causal, window = False, 9
+    elif case == "holes":
+        kpos[::4] = -1
+        qpos[:5] = -1
+    elif case == "ring":
+        t = 40
+        kpos = torch.from_numpy(_ring_kpos(t, 30, 69)).to(torch.int32)
+        qpos = torch.arange(25, 70, dtype=torch.int32)
+        window = 20
+    arrays = _qkv(9, 2, s, t, 6, 2, 32)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got = _tiled(q, k, v, qpos, kpos, causal, window, bm=16, bn=8)
+    want = flash_attention_plain(q, k, v, qpos, kpos, causal=causal, window=window)
+    torch.testing.assert_close(got, want, **TOL["float32"])

@@ -18,7 +18,15 @@ plan, group by group.  Held here:
   (gaussian within rtol/atol 1e-5, plus one bf16 ulp on bf16 leaves: the
   reference's ``log``/``cos`` ulps scaled by the scalars);
 * the plans: groups, tiles, cached block bounds, and the k-block bounds
-  against the reference's ``leaf_block_bounds``.
+  against the reference's ``leaf_block_bounds``;
+* the per-client decode's tree launch (``ops.server_update_kernel``, one
+  launch per group since it too takes a leaf table): its plain path
+  bitwise equal to ``reconstruct_plain`` leaf by leaf on a tree of 70
+  leaves, all four families, float32 and bf16, FULL and BLOCK k = 8 and
+  the three modes (plain, per-client rounding at k = 1 and at k = 8); its
+  plan's tiles, each leaf's first tile, and the V rule at both ends (the
+  paper MLP's 6 leaves take one column a thread, SmolLM-360M's 11 leaves
+  a 16-byte vector).
 
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -39,11 +47,15 @@ from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply  # noqa: E402
 from repro_torch.kernels.seeded_projection import project_blocks_plain  # noqa: E402
+from repro_torch.kernels.seeded_reconstruct import reconstruct_plain  # noqa: E402
 from repro_torch.kernels.tree import (  # noqa: E402
     CLOSE_TILE_ROWS,
+    CLOSE_TILE_THREADS,
+    DECODE_MIN_TILES,
     ENCODE_TILE_ROWS,
     MAX_TREE_LEAVES,
     TreeTable,
+    decode_vector,
     tree_plan,
 )
 from torch_parity import jax_kernels, seeds_np  # noqa: E402,F401
@@ -213,3 +225,93 @@ def test_plans_split_cache_and_bound_blocks(jax_kernels):
     assert table.num_tiles == 2 + -(-1000 // CLOSE_TILE_ROWS)
     assert not close.masked and close.lo.tolist() == [[0.0], [0.0]]
     assert close.hi.tolist() == [[900.0], [2000.0]]
+
+
+# (k, mode, per-client rounding): the plain decode, ROUND_ONE (k = 1) and
+# ROUND_ANY (k = 8), FULL and BLOCK.
+DECODE_MODES = [(8, "full", False), (8, "block", False), (1, "full", True),
+                (8, "full", True), (8, "block", True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode,rounding", DECODE_MODES,
+                         ids=["plain8f", "plain8b", "round1", "round8f", "round8b"])
+def test_tree_decode_plain_is_the_per_leaf_composition(dtype, family, k, mode,
+                                                       rounding):
+    """70 leaves (two launch groups), N = 5: ``ops.server_update_kernel`` on
+    the CPU against ``reconstruct_plain`` leaf by leaf with the reference's
+    block bounds and the scale and divisor the train step's close uses."""
+    rng = np.random.RandomState(7 * k + len(family) + rounding)
+    n = 5
+    p = _tree(_shapes(70), rng, dtype)
+    rs = torch.from_numpy(rng.randn(n, k).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+    got = ops.server_update_kernel(p, rs, seeds, 0.9, TD(family), mode=TM(mode),
+                                   per_client_rounding=rounding)
+    rs_f, scale = ops.fold_upload_weights(rs, 0.9, None, TM(mode), None)
+    scale, div = (0.9, float(n)) if rounding else (scale, 1.0)
+    total = sum(v.numel() for v in p.values())
+    offset = 0
+    for tag, key in enumerate(sorted(p)):
+        x = p[key]
+        rows, cols = (1, x.shape[0]) if x.dim() == 1 else (
+            int(np.prod(x.shape[:-1])), x.shape[-1])
+        lo, hi = (torch.tensor(b, dtype=torch.float32) for b in
+                  ops.leaf_block_bounds(offset, x.numel(), total, k, TM(mode)))
+        want = reconstruct_plain(x.reshape(rows, cols), seeds, rs_f, tag, scale, lo,
+                                 hi, family, mode == "block" and k > 1,
+                                 per_client_rounding=rounding, div=div)
+        assert got[key].dtype == x.dtype
+        assert torch.equal(got[key].reshape(rows, cols), want)
+        offset += x.numel()
+
+
+def _smollm_shapes():
+    """SmolLM-360M's 11 leaves (shapes and dtypes, sorted-key order) from the
+    reference's ``param_shapes``, without allocating them."""
+    import jax
+
+    from repro.configs.registry import get_config as j_get_config
+    from repro.models.api import Arch as JArch
+
+    leaves = jax.tree_util.tree_leaves(JArch(j_get_config("smollm-360m")).param_shapes())
+    return ([tuple(x.shape) for x in leaves],
+            [torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.float32
+             for x in leaves])
+
+
+def test_decode_plans_tile_and_choose_the_vector_width():
+    mlp = [(24,), (12,), (10,), (64, 24), (24, 12), (12, 10)]
+    plan = tree_plan("decode", mlp, [torch.float32] * 6, 1, TM.FULL, "cpu")
+    (group,) = plan.groups
+    table = TreeTable.from_buffer_copy(group.template)
+    # one column a thread: every leaf is one tile wide, CLOSE_TILE_ROWS rows a tile
+    tiles = [-(-ll.rows // CLOSE_TILE_ROWS) for ll in plan.layout]
+    assert not group.vector and tiles == [1, 1, 1, 8, 3, 2]
+    assert table.num_tiles == group.num_tiles == 16 < DECODE_MIN_TILES
+    assert [table.leaf[i].tile0 for i in range(6)] == list(np.cumsum([0] + tiles[:-1]))
+    assert [table.leaf[i].col_tiles for i in range(6)] == [1] * 6
+    assert plan is tree_plan("decode", mlp, [torch.float32] * 6, 1, TM.FULL, "cpu")
+    assert plan is not tree_plan("close", mlp, [torch.float32] * 6, 1, TM.FULL, "cpu")
+
+    shapes, dtypes = _smollm_shapes()
+    assert len(shapes) == 11 and set(dtypes) == {torch.bfloat16}
+    plan = tree_plan("decode", shapes, dtypes, 1, TM.FULL, "cpu")
+    (group,) = plan.groups
+    table = TreeTable.from_buffer_copy(group.template)
+    # bf16: V = 8 columns a thread, CLOSE_TILE_THREADS · 8 = 256 a tile
+    tiles, cols = [], []
+    for ll in plan.layout:
+        ct = -(-ll.cols // (CLOSE_TILE_THREADS * 8))
+        cols.append(ct)
+        tiles.append(-(-ll.rows // CLOSE_TILE_ROWS) * ct)
+    assert group.vector and sum(tiles) >= DECODE_MIN_TILES
+    assert [table.leaf[i].col_tiles for i in range(11)] == cols
+    assert [table.leaf[i].tile0 for i in range(11)] == list(np.cumsum([0] + tiles[:-1]))
+    assert table.num_tiles == group.num_tiles == sum(tiles)
+
+    # the rule's edge, on one float32 leaf of 8-row, 128-column tiles
+    assert decode_vector([(8 * DECODE_MIN_TILES, 128, torch.float32)])
+    assert not decode_vector([(8 * DECODE_MIN_TILES - 8, 128, torch.float32)])
+    assert decode_vector([(8 * (DECODE_MIN_TILES // 2), 256, torch.float32)])
