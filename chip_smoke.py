@@ -19,26 +19,37 @@ Phases (any failure exits non-zero and the final line is not printed):
    encode within ``encode_tolerance`` (4·2⁻²³·√h·‖x‖₂·max|v|, h the depth
    of its float32 sum) of its plain version summed in float64, and
    bitwise equal to itself across runs; the QSGD kernel bitwise equal to
-   its plain version given the same norms (bits 2, 4, 8; a leaf of zeros);
+   its plain version given the same norms (bits 2, 4, 8; a leaf of zeros),
+   one leaf at a time and through the tree entry ``qsgd_tree`` with the
+   norms from its own norm pass (the MLP tree at N = 1000 and 256, a zero
+   tree, the large leaf at N = 16): q and the payload bitwise against
+   ``qsgd_tree_plain`` given the kernel's norms, those norms within
+   ``norm_tolerance`` (h·2⁻²⁴·‖x‖₂, h the depth of its float32 sum) of
+   the float64 norm and the same bits on a rerun;
 4. main path of the first slice: ``run_simulation`` on the card for
-   fedscalar_rademacher, fedscalar_gaussian, fedscalar_block8 and
-   fedscalar_ef (N = 20, S = 5, B = 32); the encode and fused-close
-   counters must move and the loss must fall; one round on the card must
-   match the same round on the CPU (atol 1e-6);
+   fedscalar_rademacher, fedscalar_gaussian, fedscalar_block8,
+   fedscalar_ef and qsgd (N = 20, S = 5, B = 32); the encode and
+   fused-close counters (qsgd: the QSGD counter) must move, no other, and
+   the loss must fall; one fedscalar round on the card must match the same
+   round on the CPU (atol 1e-6);
 5. main path of the runtime slice: ``run_federation`` on the card at the
    population of ``examples/runtime_scale.py`` (100 000 clients, 1 %
    participation: cohorts of 1000), 10 rounds each for fedscalar through
    the per-client decode, fedscalar through the fused close, fedscalar
    with the digest downlink and a shadow replay, fedavg and qsgd; the
    expected counters must move, the loss must fall, the replay must stay
-   bit-identical, and one round on the card must match the same round on
-   the CPU (atol 1e-6; qsgd 2e-6, for a level flipped by the norm's last
-   bit);
+   bit-identical, qsgd must take two QSGD launches a cohort chunk (the
+   norm pass and the quantize launch), and one round on the card must
+   match the same round on the CPU (atol 1e-6; qsgd 2e-6, for a level
+   flipped by the norm's last bit);
 6. times from CUDA events: each kernel, its plain version and its bound,
    at the main paths' shapes and at the large leaf (cohorts 256, 1024 for
    both decodes; 16 clients for the encode and QSGD); the runtime's
    decode of a round through ``ops.server_update_kernel`` (one tree
-   launch) with its device and enqueue times apart;
+   launch) and its qsgd encode through ``QSGDProtocol.encode_cohort``
+   (four chunks, two launches each), each with its device and enqueue
+   times apart; the large leaf through ``qsgd_tree`` (norms in the
+   kernel) beside the kernel given the norms;
 7. flash attention against its plain version, on the card, through
    ``flash_attention`` (which routes bf16 to the tensor-core prefill or
    the split-KV decode, float32 to the float32 kernel or the split-KV
@@ -77,7 +88,8 @@ Phases (any failure exits non-zero and the final line is not printed):
    QSGD N = 1), all four families at the embedding and the stacked FFN
    leaf.  Close and decode bitwise for the ±1/±2 families (gaussian within
    rtol/atol 1e-5 plus one bf16 ulp, where the float32 values round
-   apart); the encode within ``encode_tolerance``; QSGD bitwise;
+   apart); the encode within ``encode_tolerance``; QSGD bitwise; the 11
+   leaves through the QSGD tree entry (N = 1, bits 8 and 4) as in phase 3;
 12. main path of the training slice, card against CPU: SmolLM-360M at
    full width, 2 layers, float32, ``launch/train.py``'s ``train_step``
    for one round (N = 4 clients, S = 2 local steps, per-step batch 1 ×
@@ -105,7 +117,10 @@ Phases (any failure exits non-zero and the final line is not printed):
    per-client decode's tree launch (``ops.server_update_kernel``) on the
    MLP tree (N = 20 and 1024) and the 70-leaf tree, plain and with
    per-client rounding, bitwise; then leaves past the old launch grids: 524 288 × 1 through the fused close and the
-   per-client decode, 262 144 × 2 through QSGD, bitwise; and in phase 11,
+   per-client decode, 262 144 × 2 through QSGD, bitwise; the QSGD tree
+   entry as in phase 3 on the MLP tree (N = 1000, two launches), the
+   70-leaf tree (four) and the 262 144 × 2 leaf, float32 and bf16, bits 2,
+   4, 8, and each leaf's norm the same as in a tree of its own; and in phase 11,
    SmolLM-360M's 11 bf16 leaves in one launch (encode N = 1, k = 1 and
    FULL 8; close N = 4) and its 2-layer leaves under 2²⁴ elements in
    BLOCK 8.  Phase 6 times the MLP round through the tree entry points
@@ -158,7 +173,10 @@ ELEM_OPS = {"int": 9, "imul": 2, "fp": 2}
 # Per (row, client, block): two SplitMix32 rounds and two xors.
 ROW_OPS = {"int": 16, "imul": 4, "fp": 0}
 MAIN_METHODS = ("fedscalar_rademacher", "fedscalar_gaussian", "fedscalar_block8",
-                "fedscalar_ef")
+                "fedscalar_ef", "qsgd")
+# The kernels each method of phase 4 must launch (the fedscalar ones: the
+# encode and the fused close; qsgd its round trip through the tree entry).
+MAIN_KERNELS = {"qsgd": ("qsgd",)}
 MAIN_ROUNDS = 40
 LARGE = (49152, 960)             # SmolLM-360M tied embedding (vocab, d_model)
 LARGE_BLOCK = (960, 2560)        # SmolLM-360M MLP width, under 2**24 elements
@@ -233,6 +251,7 @@ class Smoke:
         self.errs = {"encode": 0.0, "fused": 0.0, "rec": 0.0, "qsgd": 0.0,
                      **dict.fromkeys(FLASH_KERNELS.values(), 0.0)}
         self.enc_ratio = 0.0     # largest encode error / its tolerance
+        self.norm_ratio = 0.0    # largest QSGD tree norm error / its tolerance
         self.checks = 0
         self.group = ""
         # (group, kernel, family) -> [checks, max err, bitwise, max err over
@@ -332,6 +351,52 @@ class Smoke:
         if not ok or not bool(torch.isfinite(q).all()):
             raise AssertionError(f"qsgd disagrees: {what} max err {err}, "
                                  f"levels equal {torch.equal(lv, lp)}")
+        self._record("qsgd", f"bits={bits}", err, True)
+
+    def check_qsgd_tree(self, leaves, seeds, bits, what=""):
+        """``qsgd_tree`` (the norm pass and one quantize launch per group of
+        64 leaves) bitwise against ``qsgd_tree_plain`` given the kernel's own
+        norms (q and the payload); its norms within ``norm_tolerance`` of the
+        float64 norm (a zero leaf's exactly 1) and the same bits on a rerun."""
+        from repro_torch.kernels.qsgd_quant import (
+            norm_tolerance,
+            qsgd_quantize,
+            qsgd_tree,
+            qsgd_tree_plain,
+        )
+        from repro_torch.kernels.tree import MAX_TREE_LEAVES
+        torch = self.torch
+        n, levels = seeds.shape[0], (1 << (bits - 1)) - 1
+        before = qsgd_quantize.launches
+        q, pay, norms = qsgd_tree(leaves, seeds, levels, want_q=True, want_levels=True)
+        launches = qsgd_quantize.launches - before
+        q2, pay2, norms2 = qsgd_tree(leaves, seeds, levels, want_q=True,
+                                     want_levels=True)
+        torch.cuda.synchronize()
+        groups = -(-len(leaves) // MAX_TREE_LEAVES)
+        same = (torch.equal(pay, pay2) and torch.equal(norms, norms2)
+                and all(torch.equal(a, b) for a, b in zip(q, q2)))
+        if launches != 2 * groups or not same:
+            raise AssertionError(f"qsgd tree: {launches} launches for {groups} "
+                                 f"groups, or not deterministic: {what}")
+        qp, pp, _ = qsgd_tree_plain(leaves, seeds, levels, want_q=True,
+                                    want_levels=True, norms=norms.contiguous())
+        ok = torch.equal(pay, pp) and all(
+            a.dtype == x.dtype and torch.equal(a, b) for a, b, x in zip(q, qp, leaves))
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(q, qp))
+        if not ok or not all(bool(torch.isfinite(a).all()) for a in q):
+            raise AssertionError(f"qsgd tree disagrees: {what} max err {err}, "
+                                 f"payload equal {torch.equal(pay, pp)}")
+        for i, x in enumerate(leaves):
+            exact = torch.linalg.vector_norm(x.double().reshape(n, -1), dim=1)
+            dev = (norms[:, i].double() - exact).abs()
+            zero = exact == 0
+            if not (bool((norms[:, i][zero] == 1).all())
+                    and bool((dev[~zero] <= norm_tolerance(x)[~zero]).all())):
+                raise AssertionError(f"qsgd tree norms off: {what} leaf {i}")
+            if (~zero).any():
+                self.norm_ratio = max(self.norm_ratio, float(
+                    (dev[~zero] / norm_tolerance(x)[~zero]).max()))
         self._record("qsgd", f"bits={bits}", err, True)
 
     def check_flash(self, b, s, t, h, kh, hd, dtype, window=0, qpos=None,
@@ -768,7 +833,8 @@ def phase_kernels_runtime(s: Smoke):
     s.report()
 
     # QSGD: bits 2, 4, 8 at the MLP leaves for the runtime's cohort of
-    # 1000, a leaf of zeros, and the large leaf for 16 clients.
+    # 1000, a leaf of zeros, and the large leaf for 16 clients; one leaf at
+    # a time with the norms given, then the tree entry with its own norms.
     s.group = "qsgd (bits 2, 4, 8; MLP leaves N=1000, a zero leaf, large leaf N=16)"
     for bits in (2, 4, 8):
         for rows, cols in MLP:
@@ -780,12 +846,25 @@ def phase_kernels_runtime(s: Smoke):
     x = s.randn(16, *LARGE) * 0.01
     for bits in (2, 4, 8):
         s.check_qsgd(x, s.seeds(16), bits, what=f"large b={bits}")
+    s.report()
+    s.group = ("qsgd tree entry, norms in the kernel (bits 2, 4, 8; the MLP tree "
+               "N=1000 and 256 with a zero client, a zero tree, large leaf N=16)")
+    for bits in (2, 4, 8):
+        for n in (1000, 256):
+            tree = [s.randn(n, r, c) * 0.01 for r, c in MLP]
+            for leaf in tree:
+                leaf[7] = 0.0
+            s.check_qsgd_tree(tree, s.seeds(n), bits, what=f"mlp tree n={n} b={bits}")
+        s.check_qsgd_tree([torch.zeros((4, r, c), device=s.dev) for r, c in MLP],
+                          s.seeds(4), bits, what=f"zero tree b={bits}")
+        s.check_qsgd_tree([x], s.seeds(16), bits, what=f"large b={bits}")
     del x
     s.report()
     torch.cuda.empty_cache()
     print(f"kernels (runtime slice): all checks ok in "
           f"{time.perf_counter() - t0:.1f} s; max |err| rec {s.errs['rec']!r}, "
-          f"qsgd {s.errs['qsgd']!r}", flush=True)
+          f"qsgd {s.errs['qsgd']!r}; qsgd tree norms at most {s.norm_ratio!r} of "
+          "their tolerance", flush=True)
 
 
 def _tree_shapes(n_leaves):
@@ -876,6 +955,26 @@ def phase_tree_kernels(s: Smoke):
         s.check_qsgd((s.randn(2, 262_144, 2) * 0.01).to(dtype), s.seeds(2), 8,
                      what=f"narrow 262144x2 {dtype}")
     s.report()
+    s.group = ("qsgd tree launches: the MLP tree (N=1000, one launch and its norm "
+               "pass), a 70-leaf tree (N=20, two), a 262144x2 leaf (N=2); float32 "
+               "and bf16, bits 2, 4, 8; each leaf's norm as in a tree of its own")
+    from repro_torch.kernels.qsgd_quant import qsgd_tree
+    for dtype in (torch.float32, torch.bfloat16):
+        for bits in (2, 4, 8):
+            sfx = f"{str(dtype)[6:]} b={bits}"
+            s.check_qsgd_tree([(s.randn(1000, r, c) * 0.01).to(dtype) for r, c in MLP],
+                              s.seeds(1000), bits, what=f"mlp tree {sfx}")
+            tree = [(s.randn(20, *sh) * 0.01).to(dtype) for sh in _tree_shapes(70)]
+            sd = s.seeds(20)
+            s.check_qsgd_tree(tree, sd, bits, what=f"70-leaf tree {sfx}")
+            s.check_qsgd_tree([(s.randn(2, 262_144, 2) * 0.01).to(dtype)], s.seeds(2),
+                              bits, what=f"narrow 262144x2 {sfx}")
+        _, _, norms = qsgd_tree(tree, sd, 127)
+        for i, leaf in enumerate(tree):
+            if not torch.equal(qsgd_tree([leaf], sd, 127)[2][:, 0], norms[:, i]):
+                raise AssertionError(f"qsgd tree: leaf {i}'s norm depends on the "
+                                     "launch group")
+    s.report()
     torch.cuda.empty_cache()
     print(f"tree kernels: all {s.checks - n0} checks ok in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -930,6 +1029,13 @@ def phase_runtime(s: Smoke):
         if h["fused_path"] or not (h["cohort_size"] == 1000).all():
             raise AssertionError(f"runtime {name}: not the event-driven path "
                                  f"at cohort 1000")
+        if "qsgd" in expect:
+            # one tree call per chunk of cfg.client_chunk: the norm pass and
+            # the quantize launch
+            chunks = int(sum(-(-int(c) // cfg.client_chunk) for c in h["cohort_size"]))
+            if got["qsgd"] != 2 * chunks:
+                raise AssertionError(f"runtime {name}: {got['qsgd']} QSGD launches "
+                                     f"for {chunks} chunks, expected 2 a chunk")
         if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
             raise AssertionError(f"runtime {name}: loss did not fall: "
                                  f"{loss[0]} -> {loss[-1]}")
@@ -980,27 +1086,28 @@ def phase_main_path(s: Smoke):
         protocol_config,
         run_simulation,
     )
-    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
-    from repro_torch.kernels.seeded_projection import project_blocks
     from repro_torch.models.mlp_classifier import init_mlp, mlp_grad
 
     x, y = load_digits()
     xtr, ytr, xte, yte = train_test_split_arrays(x, y)
     clients = make_client_datasets(xtr, ytr, 20)
-    launches = {"encode": 0, "fused": 0}
+    fns = {k: fn for k, fn in _kernel_fns().items() if k != "rec"}
+    launches = dict.fromkeys(fns, 0)
     for method in MAIN_METHODS:
         cfg = SimulationConfig(method=method, rounds=MAIN_ROUNDS, num_clients=20,
                                local_steps=5, batch_size=32, seed=0)
         params = init_mlp(seed=0, device="cuda")
-        project_blocks.launches = 0
-        fused_reconstruct_apply.launches = 0
+        for fn in fns.values():
+            fn.launches = 0
         h = run_simulation(cfg, params, clients, xte, yte, device="cuda")
-        enc, fus = project_blocks.launches, fused_reconstruct_apply.launches
-        launches["encode"] += enc
-        launches["fused"] += fus
+        got = {k: fn.launches for k, fn in fns.items()}
+        for k in launches:
+            launches[k] += got[k]
+        expect = MAIN_KERNELS.get(method, ("encode", "fused"))
         loss = h["loss"]
-        if enc == 0 or fus == 0:
-            raise AssertionError(f"{method}: kernels not launched ({enc}, {fus})")
+        if any(got[k] == 0 for k in expect) or any(
+                got[k] for k in got if k not in expect):
+            raise AssertionError(f"{method}: launches {got}, expected only {expect}")
         if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
             raise AssertionError(f"{method}: loss did not fall: {loss[0]} -> {loss[-1]}")
         if not all(p.is_cuda for p in h["final_params"].values()):
@@ -1011,13 +1118,16 @@ def phase_main_path(s: Smoke):
               f"{float(loss[-1])!r}, final accuracy {float(h['accuracy'][-1])!r}, "
               f"{MAIN_ROUNDS / total_s!r} rounds/s overall, {steady!r} rounds/s "
               f"after round 1 (first round {h['sim_compile_seconds']!r} s), "
-              f"launches encode={enc} fused={fus}", flush=True)
+              f"launches {json.dumps(got)}", flush=True)
 
-    # One round on the card against the same round on the CPU (plain path).
+    # One round on the card against the same round on the CPU (plain path),
+    # for the fedscalar methods; qsgd's card-vs-CPU round is phase 5's.
     g = torch.Generator().manual_seed(1)
     bx = (torch.rand((20, 5, 32, 64), generator=g) * 16).float()
     by = torch.randint(0, 10, (20, 5, 32), generator=g)
     for method in MAIN_METHODS:
+        if method in MAIN_KERNELS:
+            continue
         pc = protocol_config(SimulationConfig(method=method))
         p0 = init_mlp(seed=2, device="cpu")
         ef = None
@@ -1158,10 +1268,17 @@ def phase_times_runtime(s: Smoke):
     """CUDA-event times of the per-client decode and QSGD kernels."""
     import torch
 
+    from repro_torch.core import qsgd as tq
     from repro_torch.core.prng import Distribution
     from repro_torch.core.projection import ProjectionMode
+    from repro_torch.fed.protocols import make_protocol
     from repro_torch.kernels import ops
-    from repro_torch.kernels.qsgd_quant import qsgd_quantize, qsgd_quantize_plain
+    from repro_torch.kernels.qsgd_quant import (
+        qsgd_quantize,
+        qsgd_quantize_plain,
+        qsgd_tree,
+        qsgd_tree_plain,
+    )
     from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
     from repro_torch.kernels.seeded_reconstruct import (
         reconstruct_apply_clients,
@@ -1169,12 +1286,15 @@ def phase_times_runtime(s: Smoke):
         reconstruct_tree_plain,
     )
     from repro_torch.kernels.tree import tree_plan
+    from repro_torch.models.mlp_classifier import init_mlp
 
     one = torch.ones(1, device=s.dev)
     zero = torch.zeros(1, device=s.dev)
     # Main path: one round's apply at cohort 1000 (the bucket pads to 1024)
     # over the 6 MLP leaves through the tree entry the runtime calls (one
-    # decode launch), and one round's qsgd encode (levels only).
+    # decode launch), and one round's qsgd encode (levels and norms) through
+    # QSGDProtocol.encode_cohort, chunk by chunk as the runtime calls it
+    # (client_chunk 256: 256, 256, 256, 232 clients).
     n = 1024
     seeds = s.seeds(n)
     rs = s.randn(n, 1)
@@ -1182,8 +1302,13 @@ def phase_times_runtime(s: Smoke):
     p_leaves = [params[key] for key in sorted(params)]
     plan = tree_plan("decode", MLP, [torch.float32] * len(MLP), 1,
                      ProjectionMode.FULL, s.dev)
-    qx = [s.randn(1000, r, c) * 0.01 for r, c in MLP]
-    qs = s.seeds(1000)
+    mlp = init_mlp(seed=0, device=s.dev)
+    proto = make_protocol("qsgd", mlp)
+    chunks = []
+    for lo in range(0, 1000, 256):
+        m = min(256, 1000 - lo)
+        chunks.append(({k: s.randn(m, *v.shape) * 0.01 for k, v in mlp.items()},
+                       torch.arange(lo, lo + m, device=s.dev)))
     rd = Distribution.RADEMACHER
 
     def rec_kernel():
@@ -1192,40 +1317,47 @@ def phase_times_runtime(s: Smoke):
     def rec_plain():
         reconstruct_tree_plain(p_leaves, seeds, rs, 1.0 / n, 1.0, plan)
 
-    def norms(x):   # the norm pass, outside the kernel as in the reference
-        return torch.linalg.vector_norm(x.reshape(x.shape[0], -1), dim=1)
-
     def q_kernel():
-        for x in qx:
-            qsgd_quantize(x, qs, norms(x), 127, want_q=False, want_levels=True)
+        for deltas, ids in chunks:
+            proto.encode_cohort(deltas, None, 3, ids)
 
     def q_plain():
-        for x in qx:
-            qsgd_quantize_plain(x, qs, norms(x), 127, want_q=False,
-                                want_levels=True)
+        for deltas, ids in chunks:
+            qsgd_tree_plain([deltas[k] for k in sorted(deltas)],
+                            tq.quant_seeds(3, ids, s.dev), 127, want_q=False,
+                            want_levels=True)
 
     r0 = reconstruct_apply_clients.launches
     rec_kernel()
     rec_launches = reconstruct_apply_clients.launches - r0
+    q0 = qsgd_quantize.launches
+    q_kernel()
+    q_launches = qsgd_quantize.launches - q0
     t = {}
     for name, fn, reps in (("rec_plain", rec_plain, 3), ("rec_kernel", rec_kernel, 50),
                            ("rec_kernel2", rec_kernel, 50), ("rec_plain2", rec_plain, 3),
                            ("qsgd_plain", q_plain, 10), ("qsgd_kernel", q_kernel, 50),
                            ("qsgd_kernel2", q_kernel, 50), ("qsgd_plain2", q_plain, 10)):
         t[name] = s.time_ms(fn, reps=reps, warmup=1)
-    # The decode with the host kept out (the device's own time), and the
-    # host's enqueue time of one call.
+    # The same calls with the host kept out (the device's own time), and the
+    # host's enqueue time of one call (a round's four encode calls for qsgd).
     t["rec_device"] = _device_ms([rec_kernel], reps=20)
     t["rec_enqueue"] = _enqueue_ms(rec_kernel)
+    t["qsgd_device"] = _device_ms([q_kernel], reps=20)
+    t["qsgd_enqueue"] = _enqueue_ms(q_kernel)
     rec_b, rec_by = _rec_bound(MLP, n, 1)
     q_b, q_by = _qsgd_bound(MLP, 1000, 1)
     print("times (runtime main path, one round: 6 MLP leaves; decode N=1024, "
           f"k=1, {rec_launches} launch, V=1: {not plan.groups[0].vector}; qsgd "
-          "norm pass + levels, N=1000, bits=8): " + json.dumps(t), flush=True)
+          f"encode_cohort over 4 chunks (N=1000), levels and norms, bits=8, "
+          f"{q_launches} launches): " + json.dumps(t), flush=True)
     if rec_launches != 1:
         raise AssertionError(f"times: the round's decode took {rec_launches} "
                              "launches, expected one tree launch")
-    del qx
+    if q_launches != 2 * len(chunks):
+        raise AssertionError(f"times: the round's qsgd encode took {q_launches} "
+                             f"launches, expected 2 for each of {len(chunks)} chunks")
+    del chunks
 
     rows = []
     r, c = LARGE
@@ -1253,20 +1385,35 @@ def phase_times_runtime(s: Smoke):
                          plain_ms=pr, bound_ms=b, bound_by=by))
     del x2d
     torch.cuda.empty_cache()
+    # The large leaf through the tree entry (norm pass in the kernel, q and
+    # the levels into a (16, d + 1) payload, whose rows are not 16-byte
+    # aligned), the same with the norms given (the quantize pass alone, so
+    # the difference is the norm pass), and the kernel given the norms on a
+    # one-leaf table (qsgd_quantize: the levels as (16, rows, cols), aligned).
     x = s.randn(16, r, c) * 0.01
     sd = s.seeds(16)
-    nm = norms(x)
-    kq = s.time_ms(lambda: qsgd_quantize(x, sd, nm, 127, True, True), reps=5,
-                   warmup=1)
-    kn = s.time_ms(lambda: norms(x), reps=5, warmup=1)
-    kt = s.time_ms(lambda: qsgd_quantize(x, sd, norms(x), 127, True, True),
-                   reps=5, warmup=1)
-    pq = s.time_ms(lambda: qsgd_quantize_plain(x, sd, norms(x), 127, True, True),
+    nm = qsgd_tree([x], sd, 127, want_q=True)[2][:, 0].contiguous()
+
+    def tree_call(norms=None):
+        return lambda: qsgd_tree([x], sd, 127, want_q=True, want_levels=True,
+                                 norms=norms)
+
+    tt = {}
+    for name, fn in (("tree", tree_call()), ("tree_given", tree_call(nm)),
+                     ("given", lambda: qsgd_quantize(x, sd, nm, 127, True, True)),
+                     ("given2", lambda: qsgd_quantize(x, sd, nm, 127, True, True)),
+                     ("tree_given2", tree_call(nm)), ("tree2", tree_call())):
+        tt[name] = s.time_ms(fn, reps=5, warmup=1)
+    pq = s.time_ms(lambda: qsgd_quantize_plain(x, sd, nm, 127, True, True),
                    reps=1, warmup=0)
     b, by = _qsgd_bound([LARGE], 16, 2)
+    tree_ms = (tt["tree"] + tt["tree2"]) / 2
+    quant_ms = (tt["tree_given"] + tt["tree_given2"]) / 2
     rows.append(dict(kernel="qsgd", shape=list(LARGE), cohort=16, bits=8,
-                     outputs="q and levels", ms=kt, kernel_only_ms=kq,
-                     norm_pass_ms=kn, plain_ms=pq, bound_ms=b, bound_by=by))
+                     outputs="q and levels", ms=tree_ms, quantize_pass_ms=quant_ms,
+                     norm_pass_ms=tree_ms - quant_ms,
+                     one_leaf_given_norms_ms=(tt["given"] + tt["given2"]) / 2,
+                     turns=tt, plain_ms=pq, bound_ms=b, bound_by=by))
     del x
     torch.cuda.empty_cache()
     print("times (runtime slice, large leaf, rademacher): "
@@ -1701,8 +1848,16 @@ def phase_train_kernels(s: Smoke):
         del delta
     s.report()
     s.group = ("train tree launches, bf16: SmolLM-360M's 11 leaves in one launch "
-               "(rademacher, hadamard; encode N=1 k=1 and FULL 8, close N=4 k=1), "
-               "and its 2-layer leaves under 2**24 elements (10 leaves; BLOCK 8)")
+               "(rademacher, hadamard; encode N=1 k=1 and FULL 8, close N=4 k=1; "
+               "QSGD N=1 bits 8 and 4, norms in the kernel), and its 2-layer "
+               "leaves under 2**24 elements (10 leaves; BLOCK 8)")
+    deltas = [(s.randn(1, *w.shape) * 1e-3).to(torch.bfloat16)
+              for w in tree_leaves(params)]
+    for bits in (8, 4):
+        s.check_qsgd_tree(deltas, s.seeds(1), bits,
+                          what=f"smollm-360m 11 leaves b={bits}")
+    del deltas
+    torch.cuda.empty_cache()
     for family in ("rademacher", "hadamard"):
         deltas = tree_map(lambda w: (s.randn(1, *w.shape) * 1e-3).to(torch.bfloat16),
                           params)
@@ -2189,7 +2344,8 @@ def main() -> int:
         dict(name="qsgd_quant", route="cuda",
              source="src/repro_torch/kernels/csrc/qsgd_quant.cu",
              replaces="src/repro/kernels/qsgd_quant.py:31",
-             launches=rt_launches["qsgd"], max_abs_err=s.errs["qsgd"],
+             launches=launches["qsgd"] + rt_launches["qsgd"],
+             max_abs_err=s.errs["qsgd"],
              library_ms=None, **times["qsgd"]),
     ]
     # The flash kernels: prefill and decode carry the serve path (launches

@@ -12,14 +12,17 @@ same levels bit for bit.  Seeds are keyed by (round, client id)
 (:func:`quant_seeds`), which lets the runtime's ``qsgd`` protocol
 reproduce :func:`qsgd_round` on a sampled cohort.
 
-The quantizer runs through
-:func:`repro_torch.kernels.qsgd_quant.qsgd_quantize`, one call per leaf
-for the whole cohort: on a CUDA tensor the hand-written kernel, on a CPU
-tensor its plain version.  Norms are ``torch.linalg.vector_norm`` per
-client and leaf, computed outside the kernel as in the reference; they
-may differ from ``jnp.linalg.norm`` by an ulp, which can flip a level
-where the uniform sits within an ulp of the fraction.  Every function
-takes ``norms=`` so a caller (a parity test) can inject its own.
+A tree (:func:`quantize_tree`, :func:`qsgd_round`) goes through
+:func:`repro_torch.kernels.qsgd_quant.qsgd_tree`, one call for every leaf
+and client: on CUDA tensors the hand-written kernel, which computes the
+norms itself, on CPU tensors its plain version, whose norms are
+``torch.linalg.vector_norm`` per client and leaf.  One leaf
+(:func:`quantize_cohort`, :func:`quantize_levels`, :func:`quantize_leaf`)
+goes through :func:`repro_torch.kernels.qsgd_quant.qsgd_quantize` with the
+norms computed outside, as in the reference.  Norms may differ from
+``jnp.linalg.norm`` by an ulp or so, which can flip a level where the
+uniform sits that close to the fraction.  The one-leaf functions take
+``norms=`` so a caller (a parity test) can inject its own.
 """
 from __future__ import annotations
 
@@ -33,18 +36,26 @@ from repro_torch.core.prng import fold_seed, u32
 from repro_torch.core.projection import tree_size, view2d
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.kernels.common import LEAF_DTYPES
-from repro_torch.kernels.qsgd_quant import QSGD_TAG, qsgd_quantize
+from repro_torch.kernels.qsgd_quant import (
+    QSGD_TAG,
+    RoundSeeds,
+    guarded_norms,
+    qsgd_quantize,
+    qsgd_tree,
+)
 
 __all__ = [
     "QSGD_TAG",
     "QSGDConfig",
     "quant_seeds",
+    "round_quant_seeds",
     "leaf_norm",
     "quantize_levels",
     "dequantize_levels",
     "quantize_leaf",
     "quantize_tree",
     "quantize_cohort",
+    "tree_inputs",
     "qsgd_round",
     "upload_bits_per_client",
 ]
@@ -72,6 +83,13 @@ def quant_seeds(round_idx, client_ids, device=None) -> torch.Tensor:
                            device=device)
 
 
+def round_quant_seeds(round_idx, client_ids: torch.Tensor) -> RoundSeeds:
+    """:func:`quant_seeds` as :func:`qsgd_tree` takes them, derived in the
+    kernel from the ``(N,)`` client ids."""
+    ids = client_ids if client_ids.dtype == torch.int64 else client_ids.to(torch.int64)
+    return RoundSeeds(int(round_idx), ids.contiguous(), _QUANT_SALT)
+
+
 def _coords_2d(shape: tuple, device=None):
     """(rows, cols) of a leaf's 2-D view and its int64 (row, col) grids."""
     shape2 = view2d(tuple(shape))
@@ -82,9 +100,9 @@ def _coords_2d(shape: tuple, device=None):
 
 def leaf_norm(x: torch.Tensor, batched: bool = False) -> torch.Tensor:
     """Guarded float32 L2 norm (per client when ``batched``); zero → 1."""
-    xf = x.to(torch.float32)
-    xf = xf.reshape(xf.shape[0], -1) if batched else xf.reshape(-1)
-    norm = torch.linalg.vector_norm(xf, dim=-1)
+    if batched:
+        return guarded_norms(x)
+    norm = torch.linalg.vector_norm(x.to(torch.float32).reshape(-1), dim=-1)
     return torch.where(norm == 0, torch.ones_like(norm), norm)
 
 
@@ -145,20 +163,31 @@ def quantize_leaf(x: torch.Tensor, seed, levels: int, tag: int = 0,
     return q[0]
 
 
+def tree_inputs(leaves, batched: bool = True) -> list:
+    """The leaves as :func:`qsgd_tree` takes them: each with a leading client
+    axis (added when not ``batched``), contiguous, float32 or bf16 (other
+    dtypes as float32)."""
+    xs = []
+    for leaf in leaves:
+        x = leaf if batched else leaf.unsqueeze(0)
+        if x.dtype not in LEAF_DTYPES:
+            x = x.to(torch.float32)
+        xs.append(x if x.is_contiguous() else x.contiguous())
+    return xs
+
+
 def quantize_tree(tree: Any, seeds, bits: int, batched: bool = False) -> Any:
     """Quantize each leaf with its own norm; the leaf ordinal folds the seed.
 
     ``batched``: every leaf carries a leading client axis and ``seeds``
-    is ``(N,)`` — one kernel call per leaf for the whole cohort.
+    is ``(N,)``.  One :func:`qsgd_tree` call for the whole tree.
     """
-    levels = (1 << (bits - 1)) - 1
-    out = []
-    for tag, leaf in enumerate(tree_leaves(tree)):
-        if batched:
-            out.append(quantize_cohort(leaf, seeds, levels, tag)[0])
-        else:
-            out.append(quantize_leaf(leaf, seeds, levels, tag))
-    return tree_unflatten(tree, out)
+    leaves = tree_leaves(tree)
+    sd = u32(seeds, leaves[0].device).reshape(-1)
+    qs, _, _ = qsgd_tree(tree_inputs(leaves, batched), sd, (1 << (bits - 1)) - 1,
+                         want_q=True)
+    return tree_unflatten(tree, [q.to(leaf.dtype).reshape(leaf.shape)
+                                 for q, leaf in zip(qs, leaves)])
 
 
 def qsgd_round(

@@ -27,8 +27,10 @@ import torch
 from repro_torch.core import fedavg as fa
 from repro_torch.core import fedscalar as fs
 from repro_torch.core import qsgd as q
+from repro_torch.core.prng import u32
 from repro_torch.core.projection import leaf_layout, tree_size
 from repro_torch.core.tree import tree_leaves, tree_unflatten
+from repro_torch.kernels.qsgd_quant import qsgd_tree
 from repro_torch.fed.costmodel import dense_downlink_bits
 from repro_torch.fed.costmodel import queue_entry_bytes as _resident_entry_bytes
 from repro_torch.fed.runtime.transport import (
@@ -246,28 +248,20 @@ class QSGDProtocol(_DenseApplyMixin, UplinkProtocol):
         return cls(params_like, cfg)
 
     def client_payload(self, delta, quant_seed):
-        levels = self.config.levels
-        parts, norms = [], []
-        for tag, leaf in enumerate(tree_leaves(delta)):
-            signed, norm = q.quantize_levels(leaf, quant_seed, levels, tag)
-            parts.append(signed.reshape(-1))
-            norms.append(norm)
-        return torch.cat(parts + [torch.stack(norms)])
+        leaves = tree_leaves(delta)
+        return self._payload(q.tree_inputs(leaves, batched=False),
+                             u32(quant_seed, leaves[0].device).reshape(1))[0]
 
     def encode_cohort(self, deltas, seeds, round_idx, client_ids):
-        """Level codes of the whole cohort: one kernel call per leaf."""
+        """Level codes and norms of the whole cohort: one ``qsgd_tree`` call,
+        the (round, id)-keyed seeds derived in the kernel."""
         del seeds                      # rounding streams are (round, id)-keyed
-        leaves = tree_leaves(deltas)
-        n = leaves[0].shape[0]
-        qseeds = q.quant_seeds(round_idx, client_ids, leaves[0].device)
-        parts, norms = [], []
-        for tag, leaf in enumerate(leaves):
-            _, signed, nm = q.quantize_cohort(leaf, qseeds, self.config.levels,
-                                              tag, want_q=False,
-                                              want_levels=True)
-            parts.append(signed.reshape(n, -1))
-            norms.append(nm)
-        return torch.cat(parts + [torch.stack(norms, dim=1)], dim=1)
+        return self._payload(q.tree_inputs(tree_leaves(deltas)),
+                             q.round_quant_seeds(round_idx, client_ids))
+
+    def _payload(self, leaves, qseeds):
+        return qsgd_tree(leaves, qseeds, self.config.levels, want_q=False,
+                         want_levels=True)[1]
 
     def server_apply(self, params, payloads, seeds, weights):
         del seeds

@@ -29,8 +29,8 @@ from repro_torch.core.prng import (
 )
 
 __all__ = ["DIST_NAMES", "DIST_CODES", "LEAF_DTYPES", "fold_seed", "row_state",
-           "tile_from_state", "gen_tile", "seeds_as_u32_bits",
-           "check_cuda_tensor", "check_cohort", "raise_on_cuda_error"]
+           "tile_from_state", "gen_tile", "check_cuda_tensor", "check_cohort",
+           "raise_on_cuda_error"]
 
 # Family names as the kernels take them; the code is the CUDA switch value.
 DIST_NAMES = ("rademacher", "gaussian", "sparse_rademacher", "hadamard")
@@ -77,16 +77,6 @@ def gen_tile(seed_folded: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     """Direction values at (row, col) for an already leaf-folded seed."""
     return tile_from_state(row_state(seed_folded, row, distribution), col,
                            distribution)
-
-
-def seeds_as_u32_bits(seeds: torch.Tensor) -> torch.Tensor:
-    """int64 words in [0, 2³²) → int32 tensor with the same 32 bits.
-
-    The kernels read seeds as ``uint32``; torch has no general uint32
-    tensor, so the wrapper hands over int32 storage with equal bits.
-    """
-    s = seeds.to(torch.int64) & 0xFFFFFFFF
-    return torch.where(s >= 1 << 31, s - (1 << 32), s).to(torch.int32).contiguous()
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype, ndim: int,

@@ -1,7 +1,7 @@
 // The leaf table of a tree launch: one launch of the encode, the fused
-// close or the per-client decode covers every leaf of a parameter tree
-// (up to MAX_TREE_LEAVES; a longer tree is split into several launches of
-// the same kernel).
+// close, the per-client decode or QSGD covers every leaf of a parameter
+// tree (up to MAX_TREE_LEAVES; a longer tree is split into several
+// launches of the same kernel).
 //
 // The table travels by value as a __grid_constant__ kernel parameter
 // (3 592 bytes, under the classic 4 KB limit), so a launch needs no
@@ -20,16 +20,23 @@ namespace fs {
 constexpr int MAX_TREE_LEAVES = 64;
 
 struct TreeLeaf {
-  const void* x;      // input: the encode's (n, rows, cols), a close's (rows, cols)
-  void* y;            // a close's output (rows, cols); unused by the encode
+  const void* x;      // input: the encode's and QSGD's (n, rows, cols), a close's (rows, cols)
+  void* y;            // a close's output (rows, cols), QSGD's q (n, rows, cols) or null;
+                      // unused by the encode
   int rows, cols;     // the leaf's 2-D view
-  int orig_cols;      // row stride of the flat index that k-block masks use
+  union {
+    int orig_cols;    // row stride of the flat index that k-block masks use
+    int offset;       // QSGD: the leaf's first column in the flat payload
+  };
   int dtype;          // fs::DType
   uint32_t tag;       // leaf ordinal (sorted-key order), folded into every seed
   uint32_t row_offset, col_offset;   // coordinates of element (0, 0)
   int vec;            // 1: every row is 16-byte aligned (vector loads)
   int tile0;          // the leaf's first tile in the launch's flat tile space
-  int col_tiles;      // tiles across one row (the closes; 1 for the encode)
+  union {
+    int col_tiles;    // tiles across one row (the closes; 1 for the encode)
+    int part0;        // QSGD: the leaf's first norm partial of a client
+  };
 };
 
 struct TreeTable {

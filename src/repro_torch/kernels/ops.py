@@ -11,7 +11,8 @@
   tree launch; with ``per_client_rounding`` the LLM train step's
   close, bitwise the reference's ``server_aggregate``.
 * ``qsgd_roundtrip_kernel`` ≡ ``repro.kernels.ops.qsgd_roundtrip_kernel``:
-  the QSGD quantize→dequantize round trip of one update tree.
+  the QSGD quantize→dequantize round trip of one update tree, one
+  ``qsgd_tree`` launch (and its norm pass).
 
 Each dispatches on the tensors' device inside the kernel wrappers: CUDA
 tensors go to the hand-written kernels, CPU tensors to the plain
@@ -155,7 +156,8 @@ def server_update_kernel(
 
 
 def qsgd_roundtrip_kernel(tree: Any, seed, bits: int = 8) -> Any:
-    """Per-leaf QSGD quantize→dequantize of one update tree (kernel path)."""
+    """Per-leaf QSGD quantize→dequantize of one update tree: one ``qsgd_tree``
+    call through ``core.qsgd.quantize_tree`` (kernel path)."""
     from repro_torch.core.qsgd import quantize_tree
 
     return quantize_tree(tree, seed, bits)

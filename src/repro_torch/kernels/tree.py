@@ -1,7 +1,8 @@
-"""Leaf tables and launch plans for the tree launches of the encode and the two closes.
+"""Leaf tables and launch plans for the tree launches of the encode, the two closes and QSGD.
 
-One launch of ``csrc/seeded_projection.cu``, ``csrc/reconstruct_apply.cu``
-or ``csrc/seeded_reconstruct.cu`` covers every leaf of a parameter tree:
+One launch of ``csrc/seeded_projection.cu``, ``csrc/reconstruct_apply.cu``,
+``csrc/seeded_reconstruct.cu`` or ``csrc/qsgd_quant.cu`` covers every
+leaf of a parameter tree:
 it carries a leaf table (``csrc/tree.cuh``: data pointers, the 2-D view,
 leaf tag, offsets, dtype code and each leaf's first tile in one flat
 tile space) by value as a kernel parameter, so a launch copies nothing
@@ -14,6 +15,13 @@ every field but the data pointers filled in, and the k-block bounds of
 every leaf, computed once and kept on the device.  Plans are cached per
 (kernel, leaf shapes and dtypes, k, mode, device), so a call's host work
 is filling in the pointers and launching.
+
+The QSGD plan (kind ``"qsgd"``, :func:`qsgd_plan`) tiles differently: a
+tile is a span of whole rows of one (client, leaf), about
+``QSGD_TILE_ELEMS`` elements, worked by one warp, so a narrow leaf packs
+many rows into a warp's work; each leaf carries its column in the flat
+payload (``offset``) and its first norm partial (``part0``): the norm
+pass splits each (client, leaf) into :func:`qsgd_norm_units` spans.
 """
 from __future__ import annotations
 
@@ -27,9 +35,11 @@ from repro_torch.core.projection import LeafLayout, ProjectionMode, view2d
 from repro_torch.kernels.common import LEAF_DTYPES
 
 __all__ = ["MAX_TREE_LEAVES", "ENCODE_TILE_ROWS", "CLOSE_TILE_ROWS",
-           "CLOSE_TILE_THREADS", "DECODE_MIN_TILES", "TreeLeaf", "TreeTable",
+           "CLOSE_TILE_THREADS", "DECODE_MIN_TILES", "QSGD_TILE_ELEMS",
+           "QSGD_NORM_UNIT_ELEMS", "QSGD_NORM_UNITS_MAX", "TreeLeaf", "TreeTable",
            "TreePlan", "LaunchGroup", "leaf_block_bounds", "decode_vector",
-           "tree_plan", "check_leaves", "single_table"]
+           "qsgd_rows_per_tile", "qsgd_norm_units", "tree_plan", "qsgd_plan",
+           "check_leaves", "single_table"]
 
 # csrc/tree.cuh's MAX_TREE_LEAVES.
 MAX_TREE_LEAVES = 64
@@ -49,19 +59,38 @@ CLOSE_TILE_THREADS = 32
 # wide, and V = 4 there would idle three lanes in four.  DECODE_MIN_TILES
 # is two blocks for each of the H100's 132 SMs.
 DECODE_MIN_TILES = 2 * 132
-_KINDS = ("encode", "close", "decode")
+# QSGD (qsgd_quant.cu): a tile is max(1, QSGD_TILE_ELEMS // cols) rows of
+# one (client, leaf), worked by one warp.  The norm pass splits each
+# (client, leaf) of s elements into min(QSGD_NORM_UNITS_MAX,
+# ⌈s / QSGD_NORM_UNIT_ELEMS⌉) spans of ⌈s / units⌉ elements rounded up to
+# a multiple of 8 (so 16-byte loads stay aligned), one float32 partial
+# each; the cap keeps the partials a quantize warp sums for a norm short.
+QSGD_TILE_ELEMS = 256
+QSGD_NORM_UNIT_ELEMS = 512
+QSGD_NORM_UNITS_MAX = 512
+_KINDS = ("encode", "close", "decode", "qsgd")
 _PLAN_CACHE_MAX = 64
 
 
-class TreeLeaf(ctypes.Structure):
-    """``fs::TreeLeaf``."""
+class _ColsOrOffset(ctypes.Union):
+    _fields_ = [("orig_cols", ctypes.c_int), ("offset", ctypes.c_int)]
 
+
+class _TilesOrPart(ctypes.Union):
+    _fields_ = [("col_tiles", ctypes.c_int), ("part0", ctypes.c_int)]
+
+
+class TreeLeaf(ctypes.Structure):
+    """``fs::TreeLeaf``; ``offset`` and ``part0`` (QSGD) share the slots of
+    ``orig_cols`` and ``col_tiles`` (the encode and the closes)."""
+
+    _anonymous_ = ("_u0", "_u1")
     _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
                 ("rows", ctypes.c_int), ("cols", ctypes.c_int),
-                ("orig_cols", ctypes.c_int), ("dtype", ctypes.c_int),
+                ("_u0", _ColsOrOffset), ("dtype", ctypes.c_int),
                 ("tag", ctypes.c_uint32), ("row_offset", ctypes.c_uint32),
                 ("col_offset", ctypes.c_uint32), ("vec", ctypes.c_int),
-                ("tile0", ctypes.c_int), ("col_tiles", ctypes.c_int)]
+                ("tile0", ctypes.c_int), ("_u1", _TilesOrPart)]
 
 
 class TreeTable(ctypes.Structure):
@@ -93,6 +122,18 @@ def _elem(dtype: torch.dtype) -> int:
     return 2 if dtype == torch.bfloat16 else 4
 
 
+def qsgd_rows_per_tile(cols: int) -> int:
+    """Rows of one QSGD tile (qsgd_quant.cu's rows_per_tile)."""
+    return max(1, QSGD_TILE_ELEMS // max(cols, 1))
+
+
+def qsgd_norm_units(size: int) -> tuple[int, int]:
+    """→ (spans, elements a span) of the QSGD norm pass over one (client,
+    leaf) of ``size`` elements (qsgd_quant.cu's norm_units / norm_span)."""
+    units = min(QSGD_NORM_UNITS_MAX, max(1, -(-size // QSGD_NORM_UNIT_ELEMS)))
+    return units, -(-(-(-size // units)) // 8) * 8
+
+
 def _tiles(kind: str, rows: int, cols: int, dtype: torch.dtype,
            vector: bool = True) -> tuple[int, int]:
     """→ (tiles of one leaf, tiles across one of its rows); ``vector`` False
@@ -101,6 +142,8 @@ def _tiles(kind: str, rows: int, cols: int, dtype: torch.dtype,
         return 0, 1
     if kind == "encode":
         return -(-rows // ENCODE_TILE_ROWS), 1
+    if kind == "qsgd":
+        return -(-rows // qsgd_rows_per_tile(cols)), 1
     per_thread = 16 // _elem(dtype) if vector else 1
     col_tiles = -(-cols // (CLOSE_TILE_THREADS * per_thread))
     return -(-rows // CLOSE_TILE_ROWS) * col_tiles, col_tiles
@@ -115,15 +158,22 @@ def decode_vector(leaves) -> bool:
 
 def _fill_static(entry: TreeLeaf, kind: str, rows: int, cols: int, orig_cols: int,
                  dtype: torch.dtype, tag: int, row_offset: int, col_offset: int,
-                 tile0: int, vector: bool = True) -> int:
-    """Fill every field of ``entry`` but the pointers and ``vec``; → its tiles."""
+                 tile0: int, vector: bool = True, part0: int = 0) -> int:
+    """Fill every field of ``entry`` but the pointers and ``vec``; → its tiles.
+
+    For ``kind`` "qsgd", ``orig_cols`` is the leaf's payload offset and
+    ``part0`` its first norm partial."""
     tiles, col_tiles = _tiles(kind, rows, cols, dtype, vector)
-    entry.rows, entry.cols, entry.orig_cols = rows, cols, orig_cols
+    entry.rows, entry.cols = rows, cols
     entry.dtype = LEAF_DTYPES[dtype]
     entry.tag = tag & 0xFFFFFFFF
     entry.row_offset = row_offset & 0xFFFFFFFF
     entry.col_offset = col_offset & 0xFFFFFFFF
-    entry.tile0, entry.col_tiles = tile0, col_tiles
+    entry.tile0 = tile0
+    if kind == "qsgd":
+        entry.offset, entry.part0 = orig_cols, part0
+    else:
+        entry.orig_cols, entry.col_tiles = orig_cols, col_tiles
     return tiles
 
 
@@ -141,6 +191,7 @@ class LaunchGroup:
     num_tiles: int
     template: bytes          # the TreeTable with every pointer unset
     vector: bool = True      # the decode's V rule (decode_vector) for this launch
+    num_parts: int = 0       # QSGD: norm partials per client of this launch
 
     def table(self, xs, ys=None) -> TreeTable:
         """The launch's table with the leaves' (and outputs') pointers set."""
@@ -175,8 +226,8 @@ _plans: dict = {}
 
 def tree_plan(kind: str, shapes, dtypes, k: int, mode: ProjectionMode,
               device) -> TreePlan:
-    """The cached plan of ``kind`` ("encode", "close" or "decode") for leaves
-    of these per-client shapes and dtypes in sorted-key order."""
+    """The cached plan of ``kind`` ("encode", "close", "decode" or "qsgd")
+    for leaves of these per-client shapes and dtypes in sorted-key order."""
     if kind not in _KINDS:
         raise ValueError(kind)
     device = torch.device(device)
@@ -208,15 +259,29 @@ def _build_plan(kind, shapes, dtypes, k, mode, device) -> TreePlan:
             (ll.rows, ll.cols, dtypes[start + i])
             for i, ll in enumerate(layout[start:stop]))
         table = TreeTable()
-        tiles = 0
+        tiles = parts = 0
         for i, ll in enumerate(layout[start:stop]):
-            tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols, ll.cols,
-                                  dtypes[start + i], ll.tag, 0, 0, tiles, vector)
+            if kind == "qsgd":
+                if ll.offset >= 1 << 31 or ll.size >= 1 << 31:
+                    raise ValueError(f"leaf {ll.shape} at payload column "
+                                     f"{ll.offset}: past the table's int range")
+                tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols,
+                                      ll.offset, dtypes[start + i], ll.tag, 0, 0,
+                                      tiles, part0=parts)
+                parts += qsgd_norm_units(ll.size)[0]
+            else:
+                tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols, ll.cols,
+                                      dtypes[start + i], ll.tag, 0, 0, tiles, vector)
         table.num_leaves, table.num_tiles = stop - start, tiles
-        groups.append(LaunchGroup(start, stop, tiles, bytes(table), vector))
+        groups.append(LaunchGroup(start, stop, tiles, bytes(table), vector, parts))
     return TreePlan(kind=kind, layout=tuple(layout), dtypes=tuple(dtypes), k=k,
                     masked=mode == ProjectionMode.BLOCK and k > 1,
                     lo=lo.to(device), hi=hi.to(device), groups=tuple(groups))
+
+
+def qsgd_plan(shapes, dtypes, device) -> TreePlan:
+    """The cached QSGD plan for leaves of these per-client shapes and dtypes."""
+    return tree_plan("qsgd", shapes, dtypes, 1, ProjectionMode.FULL, device)
 
 
 def check_leaves(plan: TreePlan, leaves, k: int, device: torch.device) -> None:
@@ -234,7 +299,8 @@ def check_leaves(plan: TreePlan, leaves, k: int, device: torch.device) -> None:
 def single_table(kind: str, x: torch.Tensor, rows: int, cols: int,
                  orig_cols: int, tag: int, row_offset: int, col_offset: int,
                  y: torch.Tensor | None = None, vector: bool = True) -> TreeTable:
-    """A one-leaf table: the leaf-level kernels are tree launches of one leaf."""
+    """A one-leaf table: the leaf-level kernels are tree launches of one leaf
+    (for "qsgd", ``orig_cols`` is the leaf's payload offset)."""
     table = TreeTable()
     entry = table.leaf[0]
     table.num_tiles = _fill_static(entry, kind, rows, cols, orig_cols, x.dtype, tag,

@@ -958,3 +958,157 @@ def test_cuda_flash_f32_kernel(cuda_device, hd, heads):
     for window in (0, 64, 1000):
         _check_f32(cuda_device, 2, 300, 1000, h, kh, hd, window=window,
                    qpos=torch.arange(1200, 1500, dtype=torch.int32), kpos=ring, seed=5)
+
+
+# ---- QSGD tree launches (qsgd_tree: the norm pass and one quantize launch
+# per group of 64 leaves) ----
+
+_QSGD_MLP = [(24,), (12,), (10,), (64, 24), (24, 12), (12, 10)]
+
+
+def _qsgd_leaves(case, dtype, n=None):
+    """(leaves (N, *shape) on the CPU, N) of a named tree; client 1 of the
+    MLP tree is all zeros (norm → 1, levels 0)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(len(case) + len(dtype))
+    if case == "mlp":
+        n = n or 256
+        shapes = _QSGD_MLP
+    elif case == "70":
+        n = n or 20
+        shapes = [tuple(v.shape) for v in _tree(70, 0, torch.float32).values()]
+    else:                                   # C1's narrow leaf
+        n = n or 2
+        shapes = [(262_144, 2)]
+    leaves = [torch.from_numpy((rng.randn(n, *sh) * 0.01).astype(np.float32)).to(dt)
+              for sh in shapes]
+    if case == "mlp":
+        for x in leaves:
+            x[1] = 0.0
+    return leaves, n
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("case", ["mlp", "70", "narrow"])
+def test_cuda_qsgd_tree_matches_plain(cuda_device, dtype, bits, case):
+    """The tree kernel bitwise against ``qsgd_tree_plain`` given the kernel's
+    own norms (q and the payload); its norms within ``norm_tolerance`` of
+    the float64 norm, the same bits on a rerun, two launches per group."""
+    from repro_torch.kernels.qsgd_quant import (
+        norm_tolerance,
+        qsgd_tree,
+        qsgd_tree_plain,
+    )
+    from repro_torch.kernels.tree import MAX_TREE_LEAVES
+
+    leaves, n = _qsgd_leaves(case, dtype)
+    levels = (1 << (bits - 1)) - 1
+    seeds = torch.from_numpy(seeds_np(np.random.RandomState(bits), n).astype(np.int64))
+    on = [x.to(cuda_device) for x in leaves]
+    before = qsgd_quantize.launches
+    q, payload, norms = qsgd_tree(on, seeds.to(cuda_device), levels, want_q=True,
+                                  want_levels=True)
+    groups = -(-len(leaves) // MAX_TREE_LEAVES)
+    assert qsgd_quantize.launches - before == 2 * groups
+    q2, payload2, norms2 = qsgd_tree(on, seeds.to(cuda_device), levels,
+                                     want_q=True, want_levels=True)
+    torch.cuda.synchronize()
+    assert torch.equal(payload, payload2) and torch.equal(norms, norms2)
+    assert all(torch.equal(a, b) for a, b in zip(q, q2))
+    qp, pp, _ = qsgd_tree_plain(leaves, seeds, levels, want_q=True, want_levels=True,
+                                norms=norms.cpu().contiguous())
+    assert torch.equal(payload.cpu(), pp)
+    for a, b in zip(q, qp):
+        assert a.dtype == b.dtype and torch.equal(a.cpu().float(), b.float())
+    for i, x in enumerate(leaves):
+        err = (norms[:, i].cpu().double()
+               - torch.linalg.vector_norm(x.double().reshape(n, -1), dim=1)).abs()
+        nonzero = x.reshape(n, -1).abs().sum(dim=1) > 0
+        assert (err[nonzero] <= norm_tolerance(x)[nonzero]).all()
+        assert (norms[:, i].cpu()[~nonzero] == 1).all()
+    if case == "mlp":
+        assert float(payload[1, :-len(leaves)].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_qsgd_tree_norms_do_not_depend_on_the_split(cuda_device, dtype):
+    """The 70-leaf tree's two launch groups give each leaf the norm it gets
+    as a tree of its own (a norm sums its own spans in a fixed order)."""
+    from repro_torch.kernels.qsgd_quant import qsgd_tree
+
+    leaves, n = _qsgd_leaves("70", dtype)
+    seeds = torch.from_numpy(seeds_np(np.random.RandomState(3), n).astype(np.int64)
+                             ).to(cuda_device)
+    on = [x.to(cuda_device) for x in leaves]
+    _, _, norms = qsgd_tree(on, seeds, 127, want_q=True)
+    for i, x in enumerate(on):
+        _, _, alone = qsgd_tree([x], seeds, 127, want_q=True)
+        assert torch.equal(alone[:, 0], norms[:, i])
+
+
+@pytest.mark.parametrize("shape", ["n", "nl"])
+def test_cuda_qsgd_tree_given_norms(cuda_device, shape):
+    """Norms given as (N,) or (N, L): one launch, bitwise the plain version."""
+    from repro_torch.kernels.qsgd_quant import qsgd_tree, qsgd_tree_plain
+
+    leaves, n = _qsgd_leaves("mlp", "float32", n=33)
+    rng = np.random.RandomState(5)
+    seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+    norms = torch.from_numpy(rng.rand(n, len(leaves)).astype(np.float32) + 0.01)
+    if shape == "n":
+        norms = norms[:, 0].contiguous()
+    before = qsgd_quantize.launches
+    q, payload, got = qsgd_tree([x.to(cuda_device) for x in leaves],
+                                seeds.to(cuda_device), 7, want_q=True, want_levels=True,
+                                norms=norms.to(cuda_device))
+    assert qsgd_quantize.launches - before == 1
+    qp, pp, want = qsgd_tree_plain(leaves, seeds, 7, want_q=True, want_levels=True,
+                                   norms=norms)
+    assert torch.equal(payload.cpu(), pp) and torch.equal(got.cpu(), want)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(q, qp))
+
+
+def test_cuda_qsgd_protocol_encode_is_one_tree_call(cuda_device):
+    """``QSGDProtocol.encode_cohort`` at a runtime chunk: two launches, the
+    payload bitwise the plain version's given the kernel's norms."""
+    from repro_torch.core import qsgd as tq
+    from repro_torch.fed.protocols import make_protocol
+    from repro_torch.kernels.qsgd_quant import qsgd_tree_plain
+
+    p = init_mlp(device="cpu")
+    proto = make_protocol("qsgd", p)
+    rng = np.random.RandomState(9)
+    deltas = {k: torch.from_numpy((rng.randn(256, *v.shape) * 0.01).astype(np.float32))
+              for k, v in p.items()}
+    ids = torch.arange(1000, 1256)
+    before = qsgd_quantize.launches
+    got = proto.encode_cohort({k: v.to(cuda_device) for k, v in deltas.items()}, None,
+                              4, ids.to(cuda_device))
+    assert qsgd_quantize.launches - before == 2
+    leaves = [deltas[k] for k in sorted(deltas)]
+    _, want, _ = qsgd_tree_plain(leaves, tq.quant_seeds(4, ids), 127, want_q=False,
+                                 want_levels=True,
+                                 norms=got[:, proto.d:].cpu().contiguous())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_cuda_qsgd_tree_checks_inputs(cuda_device):
+    from repro_torch.kernels.qsgd_quant import qsgd_tree
+
+    x = torch.zeros((2, 4, 8), device=cuda_device)
+    seeds = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        qsgd_tree([x.double()], seeds, 127)
+    with pytest.raises(ValueError):
+        qsgd_tree([x[:1]], seeds, 127)                      # not N clients
+    with pytest.raises(ValueError):
+        qsgd_tree([x.cpu()], seeds, 127)                    # another device
+    with pytest.raises(ValueError):
+        qsgd_tree([x.transpose(1, 2)], seeds, 127)          # not contiguous
+    with pytest.raises(ValueError):
+        qsgd_tree([x], seeds, 300)
+    with pytest.raises(ValueError):
+        qsgd_tree([x], seeds, 127, norms=torch.ones(3, device=cuda_device))
+    with pytest.raises(ValueError):
+        qsgd_tree([x], seeds, 127, want_q=False, want_levels=False)
