@@ -42,6 +42,22 @@ Phases (any failure exits non-zero and the final line is not printed):
    norm pass and the quantize launch), and one round on the card must
    match the same round on the CPU (atol 1e-6; qsgd 2e-6, for a level
    flipped by the norm's last bit);
+   then the continuous-round scheduler at ``benchmarks/run.py``'s
+   scheduler shape (100 000 clients, cohorts of 1000, 20 rounds, seed 0,
+   the digest downlink, 20 ms base latency, lognormal σ 0.5): the legacy
+   loop, the sync scheduler (its params bitwise the legacy run's on the
+   card) and the async scheduler (a round opened every 1 ms, 32 in
+   flight, staleness window 4), whose modeled makespan, clients/s, model
+   lag and state bytes must equal ``experiments/scheduler/throughput.csv``
+   to its printed digits; async on the fused close (one fused launch a
+   round) and async qsgd on the dense downlink (two QSGD launches a
+   cohort chunk); every scheduler run launches the encode each round and
+   the decode-route runs the per-client close each round (1000 ≥ 512
+   uploads); 3 rounds of async fedscalar and async qsgd on the card
+   against the CPU (the decode threshold pinned at 512 on both): every
+   stats array and the schedule bitwise, params within 1e-6 (qsgd
+   2e-6); and the state audit at 10⁶ clients (async, digest, 2 rounds:
+   4 000 000 bytes of per-client state);
 6. times from CUDA events: each kernel, its plain version and its bound,
    at the main paths' shapes and at the large leaf (cohorts 256, 1024 for
    both decodes; 16 clients for the encode and QSGD); the runtime's
@@ -191,6 +207,27 @@ RT_CONFIGS = {   # name -> (RuntimeConfig overrides, kernels that must run)
     "fedavg": (dict(protocol_name="fedavg"), ()),
     "qsgd": (dict(protocol_name="qsgd"), ("qsgd",)),
 }
+# Scheduler runs: benchmarks/run.py's bench_scheduler_throughput shape,
+# checked against the rows it wrote (read as data, not imported).
+SCHED_CSV = "experiments/scheduler/throughput.csv"
+SCHED_ROUNDS, SCHED_PARITY_ROUNDS = 20, 3
+SCHED_ASYNC = dict(mode="async", period_s=0.001, max_rounds_in_flight=32,
+                   staleness_window=4)
+SCHED_RUNS = {   # name -> (RuntimeConfig overrides, scheduler, kernels that run,
+                 #          the CSV row its modeled figures must equal)
+    "legacy": (dict(), None, ("encode", "rec"), None),
+    "sched_sync": (dict(), dict(mode="sync"), ("encode", "rec"), "sync"),
+    "sched_async": (dict(), SCHED_ASYNC, ("encode", "rec"), "async_pipelined"),
+    "sched_async_fused": (dict(projection_mode="fused_kernel"), SCHED_ASYNC,
+                          ("encode", "fused"), None),
+    "qsgd_sched_async": (dict(protocol_name="qsgd", downlink_mode="dense"),
+                         SCHED_ASYNC, ("qsgd",), None),
+}
+# The schedule's arrays a card run must share bit for bit with a CPU run,
+# beside the history's per-round counters and costs.
+SCHEDULE_KEYS = ("starts", "closes", "drains", "params_lag")
+# History arrays that hold host timings or evaluations, not round counters.
+UNSHARED_HISTORY = ("loss", "accuracy", "apply_s")
 # QSGD per element: the one unhoisted SplitMix32 round (xor, add, three
 # shift-xor pairs: 8 integer ops, 2 multiplies) and the float ops of the
 # spec (convert, +1, ·2⁻³², |x|/norm, ·L, floor, −, <, +, sign·level,
@@ -1070,7 +1107,201 @@ def phase_runtime(s: Smoke):
                 raise AssertionError(f"runtime {name}: {key} differs")
         print(f"runtime: {name}: one round, card vs CPU max |dparams| {err!r} "
               f"(tolerance {tol})", flush=True)
+    rows.update(_phase_scheduler(clients, xte, yte, fns, launches))
     return launches, rows
+
+
+def _sched_config(over, sched, rounds=SCHED_ROUNDS):
+    from repro_torch.fed.costmodel import ChannelConfig
+    from repro_torch.fed.runtime import RuntimeConfig, SchedulerConfig
+
+    base = dict(rounds=rounds, population=RT_POPULATION,
+                participation=RT_PARTICIPATION, seed=0, eval_every=10**6,
+                downlink_mode="digest",
+                channel=ChannelConfig(base_latency_s=0.02, lognormal_sigma=0.5))
+    base.update(over)
+    return RuntimeConfig(
+        scheduler=SchedulerConfig(**sched) if sched is not None else None, **base)
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(REPO / path) as f:
+        return {r["mode"]: r for r in csv.DictReader(f)}
+
+
+def _check_modeled(name, s, h, row):
+    """The modeled figures against the CSV row, to its printed digits."""
+    got = dict(
+        cohort=str(int(h["cohort_size"][0])), rounds=str(len(s["starts"])),
+        quorum_frac=str(s["quorum_frac"]),
+        period_s="" if s["period_s"] is None else str(s["period_s"]),
+        max_rounds_in_flight=str(s["max_rounds_in_flight"]),
+        makespan_s=f"{s['makespan_s']:.6f}",
+        rounds_per_s=f"{s['rounds_per_s']:.3f}",
+        clients_per_s=f"{s['clients_per_s']:.1f}",
+        stale_admitted=str(s["stale_admitted"]),
+        stale_dropped=str(s["stale_dropped"]),
+        params_lag_max=str(s["params_lag_max"]),
+        queue_peak_bytes=str(s["queue_peak_bytes"]),
+        agg_state_bytes_peak=str(s["agg_state_bytes_peak"]),
+        client_state_bytes=str(s["client_state_bytes"]))
+    bad = {k: (v, row[k]) for k, v in got.items() if row[k] != v}
+    if bad:
+        raise AssertionError(f"runtime {name}: modeled figures differ from "
+                             f"{SCHED_CSV} (got, csv): {bad}")
+
+
+def _sched_launches(name, cfg, h, fns, expect):
+    """The wrappers' counts since they were set to 0, held to a scheduled
+    run: the encode and QSGD twice a chunk, each close kernel in
+    ``expect`` once a round, and nothing outside ``expect``."""
+    got = {k: fn.launches for k, fn in fns.items()}
+    chunks = int(sum(-(-int(c) // cfg.client_chunk) for c in h["cohort_size"]))
+    want = {"encode": 2 * chunks, "rec": cfg.rounds, "fused": cfg.rounds,
+            "qsgd": 2 * chunks}
+    stray = [k for k in got if k not in expect and got[k]]
+    wrong = {k: (got[k], want[k]) for k in expect if got[k] != want[k]}
+    if stray or wrong:
+        raise AssertionError(f"runtime {name}: launches {got}; expected only "
+                             f"{expect}, (got, want) {wrong}")
+    return got
+
+
+def _phase_scheduler(clients, xte, yte, fns, launches):
+    """The continuous-round scheduler on the card (phase 5, second half)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fed.costmodel import ChannelConfig
+    from repro_torch.fed.runtime import EngineCore, run_federation
+    from repro_torch.models.mlp_classifier import init_mlp
+
+    stat_keys = [k for k in EngineCore.new_history(0)
+                 if k not in UNSHARED_HISTORY]
+    csv_rows = _csv_rows(SCHED_CSV)
+    rows, legacy_params = {}, None
+    for name, (over, sched, expect, csv_mode) in SCHED_RUNS.items():
+        cfg = _sched_config(over, sched)
+        params = init_mlp(seed=0, device="cuda")
+        for fn in fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        h = run_federation(cfg, params, clients, xte, yte, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _sched_launches(name, cfg, h, fns, expect)
+        for k in launches:
+            launches[k] += got[k]
+        if h["fused_path"] or not (h["cohort_size"] == 1000).all():
+            raise AssertionError(f"runtime {name}: not the event-driven path "
+                                 f"at cohort 1000")
+        loss = h["loss"][~np.isnan(h["loss"])]
+        if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+            raise AssertionError(f"runtime {name}: loss did not fall: "
+                                 f"{loss[0]} -> {loss[-1]}")
+        if sched is None:
+            legacy_params = h["final_params"]
+        elif sched["mode"] == "sync":
+            same = all(torch.equal(legacy_params[k], h["final_params"][k])
+                       for k in legacy_params)
+            if not same:
+                raise AssertionError(f"runtime {name}: params differ from the "
+                                     "legacy run's on the card")
+        applied = h["apply_s"] > 0
+        row = dict(
+            host_wall_s=wall, host_s_per_round=wall / cfg.rounds,
+            host_rounds_per_s=cfg.rounds / wall,
+            median_apply_ms=float(np.median(h["apply_s"][applied]) * 1e3),
+            launches=got, loss_first=float(loss[0]), loss_last=float(loss[-1]))
+        if sched is not None:
+            s = h["scheduler"]
+            if csv_mode is not None:
+                _check_modeled(name, s, h, csv_rows[csv_mode])
+            row.update(
+                modeled_makespan_s=s["makespan_s"],
+                modeled_rounds_per_s=s["rounds_per_s"],
+                modeled_clients_per_s=s["clients_per_s"],
+                modeled_params_lag_max=s["params_lag_max"],
+                stale_admitted=s["stale_admitted"],
+                stale_dropped=s["stale_dropped"],
+                queue_peak_bytes=s["queue_peak_bytes"],
+                agg_state_bytes_peak=s["agg_state_bytes_peak"],
+                client_state_bytes=s["client_state_bytes"],
+                matches_csv=csv_mode)
+            if sched["mode"] == "sync":
+                row["params_bitwise_legacy"] = True
+        rows[name] = row
+        print(f"runtime: {name}: " + json.dumps(row), flush=True)
+
+    # The async runs, 3 rounds on the card against the CPU, both on the
+    # decode route (threshold pinned at 512).  The card run must have gone
+    # through the kernels; the CPU run launches none.
+    for name in ("sched_async", "qsgd_sched_async"):
+        over, sched, expect, _ = SCHED_RUNS[name]
+        cfg = _sched_config(dict(over, kernel_cohort_threshold=512), sched,
+                            rounds=SCHED_PARITY_ROUNDS)
+        hs = {}
+        for dev in ("cuda", "cpu"):
+            for fn in fns.values():
+                fn.launches = 0
+            hs[dev] = run_federation(cfg, init_mlp(seed=2, device=dev), clients,
+                                     xte, yte, device=dev)
+            if dev == "cuda":
+                got = _sched_launches(name, cfg, hs[dev], fns, expect)
+            elif any(fn.launches for fn in fns.values()):
+                raise AssertionError(f"runtime {name}: the CPU run launched "
+                                     "a kernel")
+        for key in stat_keys:
+            if not np.array_equal(hs["cuda"][key], hs["cpu"][key]):
+                raise AssertionError(f"runtime {name}: card vs CPU: {key} differs")
+        for key in SCHEDULE_KEYS:
+            a, b = hs["cuda"]["scheduler"][key], hs["cpu"]["scheduler"][key]
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"runtime {name}: card vs CPU: {key} differs")
+        err = max(float((hs["cuda"]["final_params"][k].cpu()
+                         - hs["cpu"]["final_params"][k]).abs().max())
+                  for k in hs["cpu"]["final_params"])
+        tol = 2e-6 if over.get("protocol_name") == "qsgd" else 1e-6
+        if not err <= tol:
+            raise AssertionError(f"runtime {name}: card differs from CPU by "
+                                 f"{err} after {cfg.rounds} rounds (tolerance {tol})")
+        print(f"runtime: {name}: {cfg.rounds} rounds, card vs CPU: stats and "
+              f"schedule bitwise, max |dparams| {err!r} (tolerance {tol}), "
+              f"card launches {got}", flush=True)
+
+    # tests/test_scheduler.py's state audit at 10⁶ registered clients.
+    cfg = _sched_config(
+        dict(population=10**6, participation=2e-5,
+             channel=ChannelConfig(base_latency_s=0.05, lognormal_sigma=0.5)),
+        dict(mode="async", period_s=0.004, max_rounds_in_flight=4,
+             quorum_frac=0.5, staleness_window=2, audit_queues=True), rounds=2)
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    h = run_federation(cfg, init_mlp(seed=0, device="cuda"), clients, xte, yte,
+                       device="cuda")
+    wall = time.perf_counter() - t0
+    # cohorts of 20 stay under the 512-upload decode threshold: the encode
+    # kernel runs, the close is the plain per-client loop (the reference's
+    # routing)
+    got = _sched_launches("audit_1e6", cfg, h, fns, ("encode",))
+    s = h["scheduler"]
+    audit = dict(launches=got,client_state_bytes=s["client_state_bytes"],
+                 queue_entry_bytes=s["queue_entry_bytes"],
+                 queue_peak_bytes=s["queue_peak_bytes"],
+                 agg_state_bytes_peak=s["agg_state_bytes_peak"],
+                 modeled_params_lag_max=s["params_lag_max"], host_wall_s=wall)
+    if not (s["client_state_bytes"] == 4 * 10**6
+            and s["queue_entry_bytes"] == 32
+            and s["queue_peak_bytes"] <= 20 * 4 * 32
+            and s["agg_state_bytes_peak"] <= 20 * 4 * (4 + 24) + 96 * 8
+            and s["params_lag_max"] <= 4):
+        raise AssertionError(f"runtime audit_1e6: state bound broken: {audit}")
+    rows["audit_1e6"] = audit
+    print("runtime: audit_1e6: " + json.dumps(audit), flush=True)
+    return rows
 
 
 def phase_main_path(s: Smoke):

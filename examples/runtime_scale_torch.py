@@ -10,7 +10,8 @@ Usage::
 
     PYTHONPATH=src python examples/runtime_scale_torch.py \
         [--population 100000] [--participation 0.01] [--rounds 50] \
-        [--serve legacy] [--sampler uniform|weighted|poisson] \
+        [--serve sync|async|legacy] [--quorum 1.0] [--period-s 0.001] \
+        [--depth 32] [--window 4] [--sampler uniform|weighted|poisson] \
         [--scalar fp32|fp16|bf16] [--deadline-s inf] [--max-staleness 0] \
         [--staleness-beta 0.0] [--drop-prob 0.0] \
         [--downlink dense|digest] [--log-window 64] [--check-fused] \
@@ -19,17 +20,20 @@ Usage::
         [--profile]
 
 The card is the default device; ``--device cpu`` runs the kernels' plain
-versions.  ``--serve sync|async`` (the continuous-round scheduler) and
-its options are accepted for parity with the reference's flags but raise
-``NotImplementedError``: the scheduler is a later slice of the port, so
-the default here is ``legacy``, the one-cohort-at-a-time loop.
+versions.  ``--serve`` picks the driver, as in the reference: ``sync``
+(the default) and ``async`` are the continuous-round scheduler
+(``--quorum``; async also ``--period-s``, ``--depth`` rounds in flight
+and a ``--window`` of staleness), ``legacy`` the one-cohort-at-a-time
+loop.  Under the scheduler the run prints the modeled serving timeline
+(eq. 12″, reproducible from the seed) beside this run's own host
+seconds per round.
 
 ``--check-fused`` verifies that a full-participation, deadline-free run
 reproduces the port's ``run_simulation`` trajectory bit for bit.
 
 ``--profile`` runs the configuration twice more after the main run:
 under ``cProfile``, printing the host seconds of each engine stage (sum
-over rounds, stages nested as in ``_run_legacy``), and under
+over rounds, stages nested as in the driver loop), and under
 ``torch.profiler``, printing the device's busy share of the wall time.
 """
 from __future__ import annotations
@@ -52,6 +56,7 @@ from repro_torch.data import (  # noqa: E402
 from repro_torch.fed.costmodel import ChannelConfig  # noqa: E402
 from repro_torch.fed.runtime import (  # noqa: E402
     RuntimeConfig,
+    SchedulerConfig,
     ServerConfig,
     run_federation,
 )
@@ -97,6 +102,7 @@ STAGES = (
     ("  protocol encode", "encode_cohort"),
     ("uplink wire (encode/decode/channel)", "transmit"),
     ("offer uploads to the aggregator", "offer_uploads"),
+    ("routed offers (async scheduler)", "offer_routed"),
     ("close round", "close_round"),
     ("apply", "apply_round"),
     ("digest close (broadcast + replay)", "close_digest"),
@@ -162,14 +168,19 @@ def main():
     ap.add_argument("--staleness-beta", type=float, default=0.0)
     ap.add_argument("--round-period-s", type=float, default=math.inf)
     ap.add_argument("--drop-prob", type=float, default=0.0)
-    ap.add_argument("--serve", default="legacy",
+    ap.add_argument("--serve", default="sync",
                     choices=["sync", "async", "legacy"],
-                    help="driver; sync/async need the scheduler, a later "
-                         "slice of the port")
-    ap.add_argument("--quorum", type=float, default=1.0)
-    ap.add_argument("--period-s", type=float, default=0.001)
-    ap.add_argument("--depth", type=int, default=32)
-    ap.add_argument("--window", type=int, default=4)
+                    help="driver: continuous scheduler (sync/async) or the "
+                         "pre-scheduler legacy loop")
+    ap.add_argument("--quorum", type=float, default=1.0,
+                    help="close a round once this fraction of the cohort "
+                         "arrived (1.0 = wait for the deadline)")
+    ap.add_argument("--period-s", type=float, default=0.001,
+                    help="async: open a new round every this many seconds")
+    ap.add_argument("--depth", type=int, default=32,
+                    help="async: max rounds in flight")
+    ap.add_argument("--window", type=int, default=4,
+                    help="async: staleness window for re-admitted stragglers")
     ap.add_argument("--downlink", default="dense", choices=["dense", "digest"])
     ap.add_argument("--log-window", type=int, default=64)
     ap.add_argument("--shards", type=int, default=20)
@@ -188,11 +199,6 @@ def main():
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
-    if args.serve != "legacy":
-        raise NotImplementedError(
-            f"--serve {args.serve}: the continuous-round scheduler is ported "
-            "in a later slice of the port; use --serve legacy")
-
     x, y = load_digits()
     xtr, ytr, xte, yte = train_test_split_arrays(x, y)
     clients = make_client_datasets(xtr, ytr, args.shards)
@@ -200,8 +206,18 @@ def main():
     if args.check_fused:
         check_fused_equivalence(clients, xte, yte, args.device)
 
+    if args.serve == "legacy":
+        scheduler = None
+    elif args.serve == "sync":
+        scheduler = SchedulerConfig(mode="sync", quorum_frac=args.quorum)
+    else:
+        scheduler = SchedulerConfig(
+            mode="async", quorum_frac=args.quorum, period_s=args.period_s,
+            max_rounds_in_flight=args.depth, staleness_window=args.window)
+
     cfg = RuntimeConfig(
         rounds=args.rounds,
+        scheduler=scheduler,
         population=args.population,
         participation=args.participation,
         sampler=args.sampler,
@@ -232,7 +248,9 @@ def main():
                        clients, xte, yte, device=args.device)
 
     evals = ~np.isnan(h["loss"])
-    path = "fused (run_simulation)" if h["fused_path"] else "event-driven legacy"
+    path = ("fused (run_simulation)" if h["fused_path"]
+            else f"scheduler/{args.serve}" if args.serve != "legacy"
+            else "event-driven legacy")
     print(f"\nran {args.rounds} rounds in {h['sim_compute_seconds']:.1f}s "
           f"({path} path; {h['bits_per_client_per_round']} bits/upload)")
     print(f"loss  {h['loss'][evals][0]:.4f} → {h['loss'][evals][-1]:.4f}   "
@@ -243,6 +261,31 @@ def main():
               f"per round, {h['recon_clients_per_s']:,.0f} clients/s")
     print("kernel launches: " + ", ".join(
         f"{name}={fn.launches}" for name, fn in KERNELS.items()))
+
+    if "scheduler" in h:
+        s = h["scheduler"]
+        print("\n== continuous-round serving (modeled timeline) ==")
+        print(f"  modeled makespan   : {s['makespan_s']:.3f} s "
+              f"({s['mode']}, quorum {s['quorum_frac']}, "
+              f"{s['max_rounds_in_flight']} round(s) in flight)")
+        print(f"  modeled throughput : {s['rounds_per_s']:.1f} rounds/s, "
+              f"{s['clients_per_s']:,.0f} clients/s "
+              f"({s['offered_uploads']} uploads offered)")
+        print(f"  this run's host    : "
+              f"{h['sim_compute_seconds'] / args.rounds:.4f} s/round "
+              f"on {args.device} (the modeled figures follow the channel's "
+              f"latency draws, not this host)")
+        print(f"  closures           : {s['closed_by_quorum']} by quorum, "
+              f"{len(s['starts']) - s['closed_by_quorum']} by deadline/drain; "
+              f"params lag ≤ {s['params_lag_max']}")
+        print(f"  stragglers         : {s['stale_admitted']} re-admitted ≤ "
+              f"{s['staleness_window']} rounds late, "
+              f"{s['stale_dropped']} dropped, {s['queue_leftover']} left "
+              f"queued at shutdown")
+        print(f"  server state       : {s['client_state_bytes']:,} B "
+              f"per-client map + {s['agg_state_bytes_peak']:,} B aggregator "
+              f"peak + {s['queue_peak_bytes']:,} B queue peak "
+              f"({s['queue_entry_bytes']} B/entry)")
 
     print("\n== unbiased-estimate diagnostics ==")
     diag = h["sampling_diagnostic"]

@@ -2,7 +2,9 @@
 
 The port carries the dense decoder-only family.  The reference's other
 families (MoE, SSM, hybrid, enc-dec, VLM) are named here so that asking
-for one says where it stands instead of "unknown arch".
+for one says where it stands instead of "unknown arch".  The paper's
+MLP (``configs/paper_mlp.py``) is ported but, as in the reference, not
+registered.
 """
 from __future__ import annotations
 
@@ -19,6 +21,10 @@ CONFIGS: dict[str, ModelConfig] = {
 
 ARCH_IDS = tuple(CONFIGS)
 
+# Ported but unregistered, as in the reference: the digits pipeline
+# builds the paper's MLP with models/mlp_classifier.py.
+_UNREGISTERED = {"paper-mlp": "repro_torch.configs.paper_mlp.CONFIG"}
+
 # The reference's architectures whose families the port does not carry yet.
 NOT_PORTED = ("whisper-tiny", "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
               "paligemma-3b", "falcon-mamba-7b", "jamba-v0.1-52b")
@@ -29,6 +35,10 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"arch {name!r} is not ported yet: its family (MoE, "
                        "SSM, hybrid, enc-dec or VLM) comes with its modules "
                        "(ROADMAP A10)")
+    if name in _UNREGISTERED:
+        raise KeyError(f"arch {name!r} is ported but not registered, as in "
+                       f"the reference: its config is {_UNREGISTERED[name]} "
+                       "and models/mlp_classifier.py builds it")
     if name not in CONFIGS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(CONFIGS)}")
     return CONFIGS[name]

@@ -31,6 +31,7 @@ from repro_torch.core.projection import (
     ProjectionMode,
     project_tree,
     reconstruct_tree,
+    tree_size,
 )
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops
@@ -38,6 +39,8 @@ from repro_torch.kernels import ops
 __all__ = [
     "FedScalarConfig",
     "config_for_family",
+    "family_of",
+    "predicted_estimator_variance",
     "make_local_sgd",
     "encode_cohort",
     "client_stage",
@@ -71,6 +74,29 @@ def config_for_family(family, num_blocks: int = 1, **overrides) -> FedScalarConf
     mode = ProjectionMode.BLOCK if num_blocks > 1 else ProjectionMode.FULL
     return FedScalarConfig(distribution=fam.distribution,
                            num_projections=num_blocks, mode=mode, **overrides)
+
+
+def family_of(cfg: FedScalarConfig):
+    """→ the :class:`DirectionFamily` behind a config's distribution."""
+    from repro_torch.core.directions import get_family
+
+    return get_family(cfg.distribution)
+
+
+def predicted_estimator_variance(cfg: FedScalarConfig, params: Any,
+                                 total_sqnorm: float = 1.0) -> float:
+    """Closed-form Var‖δ̂ − δ‖² for one client under this config.
+
+    The family's (d − 2 + κ) model per block (the paper's Prop. 2.1 for
+    κ = 3 and 1); in FULL mode the m projections divide it by m.
+    """
+    fam = family_of(cfg)
+    d = tree_size(params)
+    if cfg.mode == ProjectionMode.BLOCK and cfg.num_projections > 1:
+        return fam.predicted_variance(d, cfg.num_projections,
+                                      total_sqnorm=total_sqnorm)
+    return fam.predicted_variance(d, 1, total_sqnorm=total_sqnorm) \
+        / cfg.num_projections
 
 
 def round_seeds_for(round_idx, client_ids, salt: int = 0x5EED,

@@ -33,7 +33,10 @@ __all__ = [
     "parity32",
     "block_seed",
     "fold_seed",
+    "rademacher_flat",
+    "gaussian_flat",
     "random_flat",
+    "random_like",
     "random_for_shape",
 ]
 
@@ -204,6 +207,34 @@ def random_flat(seed, base: int, n: int,
     s = u32(seed, device)
     hi, lo = _split_index(base, n, s.device)
     return _values(s, hi, lo, distribution).to(dtype)
+
+
+def rademacher_flat(seed, base: int, n: int, dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+    """±1 Rademacher vector for global indices ``base + [0, n)``: bit 8 of
+    the ``_TAG_U1`` hash."""
+    return random_flat(seed, base, n, Distribution.RADEMACHER, dtype, device)
+
+
+def gaussian_flat(seed, base: int, n: int, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """N(0, 1) vector via Box–Muller of the ``_TAG_U1``/``_TAG_U2`` hashes
+    for global indices ``base + [0, n)``."""
+    return random_flat(seed, base, n, Distribution.GAUSSIAN, dtype, device)
+
+
+def random_like(leaf: torch.Tensor, seed, base: int,
+                distribution: Distribution = Distribution.RADEMACHER,
+                dtype=torch.float32) -> torch.Tensor:
+    """Direction values shaped like ``leaf``, indexed by global flat
+    offsets ``base + [0, leaf.numel())``, on ``leaf``'s device.
+
+    The small-model flat scheme; :func:`random_for_shape` is the
+    ``(leaf_tag, row, col)`` scheme the projection uses.
+    """
+    flat = random_flat(seed, base, leaf.numel(), distribution, dtype,
+                       device=leaf.device)
+    return flat.reshape(leaf.shape)
 
 
 def _view2(shape: tuple) -> tuple:

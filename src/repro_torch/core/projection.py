@@ -15,13 +15,13 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
 from repro_torch.core.directions import block_bounds, check_block_mask_domain
 from repro_torch.core.prng import Distribution, block_seed, random_for_shape
-from repro_torch.core.tree import tree_leaves, tree_unflatten
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "ProjectionMode",
@@ -30,6 +30,7 @@ __all__ = [
     "tree_size",
     "project_tree",
     "reconstruct_tree",
+    "project_reconstruct_mean",
 ]
 
 
@@ -197,3 +198,26 @@ def reconstruct_tree(
         offset += size
     return tree_unflatten(like, out)
 
+
+def project_reconstruct_mean(
+    deltas: Sequence[Any],
+    seeds: Sequence,
+    distribution: Distribution = Distribution.RADEMACHER,
+    num_projections: int = 1,
+    mode: ProjectionMode = ProjectionMode.FULL,
+) -> Any:
+    """Plain end-to-end round: encode every client, decode, average.
+
+    Algorithm 1 lines 4–12 for explicit client lists, on the device of
+    the deltas.
+    """
+    n = len(deltas)
+    if n != len(seeds):
+        raise ValueError(f"{n} deltas for {len(seeds)} seeds")
+    acc = None
+    for delta, seed in zip(deltas, seeds):
+        r = project_tree(delta, seed, distribution, num_projections, mode)
+        rec = reconstruct_tree(delta, seed, r, distribution, num_projections,
+                               mode)
+        acc = rec if acc is None else tree_map(torch.add, acc, rec)
+    return tree_map(lambda x: x / n, acc)

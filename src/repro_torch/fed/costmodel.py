@@ -12,9 +12,9 @@ T_other a fraction of FedAvg's nominal upload time (the same for every
 method), P_tx = 2 W.  The downlink is deterministic (nominal R_down, no
 draw), so pricing it never moves the uplink's RNG stream.  Access is
 ``concurrent`` (parallel uploads) or ``tdma`` (sequential slots).
-
-The pipelined-round recurrence (``pipelined_round_start``,
-``pipeline_schedule``) belongs to the scheduler and is ported with it.
+Under the continuous-round scheduler the rounds overlap and the
+wall-clock follows the pipelined recurrence (12″,
+``pipelined_round_start``, ``pipeline_schedule``).
 """
 from __future__ import annotations
 
@@ -40,6 +40,8 @@ __all__ = [
     "bytes_to_bits",
     "queue_entry_bytes",
     "replay_round_costs",
+    "pipelined_round_start",
+    "pipeline_schedule",
     "table1_upload_times",
 ]
 
@@ -316,6 +318,63 @@ def replay_round_costs(channel: ChannelConfig, bits_per_upload: int,
         lat = cm.per_client_upload_seconds(bits_per_upload, num_clients)
         bits[k], wall[k], energy[k] = cm.cohort_round_cost(lat, bits_per_upload)
     return bits, wall, energy
+
+
+# ---- overlapped rounds (eq. 12″): wall-clock under pipelining ----
+
+
+def pipelined_round_start(k: int, starts: np.ndarray, drains: np.ndarray,
+                          period_s: float, depth: int) -> float:
+    """Admission time of round ``k`` under a depth-bounded pipeline.
+
+    Round ``k`` opens at the cadence tick after round ``k−1`` opened,
+    but never before its pipeline slot frees — i.e. before round
+    ``k − depth`` has fully drained (closed, applied, and had its
+    digest broadcast).  With ``depth = 1`` this degenerates to the
+    synchronous recurrence ``start_k = drain_{k−1}`` (each round waits
+    for the previous one end-to-end), which is exactly eq. (12′)
+    summed over rounds; larger depths overlap upload phases with the
+    apply/broadcast tail of earlier rounds:
+
+        start_k = max(start_{k−1} + period,  drain_{k−depth})     (12″)
+
+    ``starts`` / ``drains`` hold rounds ``0 … k−1`` (drains may be
+    shorter when in-flight rounds have not drained yet — callers pass
+    only drained prefixes; an unfilled slot blocks, so ``drains`` must
+    cover index ``k − depth`` whenever ``k ≥ depth``).
+    """
+    if k == 0:
+        return 0.0
+    t = float(starts[k - 1]) + float(period_s)
+    if depth >= 1 and k - depth >= 0:
+        t = max(t, float(drains[k - depth]))
+    return t
+
+
+def pipeline_schedule(admit_spans: np.ndarray, drain_spans: np.ndarray,
+                      period_s: float, depth: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Full overlapped-round timeline from per-round spans.
+
+    ``admit_spans[k]`` is how long round k accepts uploads after it
+    opens (close − start; quorum- or deadline-determined, start-
+    independent because latencies are drawn relative to the open).
+    ``drain_spans[k]`` is the close → drained tail (apply + digest
+    broadcast).  Applies recurrence (12″) round by round and returns
+    ``(starts, closes, drains)``, with drains monotonized (a digest
+    for round k cannot be broadcast before round k−1's — the downlink
+    is a serial channel), so ``drains[-1]`` is the makespan.
+    """
+    n = len(admit_spans)
+    starts = np.zeros(n)
+    closes = np.zeros(n)
+    drains = np.zeros(n)
+    for k in range(n):
+        starts[k] = pipelined_round_start(k, starts, drains, period_s, depth)
+        closes[k] = starts[k] + float(admit_spans[k])
+        drains[k] = closes[k] + float(drain_spans[k])
+        if k > 0:
+            drains[k] = max(drains[k], drains[k - 1])
+    return starts, closes, drains
 
 
 def table1_upload_times(

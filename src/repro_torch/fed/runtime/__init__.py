@@ -7,10 +7,10 @@
 * :mod:`server`    — the streaming aggregator with deadline and
   staleness handling (a numpy copy),
 * :mod:`engine`    — the round driver: local SGD on the device, the
-  protocol's encode and apply through the port's CUDA kernels.
-
-The continuous-round scheduler (``repro/fed/runtime/scheduler.py``) is a
-later slice of the port.
+  protocol's encode and apply through the port's CUDA kernels,
+* :mod:`scheduler` — the continuous-round driver on top of the engine:
+  admission control, quorum-xor-deadline closure, pipelined (async)
+  rounds over a modeled float64 timeline.
 """
 from repro_torch.fed.runtime.engine import (
     EngineCore,
@@ -25,6 +25,13 @@ from repro_torch.fed.runtime.sampling import (
     CohortSampler,
     realized_cohort_weights,
     sampling_diagnostic,
+)
+from repro_torch.fed.runtime.scheduler import (
+    AdmissionController,
+    CohortBatch,
+    SchedulerConfig,
+    quorum_close_time,
+    run_scheduled,
 )
 from repro_torch.fed.runtime.server import (
     RoundStats,
@@ -48,6 +55,8 @@ from repro_torch.fed.runtime.transport import (
 __all__ = [
     "RuntimeConfig", "run_federation", "draw_cohort_batches",
     "StatefulClient", "EngineCore",
+    "SchedulerConfig", "run_scheduled", "AdmissionController",
+    "CohortBatch", "quorum_close_time",
     "ClientPopulation", "Cohort", "CohortSampler",
     "realized_cohort_weights", "sampling_diagnostic",
     "ServerConfig", "StreamingAggregator", "Upload", "RoundStats",

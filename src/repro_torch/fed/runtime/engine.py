@@ -29,16 +29,18 @@ streaming server and cost model.  Per round the engine
 The reference's ``jax.jit`` stages are plain functions here.  A fully
 participating, synchronous, lossless fp32 configuration delegates to
 :func:`repro_torch.fed.simulation.run_simulation`, as the reference does.
-The scheduler (``scheduler=``) and the mesh-sharded apply
-(``mesh_shape=``) are later slices of the port and raise
-``NotImplementedError``.
+With ``scheduler=`` the continuous-round driver
+(:mod:`repro_torch.fed.runtime.scheduler`) runs the rounds instead (sync
+bit-identical to the legacy loop, or async pipelined) and the fused
+shortcut is never taken.  The mesh-sharded apply (``mesh_shape=``) is a
+later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
 import torch
@@ -63,11 +65,12 @@ from repro_torch.fed.runtime.transport import (
     WireFormat,
 )
 
+if TYPE_CHECKING:
+    from repro_torch.fed.runtime.scheduler import SchedulerConfig
+
 __all__ = ["RuntimeConfig", "EngineCore", "run_federation",
            "draw_cohort_batches", "StatefulClient"]
 
-_SCHEDULER_SLICE = ("the continuous-round scheduler (fed/runtime/scheduler.py) "
-                    "is ported in a later slice of the port")
 _SHARDING_SLICE = ("the mesh-sharded server apply is ported in a later slice "
                    "of the port (the sharding slice: sharding/fed_rules.py, "
                    "launch/mesh.py)")
@@ -109,7 +112,8 @@ class RuntimeConfig:
                                         # must equal the server bit for bit
     server: ServerConfig = dataclasses.field(default_factory=ServerConfig)
     channel: ChannelConfig = dataclasses.field(default_factory=ChannelConfig)
-    scheduler: Any = None               # continuous-round driver: a later slice
+    scheduler: SchedulerConfig | None = None     # continuous-round driver
+                                        # (None: the legacy loop)
 
     def resolved_distribution(self) -> Distribution:
         if self.family is not None:
@@ -525,6 +529,25 @@ class EngineCore:
         hist["accuracy"][:] = np.nan
         return hist
 
+    def record_round(self, hist: dict, k: int, c: int, st, bits: float,
+                     downlink_bits: float, wall: float, energy: float) -> None:
+        """Write round ``k``'s counters and per-round costs into ``hist``;
+        the downlink's wall and energy are priced from ``downlink_bits``."""
+        hist["cohort_size"][k] = c
+        hist["applied"][k] = st.applied
+        hist["applied_stale"][k] = st.applied_stale
+        hist["lost_channel"][k] = st.lost_channel
+        hist["dropped_deadline"][k] = st.dropped_deadline
+        hist["dropped_stale"][k] = st.dropped_stale
+        hist["weight_sum"][k] = st.weight_sum
+        hist["cum_bits"][k] = bits
+        hist["cum_downlink_bits"][k] = downlink_bits
+        hist["cum_wall_s"][k] = wall
+        hist["cum_energy_j"][k] = energy
+        _, dl_wall, dl_energy = self.downlink.round_cost(downlink_bits)
+        hist["cum_downlink_wall_s"][k] = dl_wall
+        hist["cum_downlink_energy_j"][k] = dl_energy
+
     def finalize(self, params, hist: dict, t0: float,
                  extra: dict | None = None) -> dict:
         """Cumsum the history, reconcile the downlink ledger, assemble
@@ -589,6 +612,10 @@ def run_federation(
     #shards.  ``grad_fn``/``eval_fns`` default to the paper's digits MLP.
     ``client_weights`` are the ``weighted`` sampler's relative weights
     (default: each virtual client's shard size).
+
+    With ``cfg.scheduler`` set, the continuous-round scheduler drives the
+    run (:mod:`repro_torch.fed.runtime.scheduler`): sync mode is
+    bit-identical to the legacy loop, async mode pipelines rounds.
     """
     dev = resolve_device(device)
     if grad_fn is None:
@@ -620,87 +647,31 @@ def run_federation(
         raise ValueError("verify_replay checks the digest-replay invariant; "
                          "set downlink_mode='digest'")
     if cfg.scheduler is not None:
-        raise NotImplementedError(f"scheduler: {_SCHEDULER_SLICE}")
+        cfg.scheduler.validate(cfg)
 
     params = tree_map(lambda p: p.to(dev), init_params)
-    method = _fused_method(cfg, num_shards)
+    method = None if cfg.scheduler is not None else _fused_method(cfg, num_shards)
     if method is not None:
         return _run_fused(cfg, params, client_sets, x_test, y_test, method,
                           proto, d, dev)
     core = EngineCore(cfg, params, client_sets, x_test, y_test, grad_fn,
                       eval_fns, client_weights, proto, d, dev)
+    if cfg.scheduler is not None:
+        from repro_torch.fed.runtime.scheduler import run_scheduled
+        return run_scheduled(core, params)
     return _run_legacy(core, params)
 
 
 def _run_legacy(core: EngineCore, init_params) -> dict:
     """One synchronous cohort per round, statement for statement the
-    reference's loop (same RNG order, same apply choices)."""
-    cfg = core.cfg
-    agg, cm = core.agg, core.cm
-    uplink, downlink = core.uplink, core.downlink
-    params = init_params
-    K = cfg.rounds
-    hist = EngineCore.new_history(K)
-    deadline = cfg.server.deadline_s
-    t0 = time.perf_counter()
+    reference's loop (same RNG order, same apply choices).
 
-    with torch.no_grad():
-        for k in range(K):
-            cohort = core.sampler.sample(k)
-            ids = cohort.client_ids
-            if core.digest_mode:
-                catchup_bits, _, resyncs = downlink.catch_up_batch(
-                    core.client_last[ids], k)
-                downlink_bits = catchup_bits
-                hist["catchup_bits"][k] = catchup_bits
-                hist["dense_resyncs"][k] = resyncs
-            else:
-                downlink_bits = downlink.broadcast()
-
-            c = len(ids)
-            rs_np, seeds_np = core.compute_cohort(params, k, ids)
-
-            tx = uplink.transmit(rs_np[:c], seeds_np[:c]) if c else None
-            core.offer_uploads(ids, cohort.agg_weights, k, tx)
-
-            aseeds, acoeffs, ars, st = agg.close_round(k)
-            params, use_kernel, apply_s = core.apply_round(
-                params, aseeds, acoeffs, ars, c, st)
-            hist["apply_s"][k] = apply_s
-
-            if core.digest_mode:
-                downlink_bits += core.close_digest(k, aseeds, acoeffs, ars, st,
-                                                   ids, params, use_kernel)
-
-            async_mode = (cfg.server.max_staleness > 0
-                          and math.isfinite(cfg.server.round_period_s))
-            if c:
-                bits, wall, energy = cm.cohort_round_cost(
-                    tx.latency_s, core.codec.bits_per_upload,
-                    deadline_s=deadline)
-            else:
-                bits, energy, wall = 0.0, 0.0, cm.t_other
-            if async_mode:
-                wall = cfg.server.round_period_s
-
-            hist["cohort_size"][k] = c
-            hist["applied"][k] = st.applied
-            hist["applied_stale"][k] = st.applied_stale
-            hist["lost_channel"][k] = st.lost_channel
-            hist["dropped_deadline"][k] = st.dropped_deadline
-            hist["dropped_stale"][k] = st.dropped_stale
-            hist["weight_sum"][k] = st.weight_sum
-            hist["cum_bits"][k] = bits
-            hist["cum_downlink_bits"][k] = downlink_bits
-            hist["cum_wall_s"][k] = wall
-            hist["cum_energy_j"][k] = energy
-            _, dl_wall, dl_energy = downlink.round_cost(downlink_bits)
-            hist["cum_downlink_wall_s"][k] = dl_wall
-            hist["cum_downlink_energy_j"][k] = dl_energy
-            if k % cfg.eval_every == 0 or k == K - 1:
-                hist["loss"][k], hist["accuracy"][k] = core.evaluate(params)
-
-    return core.finalize(params, hist, t0)
+    This is the scheduler's sync loop at quorum 1 without its summary:
+    at that quorum the effective close is the config deadline and the
+    weights are the cohort's own, so the two are one operation sequence.
+    """
+    from repro_torch.fed.runtime.scheduler import SchedulerConfig, _run_sync
+    return _run_sync(core, init_params, SchedulerConfig(), summary=False)
 
 
 def _run_fused(cfg: RuntimeConfig, init_params, client_sets, x_test, y_test,

@@ -42,7 +42,9 @@ def test_port_imports_neither_jax_nor_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
     assert {"examples/federated_llm_torch.py",
-            "examples/centralized_baseline_torch.py"} <= set(out["scripts"])
+            "examples/centralized_baseline_torch.py",
+            "examples/quickstart_torch.py", "examples/baseline_tradeoff_torch.py",
+            "examples/downlink_tradeoff_torch.py"} <= set(out["scripts"])
     for mod in ("repro_torch.core.prng", "repro_torch.kernels.ops",
                 "repro_torch.kernels.seeded_projection",
                 "repro_torch.kernels.reconstruct_apply",
@@ -51,6 +53,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.core.fedavg", "repro_torch.core.qsgd",
                 "repro_torch.fed.protocols", "repro_torch.fed.baselines",
                 "repro_torch.fed.runtime.engine",
+                "repro_torch.fed.runtime.scheduler",
+                "repro_torch.configs.paper_mlp",
                 "repro_torch.fed.runtime.sampling",
                 "repro_torch.fed.runtime.server",
                 "repro_torch.fed.runtime.transport",

@@ -50,10 +50,17 @@ from repro_torch.core import qsgd as tq  # noqa: E402
 from repro_torch.fed import costmodel as tcm  # noqa: E402
 from repro_torch.fed.runtime import engine as tengine  # noqa: E402
 from repro_torch.fed.runtime import sampling as tsamp  # noqa: E402
+from repro_torch.fed.runtime import scheduler as tsched  # noqa: E402
 from repro_torch.fed.runtime import server as tserver  # noqa: E402
 from repro_torch.fed.runtime import transport as ttr  # noqa: E402
 from repro_torch.models import mlp_classifier as tmlp  # noqa: E402
-from torch_parity import jax_kernels, mlp_params_np  # noqa: E402,F401
+from torch_parity import (  # noqa: E402,F401
+    STAT_KEYS,
+    digits_shards,
+    jax_kernels,
+    mlp_params_np,
+    patch_shared_draws,
+)
 
 # ---------------------------------------------------------------------------
 # sampling
@@ -441,48 +448,15 @@ ROUNDS, POP, PART, SHARDS, S, B = 3, 48, 0.25, 8, 5, 32
 
 @pytest.fixture(scope="module")
 def digits8():
-    from repro.data import load_digits, make_client_datasets, train_test_split_arrays
-
-    x, y = load_digits(n_samples=400)
-    xtr, ytr, xte, yte = train_test_split_arrays(x, y)
-    return make_client_datasets(xtr, ytr, SHARDS), xte, yte
+    return digits_shards(SHARDS)
 
 
 @pytest.fixture
 def shared_draws(digits8, monkeypatch):
     """Patch both packages' ``draw_cohort_batches`` with one index table."""
-    clients = digits8[0]
-    n_per = max(len(c[1]) for c in clients)
-    table = np.random.RandomState(77).randint(0, n_per, size=(ROUNDS, POP, S, B))
-
-    def j_draw(cx, cy, num_shards, seed, round_idx, client_ids, s, b):
-        c = client_ids.shape[0]
-        idx = jnp.asarray(table)[round_idx, client_ids].reshape(c, s * b)
-        shard = (client_ids % num_shards).astype(jnp.int32)
-        sx, sy = cx[shard], cy[shard]
-        bx = jnp.take_along_axis(sx[:, :, None, :], idx[:, :, None, None],
-                                 axis=1).reshape((c, s, b) + sx.shape[2:])
-        by = jnp.take_along_axis(sy, idx, axis=1).reshape(c, s, b)
-        return bx, by
-
-    def t_draw(cx, cy, num_shards, seed, round_idx, client_ids, s, b):
-        ids = client_ids.cpu().numpy()
-        c = len(ids)
-        idx = torch.from_numpy(table[int(round_idx)][ids].reshape(c, s * b))
-        rows = torch.from_numpy(ids % num_shards)[:, None]
-        bx = cx[rows, idx].reshape((c, s, b) + tuple(cx.shape[2:]))
-        by = cy[rows, idx].reshape(c, s, b)
-        return bx, by
-
-    monkeypatch.setattr(jengine, "draw_cohort_batches", j_draw)
-    monkeypatch.setattr(tengine, "draw_cohort_batches", t_draw)
+    patch_shared_draws(monkeypatch, digits8[0], 77, ROUNDS, POP, S, B)
 
 
-STAT_KEYS = ("cohort_size", "applied", "applied_stale", "lost_channel",
-             "dropped_deadline", "dropped_stale", "weight_sum", "cum_bits",
-             "cum_downlink_bits", "cum_wall_s", "cum_energy_j",
-             "cum_downlink_wall_s", "cum_downlink_energy_j", "catchup_bits",
-             "dense_resyncs")
 
 LOSSY = dict(channel=dict(drop_prob=0.15))
 DEADLINE = dict(server=dict(deadline_s=0.0007))
@@ -591,7 +565,9 @@ def test_fused_shortcut_and_digest_replay_on_cpu(digits8):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(scheduler=object()), NotImplementedError, "scheduler"),
+    (dict(scheduler=tsched.SchedulerConfig(mode="async"),
+          server=tserver.ServerConfig(max_staleness=1)), ValueError,
+     "competing"),
     (dict(mesh_shape=(1, 1)), NotImplementedError, "sharding slice"),
     (dict(mesh_shape=(1, 1), protocol_name="qsgd"), ValueError, "mesh_shape"),
     (dict(downlink_mode="digest", protocol_name="fedavg"), ValueError, "digest"),

@@ -11,6 +11,11 @@
   exactly the import behaviour they would have seen without it.
 * ``cuda_device`` skips a test unless a card is present; it decides
   when the test runs, never at import or collection.
+* ``digits_shards`` and ``patch_shared_draws`` give the engine parity
+  tests one dataset and one batch-index table for both packages (the
+  reference draws batches with threefry, which the port does not
+  reproduce); ``STAT_KEYS`` are the history arrays those tests hold
+  bitwise.
 """
 from __future__ import annotations
 
@@ -67,3 +72,57 @@ def mlp_params_np(seed: int = 0, noise: float = 0.1) -> dict:
 
 def seeds_np(rng: np.random.RandomState, n: int) -> np.ndarray:
     return rng.randint(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+
+
+# The engine history's per-round counters and costs: equal bit for bit
+# between the port and the reference on one shared batch draw.
+STAT_KEYS = ("cohort_size", "applied", "applied_stale", "lost_channel",
+             "dropped_deadline", "dropped_stale", "weight_sum", "cum_bits",
+             "cum_downlink_bits", "cum_wall_s", "cum_energy_j",
+             "cum_downlink_wall_s", "cum_downlink_energy_j", "catchup_bits",
+             "dense_resyncs")
+
+
+def digits_shards(shards: int, n_samples: int = 400):
+    """The digits data split into ``shards`` client shards → (clients, x_test, y_test)."""
+    from repro.data import load_digits, make_client_datasets, train_test_split_arrays
+
+    x, y = load_digits(n_samples=n_samples)
+    xtr, ytr, xte, yte = train_test_split_arrays(x, y)
+    return make_client_datasets(xtr, ytr, shards), xte, yte
+
+
+def patch_shared_draws(monkeypatch, clients, table_seed: int,
+                       rounds: int, population: int, s: int, b: int) -> None:
+    """Patch both packages' ``draw_cohort_batches`` with one index table
+    of shape (rounds, population, s, b), drawn from ``table_seed``."""
+    import jax.numpy as jnp
+    import torch
+    from repro.fed.runtime import engine as jengine
+    from repro_torch.fed.runtime import engine as tengine
+
+    n_per = max(len(c[1]) for c in clients)
+    table = np.random.RandomState(table_seed).randint(
+        0, n_per, size=(rounds, population, s, b))
+
+    def j_draw(cx, cy, num_shards, seed, round_idx, client_ids, s, b):
+        c = client_ids.shape[0]
+        idx = jnp.asarray(table)[round_idx, client_ids].reshape(c, s * b)
+        shard = (client_ids % num_shards).astype(jnp.int32)
+        sx, sy = cx[shard], cy[shard]
+        bx = jnp.take_along_axis(sx[:, :, None, :], idx[:, :, None, None],
+                                 axis=1).reshape((c, s, b) + sx.shape[2:])
+        by = jnp.take_along_axis(sy, idx, axis=1).reshape(c, s, b)
+        return bx, by
+
+    def t_draw(cx, cy, num_shards, seed, round_idx, client_ids, s, b):
+        ids = client_ids.cpu().numpy()
+        c = len(ids)
+        idx = torch.from_numpy(table[int(round_idx)][ids].reshape(c, s * b))
+        rows = torch.from_numpy(ids % num_shards)[:, None]
+        bx = cx[rows, idx].reshape((c, s, b) + tuple(cx.shape[2:]))
+        by = cy[rows, idx].reshape(c, s, b)
+        return bx, by
+
+    monkeypatch.setattr(jengine, "draw_cohort_batches", j_draw)
+    monkeypatch.setattr(tengine, "draw_cohort_batches", t_draw)
