@@ -148,6 +148,29 @@ Phases (any failure exits non-zero and the final line is not printed):
    autograd: loss and gradients through ``_sdpa_blocked`` (the plain
    blocked recurrence) against the plain ``_sdpa``; phase 13's close
    (per-client rounding) is held bitwise against ``server_aggregate``.
+16. the mesh-sharded server (after phase 5; ``sharding/fed_rules.py``):
+   the decode, the fused close and the encode over shard plans (one tree
+   launch per 64 (shard, leaf) entries) against their plain versions over
+   the same plans on a (1, S) mesh of the card, S = 1, 3, 8: the MLP tree
+   (N = 37; all families at k = 1, FULL 8 and BLOCK 8 at S = 3 and 8) and
+   SmolLM-360M at full width, 2 layers (N = 4; float32 and bf16), the
+   decode and close bitwise for the ±1/±2 families (gaussian within
+   rtol/atol 1e-5) and bitwise the unsharded kernels for every family,
+   the encode within ``tree_encode_tolerance`` of the shards' views and
+   the same bits on a rerun; the resident loop (``shard_tree`` +
+   ``sharded_apply_blocks``) at SmolLM-360M's 11 bf16 leaves, N = 256,
+   k = 1, S = 1, 2, 4, 8, bitwise the unsharded decode and fused close,
+   ⌈11·S/64⌉ launches an apply, device ms in turns with the unsharded
+   decode beside the bound over the padded elements; the sharded encode
+   at full width (S = 8) within the two encodes' tolerances of the
+   unsharded tree encode; the
+   reference's sharding sweep (d = 2¹⁸, 2²⁰ as (512, d/512), cohorts 64
+   and 256, S = 1, 2, 4, 8; rows printed); ``run_federation`` at
+   100 000 clients under ``mesh_shape=(2, 4)`` with the digest downlink
+   and the shadow replay, 10 rounds, bitwise the same run on the decode
+   route, one decode launch (48 entries) per mesh apply and no fused
+   launch; 3 rounds each of sync and async scheduling under
+   ``mesh_shape=(2, 4)``, bitwise their mesh-less runs.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -2516,6 +2539,419 @@ def _train_close_check(s, params, new, metrics, layout):
                 bitwise_plain=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh-sharded federation server (sharding/fed_rules.py)
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)            # the resident loop and the reference shape
+SHARD_CHECK_COUNTS = (1, 3, 8)         # kernel against plain (3: uneven padding)
+SHARD_N = 256                          # the resident loop's cohort
+SHARD_REF_DIMS, SHARD_REF_ROWS = (1 << 18, 1 << 20), 512
+SHARD_REF_COHORTS = (64, 256)          # benchmarks/run.py:421-441's shape
+MESH_SHAPE, MESH_SCHED_ROUNDS = (2, 4), 3
+
+
+def _shard_groups(num_shards, num_leaves):
+    from repro_torch.kernels.tree import MAX_TREE_LEAVES
+
+    return -(-num_shards * num_leaves // MAX_TREE_LEAVES)
+
+
+def _check_sharded(s: Smoke, params, n, family, k, mode, shards, what):
+    """On a (1, shards) mesh of the card: the sharded decode and fused close
+    (one launch per 64 (shard, leaf) entries) against their plain versions
+    over the same shard plan and, bitwise, against the unsharded kernels;
+    the sharded encode against the unsharded tree's plain version summed in
+    float64, within ``tree_encode_tolerance`` of the shards' local views,
+    the same bits on a rerun."""
+    import torch
+
+    from repro_torch.core.prng import Distribution
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.sharding import fed_rules as fr
+
+    dist, pm = Distribution(family), ProjectionMode(mode)
+    mesh = make_fed_mesh((1, shards))
+    plan = fr.plan_tree(params, shards)
+    leaves = tree_leaves(params)
+    groups = _shard_groups(shards, len(leaves))
+    counters = _kernel_fns()
+    seeds, rs = s.seeds(n), s.randn(n, k) * 0.3
+    what = f"{what} S={shards} {family} k={k} {mode}"
+    for fused in (False, True):
+        name = "fused" if fused else "rec"
+        before = counters[name].launches
+        got = tree_leaves(fr.sharded_server_update(mesh, params, rs, seeds, 0.9, dist,
+                                                   mode=pm, plan=plan,
+                                                   use_fused=fused))
+        launches = counters[name].launches - before
+        want = tree_leaves(fr.sharded_server_update(mesh, params, rs, seeds, 0.9,
+                                                    dist, mode=pm, plan=plan,
+                                                    use_kernel=False,
+                                                    use_fused=fused))
+        flat = tree_leaves((ops.server_update_fused if fused else
+                            ops.server_update_kernel)(params, rs, seeds, 0.9, dist,
+                                                      mode=pm))
+        torch.cuda.synchronize()
+        if launches != groups:
+            raise AssertionError(f"sharded {name}: {launches} launches for "
+                                 f"{groups} groups: {what}")
+        err, same = 0.0, True
+        for g, w, f in zip(got, want, flat):
+            err = max(err, float((g.float() - w.float()).abs().max()))
+            same = same and bool(torch.equal(g, w))
+            if not (_decode_agrees(family, g, w) and torch.equal(g, f)
+                    and bool(torch.isfinite(g).all())):
+                raise AssertionError(f"sharded {name} disagrees: {what} max err "
+                                     f"{err}, equal to the unsharded kernel "
+                                     f"{bool(torch.equal(g, f))}")
+        s._record(name, family, err, same)
+    delta = tree_map(lambda w: (w.float() * 1e-2).to(w.dtype), params)
+    seed = s.seeds(1)
+    before = counters["encode"].launches
+    got = fr.sharded_project_tree(mesh, delta, seed, dist, k, pm, plan=plan)
+    again = fr.sharded_project_tree(mesh, delta, seed, dist, k, pm, plan=plan)
+    launches = counters["encode"].launches - before
+    dl = tree_leaves(delta)
+    uplan = tree_plan("encode", [tuple(x.shape) for x in dl], [x.dtype for x in dl],
+                      k, pm, s.dev)
+    exact = project_tree_plain([x[None] for x in dl], seed, uplan, family,
+                               dtype=torch.float64)[0]
+    views = [x[None] for ls, v in zip(plan.leaves, fr.to_sharded_2d(delta, plan))
+             for x in fr._split(v, ls, mesh)]
+    tol = tree_encode_tolerance(views, family)[0]
+    torch.cuda.synchronize()
+    if launches != 4 * groups or not torch.equal(got, again):
+        raise AssertionError(f"sharded encode: {launches} launches for {groups} "
+                             f"groups (two calls), or not deterministic: {what}")
+    err = (got.double() - exact).abs()
+    ratio = float((err / tol).max())
+    if not ratio <= 1.0 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"sharded encode disagrees: {what} max err "
+                             f"{float(err.max())}, {ratio} of its tolerance")
+    s.enc_ratio = max(s.enc_ratio, ratio)
+    s._record("encode", family, float(err.max()), False)
+
+
+def _shard_kernel_checks(s: Smoke):
+    """Kernels against plain over shard plans (the MLP tree; SmolLM-360M at
+    full width, 2 layers)."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.api import Arch
+
+    s.group = ("sharded, MLP tree (N=37): float32 and bf16, S = 1, 3, 8, all "
+               "families at k = 1; FULL 8 and BLOCK 8 for all families at S = 3 "
+               "(float32) and rademacher at S = 8 (bf16)")
+    for dtype in (torch.float32, torch.bfloat16):
+        params = {f"l{tag}": s.randn(r, c).to(dtype) for tag, (r, c) in enumerate(MLP)}
+        for shards in SHARD_CHECK_COUNTS:
+            for family in FAMILIES:
+                _check_sharded(s, params, 37, family, 1, "full", shards,
+                               f"mlp {dtype}")
+        for mode in ("full", "block"):
+            for shards, family in ([(3, f) for f in FAMILIES]
+                                   if dtype == torch.float32 else [(8, "rademacher")]):
+                _check_sharded(s, params, 37, family, 8, mode, shards,
+                               f"mlp {dtype}")
+    s.report()
+    s.group = ("sharded, SmolLM-360M 2 layers (11 leaves, N=4): rademacher "
+               "float32 and bf16 at S = 1, 3, 8; the other families bf16 at S = 8; "
+               "FULL 8 bf16 at S = 3; BLOCK 8 float32 at S = 8 on the leaves "
+               "under 2**24 elements")
+    for dtype in ("float32", "bfloat16"):
+        small = Arch(dc.replace(get_config(TRAIN_ARCH), num_layers=2, dtype=dtype)
+                     ).init(seed=2, device=s.dev)
+        for shards in SHARD_CHECK_COUNTS:
+            _check_sharded(s, small, 4, "rademacher", 1, "full", shards,
+                           f"smollm 2-layer {dtype}")
+        if dtype == "bfloat16":
+            for family in FAMILIES[1:]:
+                _check_sharded(s, small, 4, family, 1, "full", 8,
+                               f"smollm 2-layer {dtype}")
+            _check_sharded(s, small, 4, "rademacher", 8, "full", 3,
+                           f"smollm 2-layer {dtype}")
+        else:
+            under = {f"l{i:02d}": w for i, w in enumerate(tree_leaves(small))
+                     if w.numel() <= 1 << 24}
+            for family in ("rademacher", "hadamard"):
+                _check_sharded(s, under, 4, family, 8, "block", 8,
+                               f"smollm 2-layer {len(under)} leaves {dtype}")
+        del small
+        torch.cuda.empty_cache()
+    s.report()
+
+
+def _shard_resident(s: Smoke, launches):
+    """SmolLM-360M's 11 bf16 leaves at full width: shard_tree +
+    sharded_apply_blocks at S = 1, 2, 4, 8 against the unsharded decode
+    (and fused close), bitwise; device ms per apply in turns; then the
+    sharded encode at S = 8 against the unsharded tree encode."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.seeded_projection import tree_encode_tolerance
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.models.api import Arch
+    from repro_torch.sharding import fed_rules as fr
+
+    counters = _kernel_fns()
+    params = Arch(get_config(TRAIN_ARCH)).init(seed=1, device=s.dev)
+    leaves = tree_leaves(params)
+    d = sum(x.numel() for x in leaves)
+    seeds, rs = s.seeds(SHARD_N), s.randn(SHARD_N, 1) * 0.3
+    want = tree_leaves(ops.server_update_kernel(params, rs, seeds, 1.0))
+    want_f = tree_leaves(ops.server_update_fused(params, rs, seeds, 1.0))
+    fns = {"unsharded": lambda: ops.server_update_kernel(params, rs, seeds, 1.0)}
+    rows = {}
+    for shards in SHARD_COUNTS:
+        mesh = make_fed_mesh((1, shards))
+        plan = fr.plan_tree(params, shards)
+        blocks = fr.shard_tree(params, plan, mesh)
+        groups = _shard_groups(shards, len(leaves))
+        got = {}
+        for name, fused in (("rec", False), ("fused", True)):
+            before = counters[name].launches
+            out = fr.sharded_apply_blocks(mesh, plan, blocks, rs, seeds, 1.0,
+                                          use_fused=fused)
+            n_launch = counters[name].launches - before
+            launches[name] += n_launch
+            got[name] = tree_leaves(fr.from_sharded_2d(out, plan, params))
+            if n_launch != groups:
+                raise AssertionError(f"resident S={shards} {name}: {n_launch} "
+                                     f"launches, expected {groups}")
+            del out
+        torch.cuda.synchronize()
+        if not (all(torch.equal(g, w) for g, w in zip(got["rec"], want))
+                and all(torch.equal(g, w) for g, w in zip(got["fused"], want_f))):
+            raise AssertionError(f"resident S={shards}: not bitwise the unsharded "
+                                 "decode / fused close")
+        del got
+        local = [(ls.per_shard, ls.layout.cols) if ls.axis == 0
+                 else (ls.layout.rows, ls.per_shard) for ls in plan.leaves]
+        bound, by = _rec_bound(local * shards, SHARD_N, 1, elem=2)
+        rows[f"S={shards}"] = dict(
+            shards=shards, launches_per_apply=groups,
+            padded_elements=sum(r * c for r, c in local) * shards,
+            bound_ms=bound, bound_by=by, device_ms=[])
+        fns[f"S={shards}"] = (lambda mesh=mesh, plan=plan, blocks=blocks:
+                              fr.sharded_apply_blocks(mesh, plan, blocks, rs, seeds,
+                                                      1.0))
+    bound, by = _rec_bound([(x.numel() // x.shape[-1], x.shape[-1]) for x in leaves],
+                           SHARD_N, 1, elem=2)
+    rows["unsharded"] = dict(shards=0, launches_per_apply=1, padded_elements=d,
+                             bound_ms=bound, bound_by=by, device_ms=[])
+    order = list(fns) + list(reversed(list(fns)))
+    for name in order:                        # in turns, each twice
+        rows[name]["device_ms"].append(_device_ms([fns[name]], reps=3))
+    for name, fn in fns.items():
+        rows[name]["enqueue_ms"] = _enqueue_ms(fn, reps=3)
+        print(f"sharded resident loop: SmolLM-360M 11 bf16 leaves (d = {d}), "
+              f"N = {SHARD_N}, k = 1: {name}: " + json.dumps(rows[name]), flush=True)
+    base = min(rows["S=1"]["device_ms"])
+    worst = max(min(rows[f"S={n}"]["device_ms"]) for n in SHARD_COUNTS)
+    print(f"sharded resident loop: slowest S / S = 1: {worst / base!r}", flush=True)
+    del want, want_f, fns
+    # The sharded encode at full width (S = 8, k = 1) against the unsharded
+    # tree encode: within the sum of the two encodes' tolerances.
+    delta = tree_map(lambda w: (w.float() * 1e-2).to(torch.bfloat16), params)
+    del params
+    mesh = make_fed_mesh((1, 8))
+    plan = fr.plan_tree(delta, 8)
+    seed = s.seeds(1)
+    before = counters["encode"].launches
+    got = fr.sharded_project_tree(mesh, delta, seed, plan=plan)
+    n_launch = counters["encode"].launches - before
+    launches["encode"] += n_launch
+    flat = ops.project_tree_kernel(tree_map(lambda v: v[None], delta), seed)[0]
+    views = [x[None] for ls, v in zip(plan.leaves, fr.to_sharded_2d(delta, plan))
+             for x in fr._split(v, ls, mesh)]
+    tol = float((tree_encode_tolerance(views, "rademacher")[0]
+                 + tree_encode_tolerance([x.reshape(1, -1, x.shape[-1])
+                                          for x in tree_leaves(delta)],
+                                         "rademacher")[0]).max())
+    torch.cuda.synchronize()
+    err = float((got.double() - flat.double()).abs().max())
+    if n_launch != 2 * _shard_groups(8, len(leaves)) or not err <= tol:
+        raise AssertionError(f"sharded encode at full width: {n_launch} launches, "
+                             f"|sharded - unsharded| {err} over {tol}")
+    print(f"sharded encode: SmolLM-360M 11 bf16 leaves, S = 8: {n_launch} launches, "
+          f"|sharded - unsharded| {err!r} (limit {tol!r})", flush=True)
+    del delta, views
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _shard_reference_shape(s: Smoke):
+    """benchmarks/run.py's sharding sweep: d = 2**18, 2**20 as (512, d/512)
+    float32, cohorts 64 and 256, S = 1, 2, 4, 8, resident, bitwise against
+    the unsharded decode; device ms per apply."""
+    import torch
+
+    from repro_torch.core import fedscalar as tfs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.sharding import fed_rules as fr
+
+    rows = []
+    for d in SHARD_REF_DIMS:
+        params = {"w": s.randn(SHARD_REF_ROWS, d // SHARD_REF_ROWS)}
+        for cohort in SHARD_REF_COHORTS:
+            seeds = tfs.round_seeds(0, cohort, device=s.dev)
+            rs = s.randn(cohort, 1)
+            want = ops.server_update_kernel(params, rs, seeds)["w"]
+            for shards in SHARD_COUNTS:
+                mesh = make_fed_mesh((1, shards))
+                plan = fr.plan_tree(params, shards)
+                blocks = fr.shard_tree(params, plan, mesh)
+
+                def apply(mesh=mesh, plan=plan, blocks=blocks):
+                    return fr.sharded_apply_blocks(mesh, plan, blocks, rs, seeds)
+
+                got = fr.from_sharded_2d(apply(), plan, params)["w"]
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sharding shape d={d} N={cohort} "
+                                         f"S={shards}: not bitwise the unsharded "
+                                         "decode")
+                ms = _device_ms([apply], reps=20)
+                ls = plan.leaves[0]
+                bound, by = _rec_bound([(ls.per_shard, ls.layout.cols)] * shards,
+                                       cohort, 1)
+                row = dict(d=d, cohort=cohort, shards=shards, device_ms=ms,
+                           enqueue_ms=_enqueue_ms(apply),
+                           elements_per_s=d * cohort / (ms / 1e3),
+                           bound_ms=bound, bound_by=by)
+                rows.append(row)
+                print("sharded reference shape: " + json.dumps(row), flush=True)
+    return rows
+
+
+def _shard_runtime(s: Smoke, launches):
+    """run_federation at examples/runtime_scale.py's population under
+    mesh_shape=(2, 4) (digest downlink, shadow replay) against the same run
+    without it on the decode route; then 3 rounds of sync and async."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import load_digits, make_client_datasets
+    from repro_torch.data import train_test_split_arrays
+    from repro_torch.fed.runtime import RuntimeConfig, run_federation
+    from repro_torch.models.mlp_classifier import init_mlp
+    from repro_torch.sharding import fed_rules as fr
+
+    x, y = load_digits()
+    xtr, ytr, xte, yte = train_test_split_arrays(x, y)
+    clients = make_client_datasets(xtr, ytr, RT_SHARDS)
+    counters = _kernel_fns()
+    per_call = []
+    apply_blocks = fr.sharded_apply_blocks
+
+    def counted(*args, **kwargs):
+        before = {k: c.launches for k, c in counters.items()}
+        out = apply_blocks(*args, **kwargs)
+        torch.cuda.synchronize()
+        per_call.append({k: c.launches - before[k] for k, c in counters.items()})
+        return out
+
+    def run(cfg, mesh):
+        for c in counters.values():
+            c.launches = 0
+        fr.sharded_apply_blocks = counted if mesh else apply_blocks
+        try:
+            t0 = time.perf_counter()
+            h = run_federation(cfg, init_mlp(seed=0, device="cuda"), clients, xte,
+                               yte, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            fr.sharded_apply_blocks = apply_blocks
+        got = {k: c.launches for k, c in counters.items()}
+        if mesh:
+            for k in launches:
+                launches[k] += got[k]
+        return h, {k: got[k] for k in launches}, wall
+
+    def same(ha, hb):
+        return (all(torch.equal(ha["final_params"][k], hb["final_params"][k])
+                    for k in ha["final_params"])
+                and all(np.array_equal(ha[k], hb[k]) for k in
+                        ("cohort_size", "applied", "cum_bits", "cum_downlink_bits")))
+
+    rows = {}
+    base = dict(rounds=RT_ROUNDS, population=RT_POPULATION,
+                participation=RT_PARTICIPATION, eval_every=1, seed=0,
+                downlink_mode="digest", verify_replay=True)
+    h_mesh, got, wall = run(RuntimeConfig(mesh_shape=MESH_SHAPE, **base), True)
+    h_rec, _, wall_rec = run(RuntimeConfig(**base), False)
+    applied = int((h_mesh["applied"] > 0).sum())
+    entries = 8 * len(init_mlp(seed=0, device="cuda"))
+    if not same(h_mesh, h_rec):
+        raise AssertionError("mesh run: not bitwise the decode-route run")
+    one_decode = [{"encode": 0, "fused": 0, "rec": 1, "qsgd": 0}] * applied
+    if (per_call != one_decode or got["rec"] != 2 * applied or got["fused"] != 0
+            or h_mesh["sharding"]["devices"] != 8 or entries > 64):
+        raise AssertionError(f"mesh run: launches {got}, per apply "
+                             f"{per_call[:3]}..., sharding {h_mesh['sharding']}")
+    loss = h_mesh["loss"]
+    if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+        raise AssertionError(f"mesh run: loss did not fall: {loss[0]} -> {loss[-1]}")
+    applied_s = h_mesh["apply_s"] > 0
+    rows["mesh_digest_replay"] = dict(
+        rounds_per_s=RT_ROUNDS / wall, rounds_per_s_without_mesh=RT_ROUNDS / wall_rec,
+        median_apply_ms=float(np.median(h_mesh["apply_s"][applied_s]) * 1e3),
+        median_apply_ms_without_mesh=float(
+            np.median(h_rec["apply_s"][h_rec["apply_s"] > 0]) * 1e3),
+        launches=got, decode_launches_per_mesh_apply=1, entries_per_launch=entries,
+        sharding=h_mesh["sharding"], loss_first=float(loss[0]),
+        loss_last=float(loss[-1]), replay_verified=True)
+    print("sharded runtime: mesh_shape=(2, 4), digest + shadow replay, bitwise "
+          "the decode-route run: " + json.dumps(rows["mesh_digest_replay"]),
+          flush=True)
+    for name, sched in (("sync", dict(mode="sync")), ("async", SCHED_ASYNC)):
+        per_call.clear()
+        hm, got, wall = run(_sched_config(dict(mesh_shape=MESH_SHAPE), sched,
+                                          MESH_SCHED_ROUNDS), True)
+        hr, _, _ = run(_sched_config({}, sched, MESH_SCHED_ROUNDS), False)
+        applied = int((hm["applied"] > 0).sum())
+        if not same(hm, hr) or per_call != [one_decode[0]] * applied:
+            raise AssertionError(f"mesh {name}: not bitwise its decode-route run, "
+                                 f"or launches per apply {per_call}")
+        rows[f"mesh_{name}"] = dict(host_s_per_round=wall / MESH_SCHED_ROUNDS,
+                                    launches=got, applied_rounds=applied)
+        print(f"sharded runtime: {name} scheduler, mesh_shape=(2, 4), "
+              f"{MESH_SCHED_ROUNDS} rounds, bitwise its decode-route run: "
+              + json.dumps(rows[f"mesh_{name}"]), flush=True)
+    return rows
+
+
+def phase_sharded(s: Smoke):
+    """Phase 16: the mesh-sharded server on the card → (launches, rows)."""
+    t0 = time.perf_counter()
+    n0 = s.checks
+    _shard_kernel_checks(s)
+    launches = {"encode": 0, "fused": 0, "rec": 0}
+    rows = {"resident": _shard_resident(s, launches)}
+    rows["reference_shape"] = _shard_reference_shape(s)
+    rows["runtime"] = _shard_runtime(s, launches)
+    print(f"sharded: all {s.checks - n0} kernel checks ok, main-path launches "
+          f"{launches}, in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, rows
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -2540,8 +2976,9 @@ def main() -> int:
     phase_tree_kernels(s)
     launches = phase_main_path(s)
     rt_launches, _ = phase_runtime(s)
+    sh_launches, _ = phase_sharded(s)
     for k in ("encode", "fused"):
-        launches[k] += rt_launches[k]
+        launches[k] += rt_launches[k] + sh_launches[k]
     times = phase_times(s)
     times.update(phase_times_runtime(s))
     phase_flash(s)
@@ -2569,7 +3006,7 @@ def main() -> int:
         dict(name="seeded_reconstruct", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_reconstruct.cu",
              replaces="src/repro/kernels/seeded_reconstruct.py:60",
-             launches=rt_launches["rec"] + train_launches["rec"],
+             launches=rt_launches["rec"] + sh_launches["rec"] + train_launches["rec"],
              max_abs_err=s.errs["rec"],
              library_ms=None, **times["rec"]),
         dict(name="qsgd_quant", route="cuda",

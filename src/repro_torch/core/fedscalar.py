@@ -45,6 +45,7 @@ __all__ = [
     "encode_cohort",
     "client_stage",
     "server_aggregate",
+    "server_aggregate_mesh",
     "fedscalar_round",
     "round_seeds",
     "round_seeds_for",
@@ -214,6 +215,25 @@ def server_aggregate(params: Any, rs: torch.Tensor, seeds: torch.Tensor,
         ghat = total
     return tree_map(lambda p, g: (p + cfg.server_lr * g).to(p.dtype),
                     params, ghat)
+
+
+def server_aggregate_mesh(params: Any, rs: torch.Tensor, seeds: torch.Tensor,
+                          cfg: FedScalarConfig, mesh,
+                          weights: torch.Tensor | None = None,
+                          block_weights: torch.Tensor | None = None,
+                          use_kernel: bool | None = None) -> Any:
+    """Mesh-sharded lines 7–13: each shard rebuilds its own slice of d.
+
+    ≡ the per-client decode kernel bit for bit (and ≈ :func:`server_aggregate`),
+    with the flat parameter vector partitioned across ``mesh``; delegates to
+    :func:`repro_torch.sharding.fed_rules.sharded_server_update`.
+    """
+    from repro_torch.sharding.fed_rules import sharded_server_update
+
+    return sharded_server_update(
+        mesh, params, rs, seeds, server_lr=cfg.server_lr,
+        distribution=cfg.distribution, weights=weights, mode=cfg.mode,
+        block_weights=block_weights, use_kernel=use_kernel)
 
 
 def fedscalar_round(params: Any, client_batches: Any, round_idx,

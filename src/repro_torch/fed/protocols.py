@@ -49,11 +49,6 @@ __all__ = [
     "make_protocol",
 ]
 
-_SHARDING_SLICE = ("the mesh-sharded server apply is ported in a later slice "
-                   "of the port (the sharding slice: sharding/fed_rules.py, "
-                   "launch/mesh.py)")
-
-
 class UplinkProtocol(abc.ABC):
     """What one federated method contributes to the shared engine."""
 
@@ -146,10 +141,12 @@ class FedScalarProtocol(UplinkProtocol):
                      use_kernel: bool = False, mesh=None,
                      use_fused: bool = False):
         """fori (plain per-client loop), ``use_kernel`` (per-client decode
-        kernel) or ``use_fused`` (fused close kernel)."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh apply: {_SHARDING_SLICE}")
+        kernel), ``use_fused`` (fused close kernel) or, on a ``mesh``, the
+        sharded decode (:func:`repro_torch.core.fedscalar.server_aggregate_mesh`)."""
         cfg = self.config
+        if mesh is not None:
+            return fs.server_aggregate_mesh(params, payloads, seeds, cfg, mesh,
+                                            weights=weights)
         if use_fused:
             from repro_torch.kernels import ops
             return ops.server_update_fused(

@@ -18,9 +18,12 @@ streaming server and cost model.  Per round the engine
      applies the survivors.  For fedscalar the apply is the plain
      per-client loop, the per-client decode kernel
      (``seeded_reconstruct.cu``) once the cohort reaches
-     ``kernel_cohort_threshold``, or the fused close kernel
-     (``reconstruct_apply.cu``) under ``projection_mode="fused_kernel"``;
-     for the dense protocols it is the (weighted) frame mean,
+     ``kernel_cohort_threshold``, the fused close kernel
+     (``reconstruct_apply.cu``) under ``projection_mode="fused_kernel"``,
+     or, with ``mesh_shape`` set, the mesh-sharded decode
+     (:mod:`repro_torch.sharding.fed_rules`: each device's shards of the
+     tree in one launch of the per-client decode kernel), which takes
+     precedence; for the dense protocols it is the (weighted) frame mean,
   6. in digest mode broadcasts the round's :class:`RoundDigest`; with
      ``verify_replay`` a shadow :class:`StatefulClient` replays it
      through the same apply and must land on the same bits,
@@ -32,8 +35,7 @@ participating, synchronous, lossless fp32 configuration delegates to
 With ``scheduler=`` the continuous-round driver
 (:mod:`repro_torch.fed.runtime.scheduler`) runs the rounds instead (sync
 bit-identical to the legacy loop, or async pipelined) and the fused
-shortcut is never taken.  The mesh-sharded apply (``mesh_shape=``) is a
-later slice of the port and raises ``NotImplementedError``.
+shortcut is never taken.
 """
 from __future__ import annotations
 
@@ -71,11 +73,6 @@ if TYPE_CHECKING:
 __all__ = ["RuntimeConfig", "EngineCore", "run_federation",
            "draw_cohort_batches", "StatefulClient"]
 
-_SHARDING_SLICE = ("the mesh-sharded server apply is ported in a later slice "
-                   "of the port (the sharding slice: sharding/fed_rules.py, "
-                   "launch/mesh.py)")
-
-
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Everything the federation runtime needs for one K-round run."""
@@ -105,7 +102,10 @@ class RuntimeConfig:
                                                 # decode kernel (None: 512 on
                                                 # a CUDA device, never on the
                                                 # CPU; fedscalar only)
-    mesh_shape: tuple | None = None     # sharded apply: a later slice
+    mesh_shape: tuple | None = None     # (data, model) mesh of the sharded
+                                        # server apply (fedscalar only); a
+                                        # port mesh may hold more shards
+                                        # than cards
     downlink_mode: str = "dense"        # "dense" or "digest" (fedscalar only)
     downlink_log_window: int = 64       # digest mode: rounds of catch-up log
     verify_replay: bool = False         # digest mode: shadow-client replay
@@ -401,6 +401,26 @@ class EngineCore:
             kern_thresh = 512 if device.type == "cuda" else None
         self.kern_thresh = kern_thresh
 
+        # The mesh-sharded apply: each device decodes its shards of the
+        # tree.  Params stay replicated (the client chunks and eval read the
+        # full model every round), so each apply shards and unshards the
+        # views; a decode-only server holding x resident calls
+        # fed_rules.sharded_apply_blocks and skips that round trip.
+        self.mesh = None
+        self.shard_info = None
+        if cfg.mesh_shape is not None:
+            from repro_torch.launch.mesh import make_fed_mesh
+            from repro_torch.sharding.fed_rules import num_mesh_shards, plan_tree
+
+            self.mesh = make_fed_mesh(tuple(cfg.mesh_shape), device=device)
+            plan = plan_tree(init_params, num_mesh_shards(self.mesh))
+            self.shard_info = dict(
+                mesh_shape=tuple(cfg.mesh_shape),
+                devices=num_mesh_shards(self.mesh),
+                per_device_elements=plan.per_shard_elements(),
+                balance=plan.balance(),
+            )
+
     # ---- driver stages ----
 
     def chunk_payloads(self, params, round_idx: int, client_ids: torch.Tensor):
@@ -453,7 +473,10 @@ class EngineCore:
         → ``(params, method, apply_s)``; ``method`` ("fused", True for the
         per-client decode kernel, False for the plain loop) is what the
         digest replay must pin.  ``apply_s`` is read after a device
-        synchronise.
+        synchronise.  A mesh round pins the decode kernel: the sharded
+        decode is the unsharded decode kernel bit for bit (reconstruction
+        is elementwise), whereas the reference pins its plain loop, which
+        its own mesh mirror equals.
         """
         a = len(aseeds)
         use_kernel: bool | str = False
@@ -464,7 +487,9 @@ class EngineCore:
             if self.proto.name == "fedscalar":
                 rs_b, w_b, seeds_b = _dev_tensors(
                     dev, *_pad_bucket(ars, acoeffs, aseeds))
-                if self.cfg.projection_mode == "fused_kernel":
+                if self.mesh is not None:
+                    use_kernel = True
+                elif self.cfg.projection_mode == "fused_kernel":
                     use_kernel = "fused"
                 elif (self.kern_thresh is not None
                         and a >= self.kern_thresh
@@ -472,7 +497,7 @@ class EngineCore:
                              or self.cfg.projection_mode == "block")):
                     use_kernel = True
                 params = self.proto.server_apply(
-                    params, rs_b, seeds_b, w_b,
+                    params, rs_b, seeds_b, w_b, mesh=self.mesh,
                     use_fused=use_kernel == "fused",
                     use_kernel=use_kernel is True)
             else:
@@ -579,7 +604,7 @@ class EngineCore:
             pending_rounds=self.agg.pending_rounds(),
             sampling_diagnostic=sampling_diagnostic(self.sampler,
                                                     rounds=min(200, 4 * K)),
-            sharding=None,
+            sharding=self.shard_info,
             recon_clients_per_s=recon_clients_per_s,
             downlink_mode=cfg.downlink_mode,
             total_downlink_bits=self.downlink.total_bits,
@@ -633,8 +658,6 @@ def run_federation(
             f"protocol {proto.name!r} cannot use mesh_shape: dense frames "
             "need a d-sized gather per upload on a sharded server; only "
             "fedscalar decodes shard-locally")
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError(f"mesh_shape: {_SHARDING_SLICE}")
     if cfg.downlink_mode not in ("dense", "digest"):
         raise ValueError(f"unknown downlink_mode {cfg.downlink_mode!r}; "
                          "want 'dense' or 'digest'")

@@ -119,7 +119,8 @@ def fused_apply_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
 def fused_tree_plain(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
                      plan: TreePlan, distribution: str = "rademacher") -> list:
     """Plain version of a tree close: the cohort scaled and padded once,
-    then :func:`fused_apply_plain` leaf by leaf → the new leaves."""
+    then :func:`fused_apply_plain` entry by entry, at the plan's
+    coordinates → the new leaves."""
     rs = rs * torch.tensor(scale, dtype=torch.float32, device=rs.device)
     seeds_p, rs_p = pad_cohort(seeds.to(torch.int64) & U32_MASK, rs)
     out = []
@@ -128,7 +129,7 @@ def fused_tree_plain(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float
             ll, x = plan.layout[i], leaves[i]
             y = fused_apply_plain(x.reshape(ll.rows, ll.cols), seeds_p, rs_p,
                                   ll.tag, plan.lo[i], plan.hi[i], distribution,
-                                  plan.masked)
+                                  plan.masked, *plan.coords[i])
             out.append(y.reshape(x.shape))
     return out
 

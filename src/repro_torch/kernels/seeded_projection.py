@@ -133,16 +133,18 @@ def project_blocks_plain(x: torch.Tensor, seeds: torch.Tensor, leaf_tag: int,
 def project_tree_plain(leaves, seeds: torch.Tensor, plan: TreePlan,
                        distribution: str = "rademacher",
                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain version of a tree encode: the per-leaf plain encodes of
-    ``leaves`` (each ``(N, *shape)``, ``plan``'s layout) summed in leaf
-    order, launch group by launch group as the kernel goes → ``(N, k)``."""
+    """Plain version of a tree encode: the per-entry plain encodes of
+    ``leaves`` (each ``(N, *shape)``, ``plan``'s layout, at its
+    coordinates) summed in entry order, launch group by launch group as
+    the kernel goes → ``(N, k)``."""
     acc = None
     for group in plan.groups:
         for i in range(group.start, group.stop):
             ll = plan.layout[i]
             x3d = leaves[i].reshape(leaves[i].shape[0], ll.rows, ll.cols)
             r = project_blocks_plain(x3d, seeds, ll.tag, plan.lo[i], plan.hi[i],
-                                     distribution, plan.masked, dtype=dtype)
+                                     distribution, plan.masked, *plan.coords[i],
+                                     dtype=dtype)
             acc = r if acc is None else acc + r
     return acc
 

@@ -156,14 +156,16 @@ def reconstruct_tree_plain(leaves, seeds: torch.Tensor, rs: torch.Tensor,
                            scale: float, div: float, plan: TreePlan,
                            distribution: str = "rademacher",
                            per_client_rounding: bool = False) -> list:
-    """Plain version of a tree decode: :func:`reconstruct_plain` leaf by
-    leaf, with the plan's tags and block bounds → the new leaves."""
+    """Plain version of a tree decode: :func:`reconstruct_plain` entry by
+    entry, with the plan's tags, block bounds and coordinates → the new
+    leaves."""
     out = []
     for i, (ll, x) in enumerate(zip(plan.layout, leaves)):
         lo, hi = (plan.lo[i], plan.hi[i]) if plan.masked else (None, None)
+        row_offset, col_offset, orig_cols = plan.coords[i]
         y = reconstruct_plain(x.reshape(ll.rows, ll.cols), seeds, rs, ll.tag, scale,
-                              lo, hi, distribution, plan.masked,
-                              per_client_rounding=per_client_rounding, div=div)
+                              lo, hi, distribution, plan.masked, row_offset,
+                              col_offset, orig_cols, per_client_rounding, div)
         out.append(y.reshape(x.shape))
     return out
 

@@ -16,6 +16,15 @@ every leaf, computed once and kept on the device.  Plans are cached per
 (kernel, leaf shapes and dtypes, k, mode, device), so a call's host work
 is filling in the pointers and launching.
 
+A shard plan (:func:`shard_plan`) tiles the shards of a mesh-sharded
+tree: its entries are (shard, leaf) pairs, shard-major, each the local
+padded view of one leaf's shard at its global coordinates (the offsets
+``ordinal · per_shard`` on the sharded axis, ``orig_cols`` the leaf's
+global cols, the leaf's tag and k-block bounds), so a launch over the
+shards on one device computes what the unsharded launch computes on
+those elements.  Each entry's (row offset, col offset, orig cols) is in
+the plan's ``coords``, which the plain versions read too.
+
 The QSGD plan (kind ``"qsgd"``, :func:`qsgd_plan`) tiles differently: a
 tile is a span of whole rows of one (client, leaf), about
 ``QSGD_TILE_ELEMS`` elements, worked by one warp, so a narrow leaf packs
@@ -38,7 +47,8 @@ __all__ = ["MAX_TREE_LEAVES", "ENCODE_TILE_ROWS", "CLOSE_TILE_ROWS",
            "CLOSE_TILE_THREADS", "DECODE_MIN_TILES", "QSGD_TILE_ELEMS",
            "QSGD_NORM_UNIT_ELEMS", "QSGD_NORM_UNITS_MAX", "TreeLeaf", "TreeTable",
            "TreePlan", "LaunchGroup", "leaf_block_bounds", "decode_vector",
-           "qsgd_rows_per_tile", "qsgd_norm_units", "tree_plan", "qsgd_plan",
+           "qsgd_rows_per_tile", "qsgd_norm_units", "tree_plan", "shard_plan",
+           "qsgd_plan",
            "check_leaves", "single_table"]
 
 # csrc/tree.cuh's MAX_TREE_LEAVES.
@@ -209,7 +219,11 @@ class LaunchGroup:
 
 @dataclasses.dataclass(frozen=True)
 class TreePlan:
-    """What a tree launch needs besides the data, for one tree layout."""
+    """What a tree launch needs besides the data, for one tree layout.
+
+    ``layout`` has one entry per table entry: a leaf, or in a shard plan a
+    (shard, leaf) pair whose rows and cols are the shard's local view and
+    whose tag and offset are its leaf's."""
 
     kind: str
     layout: tuple[LeafLayout, ...]
@@ -219,39 +233,84 @@ class TreePlan:
     lo: torch.Tensor         # (L, k) float32 leaf-local block bounds, on the device
     hi: torch.Tensor
     groups: tuple[LaunchGroup, ...]
+    coords: tuple[tuple[int, int, int], ...]   # per entry: (row offset,
+                                               # col offset, orig cols)
 
 
 _plans: dict = {}
 
 
 def tree_plan(kind: str, shapes, dtypes, k: int, mode: ProjectionMode,
-              device) -> TreePlan:
+              device, shard=None) -> TreePlan:
     """The cached plan of ``kind`` ("encode", "close", "decode" or "qsgd")
-    for leaves of these per-client shapes and dtypes in sorted-key order."""
+    for leaves of these per-client shapes and dtypes in sorted-key order
+    (``shard``: see :func:`shard_plan`)."""
     if kind not in _KINDS:
         raise ValueError(kind)
     device = torch.device(device)
-    key = (kind, tuple(shapes), tuple(dtypes), k, mode, device)
+    # The shard layout is part of the key: a local view may have the shape
+    # of some unsharded leaf, whose plan has offsets 0.
+    key = (kind, tuple(shapes), tuple(dtypes), k, mode, device, shard)
     plan = _plans.get(key)
     if plan is None:
         if len(_plans) >= _PLAN_CACHE_MAX:
             _plans.clear()
-        plan = _plans[key] = _build_plan(kind, key[1], key[2], k, mode, device)
+        plan = _plans[key] = _build_plan(kind, key[1], key[2], k, mode, device,
+                                         shard)
     return plan
 
 
-def _build_plan(kind, shapes, dtypes, k, mode, device) -> TreePlan:
-    layout, offset = [], 0
+def shard_plan(kind: str, shapes, dtypes, num_shards: int, shards, ordinals,
+               k: int, mode: ProjectionMode, device) -> TreePlan:
+    """The cached shard plan of ``kind`` ("encode", "close" or "decode"):
+    one entry per (shard, leaf) pair, for the shards ``ordinals`` (in that
+    order) of a tree whose global leaves have ``shapes`` and ``dtypes``,
+    leaf ``i`` split into ``num_shards`` slices of ``per_shard`` rows
+    (``axis`` 0) or cols (``axis`` 1), ``shards[i] = (axis, per_shard)``.
+
+    An entry's view is the shard's ``(per_shard, cols)`` or ``(rows,
+    per_shard)`` slice of the leaf's view padded to ``num_shards ·
+    per_shard``; its coordinates are global, its k-block bounds the
+    leaf's.  Groups keep the 64-entry split; the decode's V rule runs
+    over each group's local views."""
+    if kind == "qsgd":
+        raise ValueError("the QSGD plan has no shard layout")
+    shard = (int(num_shards), tuple((int(a), int(p)) for a, p in shards),
+             tuple(int(s) for s in ordinals))
+    return tree_plan(kind, shapes, dtypes, k, mode, device, shard)
+
+
+def _build_plan(kind, shapes, dtypes, k, mode, device, shard=None) -> TreePlan:
+    leaves, offset = [], 0
     for tag, shape in enumerate(shapes):
         rows, cols = view2d(shape)
-        layout.append(LeafLayout(tag=tag, shape=shape, rows=rows, cols=cols,
+        leaves.append(LeafLayout(tag=tag, shape=shape, rows=rows, cols=cols,
                                  offset=offset, size=rows * cols))
         offset += rows * cols
     total = offset
     bounds = [leaf_block_bounds(ll.offset, ll.size, total, k, mode)
-              for ll in layout]
-    lo = torch.tensor([b[0] for b in bounds], dtype=torch.float32).reshape(-1, k)
-    hi = torch.tensor([b[1] for b in bounds], dtype=torch.float32).reshape(-1, k)
+              for ll in leaves]
+    # The table's entries: every leaf, or every (shard, leaf) pair.
+    if shard is None:
+        layout, coords = leaves, tuple((0, 0, ll.cols) for ll in leaves)
+        which = range(len(leaves))
+    else:
+        _, per_leaf, ordinals = shard
+        layout, coords, which = [], [], []
+        for s in ordinals:
+            for ll, (axis, per) in zip(leaves, per_leaf):
+                rows, cols = (per, ll.cols) if axis == 0 else (ll.rows, per)
+                layout.append(LeafLayout(tag=ll.tag, shape=(rows, cols), rows=rows,
+                                         cols=cols, offset=ll.offset,
+                                         size=rows * cols))
+                coords.append((s * per, 0, ll.cols) if axis == 0
+                              else (0, s * per, ll.cols))
+                which.append(ll.tag)
+        dtypes = tuple(dtypes[i] for i in which)
+    lo = torch.tensor([bounds[i][0] for i in which],
+                      dtype=torch.float32).reshape(-1, k)
+    hi = torch.tensor([bounds[i][1] for i in which],
+                      dtype=torch.float32).reshape(-1, k)
     groups = []
     for start in range(0, len(layout), MAX_TREE_LEAVES):
         stop = min(start + MAX_TREE_LEAVES, len(layout))
@@ -270,13 +329,16 @@ def _build_plan(kind, shapes, dtypes, k, mode, device) -> TreePlan:
                                       tiles, part0=parts)
                 parts += qsgd_norm_units(ll.size)[0]
             else:
-                tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols, ll.cols,
-                                      dtypes[start + i], ll.tag, 0, 0, tiles, vector)
+                row_offset, col_offset, orig_cols = coords[start + i]
+                tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols,
+                                      orig_cols, dtypes[start + i], ll.tag,
+                                      row_offset, col_offset, tiles, vector)
         table.num_leaves, table.num_tiles = stop - start, tiles
         groups.append(LaunchGroup(start, stop, tiles, bytes(table), vector, parts))
     return TreePlan(kind=kind, layout=tuple(layout), dtypes=tuple(dtypes), k=k,
                     masked=mode == ProjectionMode.BLOCK and k > 1,
-                    lo=lo.to(device), hi=hi.to(device), groups=tuple(groups))
+                    lo=lo.to(device), hi=hi.to(device), groups=tuple(groups),
+                    coords=tuple(coords))
 
 
 def qsgd_plan(shapes, dtypes, device) -> TreePlan:

@@ -1,0 +1,74 @@
+"""The federation server's device mesh (port of ``repro/launch/mesh.py``).
+
+A :class:`FedMesh` names its axes (``data``, ``model``), its shape, and
+the devices its shards run on.  The sharded server
+(:mod:`repro_torch.sharding.fed_rules`) flattens both axes into one shard
+dimension over the parameter vector, row-major, and spreads the shards
+over the devices in contiguous groups: shard ``s`` of ``S`` runs on
+``devices[s · len(devices) // S]``.  A mesh may hold more shards than
+devices: on one card a ``(2, 4)`` mesh is 8 shards on that card, decoded
+by one tree launch (one per 64 (shard, leaf) entries).  One process
+drives every device's group; nothing here uses ``torch.distributed``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["FedMesh", "make_fed_mesh", "mesh_axes_sizes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FedMesh:
+    """Axis names, shape and devices of a federation-server mesh."""
+
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+    devices: tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        """Shards: the product of the axis sizes."""
+        return math.prod(self.shape)
+
+    def shard_device(self, s: int) -> torch.device:
+        """The device of flat shard ``s``."""
+        return self.devices[s * len(self.devices) // self.size]
+
+    def device_groups(self) -> list[tuple[torch.device, tuple[int, ...]]]:
+        """→ ``(device, its shards' ordinals in order)`` for each entry of
+        ``devices`` that holds a shard, in shard order.  Entries are groups
+        even where they name the same device (``devices=[cpu] * 4``)."""
+        groups: list[list[int]] = [[] for _ in self.devices]
+        for s in range(self.size):
+            groups[s * len(self.devices) // self.size].append(s)
+        return [(dev, tuple(g)) for dev, g in zip(self.devices, groups) if g]
+
+
+def make_fed_mesh(shape: tuple = (1, 1), device="cuda",
+                  devices=None) -> FedMesh:
+    """(``data``, ``model``) mesh for the mesh-sharded federation server.
+
+    ``devices`` defaults to every visible card of ``device``'s type (the
+    CPU for ``device="cpu"``).  Shape ``(1, 1)`` is the single-device
+    layout, bit-identical to the unsharded path.
+    """
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape}: want two positive axis sizes")
+    if devices is None:
+        dev = resolve_device(device)
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+    devices = tuple(torch.device(d) for d in devices)
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    return FedMesh(axis_names=("data", "model"), shape=shape, devices=devices)
+
+
+def mesh_axes_sizes(mesh: FedMesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.shape))

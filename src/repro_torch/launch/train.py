@@ -26,7 +26,8 @@ global params whatever the cohort size: the copy is updated in place and
 turned into the delta in place.  On the card the encode and the close are
 the hand-written kernels, with no fallback; on the CPU their plain
 versions.  The client-parallel placement
-(``make_train_step_client_parallel``) waits for the sharding slice.
+(``make_train_step_client_parallel``) is not ported: the reference's only
+caller of it is its TPU dry run (``launch/dryrun.py``), not ported either.
 """
 from __future__ import annotations
 

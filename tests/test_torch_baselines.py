@@ -65,9 +65,14 @@ def test_registry_and_digest_codecs():
     for name in ("fedavg", "qsgd"):
         with pytest.raises(ValueError, match="no digest downlink"):
             tpr.make_protocol(name, pt).digest_codec()
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        fs.server_apply(pt, torch.zeros(1, 1), torch.zeros(1, dtype=torch.int64),
-                        None, mesh=object())
+    # a mesh routes to the sharded decode: the decode kernel's bits
+    from repro_torch.launch.mesh import make_fed_mesh
+    rs, seeds = torch.ones(3, 1), torch.tensor([5, 6, 7])
+    on_mesh = fs.server_apply(pt, rs, seeds, None,
+                              mesh=make_fed_mesh((2, 4), device="cpu"))
+    kernel = fs.server_apply(pt, rs, seeds, None, use_kernel=True)
+    for k in pt:
+        assert torch.equal(on_mesh[k], kernel[k])
 
 
 def test_qsgd_frame_decodes_to_the_client_round_trip():

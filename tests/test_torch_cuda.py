@@ -1112,3 +1112,109 @@ def test_cuda_qsgd_tree_checks_inputs(cuda_device):
         qsgd_tree([x], seeds, 127, norms=torch.ones(3, device=cuda_device))
     with pytest.raises(ValueError):
         qsgd_tree([x], seeds, 127, want_q=False, want_levels=False)
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded server over shard plans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shards", [1, 3, 8])
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", MODES)
+def test_cuda_sharded_paths_match_plain(cuda_device, shards, family, k, mode):
+    """On a (1, S) mesh of the card: the sharded decode and fused close
+    (one launch per 64 (shard, leaf) entries) against the CPU's plain
+    versions over the same shard plan (gaussian within rtol/atol 1e-5) and
+    bitwise the unsharded kernels; the sharded encode within
+    ``tree_encode_tolerance`` of the shards' views of the float64 plain
+    encode."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply as fra
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.sharding import fed_rules as fr
+
+    p = _params(shards)
+    on = {key: v.to(cuda_device) for key, v in p.items()}
+    mesh, cpu_mesh = make_fed_mesh((1, shards)), make_fed_mesh((1, shards), "cpu")
+    dist, pm = Distribution(family), ProjectionMode(mode)
+    rng = np.random.RandomState(k + shards)
+    rs = torch.from_numpy(rng.randn(37, k).astype(np.float32))
+    seeds = torch.from_numpy(seeds_np(rng, 37).astype(np.int64))
+    rs_d, seeds_d = rs.to(cuda_device), seeds.to(cuda_device)
+    groups = -(-shards * len(p) // 64)
+    for fused, counter in ((False, reconstruct_apply_clients), (True, fra)):
+        before = counter.launches
+        got = fr.sharded_server_update(mesh, on, rs_d, seeds_d, 0.7, dist, mode=pm,
+                                       use_fused=fused)
+        assert counter.launches - before == groups
+        want = fr.sharded_server_update(cpu_mesh, p, rs, seeds, 0.7, dist, mode=pm,
+                                        use_fused=fused)
+        flat = (ops.server_update_fused if fused else ops.server_update_kernel)(
+            on, rs_d, seeds_d, 0.7, dist, mode=pm)
+        for key in p:
+            _assert_fused(family, got[key].cpu(), want[key])
+            assert torch.equal(got[key], flat[key])
+    delta = {key: v * 0.01 for key, v in on.items()}
+    got = fr.sharded_project_tree(mesh, delta, 99, dist, k, pm)
+    assert torch.equal(got, fr.sharded_project_tree(mesh, delta, 99, dist, k, pm))
+    leaves = tree_leaves(delta)
+    uplan = tree_plan("encode", [tuple(x.shape) for x in leaves],
+                      [x.dtype for x in leaves], k, pm, cuda_device)
+    exact = project_tree_plain([x[None] for x in leaves],
+                               torch.tensor([99], device=cuda_device), uplan, family,
+                               dtype=torch.float64)[0]
+    plan = fr.plan_tree(delta, shards)
+    views = [x[None] for ls, v in zip(plan.leaves, fr.to_sharded_2d(delta, plan))
+             for x in fr._split(v, ls, mesh)]
+    assert ((got.double() - exact).abs()
+            <= tree_encode_tolerance(views, family)[0]).all()
+
+
+def test_cuda_sharded_col_1d_block_encode(cuda_device):
+    """A col-sharded 1-D leaf in BLOCK mode: the encode's tile skip spans
+    whole rows of global coordinates, a superset of each shard's cols."""
+    from repro_torch.kernels.seeded_projection import tree_encode_tolerance
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.sharding import fed_rules as fr
+
+    x = torch.from_numpy(np.random.RandomState(2).randn(4800).astype(np.float32))
+    for shards in (3, 8):
+        for k in (2, 5):
+            got = fr.sharded_project_tree(make_fed_mesh((1, shards)),
+                                          {"w": x.to(cuda_device)}, 21,
+                                          Distribution.RADEMACHER, k,
+                                          ProjectionMode.BLOCK)
+            want = fr.sharded_project_tree(make_fed_mesh((1, shards), "cpu"),
+                                           {"w": x.double()}, 21,
+                                           Distribution.RADEMACHER, k,
+                                           ProjectionMode.BLOCK)
+            tol = tree_encode_tolerance([x.reshape(1, 1, -1)], "rademacher")[0]
+            assert ((got.cpu().double() - want).abs() <= 2 * tol).all()
+
+
+def test_cuda_mesh_run_is_the_decode_route(cuda_device):
+    """``run_federation`` under ``mesh_shape=(2, 4)`` on the card, digest
+    downlink with the shadow replay: bitwise the decode-route run."""
+    from repro_torch.data import load_digits, make_client_datasets
+    from repro_torch.data import train_test_split_arrays
+    from repro_torch.fed.runtime import RuntimeConfig, run_federation
+
+    x, y = load_digits()
+    xtr, ytr, xte, yte = train_test_split_arrays(x, y)
+    clients = make_client_datasets(xtr, ytr, 8)
+    base = dict(rounds=3, population=64, participation=0.25, seed=1,
+                downlink_mode="digest", verify_replay=True,
+                kernel_cohort_threshold=1)
+    h = {mesh: run_federation(RuntimeConfig(mesh_shape=mesh, **base),
+                              init_mlp(seed=0, device=cuda_device), clients, xte,
+                              yte, device=cuda_device)
+         for mesh in ((2, 4), None)}
+    assert h[(2, 4)]["sharding"]["devices"] == 8
+    for key in h[None]["final_params"]:
+        assert torch.equal(h[(2, 4)]["final_params"][key],
+                           h[None]["final_params"][key])

@@ -568,7 +568,7 @@ def test_fused_shortcut_and_digest_replay_on_cpu(digits8):
     (dict(scheduler=tsched.SchedulerConfig(mode="async"),
           server=tserver.ServerConfig(max_staleness=1)), ValueError,
      "competing"),
-    (dict(mesh_shape=(1, 1)), NotImplementedError, "sharding slice"),
+    (dict(mesh_shape=(1, 1), protocol_name="fedavg"), ValueError, "mesh_shape"),
     (dict(mesh_shape=(1, 1), protocol_name="qsgd"), ValueError, "mesh_shape"),
     (dict(downlink_mode="digest", protocol_name="fedavg"), ValueError, "digest"),
     (dict(verify_replay=True), ValueError, "verify_replay"),

@@ -9,6 +9,9 @@
   removes every ``repro.kernels.*`` module it imported (from
   ``sys.modules`` and from the parent package), so other test files see
   exactly the import behaviour they would have seen without it.
+* ``jax_sharding`` reaches ``repro.sharding.fed_rules`` and
+  ``repro.launch.mesh`` the same way (their paths import
+  ``repro.kernels.ops``), and removes them on teardown.
 * ``cuda_device`` skips a test unless a card is present; it decides
   when the test runs, never at import or collection.
 * ``digits_shards`` and ``patch_shared_draws`` give the engine parity
@@ -26,27 +29,52 @@ import numpy as np
 import pytest
 
 
-@pytest.fixture(scope="module")
-def jax_kernels():
+def _stubbed_imports(prefixes: tuple, load):
+    """Yield ``load()`` run with the compat shim stubbed; on teardown
+    restore the shim and remove every module under ``prefixes`` that the
+    call imported."""
     import repro.core.compat as compat
 
-    before = {m for m in sys.modules if m.startswith("repro.kernels")}
+    before = {m for m in sys.modules if m.startswith(prefixes)}
     mp = pytest.MonkeyPatch()
     mp.setattr(compat, "ensure_optimization_barrier_batching", lambda: None)
     try:
-        from repro.kernels import ops, reconstruct_apply, ref
-
-        yield types.SimpleNamespace(ops=ops, ref=ref,
-                                    reconstruct_apply=reconstruct_apply)
+        yield load()
     finally:
         mp.undo()
         added = [m for m in sys.modules
-                 if m.startswith("repro.kernels") and m not in before]
+                 if m.startswith(prefixes) and m not in before]
         for name in sorted(added, reverse=True):
             mod = sys.modules.pop(name)
             parent, _, child = name.rpartition(".")
             if getattr(sys.modules.get(parent), child, None) is mod:
                 delattr(sys.modules[parent], child)
+
+
+@pytest.fixture(scope="module")
+def jax_kernels():
+    def load():
+        from repro.kernels import ops, reconstruct_apply, ref
+
+        return types.SimpleNamespace(ops=ops, ref=ref,
+                                     reconstruct_apply=reconstruct_apply)
+
+    yield from _stubbed_imports(("repro.kernels",), load)
+
+
+@pytest.fixture(scope="module")
+def jax_sharding():
+    """``repro.sharding.fed_rules`` and ``repro.launch.mesh`` (and the
+    ``repro.kernels`` modules their paths import), as ``jax_kernels``."""
+    def load():
+        from repro.kernels import ops
+        from repro.launch import mesh
+        from repro.sharding import fed_rules
+
+        return types.SimpleNamespace(fed_rules=fed_rules, mesh=mesh, ops=ops)
+
+    yield from _stubbed_imports(("repro.kernels", "repro.sharding",
+                                 "repro.launch.mesh"), load)
 
 
 @pytest.fixture
