@@ -86,8 +86,8 @@ Phases (any failure exits non-zero and the final line is not printed):
    width, depth cut to 2 layers, float32, batch 1, a prompt of 8448
    tokens and 4 decode steps against a cache of 8460 slots (both over
    the 8192 threshold, so both phases launch a kernel: the float32
-   kernel at prefill, the split-KV decode at each step); last-token
-   logits within ``PARITY_ATOL`` of the CPU run; then the same in bf16 on
+   kernel at prefill, the split-KV decode at each step); logits and
+   the KV caches within ``PARITY_ATOL`` of the CPU run; then the same in bf16 on
    the card with the kernels (the tensor-core prefill, the split-KV
    decode) against the same run with ``_sdpa_blocked`` taking the plain
    version, logits within ``BF16_PARITY_RTOL`` of their largest;
@@ -172,11 +172,37 @@ Phases (any failure exits non-zero and the final line is not printed):
    launch; 3 rounds each of sync and async scheduling under
    ``mesh_shape=(2, 4)``, bitwise their mesh-less runs.
 
+17. the MoE, SSM and hybrid families (after phase 10; ``models/moe.py``,
+   ``models/mamba.py``: plain PyTorch, as the reference's einsums and
+   associative scan have no Pallas kernel; flash is their only kernel):
+   reduced Qwen3-MoE (k = E = 4, and k = 2, which drops at the capacity),
+   Falcon-Mamba and Jamba (8 layers), float32, phase 9's prompt of 8448
+   tokens and 4 decode steps on the card against the CPU: the card's MoE
+   routes recorded through ``moe._route`` and replayed on the CPU
+   (``tests/torch_parity.py::MoERoutes``; where the CPU's own choice
+   differs, and the largest logit margin there, printed; a difference
+   beyond a near tie, 1e-4, fails), logits and every cache (KV, Mamba h
+   and conv) within
+   ``PARITY_ATOL``, the exact float32-kernel and split-KV launches; then
+   bf16 at full width, batch 1, prompt 16 384, 32 greedy decode steps,
+   cache 16 424, through the serve steps: Qwen3-MoE-30B-A3B (48 layers),
+   Falcon-Mamba-7B (64 layers), Jamba-v0.1-52B over 2 of its 4 periods
+   (16 layers): init s and parameter GiB, prefill s, decode ms a token,
+   host enqueue, peak GiB, the prefill's MoE dropped fraction, the
+   decode's all-experts read beside its bytes bound, the flash launches
+   exactly one prefill and 32 decode launches per attention layer and no
+   other kernel, KV positions, finite caches, tokens in the vocabulary;
+   and the first attention layer's own q, k, v (G = 8 at hd 64; G = 4 at
+   hd 128) of each prefill and of each first decode step (S·G = 8 and 4
+   rows a kv head, 16 424 slots) through the prefill and split-KV decode
+   kernels against their plain version.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -277,6 +303,18 @@ PARITY_ATOL = 1e-3
 # refuses a wrong head, mask or position, which moves logits by their
 # own magnitude.
 BF16_PARITY_RTOL = 0.05
+# The MoE, SSM and hybrid families (phase 17).  Card against CPU: the
+# reduced configs (float32; the prompt and cache of phase 9), Qwen3-MoE
+# also with two experts a token so that the capacity drops.  Then bf16 at
+# full width, batch 1, the serve phase's prompt, decode steps and cache:
+# name -> layers served (None: all; Jamba's 52B do not fit one card, so 2
+# of its 4 periods).
+FAMILY_PARITY = (("qwen3-moe-30b-a3b", {}),
+                 ("qwen3-moe-30b-a3b", {"experts_per_token": 2}),
+                 ("falcon-mamba-7b", {}), ("jamba-v0.1-52b", {}))
+FAMILY_SERVE = (("qwen3-moe-30b-a3b", None), ("falcon-mamba-7b", None),
+                ("jamba-v0.1-52b", 16))
+FAMILY_BATCH = 1
 # Training slice: SmolLM-360M through launch/train.py (rademacher, k = 1).
 TRAIN_ARCH = "smollm-360m"
 TRAIN_CLIENTS, TRAIN_STEPS, TRAIN_PER_STEP, TRAIN_SEQ = 4, 2, 1, 4096
@@ -462,6 +500,17 @@ class Smoke:
     def check_flash(self, b, s, t, h, kh, hd, dtype, window=0, qpos=None,
                     kpos=None):
         """Kernel against plain version on the rows with an allowed key."""
+        torch = self.torch
+        q = self.randn(b, s, h, hd).to(dtype)
+        k = self.randn(b, t, kh, hd).to(dtype)
+        v = self.randn(b, t, kh, hd).to(dtype)
+        i32 = dict(dtype=torch.int32, device=self.dev)
+        qpos = torch.arange(t - s, t, **i32) if qpos is None else qpos.to(**i32)
+        kpos = torch.arange(t, **i32) if kpos is None else kpos.to(**i32)
+        self.check_flash_on(q, k, v, qpos, kpos, window)
+
+    def check_flash_on(self, q, k, v, qpos, kpos, window=0):
+        """``check_flash`` on given inputs (a model's own q, k, v)."""
         from repro_torch.kernels.flash_attention import (
             allowed_mask,
             flash_agrees,
@@ -471,13 +520,8 @@ class Smoke:
             flash_route,
         )
         torch = self.torch
+        (b, s, h, hd), (t, kh), dtype = q.shape, k.shape[1:3], q.dtype
         kernel = FLASH_KERNELS[flash_route(s, h, kh, dtype)]
-        q = self.randn(b, s, h, hd).to(dtype)
-        k = self.randn(b, t, kh, hd).to(dtype)
-        v = self.randn(b, t, kh, hd).to(dtype)
-        i32 = dict(dtype=torch.int32, device=self.dev)
-        qpos = torch.arange(t - s, t, **i32) if qpos is None else qpos.to(**i32)
-        kpos = torch.arange(t, **i32) if kpos is None else kpos.to(**i32)
         got = flash_attention(q, k, v, qpos, kpos, causal=True, window=window)
         want = flash_attention_plain(q, k, v, qpos, kpos, causal=True,
                                      window=window)
@@ -1850,15 +1894,75 @@ def _flash_counters():
 
 
 def _serve_logits(arch, params, tokens, feed):
-    """Prefill and the decode steps of ``feed``; → (batch, steps + 1, vocab)."""
+    """Prefill and the decode steps of ``feed``; → ((batch, steps + 1,
+    vocab) logits on the CPU, the caches)."""
     import torch
 
-    out, caches = arch.prefill(params, {"tokens": tokens}, capacity=PARITY_CAPACITY)
+    out, cache = arch.prefill(params, {"tokens": tokens}, capacity=PARITY_CAPACITY)
     steps = [out]
     for i in range(feed.shape[0]):
-        out, caches = arch.decode(params, feed[i], caches, tokens.shape[1] + i)
+        out, cache = arch.decode(params, feed[i], cache, tokens.shape[1] + i)
         steps.append(out)
-    return torch.cat([x.float().cpu() for x in steps], dim=1)
+    return torch.cat([x.float().cpu() for x in steps], dim=1), cache
+
+
+def _card_vs_cpu(s: Smoke, cfg, hooks=None):
+    """``cfg`` (float32) from one seed on the card and on the CPU: a prompt
+    of ``PARITY_PROMPT`` tokens and ``PARITY_GEN`` decode steps, each run
+    inside ``hooks(device)`` where given.  Asserts the exact flash
+    launches on the card (the float32 kernel at each attention layer's
+    prefill, the split-KV decode at each step) and none on the CPU, the
+    logits (finite) and every cache within ``PARITY_ATOL``, the KV
+    positions and counts equal.  → dict of the logits, launches, errors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.api import Arch
+
+    counters = _flash_counters()
+    arch = Arch(cfg)
+    cpu = torch.device("cpu")
+    params = {cpu: arch.init(seed=0, device=cpu)}
+    params[s.dev] = tree_map(lambda x: x.to(s.dev), params[cpu])
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, PARITY_PROMPT)))
+    feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1)))
+    logits, caches = {}, {}
+    for dev in (s.dev, cpu):
+        for fn in counters.values():
+            fn.launches = 0
+        with hooks(dev) if hooks else contextlib.nullcontext():
+            logits[dev], caches[dev] = _serve_logits(arch, params[dev], tokens.to(dev),
+                                                     feed.to(dev))
+        if dev == s.dev:
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+    n_attn = _attn_layers(cfg)
+    want = {"all": n_attn * (1 + PARITY_GEN), "prefill": 0,
+            "decode": n_attn * PARITY_GEN, "f32": n_attn}
+    if launches != want or any(fn.launches for fn in counters.values()):
+        raise AssertionError(f"{cfg.name}: flash launches {launches} on the card "
+                             f"(expected {want}), or the CPU run launched a kernel")
+    err = float((logits[s.dev] - logits[cpu]).abs().max())
+    cache_err = {}
+    for st_c, st_p in zip(caches[s.dev].caches, caches[cpu].caches, strict=True):
+        for field, a, b in zip(st_c._fields, st_c, st_p):
+            a = a.cpu()
+            if field in ("pos", "idx"):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{cfg.name}: cache {field} differs")
+                continue
+            d = float((a.float() - b.float()).abs().max())
+            cache_err[field] = max(cache_err.get(field, 0.0), d)
+    if not (err <= PARITY_ATOL and bool(torch.isfinite(logits[s.dev]).all())
+            and all(d <= PARITY_ATOL for d in cache_err.values())):
+        raise AssertionError(f"{cfg.name}: card vs CPU logits {err}, caches "
+                             f"{cache_err} (tolerance {PARITY_ATOL})")
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(card=logits[s.dev], cpu=logits[cpu], launches=launches,
+                err=err, cache_err=cache_err)
 
 
 def phase_serve_parity(s: Smoke):
@@ -1870,7 +1974,6 @@ def phase_serve_parity(s: Smoke):
 
     import repro_torch.models.attention as attention
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.tree import tree_map
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.models.api import Arch
 
@@ -1878,40 +1981,17 @@ def phase_serve_parity(s: Smoke):
     counters = _flash_counters()
     cfg = dataclasses.replace(get_config(SERVE_ARCH), num_layers=PARITY_LAYERS,
                               dtype="float32")
-    arch = Arch(cfg)
-    cpu = torch.device("cpu")
-    params = {cpu: arch.init(seed=0, device=cpu)}
-    params[s.dev] = tree_map(lambda x: x.to(s.dev), params[cpu])
-    rng = np.random.RandomState(0)
-    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, PARITY_PROMPT)))
-    feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1)))
-    logits = {}
-    for dev in (s.dev, cpu):
-        for fn in counters.values():
-            fn.launches = 0
-        logits[dev] = _serve_logits(arch, params[dev], tokens.to(dev), feed.to(dev))
-        if dev == s.dev:
-            torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters.items()}
-    want = {"all": PARITY_LAYERS * (1 + PARITY_GEN), "prefill": 0,
-            "decode": PARITY_LAYERS * PARITY_GEN, "f32": PARITY_LAYERS}
-    if launches != want:
-        raise AssertionError(f"serve parity: flash launches {launches} on the "
-                             f"card, expected {want}")
-    if any(fn.launches for fn in counters.values()):
-        raise AssertionError("serve parity: the CPU run launched a kernel")
-    err = float((logits[s.dev] - logits[cpu]).abs().max())
-    scale = float(logits[cpu].abs().max())
-    if not (err <= PARITY_ATOL and bool(torch.isfinite(logits[s.dev]).all())):
-        raise AssertionError(f"serve parity: card logits differ from the CPU "
-                             f"by {err} (tolerance {PARITY_ATOL})")
-    top = logits[s.dev].argmax(-1).eq(logits[cpu].argmax(-1)).all().item()
+    par = _card_vs_cpu(s, cfg)
+    launches, err = par["launches"], par["err"]
+    scale = float(par["cpu"].abs().max())
+    top = par["card"].argmax(-1).eq(par["cpu"].argmax(-1)).all().item()
     print(f"serve parity: {cfg.name} at full width, {PARITY_LAYERS} layers, "
           f"float32, prompt {PARITY_PROMPT} + {PARITY_GEN} decode steps "
           f"(cache {PARITY_CAPACITY}): card vs CPU max |dlogits| {err!r} "
-          f"(tolerance {PARITY_ATOL}; logits up to {scale!r}), same argmax "
-          f"{bool(top)}, flash launches {json.dumps(launches)}, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"(tolerance {PARITY_ATOL}; logits up to {scale!r}), caches "
+          f"{json.dumps(par['cache_err'])}, same argmax {bool(top)}, flash "
+          f"launches {json.dumps(launches)}, {time.perf_counter() - t0:.1f} s",
+          flush=True)
     f32_launches = launches["f32"]
 
     # bf16: the kernels against the plain version, both on the card.
@@ -1919,10 +1999,12 @@ def phase_serve_parity(s: Smoke):
     cfg = dataclasses.replace(cfg, dtype="bfloat16")
     arch = Arch(cfg)
     params = arch.init(seed=0, device=s.dev)
-    tokens, feed = tokens.to(s.dev), feed.to(s.dev)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, PARITY_PROMPT))).to(s.dev)
+    feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1))).to(s.dev)
     for fn in counters.values():
         fn.launches = 0
-    kern = _serve_logits(arch, params, tokens, feed)
+    kern, _ = _serve_logits(arch, params, tokens, feed)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     blocked = attention._sdpa_blocked
@@ -1932,7 +2014,7 @@ def phase_serve_parity(s: Smoke):
                                      causal=causal, window=window)
     attention._sdpa_blocked = plain_blocked
     try:
-        plain = _serve_logits(arch, params, tokens, feed)
+        plain, _ = _serve_logits(arch, params, tokens, feed)
     finally:
         attention._sdpa_blocked = blocked
     want = {"all": PARITY_LAYERS * (1 + PARITY_GEN), "prefill": PARITY_LAYERS,
@@ -1958,89 +2040,317 @@ def phase_serve_parity(s: Smoke):
     return f32_launches
 
 
-def phase_serve(s: Smoke, flash_rows):
-    """SmolLM-360M at full width and depth through the serve steps, timed."""
+def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext):
+    """``cfg`` built on the card from a seed, warmed up on a short prompt,
+    then one prefill of ``SERVE_PROMPT`` tokens and ``SERVE_GEN`` greedy
+    decode steps through ``launch/serve.py``'s steps, timed (the host's
+    enqueue time beside each: equal, the step is host-bound), inside
+    ``hooks()``.  Asserts the exact flash launches (one prefill and
+    ``SERVE_GEN`` decode launches per attention layer) and no other
+    kernel, the KV positions and counts, finite caches (KV, Mamba h and
+    conv) and tokens inside the vocabulary.  → (the row, the launches,
+    the params)."""
     import torch
 
-    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves
     from repro_torch.launch.serve import make_decode_step, make_prefill_step
     from repro_torch.models.api import Arch
 
-    cfg = get_config(SERVE_ARCH)
     arch = Arch(cfg)
     t0 = time.perf_counter()
     params = arch.init(seed=0, device=s.dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    b = SERVE_BATCH
-    tokens = torch.randint(0, cfg.vocab_size, (b, SERVE_PROMPT), generator=s.gen,
+    leaves = tree_leaves(params)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, SERVE_PROMPT), generator=s.gen,
                            device=s.dev)
     prefill = make_prefill_step(arch, capacity=SERVE_CAPACITY)
     decode = make_decode_step(arch)
     # Warm-up on a short prompt (cuBLAS handles, the allocator): no flash.
     tok, caches = make_prefill_step(arch, capacity=80)(params, {"tokens": tokens[:, :64]})
-    decode(params, tok.reshape(b, 1), caches, 64)
+    decode(params, tok.reshape(batch, 1), caches, 64)
     del caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     fns = _kernel_fns()
     counters = _flash_counters()
-    for fn in (*fns.values(), *counters.values()):
-        fn.launches = 0
-    # The host's enqueue time (until a step returns, before the device is
-    # waited for) beside the step's time: equal, the step is host-bound.
-    t0 = time.perf_counter()
-    tok, caches = prefill(params, {"tokens": tokens})
-    prefill_enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    generated = [tok]
-    decode_enqueue_s = 0.0
-    t0 = time.perf_counter()
-    for i in range(SERVE_GEN):
-        t1 = time.perf_counter()
-        tok, caches = decode(params, tok.reshape(b, 1), caches, SERVE_PROMPT + i)
-        decode_enqueue_s += time.perf_counter() - t1
-        generated.append(tok.reshape(b))
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    stray = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    with hooks():
+        for fn in (*fns.values(), *counters.values()):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tok, caches = prefill(params, {"tokens": tokens})
+        prefill_enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        generated = [tok]
+        decode_enqueue_s = 0.0
+        t0 = time.perf_counter()
+        for i in range(SERVE_GEN):
+            t1 = time.perf_counter()
+            tok, caches = decode(params, tok.reshape(batch, 1), caches, SERVE_PROMPT + i)
+            decode_enqueue_s += time.perf_counter() - t1
+            generated.append(tok.reshape(batch))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        stray = {k: fn.launches for k, fn in fns.items() if fn.launches}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    want = {"all": cfg.num_layers * (1 + SERVE_GEN), "prefill": cfg.num_layers,
-            "decode": cfg.num_layers * SERVE_GEN, "f32": 0}
+    n_attn = _attn_layers(cfg)
+    want = {"all": n_attn * (1 + SERVE_GEN), "prefill": n_attn,
+            "decode": n_attn * SERVE_GEN, "f32": 0}
     if launches != want or stray:
-        raise AssertionError(f"serve: flash launches {launches} (expected "
-                             f"{want}), other kernels {stray}")
+        raise AssertionError(f"serve {cfg.name}: flash launches {launches} "
+                             f"(expected {want}), other kernels {stray}")
     gen = torch.stack(generated, dim=1)
-    (st,) = caches.caches
     n = SERVE_PROMPT + SERVE_GEN
-    pos_ok = bool((st.pos[:, :n] == torch.arange(n, device=s.dev)).all()
-                  and (st.pos[:, n:] == -1).all() and (st.idx == n).all())
-    finite = bool(torch.isfinite(st.k).all() and torch.isfinite(st.v).all())
-    if not (pos_ok and finite and bool(((gen >= 0) & (gen < cfg.vocab_size)).all())):
-        raise AssertionError(f"serve: caches or tokens wrong (positions {pos_ok}, "
-                             f"finite {finite})")
-    pre, dec = flash_rows["prefill"]["ms"], flash_rows["decode"]["ms"]
-    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, batch=b,
-               prompt=SERVE_PROMPT, decode_steps=SERVE_GEN,
-               capacity=SERVE_CAPACITY, init_s=init_s, prefill_s=prefill_s,
-               prompt_tokens_per_s=b * SERVE_PROMPT / prefill_s,
-               decode_ms_per_token=decode_s / SERVE_GEN * 1e3,
+    checks = {"tokens": bool(((gen >= 0) & (gen < cfg.vocab_size)).all())}
+    for st in caches.caches:
+        if hasattr(st, "idx"):
+            checks["kv_positions"] = checks.get("kv_positions", True) and bool(
+                (st.pos[:, :n] == torch.arange(n, device=s.dev)).all()
+                and (st.pos[:, n:] == -1).all() and (st.idx == n).all())
+            checks["kv_finite"] = checks.get("kv_finite", True) and bool(
+                torch.isfinite(st.k).all() and torch.isfinite(st.v).all())
+        else:
+            checks["mamba_finite"] = checks.get("mamba_finite", True) and bool(
+                torch.isfinite(st.h).all() and torch.isfinite(st.conv.float()).all())
+    if not all(checks.values()):
+        raise AssertionError(f"serve {cfg.name}: checks {checks}")
+    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, batch=batch,
+               prompt=SERVE_PROMPT, decode_steps=SERVE_GEN, capacity=SERVE_CAPACITY,
+               params=sum(w.numel() for w in leaves),
+               param_gib=sum(w.numel() * w.element_size() for w in leaves) / 2**30,
+               init_s=init_s, prefill_s=prefill_s,
+               prompt_tokens_per_s=batch * SERVE_PROMPT / prefill_s,
                prefill_enqueue_s=prefill_enqueue_s,
+               decode_ms_per_token=decode_s / SERVE_GEN * 1e3,
                decode_enqueue_ms_per_step=decode_enqueue_s / SERVE_GEN * 1e3,
-               decode_tokens_per_s=b * SERVE_GEN / decode_s,
-               flash_launches=launches,
-               flash_ms_per_prefill_layer=pre, flash_ms_per_decode_layer=dec,
-               flash_share_of_prefill=cfg.num_layers * pre / (prefill_s * 1e3),
-               flash_share_of_decode=cfg.num_layers * dec * SERVE_GEN / (decode_s * 1e3),
-               peak_gib=peak_gib, first_tokens=gen[:, :6].tolist())
+               decode_tokens_per_s=batch * SERVE_GEN / decode_s,
+               peak_gib=peak_gib, flash_launches=launches, checks=checks,
+               first_tokens=gen[:, :6].tolist())
+    del caches, leaves
+    return row, launches, params
+
+
+def phase_serve(s: Smoke, flash_rows):
+    """SmolLM-360M at full width and depth through the serve steps, timed."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(SERVE_ARCH)
+    row, launches, params = _serve_run(s, cfg, SERVE_BATCH)
+    pre, dec = flash_rows["prefill"]["ms"], flash_rows["decode"]["ms"]
+    row.update(flash_ms_per_prefill_layer=pre, flash_ms_per_decode_layer=dec,
+               flash_share_of_prefill=cfg.num_layers * pre / (row["prefill_s"] * 1e3),
+               flash_share_of_decode=cfg.num_layers * dec / row["decode_ms_per_token"])
     print("serve: " + json.dumps(row), flush=True)
-    del params, caches
+    del params
     torch.cuda.empty_cache()
     return launches
+
+
+def _attn_layers(cfg):
+    """Attention layers in the stack (each launches flash once a step)."""
+    from repro_torch.models.lm import period_structure
+
+    _, nper, kinds = period_structure(cfg)
+    return nper * sum(kind == "attn" for kind, _ in kinds)
+
+
+def phase_families_parity(s: Smoke):
+    """Reduced Qwen3-MoE (k = 4 of 4, and k = 2), Falcon-Mamba and Jamba,
+    float32: the prompt and decode steps of phase 9 on the card against
+    the CPU, the card's MoE routes replayed on the CPU; a route that
+    differs must differ at a near tie.  → flash launches."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_parity import MoERoutes
+
+    total = dict.fromkeys(_flash_counters(), 0)
+    for name, over in FAMILY_PARITY:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(name).reduced(), **over)
+        routes, dropped = MoERoutes(), {"card": [], "cpu": []}
+
+        @contextlib.contextmanager
+        def hooks(dev):
+            side = "card" if dev.type == "cuda" else "cpu"
+            with routes.use("record" if side == "card" else "replay"), \
+                    _moe_spy(dropped[side]):
+                yield
+
+        par = _card_vs_cpu(s, cfg, hooks)
+        routes.check(f"family parity {cfg.name} {over}")
+        drops = [float(d) for d in dropped["card"]]
+        if not (len(drops) == len(dropped["cpu"])
+                and all(abs(a - float(b)) <= 1e-6 for a, b in zip(drops, dropped["cpu"]))
+                and ("experts_per_token" not in over or max(drops) > 0)):
+            raise AssertionError(f"family parity {cfg.name} {over}: dropped "
+                                 f"fractions {drops} on the card (the CPU's, on the "
+                                 "same routes, must match; k = 2 must drop)")
+        row = dict(arch=cfg.name, over=over, layers=cfg.num_layers,
+                   experts=cfg.num_experts, k=cfg.experts_per_token,
+                   prompt=PARITY_PROMPT, decode_steps=PARITY_GEN,
+                   max_abs_dlogits=par["err"], logits_scale=float(par["cpu"].abs().max()),
+                   max_abs_dcache=par["cache_err"], tolerance=PARITY_ATOL,
+                   moe_calls=len(routes.recorded), route_tokens=routes.tokens,
+                   moe_dropped_frac_prefill=drops,
+                   routes_differ=routes.differ,
+                   max_logit_margin_at_difference=routes.margin,
+                   near_tie=routes.NEAR_TIE,
+                   flash_launches=par["launches"], s=time.perf_counter() - t0)
+        print("family parity: " + json.dumps(row), flush=True)
+        for k in total:
+            total[k] += par["launches"][k]
+    return total
+
+
+@contextlib.contextmanager
+def _moe_spy(dropped, layer_in=None):
+    """Inside the block, ``lm.moe_ffn`` (the LM calls it through its module
+    global) appends each capacity-limited call's dropped fraction to
+    ``dropped`` and keeps the first such call's params and input in
+    ``layer_in["moe"]``."""
+    import repro_torch.models.lm as lm
+
+    moe_ffn = lm.moe_ffn
+
+    def spy(params, x, cfg, dropless=False):
+        y, aux = moe_ffn(params, x, cfg, dropless=dropless)
+        if not dropless:
+            dropped.append(aux["moe_dropped_frac"])
+            if layer_in is not None:
+                layer_in.setdefault("moe", (params, x))
+        return y, aux
+
+    lm.moe_ffn = spy
+    try:
+        yield
+    finally:
+        lm.moe_ffn = moe_ffn
+
+
+def _time_layers(s: Smoke, cfg, moe_in, mamba_in, moe_ffn, mamba_block):
+    """One layer alone (CUDA events), on the params and input it had in the
+    serve run: the MoE FFN at prefill (capacity dispatch) and at a decode
+    step (dropless: every expert's weights read, beside that read's bytes
+    bound), and the Mamba block at prefill."""
+    layer = {}
+    if moe_in is not None:
+        p, x = moe_in
+        layer["moe_prefill_layer_ms"] = s.time_ms(lambda: moe_ffn(p, x, cfg),
+                                                  reps=3, warmup=1)
+        layer["moe_decode_layer_ms"] = s.time_ms(
+            lambda: moe_ffn(p, x[:, -1:], cfg, dropless=True), reps=20)
+        layer["moe_decode_layer_bound_ms"] = sum(
+            p[key].numel() * p[key].element_size()
+            for key in ("w_gate", "w_up", "w_down")) / HBM_BYTES_PER_S * 1e3
+    if mamba_in is not None:
+        p, x = mamba_in
+        layer["mamba_prefill_layer_ms"] = s.time_ms(lambda: mamba_block(p, x, cfg),
+                                                    reps=2, warmup=1)
+    return layer
+
+
+def phase_families_serve(s: Smoke):
+    """Qwen3-MoE-30B-A3B (48 layers) and Falcon-Mamba-7B (64 layers) at full
+    width and depth, Jamba-v0.1-52B at full width over 2 of its 4 periods,
+    bf16, through the serve steps; then flash on the first attention
+    layer's own q, k, v of each prefill and of each first decode step.
+    → flash launches."""
+    import torch
+
+    import repro_torch.models.attention as attention
+    import repro_torch.models.lm as lm
+    from repro_torch.configs.registry import get_config
+
+    t_all = time.perf_counter()
+    total = dict.fromkeys(_flash_counters(), 0)
+    captured = []
+    for name, layers in FAMILY_SERVE:
+        t_phase = time.perf_counter()
+        full = get_config(name)
+        cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+        # The first attention layer's inputs at prefill and at the first
+        # decode step (copied: the decode reads the cache, which later
+        # steps write), for the flash check; each MoE layer's dropped
+        # fraction at prefill (moe_ffn's aux); the first MoE and Mamba
+        # layers' prefill params and inputs, timed alone after the run.
+        blocked, mamba_block = attention._sdpa_blocked, lm.mamba_block
+        dropped, layer_in = [], {}
+
+        def capture(q, k, v, qpos, kpos, *, causal, window, prefix_len):
+            step = "prefill" if q.shape[1] > 1 else "decode"
+            if (name, step) not in [c[:2] for c in captured]:
+                captured.append((name, step, *(t.clone() for t in (q, k, v, qpos, kpos)),
+                                 window))
+            return blocked(q, k, v, qpos, kpos, causal=causal, window=window,
+                           prefix_len=prefix_len)
+
+        def mamba_in(params_, x, cfg_, **kw):
+            layer_in.setdefault("mamba", (params_, x))
+            return mamba_block(params_, x, cfg_, **kw)
+
+        @contextlib.contextmanager
+        def hooks():
+            attention._sdpa_blocked, lm.mamba_block = capture, mamba_in
+            try:
+                with _moe_spy(dropped, layer_in):
+                    yield
+            finally:
+                attention._sdpa_blocked, lm.mamba_block = blocked, mamba_block
+
+        row, launches, params = _serve_run(s, cfg, FAMILY_BATCH, hooks)
+        layer = _time_layers(s, cfg, layer_in.pop("moe", None),
+                             layer_in.pop("mamba", None), lm.moe_ffn, mamba_block)
+        # Dropless decode runs every expert on each step: it reads all
+        # expert weights (bound below) where the routed k need k/E of them.
+        moe_bytes = sum(w.numel() * w.element_size() for sub in params["period"]
+                        for key, w in sub.get("ffn", {}).items()
+                        if key in ("w_gate", "w_up", "w_down") and torch.is_tensor(w))
+        plen = lm.period_structure(full)[0]
+        row.update(full_layers=full.num_layers,
+                   cut=(None if layers is None else
+                        f"depth {full.num_layers} -> {layers} layers "
+                        f"({layers // plen} of {full.num_layers // plen} periods)"),
+                   expert_gib=moe_bytes / 2**30,
+                   decode_expert_bound_ms=moe_bytes / HBM_BYTES_PER_S * 1e3,
+                   decode_routed_bound_ms=(moe_bytes / HBM_BYTES_PER_S * 1e3
+                                           * cfg.experts_per_token / cfg.num_experts
+                                           if cfg.num_experts else 0.0),
+                   moe_dropped_frac_prefill=(float(torch.stack(dropped).mean())
+                                             if dropped else None),
+                   moe_dropped_frac_max=(float(torch.stack(dropped).max())
+                                         if dropped else None),
+                   **layer, s=time.perf_counter() - t_phase)
+        print("family serve: " + json.dumps(row), flush=True)
+        for k in total:
+            total[k] += launches[k]
+        del params, layer_in, dropped
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    s.group = ("flash attention at phase 17's shapes: the first attention "
+               "layer's q, k, v of each full-width prefill and first decode step")
+    for name, step, q, k, v, qpos, kpos, window in captured:
+        s.check_flash_on(q, k, v, qpos.to(torch.int32), kpos.to(torch.int32), window)
+    want = [(n, step) for n, _ in FAMILY_SERVE if n != "falcon-mamba-7b"
+            for step in ("prefill", "decode")]
+    if [c[:2] for c in captured] != want:
+        raise AssertionError(f"family serve: captured {[c[:2] for c in captured]}, "
+                             f"expected {want}")
+    s.report()
+    del captured
+    torch.cuda.empty_cache()
+    print(f"family flash check: {time.perf_counter() - t0:.1f} s; family serve "
+          f"in all {time.perf_counter() - t_all:.1f} s", flush=True)
+    return total
 
 
 def _train_counters():
@@ -2985,12 +3295,16 @@ def main() -> int:
     flash_rows = phase_flash_times(s)
     f32_launches = phase_serve_parity(s)
     serve_launches = phase_serve(s, flash_rows)
+    fam_launches = phase_families_parity(s)
+    fam_serve = phase_families_serve(s)
     phase_train_kernels(s)
     phase_train_parity(s)
     phase_train_long(s)
     train_launches = phase_train(s)
     flash_launches = {"prefill": serve_launches["prefill"],
                       "decode": serve_launches["decode"], "f32": f32_launches}
+    for k in flash_launches:
+        flash_launches[k] += fam_launches[k] + fam_serve[k]
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",
@@ -3016,9 +3330,9 @@ def main() -> int:
              max_abs_err=s.errs["qsgd"],
              library_ms=None, **times["qsgd"]),
     ]
-    # The flash kernels: prefill and decode carry the serve path (launches
-    # from phase 10); the float32 kernel carries the parity path's
-    # prefill (launches from phase 9).
+    # The flash kernels: prefill and decode carry the serve paths (launches
+    # from phases 10 and 17); the float32 kernel carries the parity paths'
+    # prefill (launches from phases 9 and 17).
     for route, kernel in FLASH_KERNELS.items():
         fr = flash_rows[route]
         kernels.append(dict(

@@ -1,12 +1,16 @@
-"""Batched serving of a dense LLM on the PyTorch port: prefill + greedy decode.
+"""Batched serving of an LLM on the PyTorch port: prefill + greedy decode.
 
-The port's counterpart of ``examples/serve_llm.py``: ring KV caches,
-greedy sampling, random weights from a seed.  It runs on the card at
-full width unless asked otherwise; prompts or caches longer than 8192
-tokens take the hand-written flash-attention kernel::
+The port's counterpart of ``examples/serve_llm.py``: ring KV caches (and
+Mamba states for the SSM and hybrid archs), greedy sampling, random
+weights from a seed.  ``--arch`` takes any registered config (dense,
+MoE, SSM, hybrid).  It runs on the card at full width unless asked
+otherwise; prompts or caches longer than 8192 tokens take the
+hand-written flash-attention kernel::
 
     python examples/serve_llm_torch.py --prompt-len 16384 --gen 32 --batch 4
+    python examples/serve_llm_torch.py --arch qwen3-moe-30b-a3b --batch 1 --prompt-len 16384
     python examples/serve_llm_torch.py --device cpu --reduced --prompt-len 48 --gen 16
+    python examples/serve_llm_torch.py --device cpu --reduced --arch jamba-v0.1-52b
 """
 import argparse
 import sys

@@ -1,1 +1,1 @@
-"""Per-architecture configs of the port (the dense family) + registry."""
+"""Per-architecture configs of the port (dense, MoE, SSM, hybrid) + registry."""

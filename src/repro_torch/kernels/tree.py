@@ -330,6 +330,12 @@ def _build_plan(kind, shapes, dtypes, k, mode, device, shard=None) -> TreePlan:
                 parts += qsgd_norm_units(ll.size)[0]
             else:
                 row_offset, col_offset, orig_cols = coords[start + i]
+                # the table's rows, cols and offsets are 32-bit: refuse a
+                # (global) leaf whose flat index would pass them
+                if (row_offset + ll.rows) * orig_cols >= 1 << 31:
+                    raise ValueError(f"leaf {ll.shape} at ({row_offset}, "
+                                     f"{col_offset}) of {orig_cols} columns: "
+                                     "past the table's int range")
                 tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols,
                                       orig_cols, dtypes[start + i], ll.tag,
                                       row_offset, col_offset, tiles, vector)

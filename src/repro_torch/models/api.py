@@ -1,7 +1,8 @@
-"""Unified architecture API for the port's dense decoder-only family.
+"""Unified architecture API for the port's decoder-only families.
 
 Counterpart of ``repro/models/api.py``.  ``Arch`` wraps a ModelConfig
-with the serving entry points:
+of the dense, MoE, SSM or hybrid family (``models/lm.py`` takes each
+layer's kind from the config) with the serving entry points:
 
 * ``init(seed, device)``                  → params
 * ``loss(params, batch)``                 → scalar CE  (train shapes)
@@ -11,8 +12,9 @@ with the serving entry points:
 * ``init_caches(batch, capacity, device)``
 
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  ``input_specs``/``param_shapes`` wait for the
-meta-device dry run (ROADMAP A11).
+``device="cpu"``.  The enc-dec family raises (ROADMAP A10);
+``input_specs``/``param_shapes`` wait for the meta-device dry run
+(ROADMAP A11).
 """
 from __future__ import annotations
 

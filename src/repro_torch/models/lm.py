@@ -1,27 +1,32 @@
-"""Decoder-only LM stack, dense family: training loss, prefill and decode.
+"""Decoder-only LM stack: dense / GQA / MoE / Mamba / hybrid.
 
-Counterpart of the dense path of ``repro/models/lm.py``.  Layers are
-grouped into **periods** as in the reference (period = 1 for the dense
-family); params for each position-in-period are stacked across periods
-with a leading ``(num_periods, …)`` axis, and a Python loop over periods
-takes the place of ``lax.scan``.
+Counterpart of ``repro/models/lm.py``.  Layers are grouped into
+**periods** as in the reference (Jamba: 8 layers = 1 attention + 7
+mamba, MoE every 2nd layer; dense/MoE/SSM archs: period = 1); params for
+each position-in-period are stacked across periods with a leading
+``(num_periods, …)`` axis, and a Python loop over periods takes the
+place of ``lax.scan``.
 
 The parameter tree keeps the reference's layout — plain nested dicts,
 the ``period`` list and the stacked leading axis — because the
-federated-LLM training slice will project over these leaves and the leaf
+federated-LLM training slice projects over these leaves and the leaf
 ordinal seeds every direction (``core/tree.py``): leaf order and shapes
 must stay those of ``jax.tree_util.tree_leaves`` on the reference's tree.
+``init_lm`` allocates each stacked leaf once and fills it period by
+period, so building a model takes its parameters plus one sublayer's
+draw.
 
 Entry points: ``lm_loss`` (next-token cross-entropy over ``lm_forward``,
-the training shapes), ``lm_prefill`` (forward + fill the KV caches) and
-``lm_decode`` (one token against the caches, which it updates in place).
-``lm_forward`` runs each period under ``torch.utils.checkpoint`` by
-default, as the reference runs its scan body under ``jax.checkpoint``:
-only period-boundary activations are kept for the backward pass.  The
-Mamba and MoE branches come with their slices and raise
-``NotImplementedError`` here.  The reference's ``constrain(...)`` calls
-are sharding hints that are no-ops off a mesh; one card has none, so
-they are dropped.
+the training shapes), ``lm_prefill`` (forward + fill the KV and SSM
+caches) and ``lm_decode`` (one token against the caches, which it
+updates in place).  ``lm_forward`` runs each period under
+``torch.utils.checkpoint`` by default, as the reference runs its scan
+body under ``jax.checkpoint``: only period-boundary activations are kept
+for the backward pass.  As in the reference, the MoE FFN runs with its
+capacity limit in training and prefill and dropless at decode, and its
+aux dict is discarded.  The reference's ``constrain(...)`` calls are
+sharding hints that are no-ops off a mesh; one card has none, so they
+are dropped.
 """
 from __future__ import annotations
 
@@ -32,9 +37,9 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.tree import tree_leaves, tree_unflatten
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import KVCache, attention, init_attention, init_cache
+from repro_torch.models.attention import attention, init_attention, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_norm,
@@ -43,7 +48,14 @@ from repro_torch.models.layers import (
     init_norm,
     linear,
 )
+from repro_torch.models.mamba import (
+    init_mamba,
+    init_mamba_cache,
+    mamba_block,
+    mamba_decode_step,
+)
 from repro_torch.models.mlp import ffn, init_ffn
+from repro_torch.models.moe import init_moe, moe_ffn
 
 __all__ = [
     "period_structure",
@@ -55,10 +67,6 @@ __all__ = [
     "LayerCaches",
     "init_lm_caches",
 ]
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A10)")
 
 
 # ---------------------------------------------------------------------------
@@ -80,42 +88,46 @@ def period_structure(cfg: ModelConfig):
     return p, cfg.num_layers // p, kinds
 
 
-def _check_dense(kinds):
-    for kind, ffn_kind in kinds:
-        if kind != "attn":
-            raise _not_ported("the Mamba layer")
-        if ffn_kind == "moe":
-            raise _not_ported("the MoE FFN")
-
-
 def _init_sublayer(gen, cfg, kind: str, ffn_kind: str):
     dt = cfg.torch_dtype
     dev = gen.device
-    p: dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, dev),
-                         "attn": init_attention(gen, cfg)}
+    p: dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, dev)}
+    if kind == "attn":
+        p["attn"] = init_attention(gen, cfg)
+    else:
+        p["mamba"] = init_mamba(gen, cfg)
     if ffn_kind != "none":
         p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, dev)
-        p["ffn"] = init_ffn(gen, cfg)
+        p["ffn"] = init_moe(gen, cfg) if ffn_kind == "moe" else init_ffn(gen, cfg)
     return p
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _init_stacked(gen, cfg, kind: str, ffn_kind: str, nper: int):
+    """``nper`` sublayers drawn in turn, each written into its slice of
+    stacks allocated once; each sublayer's tree is dropped once copied."""
+    stacked = None
+    for i in range(nper):
+        sub = _init_sublayer(gen, cfg, kind, ffn_kind)
+        if stacked is None:
+            stacked = tree_map(lambda w: torch.empty((nper,) + tuple(w.shape),
+                                                     dtype=w.dtype, device=w.device),
+                               sub)
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(sub)):
+            dst[i].copy_(src)
+        del sub
+    return stacked
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Full parameter tree on ``gen``'s device; per-period-position stacks.
 
     Draws from ``gen`` (not ``jax.random``): the numbers differ from the
-    reference's, the layout does not.
+    reference's, the layout does not.  Position by position, period by
+    period, each sublayer in ``_init_sublayer``'s order.
     """
     plen, nper, kinds = period_structure(cfg)
-    _check_dense(kinds)
     dt, dev = cfg.torch_dtype, gen.device
-    period = [_stack([_init_sublayer(gen, cfg, kind, ffn_kind) for _ in range(nper)])
-              for kind, ffn_kind in kinds]
+    period = [_init_stacked(gen, cfg, kind, ffn_kind, nper) for kind, ffn_kind in kinds]
     params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
         "period": period,
@@ -133,20 +145,29 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 def _sublayer_fwd(sub, x, cfg, kind, ffn_kind, positions, window, prefix_len,
-                  cache=None, update_cache=False):
-    """One attention + optional FFN sublayer with pre-norms + residuals."""
-    if kind != "attn":
-        raise _not_ported("the Mamba layer")
+                  cache=None, update_cache=False, decode=False):
+    """One (attn|mamba) + optional FFN sublayer with pre-norms + residuals."""
+    new_cache = cache
     h = apply_norm(sub["norm1"], x, cfg.norm)
-    y, new_cache = attention(
-        sub["attn"], h, cfg, positions=positions, causal=True, window=window,
-        prefix_len=prefix_len, cache=cache, update_cache=update_cache)
+    if kind == "attn":
+        y, new_cache = attention(
+            sub["attn"], h, cfg, positions=positions, causal=True, window=window,
+            prefix_len=prefix_len, cache=cache, update_cache=update_cache)
+    elif decode:
+        y, new_cache = mamba_decode_step(sub["mamba"], h, cfg, cache)
+    elif cache is not None:
+        y, new_cache = mamba_block(sub["mamba"], h, cfg, h0=cache.h,
+                                   conv_hist=cache.conv)
+    else:
+        y, _ = mamba_block(sub["mamba"], h, cfg)
     x = x + y
-    if ffn_kind == "moe":
-        raise _not_ported("the MoE FFN")
     if ffn_kind != "none":
         h = apply_norm(sub["norm2"], x, cfg.norm)
-        x = x + ffn(sub["ffn"], h, cfg)
+        if ffn_kind == "moe":
+            y, _aux = moe_ffn(sub["ffn"], h, cfg, dropless=decode)
+        else:
+            y = ffn(sub["ffn"], h, cfg)
+        x = x + y
     return x, new_cache
 
 
@@ -234,34 +255,43 @@ def lm_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None) -> to
 
 class LayerCaches(NamedTuple):
     """Per period-position cache stacks (leading axis = periods)."""
-    caches: tuple  # tuple over period positions; each a KVCache stacked
+    caches: tuple  # tuple over period positions; each KVCache or MambaCache stacked
 
 
 def init_lm_caches(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):
     """Empty caches on ``device``, stacked over periods per period-position."""
     device = resolve_device(device)
     plen, nper, kinds = period_structure(cfg)
-    _check_dense(kinds)
     out = []
-    for _ in kinds:
-        single = init_cache(cfg, batch, capacity, device=device)
-        out.append(KVCache(*(t[None].repeat((nper,) + (1,) * t.dim())
-                             for t in single)))
+    for kind, _ in kinds:
+        if kind == "attn":
+            single = init_cache(cfg, batch, capacity, device=device)
+        else:
+            single = init_mamba_cache(cfg, batch, device=device)
+        out.append(type(single)(*(t[None].repeat((nper,) + (1,) * t.dim())
+                                  for t in single)))
     return LayerCaches(caches=tuple(out))
 
 
-def _scan_with_caches(params, cfg, x, caches, positions, window, prefix_len):
-    """Run every period, writing each layer's cache slice in place."""
+def _scan_with_caches(params, cfg, x, caches, positions, window, prefix_len,
+                      decode):
+    """Run every period, writing each layer's cache slice in place (the KV
+    ring's k, v and pos by the attention itself, its idx and the Mamba
+    state here)."""
     plen, nper, kinds = period_structure(cfg)
     for i in range(nper):
         period_slice = _period_slice(params["period"], i)
         for pos, (kind, ffn_kind) in enumerate(kinds):
             st = caches.caches[pos]
+            cache = type(st)(*(t[i] for t in st))
             x, nc = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
-                                  positions, window, prefix_len,
-                                  cache=KVCache(st.k[i], st.v[i], st.pos[i], st.idx[i]),
-                                  update_cache=True)
-            st.idx[i] = nc.idx
+                                  positions, window, prefix_len, cache=cache,
+                                  update_cache=True, decode=decode)
+            if kind == "attn":
+                st.idx[i] = nc.idx
+            else:
+                st.h[i].copy_(nc.h)
+                st.conv[i].copy_(nc.conv)
     return x, caches
 
 
@@ -275,7 +305,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None,
     caches = init_lm_caches(cfg, b, cap, device=x.device)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     x, caches = _scan_with_caches(params, cfg, x, caches, positions, win,
-                                  cfg.prefix_bidirectional)
+                                  cfg.prefix_bidirectional, decode=False)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
     return _logits(params, cfg, x), caches
 
@@ -295,6 +325,6 @@ def lm_decode(params, cfg: ModelConfig, token, caches, position,
         x = x + params["pos_embed"]["embedding"][positions.long()][None]
     win = cfg.window if window is None else window
     x, caches = _scan_with_caches(params, cfg, x, caches, positions, win,
-                                  cfg.prefix_bidirectional)
+                                  cfg.prefix_bidirectional, decode=True)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x), caches

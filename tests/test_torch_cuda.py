@@ -72,7 +72,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_route,
 )
 from repro_torch.models.mlp_classifier import init_mlp  # noqa: E402
-from torch_parity import cuda_device, seeds_np  # noqa: E402,F401
+from torch_parity import MoERoutes, cuda_device, seeds_np  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 
@@ -297,9 +297,14 @@ def _check_flash(dev, b, s, t, h, kh, hd, dtype, window=0, qpos=None, kpos=None,
     assert bool((got[:, ~rows] == 0).all())
 
 
+# (query heads, kv heads): G = 1, 3, 4 and 8 (Qwen3-MoE's 32 over 4)
+FLASH_HEADS = [(4, 4), (6, 2), (4, 1), (32, 4)]
+FLASH_HEAD_IDS = ["mha", "gqa3", "mqa", "gqa8"]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (4, 1)], ids=["mha", "gqa3", "mqa"])
+@pytest.mark.parametrize("heads", FLASH_HEADS, ids=FLASH_HEAD_IDS)
 @pytest.mark.parametrize("window", [0, 64])
 def test_cuda_flash_matches_plain(cuda_device, dtype, hd, heads, window):
     h, kh = heads
@@ -346,7 +351,7 @@ def _check_route(dev, route, b, s, t, h, kh, hd, dtype, *args, **kw):
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128])
-@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (4, 1)], ids=["mha", "gqa3", "mqa"])
+@pytest.mark.parametrize("heads", FLASH_HEADS, ids=FLASH_HEAD_IDS)
 @pytest.mark.parametrize("window", [0, 64])
 def test_cuda_flash_prefill_kernel(cuda_device, hd, heads, window):
     """The bf16 tensor-core kernel: S = 200 against T = 333 (neither a
@@ -484,6 +489,44 @@ def test_cuda_serve_matches_cpu(cuda_device, monkeypatch):
         (flash_attention, fa.flash_f32, fa.flash_decode), before)] == [2 + 2 * 4, 2, 8]
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-3)
 
+
+@pytest.mark.parametrize("name,over", [("qwen3-moe-30b-a3b", {"experts_per_token": 2}),
+                                       ("falcon-mamba-7b", {})], ids=["moe-k2", "mamba"])
+def test_cuda_moe_and_mamba_forward_match_cpu(cuda_device, monkeypatch, name, over):
+    """``lm_forward`` of reduced Qwen3-MoE (two experts a token, so the
+    capacity drops) and reduced Falcon-Mamba, float32, 2 × 200 tokens, on
+    the card against the CPU, the blocked threshold at 64 (the MoE model's
+    attention on the float32 kernel).  The card's routes are recorded
+    through ``moe._route`` and replayed on the CPU (a near tie of the
+    router's logits may flip a route between the two sums; any route that
+    differs must differ at a near tie); logits within atol 1e-3 (sum
+    order)."""
+    import dataclasses
+
+    import repro_torch.models.attention as t_attention
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.api import Arch
+    from repro_torch.models.lm import lm_forward
+
+    monkeypatch.setattr(t_attention, "BLOCKED_SDPA_THRESHOLD", 64)
+    cfg = dataclasses.replace(get_config(name).reduced(), **over)
+    params = Arch(cfg).init(seed=0, device="cpu")
+    tok = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 200)))
+    routes = MoERoutes()
+    before = [f.launches for f in (flash_attention, fa.flash_f32)]
+    with routes.use("record"):
+        got = lm_forward(tree_map(lambda t: t.to(cuda_device), params), cfg,
+                         tokens=tok.to(cuda_device))
+    torch.cuda.synchronize()
+    with routes.use("replay"):
+        want = lm_forward(params, cfg, tokens=tok)
+    n_attn = cfg.num_layers if cfg.num_heads else 0
+    assert [f.launches - n for f, n in zip((flash_attention, fa.flash_f32),
+                                           before)] == [n_attn, n_attn]
+    assert len(routes.recorded) == (cfg.num_layers if cfg.num_experts else 0)
+    routes.check(cfg.name)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,12 @@ Same parameters on both sides: the reference initialises with
 tree across (bf16 leaves bit for bit).  Inputs come from numpy with a
 seed.  Configs: the four reduced dense configs (all MHA after
 ``reduced()``) and a GQA variant of reduced SmolLM (d_model 384, 6
-heads, 2 kv heads, head_dim 64), in float32 and bfloat16.
+heads, 2 kv heads, head_dim 64), in float32 and bfloat16; and the
+reduced MoE, SSM and hybrid configs (Qwen3-MoE with k = E = 4, so it
+never drops, and its ``experts_per_token=2`` variant ``-k2``, which
+drops; Falcon-Mamba; Jamba, 8 layers: one attention, seven Mamba, MoE
+every second layer).  The Mamba caches (h, conv) are held to the same
+tolerances as the KV caches.
 
 Tolerances, with their reasons:
 
@@ -18,6 +23,8 @@ Tolerances, with their reasons:
   reference rounds it to bf16.
 * Greedy tokens are compared only where the top-two logit margin is
   above twice the logit tolerance (an argmax can flip on a near tie).
+* Reduced Jamba in bfloat16 is held sublayer by sublayer in
+  ``tests/test_torch_lm_families.py`` (which says why).
 
 The blocked path (``_sdpa_blocked``: the port's flash attention, plain
 on the CPU; the reference's pure-JAX online softmax) is reached by
@@ -53,7 +60,13 @@ from repro_torch.models import mlp as tm  # noqa: E402
 from repro_torch.models.api import Arch as TArch  # noqa: E402
 
 DENSE = ["smollm-360m", "granite-8b", "qwen1.5-4b", "minitron-8b"]
+FAMILIES = ["qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
+            "jamba-v0.1-52b"]
 GQA = dict(d_model=384, num_heads=6, num_kv_heads=2, head_dim=64)
+# A case is (name, dtype, variant): False = the reduced config, True = its
+# GQA variant, "k2" = two experts a token (the MoE configs drop tokens).
+VARIANTS = {False: {}, True: GQA, "k2": dict(experts_per_token=2)}
+SUFFIX = {False: "", True: "-gqa3", "k2": "-k2"}
 LOGIT_TOL = {"float32": dict(rtol=1e-5, atol=5e-5), "bfloat16": dict(rtol=0, atol=8e-2)}
 CACHE_TOL = {"float32": dict(rtol=1e-5, atol=5e-5), "bfloat16": dict(rtol=2e-2, atol=5e-2)}
 T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -61,15 +74,21 @@ J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 CASES = [(name, dt, False) for name in DENSE for dt in ("float32", "bfloat16")]
 CASES += [("smollm-360m", dt, True) for dt in ("float32", "bfloat16")]
+# Jamba in bf16 is held sublayer by sublayer (tests/test_torch_lm_families.py).
+FAMILY_CASES = [(name, dt, variant) for name, variant in
+                (("qwen3-moe-30b-a3b", False), ("qwen3-moe-30b-a3b", "k2"),
+                 ("falcon-mamba-7b", False), ("jamba-v0.1-52b", False))
+                for dt in ("float32", "bfloat16")
+                if (name, dt) != ("jamba-v0.1-52b", "bfloat16")]
 
 
 def _ids(case):
     name, dt, gqa = case
-    return f"{name}-{dt}{'-gqa3' if gqa else ''}"
+    return f"{name}-{dt}{SUFFIX[gqa]}"
 
 
 def _cfgs(name, dtype, gqa=False, **more):
-    over = dict(dtype=dtype, **(GQA if gqa else {}), **more)
+    over = dict(dtype=dtype, **VARIANTS[gqa], **more)
     return (dataclasses.replace(j_registry.get_config(name).reduced(), **over),
             dataclasses.replace(t_registry.get_config(name).reduced(), **over))
 
@@ -89,11 +108,16 @@ def _assert_close(got, want, tol):
 
 
 def _assert_caches(tc, jc, dtype):
+    assert len(tc.caches) == len(jc.caches)
     for t_st, j_st in zip(tc.caches, jc.caches):
-        _assert_close(t_st.k, j_st.k, CACHE_TOL[dtype])
-        _assert_close(t_st.v, j_st.v, CACHE_TOL[dtype])
-        np.testing.assert_array_equal(t_st.pos.numpy(), np.asarray(j_st.pos))
-        np.testing.assert_array_equal(t_st.idx.numpy(), np.asarray(j_st.idx))
+        assert type(t_st).__name__ == type(j_st).__name__
+        assert t_st._fields == j_st._fields
+        for field, t, j in zip(t_st._fields, t_st, j_st):
+            assert tuple(t.shape) == j.shape
+            if field in ("pos", "idx"):      # KV ring positions and count
+                np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+            else:                            # k, v; Mamba h and conv
+                _assert_close(t, j, CACHE_TOL[dtype])
 
 
 @pytest.fixture
@@ -107,7 +131,7 @@ def blocked(monkeypatch):
 # configs, registry, parameter tree
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + FAMILIES)
 def test_config_is_the_references(name):
     j, t = j_registry.get_config(name), t_registry.get_config(name)
     jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
@@ -115,6 +139,10 @@ def test_config_is_the_references(name):
         # the figures are the 360M model's; the reference cites the 135M card
         assert td.pop("source") == "hf:HuggingFaceTB/SmolLM-360M"
         jd.pop("source")
+    if name == "qwen3-moe-235b-a22b":
+        # the figures are the 235B model's; the reference cites the 30B card
+        assert td.pop("source") == "hf:Qwen/Qwen3-235B-A22B"
+        assert jd.pop("source") == "hf:Qwen/Qwen3-30B-A3B"
     assert td == jd
     assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(
         dataclasses.replace(j.reduced(), source=t.source))
@@ -131,7 +159,7 @@ def test_registry_names_the_unported_families():
     assert t_registry.get_arch("granite-8b", reduced=True).cfg.num_layers == 2
 
 
-@pytest.mark.parametrize("case", [(n, "float32", False) for n in DENSE]
+@pytest.mark.parametrize("case", [(n, "float32", False) for n in DENSE + FAMILIES]
                          + [("smollm-360m", "bfloat16", True)], ids=_ids)
 def test_init_keeps_the_reference_tree(case):
     """Same paths, shapes and dtypes, in ``jax.tree_util`` leaf order."""
@@ -278,7 +306,9 @@ def _serve(case, steps=3, b=2, s=12, capacity=20):
 
 @pytest.mark.parametrize("case", [("smollm-360m", "float32", True),
                                   ("qwen1.5-4b", "bfloat16", False),
-                                  ("minitron-8b", "float32", False)], ids=_ids)
+                                  ("minitron-8b", "float32", False)]
+                         + [c for c in FAMILY_CASES if c[1] == "float32"]
+                         + [("falcon-mamba-7b", "bfloat16", False)], ids=_ids)
 def test_forward(case):
     """lm_forward: logits at every position, no caches."""
     from repro.models.lm import lm_forward as j_forward
@@ -293,13 +323,15 @@ def test_forward(case):
     _assert_close(got, j_forward(jp, jc, tokens=jnp.asarray(tok)), LOGIT_TOL[dtype])
 
 
-@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("case", CASES + FAMILY_CASES, ids=_ids)
 def test_prefill_decode(case):
     _serve(case)
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c[2]] +
-                         [("qwen1.5-4b", "float32", False)], ids=_ids)
+@pytest.mark.parametrize("case", [c for c in CASES if c[2] is True] +
+                         [("qwen1.5-4b", "float32", False),
+                          ("qwen3-moe-30b-a3b", "float32", "k2"),
+                          ("jamba-v0.1-52b", "float32", False)], ids=_ids)
 def test_prefill_decode_blocked(case, blocked):
     _serve(case)
 
@@ -350,3 +382,4 @@ def test_serve_steps(case, blocked):
         _greedy_agrees(tn.numpy(), np.asarray(jn), _f32(tlog)[:, -1:], tol)
         feed = np.array(jn).reshape(b, 1)
     _assert_caches(tcache, jcache, dtype)
+

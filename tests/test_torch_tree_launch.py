@@ -56,6 +56,7 @@ from repro_torch.kernels.tree import (  # noqa: E402
     MAX_TREE_LEAVES,
     TreeTable,
     decode_vector,
+    shard_plan,
     tree_plan,
 )
 from torch_parity import jax_kernels, seeds_np  # noqa: E402,F401
@@ -226,6 +227,25 @@ def test_plans_split_cache_and_bound_blocks(jax_kernels):
     assert not close.masked and close.lo.tolist() == [[0.0], [0.0]]
     assert close.hi.tolist() == [[900.0], [2000.0]]
 
+
+
+@pytest.mark.parametrize("kind", ["encode", "close", "decode"])
+def test_plans_refuse_leaves_past_the_int_range(kind):
+    """The table's rows, cols and offsets are 32-bit: a leaf whose flat
+    index reaches 2³¹ (Qwen3-MoE-30B's stacked ``w_gate``, 48·128·2048·768
+    ≈ 9.7e9 elements) is refused, and a sharded one where its global
+    index does; a leaf just under 2³¹ is planned."""
+    bf16 = [torch.bfloat16]
+    with pytest.raises(ValueError, match="int range"):
+        tree_plan(kind, [(48, 128, 2048, 768)], bf16, 1, TM.FULL, "cpu")
+    with pytest.raises(ValueError, match="int range"):
+        tree_plan(kind, [(2**21, 1024)], bf16, 1, TM.FULL, "cpu")
+    assert tree_plan(kind, [(2**21, 1023)], bf16, 1, TM.FULL, "cpu").layout
+    # rows split 8 ways: shard 0's global index ends at 2²⁸, shard 7's at 2³¹
+    shards = [(0, 2**21 // 8)]
+    assert shard_plan(kind, [(2**21, 1024)], bf16, 8, shards, [0], 1, TM.FULL, "cpu")
+    with pytest.raises(ValueError, match="int range"):
+        shard_plan(kind, [(2**21, 1024)], bf16, 8, shards, [0, 7], 1, TM.FULL, "cpu")
 
 # (k, mode, per-client rounding): the plain decode, ROUND_ONE (k = 1) and
 # ROUND_ANY (k = 8), FULL and BLOCK.

@@ -19,9 +19,13 @@
   reference draws batches with threefry, which the port does not
   reproduce); ``STAT_KEYS`` are the history arrays those tests hold
   bitwise.
+* ``MoERoutes`` records the MoE routes of one run (on the card) and
+  replays them in another (on the CPU); ``chip_smoke.py`` uses it too,
+  so it imports neither jax nor pytest fixtures.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 import types
 
@@ -154,3 +158,64 @@ def patch_shared_draws(monkeypatch, clients, table_seed: int,
 
     monkeypatch.setattr(jengine, "draw_cohort_batches", j_draw)
     monkeypatch.setattr(tengine, "draw_cohort_batches", t_draw)
+
+
+class MoERoutes:
+    """``repro_torch.models.moe._route`` recorded in one run, replayed in
+    another.
+
+    Inside ``use("record")`` each call's expert indices are kept; inside
+    ``use("replay")`` they are handed back in call order, with the
+    probabilities gathered from the replaying run's own logits.  Float32
+    router sums differ in order between the card and the CPU, so a route
+    may flip at a near tie: the replay counts the tokens whose own choice
+    differs (``differ`` of ``tokens``) and the largest logit margin at
+    such a difference (``margin``: how far a recorded expert's logit falls
+    below the replaying run's k-th).  ``check`` fails unless every call
+    was replayed and every difference falls at a near tie (``margin`` ≤
+    ``NEAR_TIE``), so a routing fault on the recording side cannot hide
+    behind the replay."""
+
+    NEAR_TIE = 1e-4
+
+    def __init__(self):
+        import repro_torch.models.moe as moe
+
+        self.moe, self.route = moe, moe._route
+        self.recorded, self.replayed = [], 0
+        self.differ, self.tokens, self.margin = 0, 0, 0.0
+
+    def record(self, logits, k):
+        vals, idx = self.route(logits, k)
+        self.recorded.append(idx)
+        return vals, idx
+
+    def replay(self, logits, k):
+        idx = self.recorded[self.replayed].to(logits.device)
+        self.replayed += 1
+        own_v, own = self.route(logits, k)
+        diff = (own.sort(-1).values != idx.sort(-1).values).any(-1)
+        self.tokens += diff.numel()
+        self.differ += int(diff.sum())
+        if bool(diff.any()):
+            gap = own_v[:, -1:] - logits.gather(-1, idx)
+            self.margin = max(self.margin, float(gap[diff].max()))
+        return logits.gather(-1, idx), idx
+
+    @contextlib.contextmanager
+    def use(self, mode: str):
+        """``moe._route`` is ``record`` or ``replay`` inside the block."""
+        self.moe._route = getattr(self, mode)
+        try:
+            yield
+        finally:
+            self.moe._route = self.route
+
+    def check(self, what: str = "") -> None:
+        if self.replayed != len(self.recorded):
+            raise AssertionError(f"{what}: {self.replayed} routes replayed of "
+                                 f"{len(self.recorded)} recorded")
+        if self.margin > self.NEAR_TIE:
+            raise AssertionError(f"{what}: {self.differ} of {self.tokens} routes "
+                                 f"differ, one by a logit margin of {self.margin} "
+                                 f"(a near tie is at most {self.NEAR_TIE})")
