@@ -197,6 +197,32 @@ Phases (any failure exits non-zero and the final line is not printed):
    rows a kv head, 16 424 slots) through the prefill and split-KV decode
    kernels against their plain version.
 
+18. the VLM and enc-dec families (after phase 13; PaliGemma-3B through
+   ``models/lm.py`` with its stubbed patch embeddings, Whisper-tiny through
+   ``models/encdec.py``; flash at head_dim 256): the three flash kernels at
+   hd 256 (PaliGemma's 8 heads over 1) against their plain version — ragged
+   S and T, kpos holes, padding queries, window 64, a wrapped ring, decode
+   over 16 384 slots in bf16 and float32, the bf16 prefill at S = T =
+   16 384, the float32 kernel at 8448 — and Whisper's decoder prefill (B 4,
+   S = T = 8448, 6/6, hd 64), each timed beside its bound and SDPA (K/V
+   repeated in float32); card against CPU, float32, phase 9's prompt and
+   cache: reduced PaliGemma and its hd-256 variant (16 embeddings + 8432
+   tokens; the prefix prefill on the plain recurrence, the split-KV decode
+   past the prefix) and reduced Whisper (64 frames; the float32 kernel at
+   prefill), logits and caches within ``PARITY_ATOL``; reduced Whisper's
+   prefill and decode logits against its full decoder forward on the card
+   (8448 tokens, 1e-4); PaliGemma-3B (18 layers, batch 1, 256 embeddings +
+   8192 tokens) and Whisper-tiny (batch 4, 1500 frames + 8448 tokens: the
+   decoder's positions wrap mod 4096) at full width, bf16, into 16 384
+   slots, 32 greedy steps, timed: exactly 18 × 32 split-KV launches for
+   PaliGemma (its prefill, inside the prefix, none), 4 prefill and 4 × 32
+   decode launches for Whisper; flash on their own first-layer q, k, v;
+   one FedScalar round of each at full width, bf16, through
+   ``launch/train.py`` (rademacher, k = 1, N = 2, S = 1; 256 embeddings +
+   1792 tokens, 1500 frames + 448 tokens a client): each r within
+   ``tree_encode_tolerance`` of the plain encode of its own δ, the close
+   bitwise ``server_aggregate`` and its plain version.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -1802,9 +1828,10 @@ def _flash_bound(route, b, s_len, t, h, kh, hd, elem, pairs):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_flash_times(s: Smoke):
-    """CUDA-event times of the three flash kernels, each at the shape the
-    main paths give it, in turns with SDPA."""
+def _flash_time_row(s: Smoke, route, b, s_len, t, h, kh, hd, dtype, qpos, kpos):
+    """CUDA-event times of the kernel ``route`` names on random q, k, v of
+    this shape, in turns with SDPA (kernel, SDPA, kernel), beside its plain
+    version and its bound.  → the row."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1813,6 +1840,65 @@ def phase_flash_times(s: Smoke):
 
     fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
              SDPBackend.CUDNN_ATTENTION]
+    if fa.flash_route(s_len, h, kh, dtype) != route:
+        raise AssertionError(f"flash times: the {route} shape routes elsewhere")
+    kernel_fn = _flash_counters()[route]
+    q = s.randn(b, s_len, h, hd).to(dtype)
+    k = s.randn(b, t, kh, hd).to(dtype)
+    v = s.randn(b, t, kh, hd).to(dtype)
+    reps = 50 if route == "decode" else 3
+    # The yardstick: one PyTorch call on the same inputs in its own
+    # layout (transposed outside the timed region), held to its fused
+    # backends so that it never materialises the (S, T) scores.  Never
+    # used by the port.
+    # float32 has no fused backend with GQA: its K/V heads are
+    # repeated to H outside the timed region.
+    gqa = dtype == torch.bfloat16
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    if not gqa:
+        kt, vt = (x.repeat_interleave(h // kh, dim=1) for x in (kt, vt))
+    kw = (dict(attn_mask=(kpos >= 0)[None, None, None, :]) if route == "decode"
+          else dict(is_causal=True))
+
+    def lib():
+        with sdpa_kernel(fused):
+            return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=gqa, **kw)
+
+    def kern():
+        return fa.flash_attention(q, k, v, qpos, kpos)
+
+    tt = {"plain": s.time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, kpos),
+                             reps=1, warmup=1)}
+    before = kernel_fn.launches
+    tt["kernel"] = s.time_ms(kern, reps=reps, warmup=1)
+    tt["library"] = s.time_ms(lib, reps=reps, warmup=1)
+    tt["kernel2"] = s.time_ms(kern, reps=reps, warmup=1)
+    if kernel_fn.launches - before != 2 * (reps + 1):
+        raise AssertionError(f"flash times: {route} timed another kernel")
+    ref = lib().transpose(1, 2).float()
+    lib_err = float((ref - kern().float()).abs().max())
+    pairs = int(fa.allowed_mask(qpos, kpos, True, 0).sum()) * b * h
+    bound, by = _flash_bound(route, b, s_len, t, h, kh, hd, dtype.itemsize, pairs)
+    ms = (tt["kernel"] + tt["kernel2"]) / 2
+    row = dict(kernel=FLASH_KERNELS[route],
+               shape=dict(B=b, S=s_len, T=t, H=h, K=kh, hd=hd,
+                          dtype=str(dtype).removeprefix("torch.")),
+               allowed_pairs=pairs, ms=ms, kernel_turns_ms=[tt["kernel"], tt["kernel2"]],
+               plain_ms=tt["plain"], library_ms=tt["library"],
+               library_max_abs_diff=lib_err, bound_ms=bound, bound_by=by,
+               tflops=4 * hd * pairs / (ms * 1e-3) / 1e12,
+               gbytes_per_s=(dtype.itemsize * (2 * b * s_len * h * hd + 2 * b * t * kh * hd)
+                             / (ms * 1e-3) / 1e9))
+    del q, k, v, qt, kt, vt, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_flash_times(s: Smoke):
+    """CUDA-event times of the three flash kernels, each at the shape the
+    main paths give it, in turns with SDPA."""
+    import torch
+
     rows = {}
     h, kh, hd = 15, 5, 64
     filled = SERVE_PROMPT + SERVE_GEN // 2
@@ -1828,61 +1914,8 @@ def phase_flash_times(s: Smoke):
                 torch.arange(PARITY_PROMPT, **i32), torch.arange(PARITY_PROMPT, **i32)),
     }
     for route, (b, s_len, t, dtype, qpos, kpos) in shapes.items():
-        if fa.flash_route(s_len, h, kh, dtype) != route:
-            raise AssertionError(f"flash times: the {route} shape routes elsewhere")
-        kernel_fn = _flash_counters()[route]
-        q = s.randn(b, s_len, h, hd).to(dtype)
-        k = s.randn(b, t, kh, hd).to(dtype)
-        v = s.randn(b, t, kh, hd).to(dtype)
-        reps = 50 if route == "decode" else 3
-        # The yardstick: one PyTorch call on the same inputs in its own
-        # layout (transposed outside the timed region), held to its fused
-        # backends so that it never materialises the (S, T) scores.  Never
-        # used by the port.
-        # float32 has no fused backend with GQA: its K/V heads are
-        # repeated to H outside the timed region.
-        gqa = dtype == torch.bfloat16
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        if not gqa:
-            kt, vt = (x.repeat_interleave(h // kh, dim=1) for x in (kt, vt))
-        kw = (dict(attn_mask=(kpos >= 0)[None, None, None, :]) if route == "decode"
-              else dict(is_causal=True))
-
-        def lib():
-            with sdpa_kernel(fused):
-                return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=gqa, **kw)
-
-        def kern():
-            return fa.flash_attention(q, k, v, qpos, kpos)
-
-        tt = {"plain": s.time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, kpos),
-                                 reps=1, warmup=1)}
-        before = kernel_fn.launches
-        tt["kernel"] = s.time_ms(kern, reps=reps, warmup=1)
-        tt["library"] = s.time_ms(lib, reps=reps, warmup=1)
-        tt["kernel2"] = s.time_ms(kern, reps=reps, warmup=1)
-        if kernel_fn.launches - before != 2 * (reps + 1):
-            raise AssertionError(f"flash times: {route} timed another kernel")
-        ref = lib().transpose(1, 2).float()
-        lib_err = float((ref - kern().float()).abs().max())
-        pairs = int(fa.allowed_mask(qpos, kpos, True, 0).sum()) * b * h
-        bound, by = _flash_bound(route, b, s_len, t, h, kh, hd, dtype.itemsize,
-                                 pairs)
-        ms = (tt["kernel"] + tt["kernel2"]) / 2
-        rows[route] = dict(kernel=FLASH_KERNELS[route],
-                           shape=dict(B=b, S=s_len, T=t, H=h, K=kh, hd=hd,
-                                      dtype=str(dtype).removeprefix("torch.")),
-                           allowed_pairs=pairs, ms=ms,
-                           kernel_turns_ms=[tt["kernel"], tt["kernel2"]],
-                           plain_ms=tt["plain"], library_ms=tt["library"],
-                           library_max_abs_diff=lib_err, bound_ms=bound,
-                           bound_by=by, tflops=4 * hd * pairs / (ms * 1e-3) / 1e12,
-                           gbytes_per_s=(dtype.itemsize * (2 * b * s_len * h * hd
-                                                           + 2 * b * t * kh * hd)
-                                         / (ms * 1e-3) / 1e9))
+        rows[route] = _flash_time_row(s, route, b, s_len, t, h, kh, hd, dtype, qpos, kpos)
         print(f"flash times ({route}): " + json.dumps(rows[route]), flush=True)
-        del q, k, v, qt, kt, vt, ref
-        torch.cuda.empty_cache()
     return rows
 
 
@@ -1893,27 +1926,70 @@ def _flash_counters():
             "decode": fa.flash_decode, "f32": fa.flash_f32}
 
 
-def _serve_logits(arch, params, tokens, feed):
-    """Prefill and the decode steps of ``feed``; → ((batch, steps + 1,
-    vocab) logits on the CPU, the caches)."""
+def _positions(cfg, batch):
+    """Decoder positions a prefill of ``batch`` fills: the VLM's patch
+    embeddings come before its text, the enc-dec's frames go to the encoder."""
+    n = batch["tokens"].shape[1]
+    return n + batch["embeds"].shape[1] if cfg.frontend == "vision" else n
+
+
+def _frontend(cfg, batch, positions, gen=None, device=None):
+    """``{"tokens"[, "embeds"]}`` filling ``positions`` decoder positions:
+    tokens and the stubbed frontend's embeddings (0.02·N(0, 1), as the
+    reference's examples/serve_llm.py) from numpy with seed 0, or from
+    ``gen`` on ``device``."""
+    import numpy as np
     import torch
 
-    out, cache = arch.prefill(params, {"tokens": tokens}, capacity=PARITY_CAPACITY)
+    n_emb = {"vision": cfg.num_frontend_tokens, "audio": cfg.encoder_seq}.get(
+        cfg.frontend, 0)
+    n_tok = positions - (n_emb if cfg.frontend == "vision" else 0)
+    if gen is None:
+        rng = np.random.RandomState(0)
+        out = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, n_tok)))}
+        if n_emb:
+            out["embeds"] = torch.from_numpy(
+                (rng.randn(batch, n_emb, cfg.d_model) * 0.02).astype(np.float32))
+        return out
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, n_tok), generator=gen,
+                                   device=device)}
+    if n_emb:
+        out["embeds"] = (torch.randn(batch, n_emb, cfg.d_model, generator=gen,
+                                     device=device) * 0.02).to(cfg.torch_dtype)
+    return out
+
+
+def _kv_stacks(caches):
+    """The stacked KV caches of a decoder-only model's LayerCaches or of the
+    enc-dec's DecCaches (its self-attention caches)."""
+    return (caches.self_caches,) if hasattr(caches, "enc_states") else caches.caches
+
+
+def _serve_logits(arch, params, batch, feed):
+    """Prefill of ``batch`` and the decode steps of ``feed``; → ((batch,
+    steps + 1, vocab) logits on the CPU, the caches)."""
+    import torch
+
+    out, cache = arch.prefill(params, batch, capacity=PARITY_CAPACITY)
     steps = [out]
+    start = _positions(arch.cfg, batch)
     for i in range(feed.shape[0]):
-        out, cache = arch.decode(params, feed[i], cache, tokens.shape[1] + i)
+        out, cache = arch.decode(params, feed[i], cache, start + i)
         steps.append(out)
     return torch.cat([x.float().cpu() for x in steps], dim=1), cache
 
 
-def _card_vs_cpu(s: Smoke, cfg, hooks=None):
+def _card_vs_cpu(s: Smoke, cfg, hooks=None, prefill_kernel=True):
     """``cfg`` (float32) from one seed on the card and on the CPU: a prompt
-    of ``PARITY_PROMPT`` tokens and ``PARITY_GEN`` decode steps, each run
-    inside ``hooks(device)`` where given.  Asserts the exact flash
-    launches on the card (the float32 kernel at each attention layer's
-    prefill, the split-KV decode at each step) and none on the CPU, the
-    logits (finite) and every cache within ``PARITY_ATOL``, the KV
-    positions and counts equal.  → dict of the logits, launches, errors."""
+    of ``PARITY_PROMPT`` positions (the VLM's 16 patch embeddings and its
+    text; the enc-dec's frames beside them) and ``PARITY_GEN`` decode
+    steps, each run inside ``hooks(device)`` where given.  Asserts the
+    exact flash launches on the card (the float32 kernel at each attention
+    layer's prefill unless ``prefill_kernel`` is False — a prefill with a
+    prefix takes the plain recurrence —, the split-KV decode at each step)
+    and none on the CPU, the logits (finite) and every cache within
+    ``PARITY_ATOL``, the KV positions and counts equal.  → dict of the
+    logits, launches, errors."""
     import numpy as np
     import torch
 
@@ -1925,28 +2001,37 @@ def _card_vs_cpu(s: Smoke, cfg, hooks=None):
     cpu = torch.device("cpu")
     params = {cpu: arch.init(seed=0, device=cpu)}
     params[s.dev] = tree_map(lambda x: x.to(s.dev), params[cpu])
-    rng = np.random.RandomState(0)
-    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, PARITY_PROMPT)))
-    feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1)))
+    batch = _frontend(cfg, 1, PARITY_PROMPT)
+    feed = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                                             (PARITY_GEN, 1, 1)))
     logits, caches = {}, {}
     for dev in (s.dev, cpu):
         for fn in counters.values():
             fn.launches = 0
         with hooks(dev) if hooks else contextlib.nullcontext():
-            logits[dev], caches[dev] = _serve_logits(arch, params[dev], tokens.to(dev),
-                                                     feed.to(dev))
+            logits[dev], caches[dev] = _serve_logits(
+                arch, params[dev], {k: x.to(dev) for k, x in batch.items()},
+                feed.to(dev))
         if dev == s.dev:
             torch.cuda.synchronize()
             launches = {k: fn.launches for k, fn in counters.items()}
     n_attn = _attn_layers(cfg)
-    want = {"all": n_attn * (1 + PARITY_GEN), "prefill": 0,
-            "decode": n_attn * PARITY_GEN, "f32": n_attn}
+    n_pre = n_attn if prefill_kernel else 0
+    want = {"all": n_pre + n_attn * PARITY_GEN, "prefill": 0,
+            "decode": n_attn * PARITY_GEN, "f32": n_pre}
     if launches != want or any(fn.launches for fn in counters.values()):
         raise AssertionError(f"{cfg.name}: flash launches {launches} on the card "
                              f"(expected {want}), or the CPU run launched a kernel")
     err = float((logits[s.dev] - logits[cpu]).abs().max())
     cache_err = {}
-    for st_c, st_p in zip(caches[s.dev].caches, caches[cpu].caches, strict=True):
+    stacks = [_kv_stacks(caches[d]) for d in (s.dev, cpu)]
+    if hasattr(caches[cpu], "enc_states"):
+        stacks = [(*st, c.enc_states) for st, c in zip(stacks, (caches[s.dev], caches[cpu]))]
+    for st_c, st_p in zip(*stacks, strict=True):
+        if torch.is_tensor(st_c):            # the enc-dec's encoder states
+            d = float((st_c.cpu().float() - st_p.float()).abs().max())
+            cache_err["enc_states"] = d
+            continue
         for field, a, b in zip(st_c._fields, st_c, st_p):
             a = a.cpu()
             if field in ("pos", "idx"):
@@ -2004,7 +2089,7 @@ def phase_serve_parity(s: Smoke):
     feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1))).to(s.dev)
     for fn in counters.values():
         fn.launches = 0
-    kern, _ = _serve_logits(arch, params, tokens, feed)
+    kern, _ = _serve_logits(arch, params, {"tokens": tokens}, feed)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     blocked = attention._sdpa_blocked
@@ -2014,7 +2099,7 @@ def phase_serve_parity(s: Smoke):
                                      causal=causal, window=window)
     attention._sdpa_blocked = plain_blocked
     try:
-        plain, _ = _serve_logits(arch, params, tokens, feed)
+        plain, _ = _serve_logits(arch, params, {"tokens": tokens}, feed)
     finally:
         attention._sdpa_blocked = blocked
     want = {"all": PARITY_LAYERS * (1 + PARITY_GEN), "prefill": PARITY_LAYERS,
@@ -2040,16 +2125,19 @@ def phase_serve_parity(s: Smoke):
     return f32_launches
 
 
-def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext):
+def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext,
+               prompt=SERVE_PROMPT, capacity=SERVE_CAPACITY, prefill_kernel=True):
     """``cfg`` built on the card from a seed, warmed up on a short prompt,
-    then one prefill of ``SERVE_PROMPT`` tokens and ``SERVE_GEN`` greedy
-    decode steps through ``launch/serve.py``'s steps, timed (the host's
-    enqueue time beside each: equal, the step is host-bound), inside
-    ``hooks()``.  Asserts the exact flash launches (one prefill and
-    ``SERVE_GEN`` decode launches per attention layer) and no other
-    kernel, the KV positions and counts, finite caches (KV, Mamba h and
-    conv) and tokens inside the vocabulary.  → (the row, the launches,
-    the params)."""
+    then one prefill of ``prompt`` decoder positions (a frontend's
+    embeddings from the seed too: the VLM's before its text, the enc-dec's
+    frames into its encoder) and ``SERVE_GEN`` greedy decode steps through
+    ``launch/serve.py``'s steps into a cache of ``capacity``, timed (the
+    host's enqueue time beside each: equal, the step is host-bound), inside
+    ``hooks()``.  Asserts the exact flash launches (one prefill launch per
+    attention layer unless ``prefill_kernel`` is False, and ``SERVE_GEN``
+    decode launches per attention layer) and no other kernel, the KV
+    positions and counts, finite caches (KV, Mamba h and conv) and tokens
+    inside the vocabulary.  → (the row, the launches, the params)."""
     import torch
 
     from repro_torch.core.tree import tree_leaves
@@ -2062,13 +2150,13 @@ def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     leaves = tree_leaves(params)
-    tokens = torch.randint(0, cfg.vocab_size, (batch, SERVE_PROMPT), generator=s.gen,
-                           device=s.dev)
-    prefill = make_prefill_step(arch, capacity=SERVE_CAPACITY)
+    inputs = _frontend(cfg, batch, prompt, gen=s.gen, device=s.dev)
+    prefill = make_prefill_step(arch, capacity=capacity)
     decode = make_decode_step(arch)
     # Warm-up on a short prompt (cuBLAS handles, the allocator): no flash.
-    tok, caches = make_prefill_step(arch, capacity=80)(params, {"tokens": tokens[:, :64]})
-    decode(params, tok.reshape(batch, 1), caches, 64)
+    warm = {**inputs, "tokens": inputs["tokens"][:, :64]}
+    tok, caches = make_prefill_step(arch, capacity=80)(params, warm)
+    decode(params, tok.reshape(batch, 1), caches, _positions(cfg, warm))
     del caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2079,7 +2167,7 @@ def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext):
         for fn in (*fns.values(), *counters.values()):
             fn.launches = 0
         t0 = time.perf_counter()
-        tok, caches = prefill(params, {"tokens": tokens})
+        tok, caches = prefill(params, inputs)
         prefill_enqueue_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
@@ -2088,7 +2176,7 @@ def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext):
         t0 = time.perf_counter()
         for i in range(SERVE_GEN):
             t1 = time.perf_counter()
-            tok, caches = decode(params, tok.reshape(batch, 1), caches, SERVE_PROMPT + i)
+            tok, caches = decode(params, tok.reshape(batch, 1), caches, prompt + i)
             decode_enqueue_s += time.perf_counter() - t1
             generated.append(tok.reshape(batch))
         torch.cuda.synchronize()
@@ -2098,15 +2186,16 @@ def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     n_attn = _attn_layers(cfg)
-    want = {"all": n_attn * (1 + SERVE_GEN), "prefill": n_attn,
+    n_pre = n_attn if prefill_kernel else 0
+    want = {"all": n_pre + n_attn * SERVE_GEN, "prefill": n_pre,
             "decode": n_attn * SERVE_GEN, "f32": 0}
     if launches != want or stray:
         raise AssertionError(f"serve {cfg.name}: flash launches {launches} "
                              f"(expected {want}), other kernels {stray}")
     gen = torch.stack(generated, dim=1)
-    n = SERVE_PROMPT + SERVE_GEN
+    n = prompt + SERVE_GEN
     checks = {"tokens": bool(((gen >= 0) & (gen < cfg.vocab_size)).all())}
-    for st in caches.caches:
+    for st in _kv_stacks(caches):
         if hasattr(st, "idx"):
             checks["kv_positions"] = checks.get("kv_positions", True) and bool(
                 (st.pos[:, :n] == torch.arange(n, device=s.dev)).all()
@@ -2119,11 +2208,13 @@ def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext):
     if not all(checks.values()):
         raise AssertionError(f"serve {cfg.name}: checks {checks}")
     row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, batch=batch,
-               prompt=SERVE_PROMPT, decode_steps=SERVE_GEN, capacity=SERVE_CAPACITY,
+               prompt=prompt, frontend=cfg.frontend,
+               frontend_embeds=inputs["embeds"].shape[1] if "embeds" in inputs else 0,
+               decode_steps=SERVE_GEN, capacity=capacity,
                params=sum(w.numel() for w in leaves),
                param_gib=sum(w.numel() * w.element_size() for w in leaves) / 2**30,
                init_s=init_s, prefill_s=prefill_s,
-               prompt_tokens_per_s=batch * SERVE_PROMPT / prefill_s,
+               prompt_tokens_per_s=batch * prompt / prefill_s,
                prefill_enqueue_s=prefill_enqueue_s,
                decode_ms_per_token=decode_s / SERVE_GEN * 1e3,
                decode_enqueue_ms_per_step=decode_enqueue_s / SERVE_GEN * 1e3,
@@ -3262,6 +3353,339 @@ def phase_sharded(s: Smoke):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the VLM and enc-dec families (PaliGemma-3B, Whisper-tiny)
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, ENCDEC_ARCH = "paligemma-3b", "whisper-tiny"
+# PaliGemma's head shape at reduced width: 2 heads over 1 kv head of 256.
+VLM_HD256 = dict(d_model=512, num_heads=2, num_kv_heads=1, head_dim=256)
+# Full width, bf16: PaliGemma at batch 1, its 256 patch embeddings + 8192
+# text tokens; Whisper at batch 4, (4, 1500, 384) frames and a decoder
+# prompt of 8448 tokens (learned positions taken mod 4096).  Both into a
+# cache of 16 384 slots, then SERVE_GEN greedy steps.
+VLM_BATCH, VLM_PROMPT = 1, 256 + 8192
+ENCDEC_BATCH, ENCDEC_PROMPT = 4, 8448
+FAMILY_CAPACITY = 16384
+# One FedScalar round of each at full width, bf16 (rademacher, k = 1,
+# N = 2, S = 1, one sequence a client): decoder positions per sequence.
+FAMILY_TRAIN = ((VLM_ARCH, 256 + 1792), (ENCDEC_ARCH, 448))
+FAMILY_TRAIN_CLIENTS = 2
+# The serve-consistency property on the card (reduced Whisper, float32):
+# prefill and decode logits against the full decoder forward, atol/rtol
+# 1e-4, the reference's own tolerance in test_whisper_serve_consistency.
+CONSISTENCY_TOL = 1e-4
+
+
+def phase_flash_hd256(s: Smoke):
+    """Flash attention at head_dim 256 on all three routes against the plain
+    version, and Whisper's decoder prefill shape (hd 64, G = 1); then each
+    timed at its main-path shape beside its bound and SDPA.  → the rows."""
+    import torch
+
+    t0 = time.perf_counter()
+    n0 = s.checks
+    s.group = ("flash attention at head_dim 256 (PaliGemma's 8 heads over 1): ragged "
+               "S = T = 333 and S = 200 against T = 1000, kpos -1 holes with padding "
+               "queries, causal and window 64; a wrapped ring of 1000 (S = 1 and 300, "
+               "windows 0, 64, 1000); decode over 16384 slots")
+    ring = torch.full((1000,), -1, dtype=torch.int64)
+    written = torch.arange(500, 1500)
+    ring[written % 1000] = written
+    filled = FAMILY_CAPACITY - 16
+    dec_kpos = torch.where(torch.arange(FAMILY_CAPACITY) < filled,
+                           torch.arange(FAMILY_CAPACITY), -1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (0, 64):
+            s.check_flash(2, 333, 333, 8, 1, 256, dtype, window)
+            s.check_flash(1, 200, 1000, 8, 1, 256, dtype, window)
+            kpos = torch.arange(333)
+            kpos[::5] = -1
+            qpos = torch.arange(333)
+            qpos[:40] = -1
+            s.check_flash(1, 333, 333, 8, 1, 256, dtype, window, qpos, kpos)
+        for window in (0, 64, 1000):
+            s.check_flash(1, 1, 1000, 8, 1, 256, dtype, window, torch.tensor([1499]), ring)
+            s.check_flash(1, 300, 1000, 8, 1, 256, dtype, window,
+                          torch.arange(1200, 1500), ring)
+        s.check_flash(1, 1, FAMILY_CAPACITY, 8, 1, 256, dtype,
+                      qpos=torch.tensor([filled - 1]), kpos=dec_kpos)
+    s.report()
+    s.group = ("flash attention at phase 18's full shapes: the bf16 prefill at hd 256 "
+               f"(B 1, S = T = {FAMILY_CAPACITY}, 8/1), the float32 kernel at hd 256 "
+               f"(S = T = {PARITY_PROMPT}), Whisper's decoder prefill (B "
+               f"{ENCDEC_BATCH}, S = T = {ENCDEC_PROMPT}, 6/6, hd 64)")
+    s.check_flash(1, FAMILY_CAPACITY, FAMILY_CAPACITY, 8, 1, 256, torch.bfloat16)
+    torch.cuda.empty_cache()
+    s.check_flash(1, PARITY_PROMPT, PARITY_PROMPT, 8, 1, 256, torch.float32)
+    torch.cuda.empty_cache()
+    s.check_flash(ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_PROMPT, 6, 6, 64, torch.bfloat16)
+    torch.cuda.empty_cache()
+    s.report()
+    print(f"flash hd 256: all {s.checks - n0} checks ok in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    i32 = dict(dtype=torch.int32, device=s.dev)
+
+    def ar(n):
+        return torch.arange(n, **i32)
+
+    dec_q = torch.tensor([filled - 1], **i32)
+    dec_k = torch.where(ar(FAMILY_CAPACITY) < filled, ar(FAMILY_CAPACITY), -1)
+    shapes = {   # name -> (route, B, S, T, H, K, hd, dtype, qpos, kpos)
+        "prefill_hd256": ("prefill", 1, FAMILY_CAPACITY, FAMILY_CAPACITY, 8, 1, 256,
+                          torch.bfloat16, ar(FAMILY_CAPACITY), ar(FAMILY_CAPACITY)),
+        "decode_hd256": ("decode", 1, 1, FAMILY_CAPACITY, 8, 1, 256, torch.bfloat16,
+                         dec_q, dec_k),
+        "decode_hd256_f32": ("decode", 1, 1, FAMILY_CAPACITY, 8, 1, 256, torch.float32,
+                             dec_q, dec_k),
+        "f32_hd256": ("f32", 1, PARITY_PROMPT, PARITY_PROMPT, 8, 1, 256, torch.float32,
+                      ar(PARITY_PROMPT), ar(PARITY_PROMPT)),
+        "prefill_whisper": ("prefill", ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_PROMPT, 6, 6,
+                            64, torch.bfloat16, ar(ENCDEC_PROMPT), ar(ENCDEC_PROMPT)),
+    }
+    rows = {}
+    for name, (route, *shape) in shapes.items():
+        rows[name] = _flash_time_row(s, route, *shape)
+        print(f"flash times ({name}): " + json.dumps(rows[name]), flush=True)
+    return rows
+
+
+def _consistency(s: Smoke):
+    """Reduced Whisper, float32, on the card: the reference's
+    ``test_whisper_serve_consistency`` at phase 9's prompt (8448 tokens,
+    over the 8192 threshold: the float32 kernel in the prefill and the full
+    forward, the split-KV decode at the step) — prefill and one decode
+    step give the full decoder forward's logits at S − 1 and S."""
+    import torch
+
+    import repro_torch.models.encdec as ed
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(ENCDEC_ARCH).reduced()
+    gen = torch.Generator(device=s.dev).manual_seed(5)
+    p = ed.init_encdec(cfg, gen)
+    inputs = _frontend(cfg, 1, PARITY_PROMPT + 1, gen=gen, device=s.dev)
+    frames, tokens = inputs["embeds"], inputs["tokens"]
+    n = PARITY_PROMPT
+    enc = ed.encode(p, cfg, frames)
+    pos = torch.arange(n + 1, dtype=torch.int32, device=s.dev)
+    x = ed._dec_embed(p, cfg, tokens, pos)
+    for i in range(cfg.num_layers):
+        x, _ = ed._dec_sublayer(ed.stack_slice(p["dec_layers"], i), x, cfg, enc, pos)
+    full = ed._logits(p, ed.apply_norm(p["dec_norm"], x, cfg.norm))
+    lp, caches = ed.encdec_prefill(p, cfg, frames, tokens[:, :n], capacity=PARITY_CAPACITY)
+    lg, caches = ed.encdec_decode(p, cfg, tokens[:, n:n + 1], caches, n)
+    torch.cuda.synchronize()
+    errs = [float((lp[:, 0] - full[:, n - 1]).abs().max()),
+            float((lg[:, 0] - full[:, n]).abs().max())]
+    limits = [CONSISTENCY_TOL * (1 + float(full[:, j].abs().max())) for j in (n - 1, n)]
+    if not all(e <= lim for e, lim in zip(errs, limits)):
+        raise AssertionError(f"whisper serve consistency: prefill / decode logits "
+                             f"{errs} from the full forward (limits {limits})")
+    return dict(prompt=n, prefill_max_abs_dlogits=errs[0],
+                decode_max_abs_dlogits=errs[1], limits=limits)
+
+
+def phase_vlm_encdec_parity(s: Smoke):
+    """Card against CPU, float32, phase 9's prompt and cache: reduced
+    PaliGemma (hd 64) and its head_dim-256 variant (16 patch embeddings +
+    8432 tokens; the prefill with the prefix runs the plain recurrence,
+    each decode step past the prefix the split-KV kernel), reduced Whisper
+    (64 frames + 8448 tokens: the float32 kernel at prefill); then the
+    serve-consistency property of reduced Whisper on the card.
+    → flash launches."""
+    from repro_torch.configs.registry import get_config
+
+    total = dict.fromkeys(_flash_counters(), 0)
+    vlm = get_config(VLM_ARCH).reduced()
+    cases = ((vlm, False), (dataclasses.replace(vlm, **VLM_HD256), False),
+             (get_config(ENCDEC_ARCH).reduced(), True))
+    for cfg, prefill_kernel in cases:
+        t0 = time.perf_counter()
+        par = _card_vs_cpu(s, cfg, prefill_kernel=prefill_kernel)
+        print("vlm/enc-dec parity: " + json.dumps(dict(
+            arch=cfg.name, layers=cfg.num_layers, heads=cfg.num_heads,
+            kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            prefix=cfg.prefix_bidirectional, prompt_positions=PARITY_PROMPT,
+            decode_steps=PARITY_GEN, max_abs_dlogits=par["err"],
+            logits_scale=float(par["cpu"].abs().max()), max_abs_dcache=par["cache_err"],
+            tolerance=PARITY_ATOL, flash_launches=par["launches"],
+            s=time.perf_counter() - t0)), flush=True)
+        for k in total:
+            total[k] += par["launches"][k]
+    t0 = time.perf_counter()
+    before = {k: fn.launches for k, fn in _flash_counters().items()}
+    row = _consistency(s)
+    print("whisper serve consistency (card, float32): " + json.dumps(dict(
+        row, tolerance=CONSISTENCY_TOL,
+        flash_launches={k: fn.launches - before[k]
+                        for k, fn in _flash_counters().items()},
+        s=time.perf_counter() - t0)), flush=True)
+    return total
+
+
+def phase_vlm_encdec_serve(s: Smoke, flash_rows):
+    """PaliGemma-3B (batch 1, 256 embeddings + 8192 tokens) and Whisper-tiny
+    (batch 4, 1500 frames + 8448 tokens) at full width, bf16, through the
+    serve steps into 16 384 slots, 32 greedy steps; then flash on the
+    first attention layer's own q, k, v of Whisper's prefill and of each
+    one's first decode step.  → flash launches."""
+    import torch
+
+    import repro_torch.models.attention as attention
+    from repro_torch.configs.registry import get_config
+
+    total = dict.fromkeys(_flash_counters(), 0)
+    captured = []
+    for name, batch, prompt in ((VLM_ARCH, VLM_BATCH, VLM_PROMPT),
+                                (ENCDEC_ARCH, ENCDEC_BATCH, ENCDEC_PROMPT)):
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        blocked = attention._sdpa_blocked
+
+        def capture(q, k, v, qpos, kpos, *, causal, window, prefix_len):
+            step = "prefill" if q.shape[1] > 1 else "decode"
+            if (name, step) not in [c[:2] for c in captured]:
+                captured.append((name, step, *(t.clone() for t in (q, k, v, qpos, kpos)),
+                                 window))
+            return blocked(q, k, v, qpos, kpos, causal=causal, window=window,
+                           prefix_len=prefix_len)
+
+        @contextlib.contextmanager
+        def hooks():
+            attention._sdpa_blocked = capture
+            try:
+                yield
+            finally:
+                attention._sdpa_blocked = blocked
+
+        vlm = cfg.frontend == "vision"
+        row, launches, params = _serve_run(s, cfg, batch, hooks, prompt=prompt,
+                                           capacity=FAMILY_CAPACITY,
+                                           prefill_kernel=not vlm)
+        key = "decode_hd256" if vlm else "prefill_whisper"
+        row.update(flash_shape=flash_rows[key]["shape"],
+                   flash_ms_per_layer=flash_rows[key]["ms"], s=time.perf_counter() - t0)
+        print("vlm/enc-dec serve: " + json.dumps(row), flush=True)
+        for k in total:
+            total[k] += launches[k]
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s.group = ("flash attention at phase 18's shapes: the first attention layer's "
+               "q, k, v of Whisper's full-width prefill and of each first decode step")
+    # PaliGemma's prefill (a query inside the prefix) takes the plain
+    # recurrence, so it launches no kernel and is not captured as one.
+    want = [(VLM_ARCH, "prefill"), (VLM_ARCH, "decode"), (ENCDEC_ARCH, "prefill"),
+            (ENCDEC_ARCH, "decode")]
+    if [c[:2] for c in captured] != want:
+        raise AssertionError(f"vlm/enc-dec serve: captured "
+                             f"{[c[:2] for c in captured]}, expected {want}")
+    for name, step, q, k, v, qpos, kpos, window in captured:
+        if (name, step) != (VLM_ARCH, "prefill"):
+            s.check_flash_on(q, k, v, qpos.to(torch.int32), kpos.to(torch.int32), window)
+    s.report()
+    del captured
+    torch.cuda.empty_cache()
+    print(f"vlm/enc-dec flash check: {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
+def phase_vlm_encdec_train(s: Smoke):
+    """One FedScalar round of PaliGemma-3B and of Whisper-tiny at full width,
+    bf16, through ``launch/train.py`` (rademacher, k = 1, N = 2, S = 1):
+    each client's r against the plain encode of its own δ (summed in
+    float64) within ``tree_encode_tolerance``, the close bitwise the port's
+    ``server_aggregate`` and its plain version (as phase 13)."""
+    import torch
+
+    import repro_torch.kernels.ops as ops
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.projection import leaf_layout
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.models.api import Arch
+
+    encode = ops.project_tree_kernel
+    worst, check_s = [0.0], [0.0]
+
+    def checked(deltas, seeds, distribution, k, mode):
+        r = encode(deltas, seeds, distribution, k, mode)
+        torch.cuda.synchronize()
+        t_check = time.perf_counter()
+        leaves = tree_leaves(deltas)
+        plan = tree_plan("encode", [tuple(x.shape[1:]) for x in leaves],
+                         [x.dtype for x in leaves], k, mode, s.dev)
+        want = project_tree_plain(leaves, seeds, plan, "rademacher", dtype=torch.float64)
+        views = [x.reshape(1, ll.rows, ll.cols) for ll, x in zip(plan.layout, leaves)]
+        ratio = float(((r.double() - want).abs()
+                       / tree_encode_tolerance(views, "rademacher")).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"family train: r {r.tolist()} against the plain "
+                                 f"encode {want.tolist()}: {ratio} of the tolerance")
+        worst[0] = max(worst[0], ratio)
+        del want
+        torch.cuda.synchronize()
+        check_s[0] += time.perf_counter() - t_check
+        return r
+
+    n = FAMILY_TRAIN_CLIENTS
+    counters = _train_counters()
+    for name, positions in FAMILY_TRAIN:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        arch = Arch(cfg)
+        params = arch.init(seed=0, device=s.dev)
+        layout = leaf_layout(params)
+        batch = _frontend(cfg, n, positions + 1, gen=s.gen, device=s.dev)
+        toks = batch.pop("tokens")
+        batch.update(tokens=toks[:, :-1], labels=toks[:, 1:])
+        step = make_train_step(arch, FLRunConfig(num_virtual_clients=n, local_steps=1,
+                                                 local_lr=TRAIN_LR, server_lr=1.0))
+        for fn in counters.values():
+            fn.launches = 0
+        worst[0], check_s[0] = 0.0, 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.project_tree_kernel = checked
+        try:
+            t1 = time.perf_counter()
+            new, m = step(params, batch, 0)
+            torch.cuda.synchronize()
+            # the round without the plain encodes of the check
+            round_s = time.perf_counter() - t1 - check_s[0]
+        finally:
+            ops.project_tree_kernel = encode
+        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if launches != {"encode": 2 * n, "rec": 1}:
+            raise AssertionError(f"family train {name}: launches {launches}, expected "
+                                 f"{{'encode': {2 * n}, 'rec': 1}}")
+        close = _train_close_check(s, params, new, m, layout)
+        if not (math.isfinite(float(m["loss"])) and m["uploaded_scalars"] == 2 * n
+                and all(w.dtype == torch.bfloat16 for w in tree_leaves(new))):
+            raise AssertionError(f"family train {name}: loss {float(m['loss'])}, "
+                                 f"uploads {m['uploaded_scalars']}")
+        print("vlm/enc-dec train: " + json.dumps(dict(
+            arch=name, layers=cfg.num_layers, dtype=cfg.dtype, clients=n, local_steps=1,
+            positions_per_client=positions,
+            frontend_embeds=batch["embeds"].shape[1] if "embeds" in batch else 0,
+            params=sum(ll.size for ll in layout), leaves=len(layout),
+            round_s=round_s, check_s=check_s[0],
+            train_positions_per_s=n * positions / round_s,
+            loss=float(m["loss"]), r=m["r"].flatten().tolist(),
+            r_max_err_over_tolerance=worst[0], close=close, launches=launches,
+            peak_gib=peak_gib, s=time.perf_counter() - t0)), flush=True)
+        del params, new, m, batch
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3301,10 +3725,14 @@ def main() -> int:
     phase_train_parity(s)
     phase_train_long(s)
     train_launches = phase_train(s)
+    hd256_rows = phase_flash_hd256(s)
+    vlm_launches = phase_vlm_encdec_parity(s)
+    vlm_serve = phase_vlm_encdec_serve(s, hd256_rows)
+    phase_vlm_encdec_train(s)
     flash_launches = {"prefill": serve_launches["prefill"],
                       "decode": serve_launches["decode"], "f32": f32_launches}
     for k in flash_launches:
-        flash_launches[k] += fam_launches[k] + fam_serve[k]
+        flash_launches[k] += fam_launches[k] + fam_serve[k] + vlm_launches[k] + vlm_serve[k]
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",
@@ -3331,8 +3759,9 @@ def main() -> int:
              library_ms=None, **times["qsgd"]),
     ]
     # The flash kernels: prefill and decode carry the serve paths (launches
-    # from phases 10 and 17); the float32 kernel carries the parity paths'
-    # prefill (launches from phases 9 and 17).
+    # from phases 10, 17 and 18); the float32 kernel carries the parity
+    # paths' prefill (launches from phases 9, 17 and 18).  Times at the
+    # SmolLM-360M shapes (phase 8); phase 18 prints the head_dim-256 ones.
     for route, kernel in FLASH_KERNELS.items():
         fr = flash_rows[route]
         kernels.append(dict(

@@ -3,14 +3,19 @@
 The port's counterpart of ``examples/serve_llm.py``: ring KV caches (and
 Mamba states for the SSM and hybrid archs), greedy sampling, random
 weights from a seed.  ``--arch`` takes any registered config (dense,
-MoE, SSM, hybrid).  It runs on the card at full width unless asked
-otherwise; prompts or caches longer than 8192 tokens take the
-hand-written flash-attention kernel::
+MoE, SSM, hybrid, the VLM and the enc-dec); the stubbed frontends get
+seeded embeddings, as in the reference: 256 patch embeddings for
+PaliGemma, 1500 audio frames for Whisper (16 and 64 at ``--reduced``).
+It runs on the card at full width unless asked otherwise; prompts or
+caches longer than 8192 tokens take the hand-written flash-attention
+kernel::
 
     python examples/serve_llm_torch.py --prompt-len 16384 --gen 32 --batch 4
     python examples/serve_llm_torch.py --arch qwen3-moe-30b-a3b --batch 1 --prompt-len 16384
     python examples/serve_llm_torch.py --device cpu --reduced --prompt-len 48 --gen 16
     python examples/serve_llm_torch.py --device cpu --reduced --arch jamba-v0.1-52b
+    python examples/serve_llm_torch.py --device cpu --reduced --arch whisper-tiny
+    python examples/serve_llm_torch.py --device cpu --reduced --arch paligemma-3b
 """
 import argparse
 import sys
@@ -51,6 +56,14 @@ def main():
     rng = np.random.RandomState(0)
     tokens = rng.randint(0, cfg.vocab_size, size=(args.batch, args.prompt_len))
     batch = {"tokens": torch.from_numpy(tokens.astype(np.int64)).to(dev)}
+    if cfg.frontend == "vision":
+        batch["embeds"] = torch.from_numpy(
+            rng.randn(args.batch, cfg.num_frontend_tokens, cfg.d_model)
+            .astype(np.float32) * 0.02).to(device=dev, dtype=cfg.torch_dtype)
+    if cfg.frontend == "audio":
+        batch["embeds"] = torch.from_numpy(
+            rng.randn(args.batch, cfg.encoder_seq, cfg.d_model)
+            .astype(np.float32) * 0.02).to(device=dev, dtype=cfg.torch_dtype)
 
     capacity = args.prompt_len + args.gen + 8
     prefill = make_prefill_step(arch, capacity=capacity)

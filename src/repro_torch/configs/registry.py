@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig / Arch.
 
-The port carries the dense, MoE, SSM and hybrid decoder-only families.
-The reference's other families (enc-dec, VLM) are named here so that
-asking for one says where it stands instead of "unknown arch".  The paper's
-MLP (``configs/paper_mlp.py``) is ported but, as in the reference, not
+The port carries all ten of the reference's configs, in its order: the
+dense, MoE, SSM and hybrid decoder-only families, the VLM (PaliGemma,
+through the decoder-only stack with its stubbed vision embeddings) and
+the enc-dec (Whisper, ``models/encdec.py``).  The paper's MLP
+(``configs/paper_mlp.py``) is ported but, as in the reference, not
 registered.
 """
 from __future__ import annotations
@@ -13,10 +14,12 @@ from repro_torch.configs import (
     granite_8b,
     jamba_v0_1_52b,
     minitron_8b,
+    paligemma_3b,
     qwen1_5_4b,
     qwen3_moe_30b_a3b,
     qwen3_moe_235b_a22b,
     smollm_360m,
+    whisper_tiny,
 )
 from repro_torch.models.api import Arch
 from repro_torch.models.config import ModelConfig
@@ -25,9 +28,9 @@ __all__ = ["CONFIGS", "ARCH_IDS", "NOT_PORTED", "get_config", "get_arch"]
 
 CONFIGS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (qwen3_moe_30b_a3b, qwen3_moe_235b_a22b, qwen1_5_4b,
-              falcon_mamba_7b, granite_8b, minitron_8b, smollm_360m,
-              jamba_v0_1_52b)
+    for m in (whisper_tiny, qwen3_moe_30b_a3b, qwen3_moe_235b_a22b,
+              paligemma_3b, qwen1_5_4b, falcon_mamba_7b, granite_8b,
+              minitron_8b, smollm_360m, jamba_v0_1_52b)
 }
 
 ARCH_IDS = tuple(CONFIGS)
@@ -36,15 +39,12 @@ ARCH_IDS = tuple(CONFIGS)
 # builds the paper's MLP with models/mlp_classifier.py.
 _UNREGISTERED = {"paper-mlp": "repro_torch.configs.paper_mlp.CONFIG"}
 
-# The reference's architectures whose families the port does not carry yet.
-NOT_PORTED = ("whisper-tiny", "paligemma-3b")
+# The reference's architectures whose families the port does not carry:
+# none left.
+NOT_PORTED = ()
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet: its family (enc-dec "
-                       "or VLM) comes with its modules "
-                       "(ROADMAP A10)")
     if name in _UNREGISTERED:
         raise KeyError(f"arch {name!r} is ported but not registered, as in "
                        f"the reference: its config is {_UNREGISTERED[name]} "

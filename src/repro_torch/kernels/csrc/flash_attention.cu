@@ -24,16 +24,18 @@
 // parity, not serving.
 //
 // Design (an SGEMM-style register tiling of both products):
-// * One block of 256 threads per (tile of BM = 128 query rows, kv head,
-//   batch).  GQA is folded into the rows as in the Pallas kernel: row r of
+// * One block of 256 threads per (tile of BM = 128 query rows (64 at hd
+//   256, below), kv head, batch).  GQA is folded into the rows as in the
+//   Pallas kernel: row r of
 //   a (batch, kv head) is (s, g) = (r / G, r % G), so the G query heads
 //   that share a kv head share every K/V tile the block stages.  Row
 //   blocks are issued last-first, so the causal diagonal's longest rows
 //   start first.
 // * Thread (rg, cg), rg = 0..15 and cg = 0..15 (the 16 cg of one rg are
-//   one half-warp), owns rows rg*8 .. rg*8+7.  Of a key tile of BN keys
-//   it owns keys cg + 16j (BN/16 of them); of the output, hd/16 columns.
-//   S = Q·Kᵀ is an 8 × BN/16 micro-tile of outer products over hd: per
+//   one half-warp), owns rows rg*TM .. rg*TM+TM-1 (TM = BM/16 = 8).  Of a
+//   key tile of BN keys it owns keys cg + 16j (BN/16 of them); of the
+//   output, hd/16 columns.
+//   S = Q·Kᵀ is a TM × BN/16 micro-tile of outer products over hd: per
 //   four dims, BN/16 + 8 16-byte shared loads feed 32·BN/16 FMAs.  Q is
 //   staged once, transposed (Qs[d][row]); K and V tiles row-major with a
 //   4-float pad, so the 16 key rows a half-warp reads fall in distinct
@@ -62,6 +64,10 @@
 // * Scores are scaled after the dot and masked to -inf before the max;
 //   exp is the IEEE expf (never fast math).  FMAs are written as fmaf, so
 //   the library's global -fmad=false does not split them.
+// * head_dim 256 (PaliGemma) takes row blocks of BM = 64 (4 rows a
+//   thread): at 128 rows the transposed Q alone would be 132 KB and the
+//   whole block ~285 KB of shared memory, and each thread would hold
+//   8 × 16 output sums; at 64 rows it is 207 KB and 4 × 16.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -70,14 +76,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BM = 128;          // query rows per block
-constexpr int TM = 8;            // rows per thread
 constexpr int PAD = 4;           // floats of padding per shared row
-constexpr int QST = BM + PAD;    // Qs and Ps row stride (floats)
 
 enum TileClass : int { SKIP = 0, UNMASKED = 1, MASKED = 2 };
 
 template <int HD> struct Shape {
+  static constexpr int BM = HD >= 256 ? 64 : 128;  // query rows per block
+  static constexpr int TM = BM / 16;               // rows per thread
+  static constexpr int QST = BM + PAD;             // Qs and Ps row stride (floats)
   static constexpr int BN = HD <= 64 ? 64 : 32;    // keys per tile
   static constexpr int TN = BN / 16;               // keys per thread
   static constexpr int VW = HD >= 64 ? 4 : 2;      // output columns per vector
@@ -85,6 +91,7 @@ template <int HD> struct Shape {
   static constexpr int KST = HD + PAD;             // K and V row stride
   static constexpr int SMEM_FLOATS = HD * QST + 4 * BN * KST + BN * QST;
   static constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float) + BM * sizeof(int);
+  static_assert(TM % 4 == 0 && SMEM_BYTES <= 232448, "row block");
 };
 
 __device__ __forceinline__ float comp(const float4& v, int e) {
@@ -154,6 +161,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const int* __restrict__ kpos, float* __restrict__ out, int S, int H,
              int KH, int T, int group, float scale, int causal, int window) {
   using Sh = Shape<HD>;
+  constexpr int BM = Sh::BM, TM = Sh::TM, QST = Sh::QST;
   constexpr int BN = Sh::BN, TN = Sh::TN, VW = Sh::VW, NV = Sh::NV, KST = Sh::KST;
   constexpr int C4 = HD / 4;       // 16-byte pieces per row of q, k or v
 
@@ -166,7 +174,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
-  const int rg = (tid / 32) * 2 + lane / 16;
+  const int rg = (tid / 32) * 2 + lane / 16;     // rows rg*TM .. rg*TM + TM - 1
   const int cg = lane % 16;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -264,10 +272,15 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         kf[j] = *reinterpret_cast<const float4*>(kt + (cg + 16 * j) * KST + d);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float4 qa = *reinterpret_cast<const float4*>(Qs + (d + e) * QST + rg * TM);
-        const float4 qb =
-            *reinterpret_cast<const float4*>(Qs + (d + e) * QST + rg * TM + 4);
-        const float qv[TM] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        float qv[TM];
+#pragma unroll
+        for (int u = 0; u < TM / 4; ++u) {
+          const float4 x = *reinterpret_cast<const float4*>(Qs + (d + e) * QST + rg * TM + 4 * u);
+          qv[4 * u + 0] = x.x;
+          qv[4 * u + 1] = x.y;
+          qv[4 * u + 2] = x.z;
+          qv[4 * u + 3] = x.w;
+        }
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -324,9 +337,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       float* pr = Ps + (cg + 16 * j) * QST + rg * TM;
-      *reinterpret_cast<float4*>(pr) = make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-      *reinterpret_cast<float4*>(pr + 4) =
-          make_float4(sc[4][j], sc[5][j], sc[6][j], sc[7][j]);
+#pragma unroll
+      for (int u = 0; u < TM / 4; ++u)
+        *reinterpret_cast<float4*>(pr + 4 * u) =
+            make_float4(sc[4 * u][j], sc[4 * u + 1][j], sc[4 * u + 2][j], sc[4 * u + 3][j]);
     }
     // A half-warp writes and reads only its own rows of Ps.
     __syncwarp();
@@ -334,9 +348,15 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // O += P·V: rows rg*8 + i, columns u*16*VW + cg*VW + c.
 #pragma unroll 16
     for (int key = 0; key < BN; ++key) {
-      const float4 pa = *reinterpret_cast<const float4*>(Ps + key * QST + rg * TM);
-      const float4 pb = *reinterpret_cast<const float4*>(Ps + key * QST + rg * TM + 4);
-      const float pv[TM] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      float pv[TM];
+#pragma unroll
+      for (int u = 0; u < TM / 4; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(Ps + key * QST + rg * TM + 4 * u);
+        pv[4 * u + 0] = x.x;
+        pv[4 * u + 1] = x.y;
+        pv[4 * u + 2] = x.z;
+        pv[4 * u + 3] = x.w;
+      }
       float vv[NV * VW];
 #pragma unroll
       for (int u = 0; u < NV; ++u) {
@@ -401,6 +421,7 @@ int launch(const float* q, const float* k, const float* v, const int* qpos,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
+  constexpr int BM = Shape<HD>::BM;
   const long long rows = (long long)S * (H / KH);
   const long long tiles = (rows + BM - 1) / BM;
   if (tiles > INT_MAX || KH > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
@@ -436,6 +457,9 @@ int fs_flash_attention(const void* q, const void* k, const void* v,
                               window, st);
         case 128:
             return launch<128>(qf, kf, vf, qpos, kpos, of, B, S, H, KH, T, scale, causal,
+                               window, st);
+        case 256:
+            return launch<256>(qf, kf, vf, qpos, kpos, of, B, S, H, KH, T, scale, causal,
                                window, st);
         default:
             return (int)cudaErrorInvalidValue;

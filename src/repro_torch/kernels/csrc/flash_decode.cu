@@ -30,8 +30,10 @@
 //   cp.async, 16 bytes a thread, all 64 KB in flight at once in four
 //   commit groups (keys past T arrive as zeros); the block works on each
 //   group as it lands.  hd·size/16 lanes share one key, each reading one
-//   16-byte vector; a score is the lanes' partial dots summed by
-//   __shfl_xor_sync.  The block keeps the S·G rows of its kv head (q in
+//   16-byte vector (at most 32 lanes: at hd 256 in float32 a key's 64
+//   vectors span one warp, two adjacent vectors a lane); a score is the
+//   lanes' partial dots summed by __shfl_xor_sync.  The block keeps the
+//   S·G rows of its kv head (q in
 //   registers); each lane group keeps its own online softmax (m, l, acc)
 //   over its keys; groups merge by shuffles, warps through shared memory,
 //   in a fixed order.  The block writes one float32 partial (m, l,
@@ -136,14 +138,18 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
                    int KH, int T, int G, int R, int nparts, float scale, int causal,
                    int window) {
     constexpr int VEC = 16 / sizeof(Elem);      // elements per 16-byte vector
-    constexpr int LPK = HD / VEC;               // lanes per key
+    constexpr int VPK = HD / VEC;               // 16-byte vectors per key
+    constexpr int NV = VPK > 32 ? VPK / 32 : 1; // vectors per lane and key
+    constexpr int EPL = VEC * NV;               // elements per lane and key
+    constexpr int LPK = HD / EPL;               // lanes per key
     constexpr int KPW = 32 / LPK;               // keys per warp step
     constexpr int P = partition_keys(HD, sizeof(Elem));
     constexpr int GK = P / kGroups;             // keys per cp.async group
     constexpr int STEPS = GK / (kWarps * KPW);  // keys per lane group and group
-    constexpr int VPG = GK * LPK;               // 16-byte vectors of K per group
-    static_assert(LPK <= 32 && STEPS >= 1 && GK % (kWarps * KPW) == 0
-                  && VPG % kThreads == 0, "partition shape");
+    constexpr int VPG = GK * VPK;               // 16-byte vectors of K per group
+    static_assert(LPK <= 32 && LPK * EPL == HD && STEPS >= 1
+                  && GK % (kWarps * KPW) == 0 && VPG % kThreads == 0,
+                  "partition shape");
 
     extern __shared__ __align__(16) uint8_t smem[];
     Elem* s_k = reinterpret_cast<Elem*>(smem);                    // P × HD
@@ -169,15 +175,16 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
     int qp[RC];
 #pragma unroll
     for (int r = 0; r < RC; ++r) qp[r] = r < R ? qpos[r / G] : 0;
-    float qv[RC][VEC];
+    float qv[RC][EPL];
 #pragma unroll
     for (int r = 0; r < RC; ++r) {
         if (r < R) {
             const long long off = (((long long)b * S + r / G) * H + kvh * G + r % G) * HD;
-            load_vec(q + off + sub * VEC, qv[r]);
+#pragma unroll
+            for (int n = 0; n < NV; ++n) load_vec(q + off + sub * EPL + n * VEC, qv[r] + n * VEC);
         } else {
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) qv[r][e] = 0.f;
+            for (int e = 0; e < EPL; ++e) qv[r][e] = 0.f;
         }
     }
     int any = 0;
@@ -211,8 +218,8 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < VPG / kThreads; ++i) {
             const int idx = g * VPG + i * kThreads + tid;     // vector of the partition
-            const int key = idx / LPK;
-            const int c = (idx % LPK) * VEC;
+            const int key = idx / VPK;
+            const int c = (idx % VPK) * VEC;
             const bool in = t_begin + key < t_end;
             const long long src = in ? key * kstride + c : 0;
             cp_async16(sk + (key * HD + c) * (int)sizeof(Elem), kb + src, in ? 16 : 0);
@@ -221,13 +228,13 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
         cp_async_commit();
     }
 
-    float m[RC], l[RC], acc[RC][VEC];
+    float m[RC], l[RC], acc[RC][EPL];
 #pragma unroll
     for (int r = 0; r < RC; ++r) {
         m[r] = -INFINITY;
         l[r] = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+        for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
     }
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) {
@@ -236,19 +243,15 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
         if (g == 2) cp_async_wait<kGroups - 3>();
         if (g == 3) cp_async_wait<0>();
         __syncthreads();
-        float kf[STEPS][VEC], vf[STEPS][VEC];
+        float kf[STEPS][EPL], vf[STEPS][EPL];
         int kp[STEPS];
 #pragma unroll
         for (int c = 0; c < STEPS; ++c) {
             const int key = g * GK + (c * kWarps + warp) * KPW + grp;
-            const uint4 ku = *reinterpret_cast<const uint4*>(s_k + key * HD + sub * VEC);
-            const uint4 vu = *reinterpret_cast<const uint4*>(s_v + key * HD + sub * VEC);
-            if constexpr (sizeof(Elem) == 4) {
-                to_float(ku, kf[c]);
-                to_float(vu, vf[c]);
-            } else {
-                to_float8(ku, kf[c]);
-                to_float8(vu, vf[c]);
+#pragma unroll
+            for (int n = 0; n < NV; ++n) {
+                load_vec(s_k + key * HD + sub * EPL + n * VEC, kf[c] + n * VEC);
+                load_vec(s_v + key * HD + sub * EPL + n * VEC, vf[c] + n * VEC);
             }
             kp[c] = s_kpos[key];
         }
@@ -260,7 +263,7 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
             for (int c = 0; c < STEPS; ++c) {
                 float d = 0.f;
 #pragma unroll
-                for (int e = 0; e < VEC; ++e) d = fmaf(qv[r][e], kf[c][e], d);
+                for (int e = 0; e < EPL; ++e) d = fmaf(qv[r][e], kf[c][e], d);
 #pragma unroll
                 for (int off = 1; off < LPK; off <<= 1) {
                     d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -283,7 +286,7 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
             }
             l[r] = fmaf(l[r], corr, psum);
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) {
+            for (int e = 0; e < EPL; ++e) {
                 float a = acc[r][e] * corr;
 #pragma unroll
                 for (int c = 0; c < STEPS; ++c) a = fmaf(sc[c], vf[c][e], a);
@@ -299,12 +302,12 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
 #pragma unroll
         for (int r = 0; r < RC; ++r) {
             if (r >= R) continue;
-            float acco[VEC];
+            float acco[EPL];
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) acco[e] = __shfl_xor_sync(0xffffffffu, acc[r][e], off);
+            for (int e = 0; e < EPL; ++e) acco[e] = __shfl_xor_sync(0xffffffffu, acc[r][e], off);
             const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
             const float lo = __shfl_xor_sync(0xffffffffu, l[r], off);
-            merge<VEC>(m[r], l[r], acc[r], mo, lo, acco);
+            merge<EPL>(m[r], l[r], acc[r], mo, lo, acco);
         }
     }
     if (grp == 0) {
@@ -316,8 +319,8 @@ flash_decode_split(const Elem* __restrict__ q, const Elem* __restrict__ k,
                 s_l[warp * RC + r] = l[r];
             }
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) {
-                s_acc[(warp * RC + r) * HD + sub * VEC + e] = acc[r][e];
+            for (int e = 0; e < EPL; ++e) {
+                s_acc[(warp * RC + r) * HD + sub * EPL + e] = acc[r][e];
             }
         }
     }
@@ -462,6 +465,10 @@ int launch_hd(int hd, int R, const void* q, const void* k, const void* v,
             return launch_rows<Elem, 128>(R, q, k, v, qpos, kpos, out, pm, pl, pacc, B,
                                           S, H, KH, T, scale, causal, window, nparts,
                                           stream);
+        case 256:
+            return launch_rows<Elem, 256>(R, q, k, v, qpos, kpos, out, pm, pl, pacc, B,
+                                          S, H, KH, T, scale, causal, window, nparts,
+                                          stream);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -482,7 +489,7 @@ int fs_flash_decode(const void* q, const void* k, const void* v, const int* qpos
                     int causal, int window, int part, int nparts, void* stream) {
     const int esize = dtype == 0 ? 4 : 2;
     if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0 || (hd != 32 && hd != 64
-        && hd != 128) || part != partition_keys(hd, esize)
+        && hd != 128 && hd != 256) || part != partition_keys(hd, esize)
         || nparts != (T + part - 1) / part || B > 65535 || KH > 65535
         || nparts > 12288) {   // the combine's weights fit 48 KB
         return (int)cudaErrorInvalidValue;

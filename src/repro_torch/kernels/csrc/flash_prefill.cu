@@ -53,6 +53,17 @@
 //   more bf16 outputs by an ulp; per tile it stays at 16 steps.
 // * Rows past S are computed on zeros and never stored; a row whose l is
 //   0 stores zeros.
+// * head_dim 256 (PaliGemma) breaks both budgets of the shape above, so it
+//   takes smaller pieces.  Shared memory: key tiles of BN = 64 (Q 64 KB,
+//   two stages of K and V 128 KB: 192 KB of the 227 KB a block may have;
+//   BN = 128 would need 320 KB).  Registers: a consumer thread holds its
+//   rows' float32 O (hd/2 = 128 values); O_tile for all 256 columns would
+//   add 128 more, past the 232 it is given.  So P·V runs in NC = 64-column
+//   chunks of V, one swizzle atom each: for each chunk the same p_hi and
+//   p_lo fragments, two wgmma m64n64k16 per 16 keys into one 32-value
+//   O_tile, then O = O·corr + O_tile for those columns on the CUDA cores,
+//   as at the other head dims (the same precision: p float32, each tile's
+//   sum added in float32).  At hd ≤ 128 NC = hd: one chunk, as before.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +81,8 @@ constexpr int kConsumerRegs = 232;
 
 template <int HD>
 struct Cfg {
-    static constexpr int BN = HD == 128 ? 64 : 128;       // keys per tile
+    static constexpr int BN = HD >= 128 ? 64 : 128;       // keys per tile
+    static constexpr int NC = HD > 128 ? 64 : HD;         // V columns per P·V chunk
     static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;  // swizzle bytes
     static constexpr int AC = SW / 2;                     // columns per atom
     static constexpr int NA = HD / AC;                    // atoms along hd
@@ -86,6 +98,8 @@ struct Cfg {
     static constexpr int OFF_QRANGE = OFF_BAR + 8 * (1 + 3 * kStages);
     static constexpr int SMEM = 1024 + OFF_QRANGE + 8;      // + alignment slack
     static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tile alignment");
+    static_assert(HD % NC == 0 && (NC == HD || NC % AC == 0), "PV chunks of whole swizzle atoms");
+    static_assert(SMEM <= 232448, "shared memory of one block");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -220,7 +234,7 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
-    static_assert(N == 32 || N == 64 || N == 128, "head_dim");
+    static_assert(N == 32 || N == 64 || N == 128, "V columns of a PV chunk");
     if constexpr (N == 32) {
         wgmma_rs_n32(d, a, db, acc);
     } else if constexpr (N == 64) {
@@ -371,13 +385,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
         const int qp0 = ok0 ? qpos[q0 + r0] : 0;
         const int qp1 = ok1 ? qpos[q0 + r0 + 8] : 0;
 
-        float o[HD / 2], ot[HD / 2];
+        constexpr int NC = C::NC;
+        float o[HD / 2], ot[NC / 2];
         float s[BN / 2];
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) {
-            o[i] = 0.f;
-            ot[i] = 0.f;
-        }
+        for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+#pragma unroll
+        for (int i = 0; i < NC / 2; ++i) ot[i] = 0.f;
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
         float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
@@ -473,21 +487,29 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,
             // O_tile = p_hi·V + p_lo·V on the tensor cores, then
             // O = O·corr + O_tile in float32 on the CUDA cores: the tensor
             // cores' accumulation rounds coarser than float32 adds, so a
-            // sum over the whole row stays out of them.
+            // sum over the whole row stays out of them.  Chunk c holds V's
+            // columns c·NC .. c·NC + NC - 1 (atoms c·NC/AC on).
             mbar_wait(full_v(stage), phase);
-            fence_regs<HD / 2>(ot);
-            wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk) {
-                const uint64_t dv = make_desc(v_base + kk * 16 * SW, BN * SW, 8 * SW, C::LAYOUT);
-                wgmma_rs<HD>(ot, ph[kk], dv, kk > 0);
-                wgmma_rs<HD>(ot, pl[kk], dv, 1);
+            for (int c = 0; c < HD / NC; ++c) {
+                const uint32_t v_chunk = v_base + c * (NC / AC) * (BN * SW);
+                fence_regs<NC / 2>(ot);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < BN / 16; ++kk) {
+                    const uint64_t dv = make_desc(v_chunk + kk * 16 * SW, BN * SW, 8 * SW,
+                                                  C::LAYOUT);
+                    wgmma_rs<NC>(ot, ph[kk], dv, kk > 0);
+                    wgmma_rs<NC>(ot, pl[kk], dv, 1);
+                }
+                wgmma_commit();
+                wgmma_wait0();
+                fence_regs<NC / 2>(ot);
+#pragma unroll
+                for (int i = 0; i < NC / 2; ++i) {
+                    o[c * NC / 2 + i] = fmaf(o[c * NC / 2 + i], (i & 2) ? c1 : c0, ot[i]);
+                }
             }
-            wgmma_commit();
-            wgmma_wait0();
-            fence_regs<HD / 2>(ot);
-#pragma unroll
-            for (int i = 0; i < HD / 2; ++i) o[i] = fmaf(o[i], (i & 2) ? c1 : c0, ot[i]);
             if (lane == 0) mbar_arrive(empty(stage));
             if (++stage == kStages) {
                 stage = 0;
@@ -622,6 +644,9 @@ int fs_flash_prefill(const void* q, const void* k, const void* v, const int* qpo
                               window, st);
         case 128:
             return launch<128>(q, k, v, qpos, kpos, out, B, S, H, KH, T, scale, causal,
+                               window, st);
+        case 256:
+            return launch<256>(q, k, v, qpos, kpos, out, B, S, H, KH, T, scale, causal,
                                window, st);
         default:
             return (int)cudaErrorInvalidValue;

@@ -48,8 +48,8 @@ __all__ = ["HEAD_DIMS", "DECODE_MAX_ROWS", "decode_partition", "flash_attention"
            "flash_f32", "allowed_mask", "flash_tile_class", "flash_compare",
            "flash_agrees"]
 
-# head_dim values the CUDA kernels are instantiated for.
-HEAD_DIMS = (32, 64, 128)
+# head_dim values the CUDA kernels are instantiated for (256: PaliGemma).
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The split-KV decode takes at most this many rows (S·G) per kv head: a
 # decode step of every configuration the port serves (G ≤ 8).
@@ -165,7 +165,8 @@ def flash_route(s: int, h: int, kh: int, dtype: torch.dtype) -> str:
 
 def decode_partition(hd: int, dtype: torch.dtype) -> int:
     """Keys per partition of the split-KV decode: 32 KB of K (and of V),
-    256 keys at hd 64 in bf16 (``csrc/flash_decode.cu``'s partition_keys)."""
+    256 keys at hd 64 in bf16, 64 at hd 256 (``csrc/flash_decode.cu``'s
+    partition_keys)."""
     return 32768 // (hd * dtype.itemsize)
 
 

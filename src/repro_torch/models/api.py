@@ -1,8 +1,10 @@
-"""Unified architecture API for the port's decoder-only families.
+"""Unified architecture API: one object per assigned arch.
 
 Counterpart of ``repro/models/api.py``.  ``Arch`` wraps a ModelConfig
-of the dense, MoE, SSM or hybrid family (``models/lm.py`` takes each
-layer's kind from the config) with the serving entry points:
+of any family: the decoder-only ones (dense, MoE, SSM, hybrid, and the
+VLM with its stubbed vision embeddings; ``models/lm.py`` takes each
+layer's kind from the config) and the enc-dec (``models/encdec.py``),
+with uniform entry points:
 
 * ``init(seed, device)``                  → params
 * ``loss(params, batch)``                 → scalar CE  (train shapes)
@@ -11,8 +13,10 @@ layer's kind from the config) with the serving entry points:
   updated in place
 * ``init_caches(batch, capacity, device)``
 
-Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.  The enc-dec family raises (ROADMAP A10);
+``batch`` holds ``tokens`` (and ``labels`` for the loss) and, for a
+frontend, ``embeds``: the VLM's patch embeddings, prepended to the text,
+or the enc-dec's audio frames, which the encoder consumes.  Entry points
+run on the CUDA card unless the caller passes ``device="cpu"``.
 ``input_specs``/``param_shapes`` wait for the meta-device dry run
 (ROADMAP A11).
 """
@@ -23,6 +27,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
@@ -42,35 +47,50 @@ LONG_WINDOW = 8192
 
 class Arch:
     def __init__(self, cfg: ModelConfig):
-        if cfg.encoder_layers > 0:
-            raise NotImplementedError("the enc-dec family is not ported yet "
-                                      "(ROADMAP A10)")
         self.cfg = cfg
+        self.is_encdec = cfg.encoder_layers > 0
 
     # ---------------- parameters ----------------
     def init(self, seed: int = 0, device="cuda"):
         """Random parameters drawn from a ``torch.Generator`` seeded with ``seed``."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
+        if self.is_encdec:
+            return ed.init_encdec(self.cfg, gen)
         return lm.init_lm(self.cfg, gen)
 
     # ---------------- training ----------------
     def loss(self, params, batch, window: Optional[int] = None):
+        if self.is_encdec:
+            return ed.encdec_loss(params, self.cfg, batch, window=window)
         return lm.lm_loss(params, self.cfg, batch, window=window)
 
     # ---------------- serving ----------------
     def prefill(self, params, batch, capacity: int, window: Optional[int] = None):
+        if self.is_encdec:
+            return ed.encdec_prefill(params, self.cfg, batch["embeds"],
+                                     batch["tokens"], capacity=capacity,
+                                     window=window)
         return lm.lm_prefill(params, self.cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), capacity=capacity,
                              window=window)
 
     def decode(self, params, token, caches, position, window: Optional[int] = None):
+        if self.is_encdec:
+            return ed.encdec_decode(params, self.cfg, token, caches, position,
+                                    window=window)
         return lm.lm_decode(params, self.cfg, token, caches, position,
                             window=window)
 
     def init_caches(self, batch: int, capacity: int, device="cuda"):
-        return lm.init_lm_caches(self.cfg, batch, capacity,
-                                 device=resolve_device(device))
+        """Empty caches; the enc-dec's hold zero encoder states of shape
+        (batch, encoder_seq, d_model), as in the reference."""
+        dev = resolve_device(device)
+        if self.is_encdec:
+            enc = torch.zeros((batch, self.cfg.encoder_seq, self.cfg.d_model),
+                              dtype=self.cfg.torch_dtype, device=dev)
+            return ed.init_decoder_caches(self.cfg, batch, capacity, enc)
+        return lm.init_lm_caches(self.cfg, batch, capacity, device=dev)
 
     # ---------------- shape plumbing ----------------
     def decode_window(self, seq_len: int) -> int:

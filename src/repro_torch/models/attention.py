@@ -1,16 +1,18 @@
 """Grouped-query attention with RoPE, sliding windows and a ring-buffer KV cache.
 
-Counterpart of ``repro/models/attention.py`` for the dense serving path:
-GQA / MQA / MHA, QKV biases, sliding windows and the ring-buffer cache.
-The prefix-bidirectional mask (PaliGemma) is kept in the plain path;
-cross-attention arrives with the enc-dec family.
+Counterpart of ``repro/models/attention.py``: GQA / MQA / MHA, QKV
+biases, sliding windows, the prefix-bidirectional mask (PaliGemma), the
+ring-buffer cache and cross-attention (the Whisper decoder over its
+encoder's states).
 
 ``_sdpa`` is plain PyTorch.  ``_sdpa_blocked`` — taken, as in the
 reference, for prompts and caches longer than ``BLOCKED_SDPA_THRESHOLD``
 — is the hand-written flash-attention kernel on a CUDA tensor and its
-plain version on a CPU tensor; under autograd on the card, and with a
-prefix, it is the reference's blocked recurrence in plain torch
-(``_sdpa_blocked_plain``).
+plain version on a CPU tensor; under autograd on the card, and where a
+query lies inside the prefix (a prefill with a prefix), it is the
+reference's blocked recurrence in plain torch (``_sdpa_blocked_plain``).
+A decode step past the prefix has the causal mask, and takes the kernel.
+Cross-attention always takes the plain ``_sdpa``, as in the reference.
 
 The KV cache is a fixed-capacity ring buffer: ``pos`` records each
 slot's absolute token position (−1 = empty).  Unlike the reference,
@@ -175,12 +177,16 @@ def _sdpa_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     query and KV chunks.  Here the flash-attention kernels take it
     (``kernels.flash_attention``: the hand-written kernel on a CUDA
     tensor, its plain version on a CPU tensor), except where they cannot:
-    with a prefix-bidirectional mask, which they do not have, and on the
-    card under autograd, where they have no backward.  Those take
-    :func:`_sdpa_blocked_plain`, the reference's recurrence itself.
+    where a query lies inside the prefix-bidirectional span, whose mask
+    they do not have, and on the card under autograd, where they have no
+    backward.  Those take :func:`_sdpa_blocked_plain`, the reference's
+    recurrence itself.  When every query lies at or past the prefix (a
+    decode step), the prefix term of the mask is empty and the mask is
+    the causal one, which the kernels take.
     """
-    if prefix_len or (q.is_cuda and torch.is_grad_enabled() and (
-            q.requires_grad or k.requires_grad or v.requires_grad)):
+    if (prefix_len and int(qpos.min()) < prefix_len) or (
+            q.is_cuda and torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad)):
         return _sdpa_blocked_plain(q, k, v, qpos, kpos, causal=causal,
                                    window=window, prefix_len=prefix_len)
     return flash_attention(q, k, v, qpos.to(torch.int32).contiguous(),
@@ -199,6 +205,7 @@ def attention(
     prefix_len: int = 0,
     cache: Optional[KVCache] = None,
     update_cache: bool = False,
+    encoder_states: Optional[torch.Tensor] = None,  # cross-attention source
 ):
     """One attention layer.  Returns ``(y, cache)``.
 
@@ -206,6 +213,7 @@ def attention(
       * train/encoder:   cache=None                      (self-attn over x)
       * prefill:         cache=empty, update_cache=True  (fills ring buffer)
       * decode:          cache=filled, update_cache=True (S=1 append)
+      * cross-attention: encoder_states given            (keys from encoder)
 
     With ``update_cache`` the new tokens are written into ``cache``'s
     tensors in place; the returned cache shares them and has ``idx + S``.
@@ -216,6 +224,16 @@ def attention(
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
 
     q = linear(params["wq"], x).reshape(b, s, cfg.num_heads, hd)
+
+    if encoder_states is not None:
+        # Cross-attention: K/V from the encoder, no RoPE, causality or cache.
+        t = encoder_states.shape[1]
+        k = linear(params["wk"], encoder_states).reshape(b, t, cfg.num_kv_heads, hd)
+        v = linear(params["wv"], encoder_states).reshape(b, t, cfg.num_kv_heads, hd)
+        kpos = torch.arange(t, dtype=torch.int32, device=x.device)
+        out = _sdpa(q, k, v, positions, kpos, causal=False, window=0, prefix_len=0)
+        return linear(params["wo"], out.reshape(b, s, -1)), cache
+
     k = linear(params["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
     v = linear(params["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
 

@@ -30,7 +30,6 @@ are dropped.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Any, NamedTuple, Optional
 
@@ -66,6 +65,9 @@ __all__ = [
     "lm_decode",
     "LayerCaches",
     "init_lm_caches",
+    "init_stacked",
+    "stack_slice",
+    "remat_call",
 ]
 
 
@@ -102,14 +104,15 @@ def _init_sublayer(gen, cfg, kind: str, ffn_kind: str):
     return p
 
 
-def _init_stacked(gen, cfg, kind: str, ffn_kind: str, nper: int):
-    """``nper`` sublayers drawn in turn, each written into its slice of
-    stacks allocated once; each sublayer's tree is dropped once copied."""
+def init_stacked(make, n: int):
+    """``n`` trees drawn in turn by ``make()``, each written into its slice
+    of stacks allocated once (the reference's ``jax.vmap`` of an init over
+    n keys stacks the same way); each tree is dropped once copied."""
     stacked = None
-    for i in range(nper):
-        sub = _init_sublayer(gen, cfg, kind, ffn_kind)
+    for i in range(n):
+        sub = make()
         if stacked is None:
-            stacked = tree_map(lambda w: torch.empty((nper,) + tuple(w.shape),
+            stacked = tree_map(lambda w: torch.empty((n,) + tuple(w.shape),
                                                      dtype=w.dtype, device=w.device),
                                sub)
         for dst, src in zip(tree_leaves(stacked), tree_leaves(sub)):
@@ -127,7 +130,8 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """
     plen, nper, kinds = period_structure(cfg)
     dt, dev = cfg.torch_dtype, gen.device
-    period = [_init_stacked(gen, cfg, kind, ffn_kind, nper) for kind, ffn_kind in kinds]
+    period = [init_stacked(lambda: _init_sublayer(gen, cfg, kind, ffn_kind), nper)
+              for kind, ffn_kind in kinds]
     params = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
         "period": period,
@@ -190,46 +194,52 @@ def _logits(params, cfg, x):
     return linear(params["lm_head"], x).to(torch.float32)
 
 
-def _period_slice(period, i: int):
-    """The i-th period's params (views into the stacks)."""
-    def take(t):
-        return {k: take(v) for k, v in t.items()} if isinstance(t, dict) else t[i]
-    return [take(p) for p in period]
+def stack_slice(tree, i: int):
+    """Slice ``i`` of every stacked leaf of ``tree`` (views into the stacks):
+    the i-th period's params, or the i-th layer's."""
+    if isinstance(tree, dict):
+        return {k: stack_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [stack_slice(v, i) for v in tree]
+    return tree[i]
 
 
-def _period_body(cfg, kinds, like, positions, window, x, *leaves):
-    """One period's sublayers; its params arrive as ``leaves`` in the
-    sorted-key order of ``like`` (so a checkpoint sees them as inputs)."""
-    period_slice = tree_unflatten(like, list(leaves))
-    for pos, (kind, ffn_kind) in enumerate(kinds):
-        x, _ = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
-                             positions, window, cfg.prefix_bidirectional)
-    return x
+def remat_call(body, params, x, remat: bool):
+    """``body(params, x)``; with ``remat``, under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` with the
+    params' leaves passed as its inputs (in sorted-key order), so that the
+    backward pass recomputes it from ``x`` (the reference's
+    ``jax.checkpoint``).  The values are the same either way."""
+    def run(x, *leaves):
+        return body(tree_unflatten(params, list(leaves)), x)
+
+    leaves = tree_leaves(params)
+    if remat:
+        return checkpoint(run, x, *leaves, use_reentrant=False)
+    return run(x, *leaves)
 
 
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
                window: Optional[int] = None, remat: bool = True):
     """Training-mode forward without caches → logits (B, S_total, V), float32.
 
-    With ``remat`` each period runs under
-    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` with the
-    period's param slices passed as inputs: the backward pass recomputes
-    the period from its input activation (the reference's
-    ``jax.checkpoint(period_body)``).  The values are the same either way.
+    With ``remat`` each period runs under :func:`remat_call`'s checkpoint:
+    the backward pass recomputes the period from its input activation (the
+    reference's ``jax.checkpoint(period_body)``).
     """
     plen, nper, kinds = period_structure(cfg)
     x = _embed_inputs(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     win = cfg.window if window is None else window
+
+    def body(period_slice, x):
+        for pos, (kind, ffn_kind) in enumerate(kinds):
+            x, _ = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
+                                 positions, win, cfg.prefix_bidirectional)
+        return x
+
     for i in range(nper):
-        period_slice = _period_slice(params["period"], i)
-        body = functools.partial(_period_body, cfg, kinds, period_slice,
-                                 positions, win)
-        leaves = tree_leaves(period_slice)
-        if remat:
-            x = checkpoint(body, x, *leaves, use_reentrant=False)
-        else:
-            x = body(x, *leaves)
+        x = remat_call(body, stack_slice(params["period"], i), x, remat)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _logits(params, cfg, x)
 
@@ -280,7 +290,7 @@ def _scan_with_caches(params, cfg, x, caches, positions, window, prefix_len,
     state here)."""
     plen, nper, kinds = period_structure(cfg)
     for i in range(nper):
-        period_slice = _period_slice(params["period"], i)
+        period_slice = stack_slice(params["period"], i)
         for pos, (kind, ffn_kind) in enumerate(kinds):
             st = caches.caches[pos]
             cache = type(st)(*(t[i] for t in st))

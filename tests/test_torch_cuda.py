@@ -303,7 +303,7 @@ FLASH_HEAD_IDS = ["mha", "gqa3", "mqa", "gqa8"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("heads", FLASH_HEADS, ids=FLASH_HEAD_IDS)
 @pytest.mark.parametrize("window", [0, 64])
 def test_cuda_flash_matches_plain(cuda_device, dtype, hd, heads, window):
@@ -350,7 +350,7 @@ def _check_route(dev, route, b, s, t, h, kh, hd, dtype, *args, **kw):
     assert fn.launches == before + 1
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("heads", FLASH_HEADS, ids=FLASH_HEAD_IDS)
 @pytest.mark.parametrize("window", [0, 64])
 def test_cuda_flash_prefill_kernel(cuda_device, hd, heads, window):
@@ -372,7 +372,8 @@ def test_cuda_flash_prefill_kernel(cuda_device, hd, heads, window):
 def test_cuda_flash_decode_kernel(cuda_device, dtype):
     """The split-KV decode: 16 424 slots (not a multiple of its 256-key
     partition) with 24 empty, a wrapped ring of 1000 under windows 0, 64
-    and 1000, two query rows of GQA 3, and hd 32 and 128."""
+    and 1000, two query rows of GQA 3, and hd 32, 128 and 256 (PaliGemma's
+    8 heads over 1)."""
     kpos = torch.where(torch.arange(16424) < 16400, torch.arange(16424), -1).int()
     _check_route(cuda_device, "decode", 4, 1, 16424, 15, 5, 64, dtype,
                  qpos=torch.tensor([16399], dtype=torch.int32), kpos=kpos)
@@ -382,7 +383,7 @@ def test_cuda_flash_decode_kernel(cuda_device, dtype):
                      torch.tensor([1499], dtype=torch.int32), ring, 7)
     _check_route(cuda_device, "decode", 2, 2, 1000, 6, 2, 64, dtype, 0,
                  torch.tensor([1498, 1499], dtype=torch.int32), ring, 8)
-    for hd in (32, 128):
+    for hd in (32, 128, 256):
         _check_route(cuda_device, "decode", 2, 1, 1000, 8, 1, hd, dtype, 64,
                      torch.tensor([1499], dtype=torch.int32), ring, 9)
 
@@ -527,6 +528,57 @@ def test_cuda_moe_and_mamba_forward_match_cpu(cuda_device, monkeypatch, name, ov
     assert len(routes.recorded) == (cfg.num_layers if cfg.num_experts else 0)
     routes.check(cfg.name)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("name,over", [
+    ("paligemma-3b", {}),
+    ("paligemma-3b", dict(d_model=512, num_heads=2, num_kv_heads=1, head_dim=256)),
+    ("whisper-tiny", {})], ids=["vlm", "vlm-hd256", "encdec"])
+def test_cuda_vlm_and_encdec_serve_match_cpu(cuda_device, monkeypatch, name, over):
+    """Reduced PaliGemma (head_dim 64, and 256) and reduced Whisper, float32,
+    prefill + 4 decode steps on the card against the CPU with the blocked
+    threshold at 64: PaliGemma's 16 embeddings + 264 tokens run the plain
+    prefix recurrence at prefill and the split-KV decode at each step past
+    the prefix (256); Whisper's decoder (64 frames, 200 tokens) the float32
+    kernel at prefill and the split-KV decode at each step.  Logits within
+    atol 1e-3 (sum order)."""
+    import dataclasses
+
+    import repro_torch.models.attention as t_attention
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.api import Arch
+
+    monkeypatch.setattr(t_attention, "BLOCKED_SDPA_THRESHOLD", 64)
+    cfg = dataclasses.replace(get_config(name).reduced(), **over)
+    arch = Arch(cfg)
+    params = arch.init(seed=0, device="cpu")
+    dev_params = tree_map(lambda t: t.to(cuda_device), params)
+    rng = np.random.RandomState(0)
+    vlm = cfg.frontend == "vision"
+    n_emb = cfg.num_frontend_tokens if vlm else cfg.encoder_seq
+    prompt = 264 if vlm else 200
+    batch = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, prompt))),
+             "embeds": torch.from_numpy((rng.randn(2, n_emb, cfg.d_model) * 0.02)
+                                        .astype(np.float32))}
+    start = prompt + (n_emb if vlm else 0)
+    counters = (flash_attention, fa.flash_f32, fa.flash_decode)
+    out = {}
+    for dev, p in (("cpu", params), ("cuda", dev_params)):
+        before = [f.launches for f in counters]
+        logits, caches = arch.prefill(p, {k: x.to(dev) for k, x in batch.items()},
+                                      capacity=start + 8)
+        steps = [logits]
+        for i in range(4):
+            nxt = torch.full((2, 1), 7 + i, device=dev)
+            logits, caches = arch.decode(p, nxt, caches, start + i)
+            steps.append(logits)
+        out[dev] = torch.stack([x.cpu() for x in steps])
+    n = cfg.num_layers
+    assert [f.launches - b for f, b in zip(counters, before)] == (
+        [4 * n, 0, 4 * n] if vlm else [5 * n, n, 4 * n])
+    assert bool(torch.isfinite(out["cuda"]).all())
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -978,7 +1030,7 @@ def _check_f32(dev, b, s, t, h, kh, hd, *, causal=True, window=0, qpos=None,
     assert bool((got[:, ~rows] == 0).all())
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("heads", [(4, 4), (6, 2), (4, 1)], ids=["mha", "gqa3", "mqa"])
 def test_cuda_flash_f32_kernel(cuda_device, hd, heads):
     """The register-tiled float32 kernel at S·G and T that its tiles (128

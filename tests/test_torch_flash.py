@@ -108,6 +108,7 @@ def _close(got, want, qpos, kpos, dtype, causal=True, window=0):
     (1, 256, 4, 2, 64, 128, 128),
     (2, 256, 4, 1, 128, 64, 128),     # MQA
     (1, 512, 6, 6, 32, 256, 256),     # MHA, odd head count
+    (1, 128, 8, 1, 256, 64, 64),      # PaliGemma's heads: MQA, hd 256
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_matches_pallas_causal(shape, dtype):
@@ -168,6 +169,9 @@ def _ring_kpos(capacity, first, last):
     ("ring_decode_window", (2, 1, 100, 6, 2, 64), 64, np.array([149]),
      _ring_kpos(100, 0, 149)),
     ("ring_rows", (1, 40, 100, 6, 2, 64), 0, np.arange(110, 150),
+     _ring_kpos(100, 0, 149)),
+    ("ragged_hd256", (1, 77, 77, 8, 1, 256), 16, None, None),
+    ("ring_decode_hd256", (2, 1, 100, 8, 1, 256), 0, np.array([149]),
      _ring_kpos(100, 0, 149)),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -299,6 +303,8 @@ def _split_kv(q, k, v, qpos, kpos, *, causal=True, window=0, part=None):
      np.where(np.arange(517) % 9 == 4, -1, np.arange(517)), 128),
     ("serve_cache", (4, 1, 16424, 15, 5, 64), 0, np.array([16399]),
      np.where(np.arange(16424) < 16400, np.arange(16424), -1), None),
+    ("paligemma_hd256", (1, 1, 700, 8, 1, 256), 0, np.array([650]),
+     np.where(np.arange(700) % 11 == 5, -1, np.arange(700)), None),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_kv_matches_plain(case, dtype):
@@ -351,7 +357,7 @@ def test_split_kv_matches_pallas(window):
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "granite-8b", "qwen1.5-4b",
-                                  "minitron-8b"])
+                                  "minitron-8b", "paligemma-3b", "whisper-tiny"])
 def test_route_at_serve_shapes(arch):
     """Decode (S = 1) of every served configuration goes to the split-KV
     kernel in both types; a bf16 prefill over the blocked threshold to
@@ -368,8 +374,10 @@ def test_route_rule():
     """The rule is S·G ≤ DECODE_MAX_ROWS, whatever the type; a decode
     partition holds 32 KB of K."""
     assert DECODE_MAX_ROWS == 8
-    assert [decode_partition(hd, torch.bfloat16) for hd in (32, 64, 128)] == [512, 256, 128]
-    assert [decode_partition(hd, torch.float32) for hd in (32, 64, 128)] == [256, 128, 64]
+    assert [decode_partition(hd, torch.bfloat16)
+            for hd in (32, 64, 128, 256)] == [512, 256, 128, 64]
+    assert [decode_partition(hd, torch.float32)
+            for hd in (32, 64, 128, 256)] == [256, 128, 64, 32]
     for s, h, kh, want in ((1, 15, 5, "decode"), (2, 12, 3, "decode"),
                            (3, 15, 5, "prefill"), (8, 4, 4, "decode"),
                            (9, 4, 4, "prefill"), (1, 48, 4, "prefill"),

@@ -63,10 +63,13 @@ DENSE = ["smollm-360m", "granite-8b", "qwen1.5-4b", "minitron-8b"]
 FAMILIES = ["qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
             "jamba-v0.1-52b"]
 GQA = dict(d_model=384, num_heads=6, num_kv_heads=2, head_dim=64)
+# PaliGemma's head_dim at reduced width: 2 heads over 1 kv head of 256.
+HD256 = dict(d_model=512, num_heads=2, num_kv_heads=1, head_dim=256)
 # A case is (name, dtype, variant): False = the reduced config, True = its
-# GQA variant, "k2" = two experts a token (the MoE configs drop tokens).
-VARIANTS = {False: {}, True: GQA, "k2": dict(experts_per_token=2)}
-SUFFIX = {False: "", True: "-gqa3", "k2": "-k2"}
+# GQA variant, "k2" = two experts a token (the MoE configs drop tokens),
+# "hd256" = the head_dim-256 variant.
+VARIANTS = {False: {}, True: GQA, "k2": dict(experts_per_token=2), "hd256": HD256}
+SUFFIX = {False: "", True: "-gqa3", "k2": "-k2", "hd256": "-hd256"}
 LOGIT_TOL = {"float32": dict(rtol=1e-5, atol=5e-5), "bfloat16": dict(rtol=0, atol=8e-2)}
 CACHE_TOL = {"float32": dict(rtol=1e-5, atol=5e-5), "bfloat16": dict(rtol=2e-2, atol=5e-2)}
 T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -131,7 +134,7 @@ def blocked(monkeypatch):
 # configs, registry, parameter tree
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", DENSE + FAMILIES)
+@pytest.mark.parametrize("name", DENSE + FAMILIES + ["paligemma-3b", "whisper-tiny"])
 def test_config_is_the_references(name):
     j, t = j_registry.get_config(name), t_registry.get_config(name)
     jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
@@ -150,17 +153,24 @@ def test_config_is_the_references(name):
 
 
 def test_registry_names_the_unported_families():
-    assert set(t_registry.ARCH_IDS) | set(t_registry.NOT_PORTED) == set(j_registry.ARCH_IDS)
-    for name in t_registry.NOT_PORTED:
-        with pytest.raises(KeyError, match="ROADMAP A10"):
-            t_registry.get_arch(name)
+    """None is left: the port registers the reference's ten ids, in its
+    order, each config field for field the reference's."""
+    assert t_registry.NOT_PORTED == ()
+    assert t_registry.ARCH_IDS == j_registry.ARCH_IDS and len(t_registry.ARCH_IDS) == 10
+    for name in t_registry.ARCH_IDS:
+        jd = dataclasses.asdict(j_registry.get_config(name))
+        td = dataclasses.asdict(t_registry.get_config(name))
+        jd.pop("source"), td.pop("source")
+        assert td == jd, name
     with pytest.raises(KeyError, match="unknown arch"):
         t_registry.get_config("no-such-arch")
     assert t_registry.get_arch("granite-8b", reduced=True).cfg.num_layers == 2
 
 
 @pytest.mark.parametrize("case", [(n, "float32", False) for n in DENSE + FAMILIES]
-                         + [("smollm-360m", "bfloat16", True)], ids=_ids)
+                         + [("smollm-360m", "bfloat16", True),
+                            ("paligemma-3b", "bfloat16", "hd256"),
+                            ("whisper-tiny", "bfloat16", False)], ids=_ids)
 def test_init_keeps_the_reference_tree(case):
     """Same paths, shapes and dtypes, in ``jax.tree_util`` leaf order."""
     jc, tc = _cfgs(*case)

@@ -79,6 +79,7 @@ FAMILY_CASES = [("qwen3-moe-30b-a3b", "float32", False),
                 ("falcon-mamba-7b", "float32", False),
                 ("falcon-mamba-7b", "bfloat16", False)]
 LOSS_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 GRAD_TOL = {"float32": 2e-5, "bfloat16": 0.06}
 
 
@@ -98,6 +99,19 @@ def _tokens(vocab, batch, seq, seed):
              "labels": jnp.asarray(toks[:, 1:], jnp.int32)},
             {"tokens": torch.from_numpy(toks[:, :-1]),
              "labels": torch.from_numpy(toks[:, 1:])})
+
+
+def _with_frontend(cfg, jb, tb, seed):
+    """Add a frontend's ``embeds`` from numpy to both batches: the VLM's
+    patch embeddings or the enc-dec's audio frames (the reference's
+    stubbed frontends, ``examples/serve_llm.py``)."""
+    n = {"vision": cfg.num_frontend_tokens, "audio": cfg.encoder_seq}.get(cfg.frontend)
+    if n:
+        b = tb["tokens"].shape[0]
+        e = (np.random.RandomState(seed).randn(b, n, cfg.d_model) * 0.02).astype(np.float32)
+        jb["embeds"] = jnp.asarray(e, cfg.jnp_dtype)
+        tb["embeds"] = torch.from_numpy(e).to(T_DT[cfg.dtype])
+    return jb, tb
 
 
 def _loss_and_grads(params, cfg, batch):
@@ -251,7 +265,7 @@ def _check_train_step(case, monkeypatch, r_rtol):
     n, s, lr = 4, 2, 0.05
     jp = JArch(jc).init(jax.random.PRNGKey(0))
     tp = _carry(jp)
-    jb, tb = _tokens(jc.vocab_size, 8, 16, 0)
+    jb, tb = _with_frontend(jc, *_tokens(jc.vocab_size, 8, 16, 0), 5)
     j_new, j_m, seen = _reference_step(
         monkeypatch, JArch(jc), jp, jb, 3,
         j_train.FLRunConfig(num_virtual_clients=n, local_steps=s, local_lr=lr))
