@@ -223,6 +223,36 @@ Phases (any failure exits non-zero and the final line is not printed):
    ``tree_encode_tolerance`` of the plain encode of its own δ, the close
    bitwise ``server_aggregate`` and its plain version.
 
+19. leaves past 2³¹ elements, the dry run against the card, the
+   client-parallel step (after phase 18; ``launch/dryrun.py``,
+   ``launch/roofline.py``, ``launch/train.py::
+   make_train_step_client_parallel``): Falcon-Mamba-7B's in_proj, (64 ·
+   4096, 16 384) bf16, 2³² elements: the encode (N = 1) within
+   ``encode_tolerance`` of its plain float64 sum, the per-client decode
+   (N = 4, per-client rounding) and the fused close (N = 4) bitwise their
+   plain versions over row ranges of 4096 rows, each timed beside its
+   bound; the dry run over all ten configs × four shapes (``--fit``, in 4
+   low-priority processes started as the phase begins, waited for at its
+   end):
+   one row each of the one-card argument and peak GiB, fits the card or
+   not, the H100 bound and its dominant term, and both reference meshes'
+   per-device argument GiB; at the dry run's cuts, each step on the card
+   with its ``max_memory_allocated`` within 15% of the full-depth meta
+   estimate and its time beside the one-card bound: SmolLM-360M
+   ``train_4k`` (N = 4, S = 2, batch 8), ``prefill_32k`` (batch 1),
+   ``decode_32k`` (batch 16, every cache full), and one Minitron-8B round
+   at full width and depth (N = 2, S = 1, batch 2; its two 2³¹-element
+   leaves through the encode and close) when its estimate is under 90% of
+   the card, its close bitwise its plain version leaf by leaf; the
+   client-parallel step against the sequential one (SmolLM-360M, 32
+   layers, bf16, N = 4, S = 2, 1 × 4096): one encode launch group against
+   four, the loss within 1%, both rounds' time and peak beside its meta
+   estimate; each client's r within ``tree_encode_tolerance`` of the plain
+   encode of its own δ, each client-parallel δ nearest its own client's
+   sequential δ, each r within 6‖Δδ‖₂ and both encodes' tolerances of the
+   sequential step's; then float32 at 2 layers, the card against the CPU
+   within phase 12's limits.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -3686,6 +3716,561 @@ def phase_vlm_encdec_train(s: Smoke):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: leaves past 2³¹ elements, the meta dry run against the card, the
+# client-parallel train step
+# ---------------------------------------------------------------------------
+
+# Falcon-Mamba-7B's stacked in_proj, (64 · 4096, 16 384) bf16: 2³² elements
+BIG_LEAF = (64 * 4096, 16384)
+BIG_CLIENTS = 4
+BIG_SLAB_ROWS = 4096                  # the plain versions' row ranges (2²⁶ elements)
+DRYRUN_WORKERS = 4                    # the meta sweep's processes (of the 8 cores)
+META_TOL = 0.15                       # |card peak − meta estimate| / meta estimate
+META_RUN_SHARE = 0.9                  # run a step only under this share of memory
+MINITRON = "minitron-8b"
+CP_LOSS_RTOL = 0.01                   # client-parallel vs sequential, bf16
+CP_R_SIGMAS = 6.0                     # |Δr| in standard deviations ‖Δδ‖₂ of ⟨Δδ, v⟩
+
+
+def start_dryrun_sweep(torch):
+    """The dry run over all ten configs × four shapes (``--fit``), on ``meta``
+    in worker processes at low priority, started when phase 19 begins (the
+    timings of phases 1–18 run without it); ``phase_dryrun`` waits for it
+    at the phase's end.  → (process, its record directory)."""
+    import os
+
+    out = REPO / "chiprun_out" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--fit",
+           "--workers", str(DRYRUN_WORKERS), "--capacity-bytes", str(capacity),
+           "--outdir", str(out)]
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    log = open(out / "sweep.log", "w")
+    # its own session, so that its worker processes can be stopped with it
+    proc = subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT,
+                            cwd=str(REPO), start_new_session=True,
+                            preexec_fn=lambda: os.nice(10))
+    proc.log = log
+    return proc, out
+
+
+def phase_big_leaf(s: Smoke):
+    """Falcon-Mamba-7B's in_proj, 2³² bf16 elements (8 GiB), through the three
+    FedScalar tree kernels: the encode (N = 1) within ``encode_tolerance`` of
+    its plain float64 sum, the per-client decode (N = 4, per-client
+    rounding) and the fused close (N = 4) bitwise their plain versions over
+    row ranges of the leaf; each timed beside its bound and its plain time."""
+    import torch
+
+    from repro_torch.core.prng import U32_MASK
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.reconstruct_apply import fused_apply_plain, pad_cohort
+    from repro_torch.kernels.seeded_projection import (
+        encode_tolerance,
+        project_blocks_plain,
+    )
+    from repro_torch.kernels.seeded_reconstruct import reconstruct_plain
+
+    t0 = time.perf_counter()
+    rows, cols = BIG_LEAF
+    n = BIG_CLIENTS
+    x = torch.empty(BIG_LEAF, dtype=torch.bfloat16, device=s.dev)
+    for r0 in range(0, rows, BIG_SLAB_ROWS):
+        x[r0:r0 + BIG_SLAB_ROWS] = torch.randn((BIG_SLAB_ROWS, cols), generator=s.gen,
+                                               device=s.dev)
+    seeds, rs = s.seeds(n), s.randn(n, 1) * 0.3
+    fns = _kernel_fns()
+    for fn in fns.values():
+        fn.launches = 0
+    r = ops.project_tree_kernel({"w": x[None]}, seeds[:1])
+    y_rec = ops.server_update_kernel({"w": x}, rs, seeds, per_client_rounding=True)["w"]
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    if launches != {"encode": 2, "rec": 1}:
+        raise AssertionError(f"big leaf: launches {launches}")
+
+    t1 = time.perf_counter()
+    exact = project_blocks_plain(x[None], seeds[:1], 0, torch.zeros(1, device=s.dev),
+                                 torch.full((1,), 2.0 ** 40, device=s.dev),
+                                 dtype=torch.float64)
+    torch.cuda.synchronize()
+    enc_plain_ms = (time.perf_counter() - t1) * 1e3
+    enc_err = float((r.double() - exact).abs().max())
+    enc_tol = float(encode_tolerance(x[None], "rademacher").max())
+    if not enc_err <= enc_tol:
+        raise AssertionError(f"big leaf: encode off by {enc_err} (tolerance {enc_tol})")
+
+    def slabs(y, plain):
+        t = time.perf_counter()
+        for r0 in range(0, rows, BIG_SLAB_ROWS):
+            want = plain(r0)
+            if not torch.equal(y[r0:r0 + BIG_SLAB_ROWS], want):
+                raise AssertionError(f"big leaf: rows {r0}.. differ from the plain "
+                                     "version")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    rec_plain_ms = slabs(y_rec, lambda r0: reconstruct_plain(
+        x[r0:r0 + BIG_SLAB_ROWS], seeds, rs, 0, 1.0, None, None, row_offset=r0,
+        orig_cols=cols, per_client_rounding=True, div=float(n)))
+    del y_rec
+    for fn in fns.values():
+        fn.launches = 0
+    y_fused = ops.server_update_fused({"w": x}, rs, seeds)["w"]
+    torch.cuda.synchronize()
+    launches["fused"] = fns["fused"].launches
+    if launches["fused"] != 1:
+        raise AssertionError(f"big leaf: fused launches {launches['fused']}")
+    seeds_p, rs_p = pad_cohort(seeds & U32_MASK,
+                               rs * torch.tensor(1.0 / n, dtype=torch.float32,
+                                                 device=s.dev))
+    zero = torch.zeros(1, device=s.dev)
+    fused_plain_ms = slabs(y_fused, lambda r0: fused_apply_plain(
+        x[r0:r0 + BIG_SLAB_ROWS], seeds_p, rs_p, 0, zero, zero, row_offset=r0,
+        orig_cols=cols))
+    del y_fused
+    s.errs["encode"] = max(s.errs["encode"], enc_err)
+
+    shapes = [BIG_LEAF]
+    enc_ms = s.time_ms(lambda: ops.project_tree_kernel({"w": x[None]}, seeds[:1]),
+                       reps=3, warmup=1)
+    rec_ms = s.time_ms(lambda: ops.server_update_kernel(
+        {"w": x}, rs, seeds, per_client_rounding=True), reps=3, warmup=1)
+    fused_ms = s.time_ms(lambda: ops.server_update_fused({"w": x}, rs, seeds),
+                         reps=3, warmup=1)
+    rows_out = {}
+    for kernel, ms, plain_ms, (bound, by) in (
+            ("encode", enc_ms, enc_plain_ms, _encode_bound(shapes, 1, 1, elem=2)),
+            ("rec", rec_ms, rec_plain_ms, _rec_bound(shapes, n, 1, elem=2)),
+            ("fused", fused_ms, fused_plain_ms, _fused_bound(shapes, n, 1, elem=2))):
+        rows_out[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        print("big leaf: " + json.dumps(dict(
+            kernel=kernel, leaf=list(BIG_LEAF), elements=rows * cols, dtype="bfloat16",
+            clients=1 if kernel == "encode" else n, ms=ms, bound_ms=bound,
+            bound_by=by, over_bound=ms / bound, plain_ms=plain_ms)), flush=True)
+    print("big leaf: " + json.dumps(dict(
+        encode_abs_err=enc_err, encode_tolerance=enc_tol, decode_bitwise=True,
+        fused_bitwise=True, launches=launches,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        s=time.perf_counter() - t0)), flush=True)
+    del x, exact
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun(s: Smoke, proc, out):
+    """Wait for the meta sweep (started as phase 19 began); one row per
+    (arch, shape): the one-card argument and peak GiB, fits the card or
+    not, the H100 bound and its dominant term, and the reference meshes'
+    per-device argument GiB."""
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.models.api import INPUT_SHAPES
+
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        tail = (out / "sweep.log").read_text()[-3000:]
+        raise AssertionError(f"dry run: the sweep exited {rc}:\n{tail}")
+    fits = 0
+    for arch in ARCH_IDS:
+        for shape in INPUT_SHAPES:
+            rec = {m: json.loads((out / f"{arch}__{shape}__{m}.json").read_text())
+                   for m in ("one_card", "pod16x16", "pod2x16x16")}
+            one = rec["one_card"]["per_device"]
+            roof = rec["one_card"]["roofline"]
+            fits += bool(one["fits"])
+            print("dry run: " + json.dumps(dict(
+                arch=arch, shape=shape,
+                args_gib=one["argument_bytes"] / 2**30,
+                peak_gib=one["peak_bytes_est"] / 2**30, fits=one["fits"],
+                bound_s=roof["bound_s"], dominant=roof["dominant"],
+                pod16x16_args_gib=rec["pod16x16"]["per_device"]["argument_bytes"] / 2**30,
+                pod2x16x16_args_gib=rec["pod2x16x16"]["per_device"]["argument_bytes"]
+                / 2**30, meta_s=rec["one_card"]["meta_s"])), flush=True)
+    print(f"dry run: {len(ARCH_IDS) * len(INPUT_SHAPES)} combinations, {fits} fit "
+          f"the card; waited {waited:.1f} s for the sweep", flush=True)
+
+
+def _card_step(s: Smoke, fn, base):
+    """Run ``fn`` once on the card → (seconds by CUDA events, peak bytes above
+    ``base``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1) / 1e3, torch.cuda.max_memory_allocated() - base
+
+
+def _meta_row(what, meta, card_s, card_bytes, roof, extra=None):
+    """Print the card against the meta estimate; fail past META_TOL."""
+    rel = abs(card_bytes - meta["peak_bytes"]) / meta["peak_bytes"]
+    row = dict(step=what, meta_peak_gib=meta["peak_bytes"] / 2**30,
+               card_peak_gib=card_bytes / 2**30, rel_diff=rel, card_s=card_s,
+               bound_s=roof["bound_s"], dominant=roof["dominant"],
+               over_bound=card_s / roof["bound_s"], meta_s=meta["seconds"],
+               **(extra or {}))
+    print("card vs meta: " + json.dumps(row), flush=True)
+    if not rel <= META_TOL:
+        raise AssertionError(f"card vs meta: {what}: card peak {card_bytes} against "
+                             f"meta {meta['peak_bytes']} ({rel:.3f} > {META_TOL})")
+    return row
+
+
+def _fill_caches(caches, torch):
+    """Every KV cache full: random k, v, positions 0 .. T−1 (a decode at T − 1)."""
+    from repro_torch.models.attention import KVCache
+
+    for c in caches.caches:
+        if isinstance(c, KVCache):
+            c.k.normal_()
+            c.v.normal_()
+            t = c.pos.shape[-1]
+            c.pos.copy_(torch.arange(t, dtype=c.pos.dtype, device=c.pos.device)
+                        .expand_as(c.pos))
+            c.idx.fill_(t)
+
+
+def phase_meta_vs_card(s: Smoke):
+    """Each step on the card at the dry run's cuts, its max_memory_allocated
+    (above what was allocated before its params) against the meta estimate
+    (``launch/dryrun.py::measure_step``, full depth), its time against the
+    one-card roofline bound: SmolLM-360M train_4k (N = 4, S = 2, batch 8),
+    prefill_32k (batch 1), decode_32k (batch 16, caches full); Minitron-8B
+    train_4k at full width and depth (N = 2, S = 1, batch 2) when its
+    estimate fits, its close bitwise its plain version leaf by leaf."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.projection import leaf_layout
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_reconstruct import reconstruct_plain
+    from repro_torch.launch.dryrun import measure_step
+    from repro_torch.launch.roofline import analytic_terms
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.models.api import INPUT_SHAPES
+
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    counters = _train_counters()
+    launches = {}
+    arch = get_arch(TRAIN_ARCH)
+    cfg = arch.cfg
+    for shape, gb in (("train_4k", 8), ("prefill_32k", 1), ("decode_32k", 16)):
+        seq = INPUT_SHAPES[shape][0]
+        meta = measure_step(arch, shape, global_batch=gb)
+        roof = analytic_terms(TRAIN_ARCH, shape, "one_card", global_batch=gb)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params = arch.init(seed=0, device=s.dev)
+        for fn in counters.values():
+            fn.launches = 0
+        if shape == "train_4k":
+            toks = torch.randint(0, cfg.vocab_size, (gb, seq + 1), generator=s.gen,
+                                 device=s.dev)
+            batch = {"tokens": toks[:, :-1].to(torch.int32),
+                     "labels": toks[:, 1:].to(torch.int32)}
+            del toks
+            step = make_train_step(arch, FLRunConfig(TRAIN_CLIENTS, TRAIN_STEPS,
+                                                     local_lr=TRAIN_LR))
+            (_, m), secs, peak = _card_step(s, lambda: step(params, batch, 0), base)
+        elif shape == "prefill_32k":
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (gb, seq),
+                                             generator=s.gen, device=s.dev,
+                                             dtype=torch.int32)}
+            step = make_prefill_step(arch, capacity=seq)
+            with torch.no_grad():
+                _, secs, peak = _card_step(s, lambda: step(params, batch), base)
+        else:
+            caches = arch.init_caches(gb, seq, device=s.dev)
+            _fill_caches(caches, torch)
+            token = torch.randint(0, cfg.vocab_size, (gb, 1), generator=s.gen,
+                                  device=s.dev, dtype=torch.int32)
+            step = make_decode_step(arch, window=arch.serve_window(shape))
+            with torch.no_grad():
+                _, secs, peak = _card_step(s, lambda: step(params, token, caches,
+                                                           seq - 1), base)
+            del caches
+        got = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        _meta_row(f"{TRAIN_ARCH} {shape} batch {gb}", meta, secs, peak, roof,
+                  dict(launches=got))
+        del params
+        torch.cuda.empty_cache()
+
+    # Minitron-8B: 7.73e9 parameters, its stacked w_up/w_down 2³¹ elements each
+    arch = get_arch(MINITRON)
+    cfg = arch.cfg
+    meta = measure_step(arch, "train_4k", global_batch=2, clients=2, local_steps=1)
+    roof = analytic_terms(MINITRON, "train_4k", "one_card", global_batch=2,
+                          clients=2, local_steps=1)
+    if meta["peak_bytes"] > META_RUN_SHARE * capacity:
+        print("card vs meta: " + json.dumps(dict(
+            step=f"{MINITRON} train_4k", meta_peak_gib=meta["peak_bytes"] / 2**30,
+            capacity_gib=capacity / 2**30, run=False)), flush=True)
+        return launches
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = arch.init(seed=0, device=s.dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (2, 4097), generator=s.gen, device=s.dev)
+    batch = {"tokens": toks[:, :-1].to(torch.int32), "labels": toks[:, 1:].to(torch.int32)}
+    del toks
+    step = make_train_step(arch, FLRunConfig(2, 1, local_lr=TRAIN_LR, server_lr=1.0))
+    for fn in counters.values():
+        fn.launches = 0
+    (new, m), secs, peak = _card_step(s, lambda: step(params, batch, 0), base)
+    got = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if got != {"encode": 4, "rec": 1}:
+        raise AssertionError(f"card vs meta: {MINITRON}: launches {got}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    t1 = time.perf_counter()
+    layout = leaf_layout(params)
+    big = 0
+    for ll, x, y in zip(layout, tree_leaves(params), tree_leaves(new)):
+        big += ll.size >= 1 << 31
+        x2, y2 = x.reshape(ll.rows, ll.cols), y.reshape(ll.rows, ll.cols)
+        for r0 in range(0, ll.rows, BIG_SLAB_ROWS):
+            want = reconstruct_plain(x2[r0:r0 + BIG_SLAB_ROWS], m["seeds"], m["r"],
+                                     ll.tag, 1.0, None, None, row_offset=r0,
+                                     orig_cols=ll.cols, per_client_rounding=True,
+                                     div=2.0)
+            if not torch.equal(y2[r0:r0 + BIG_SLAB_ROWS], want):
+                raise AssertionError(f"card vs meta: {MINITRON}: the close differs "
+                                     f"from its plain version at leaf {ll.tag}")
+    if big < 2 or not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"card vs meta: {MINITRON}: {big} leaves of 2³¹, loss "
+                             f"{float(m['loss'])}")
+    _meta_row(f"{MINITRON} train_4k N=2 S=1 batch 2", meta, secs, peak, roof,
+              dict(params=sum(ll.size for ll in layout), leaves_2_31=big,
+                   init_s=init_s, loss=float(m["loss"]), close_bitwise_plain=True,
+                   close_check_s=time.perf_counter() - t1, launches=got))
+    del params, new, m, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _client_parallel_checks(dev, arch, fl, params, batch) -> dict:
+    """Both rounds of ``phase_client_parallel`` again, untimed, every
+    encode's δ and r kept: each r within ``tree_encode_tolerance`` of the
+    plain encode of its own δ; client n's client-parallel δ nearer client
+    n's sequential δ than any other client's; each client-parallel r
+    within ``CP_R_SIGMAS``·‖Δδ‖₂ and both encodes' tolerances of the
+    sequential one.  Fails past a limit; → the figures."""
+    import torch
+
+    import repro_torch.kernels.ops as ops
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.train import make_train_step, make_train_step_client_parallel
+
+    n = fl.num_virtual_clients
+    encode = ops.project_tree_kernel
+    kept = {}
+    for name, make in (("sequential", make_train_step),
+                       ("client_parallel", make_train_step_client_parallel)):
+        def keep(deltas, seeds, *args, _name=name):
+            r = encode(deltas, seeds, *args)
+            kept.setdefault(_name, []).append(
+                ([x.clone() for x in tree_leaves(deltas)], seeds.clone(), r, args))
+            return r
+
+        ops.project_tree_kernel = keep
+        try:
+            new, _ = make(arch, fl)(params, batch, 1)
+        finally:
+            ops.project_tree_kernel = encode
+        del new
+    # (a) each encode within tree_encode_tolerance of its own δ's plain encode
+    r_of, tol_of, worst = {}, {}, 0.0
+    for name, calls in kept.items():
+        rs, tols = [], []
+        for leaves, seeds, r, (dist_enum, k, mode) in calls:
+            distribution = dist_enum.value
+            plan = tree_plan("encode", [tuple(x.shape[1:]) for x in leaves],
+                             [x.dtype for x in leaves], k, mode, dev)
+            want = project_tree_plain(leaves, seeds, plan, distribution,
+                                      dtype=torch.float64)
+            views = [x.reshape(x.shape[0], ll.rows, ll.cols)
+                     for ll, x in zip(plan.layout, leaves)]
+            tol = tree_encode_tolerance(views, distribution)
+            ratio = float(((r.double() - want).abs() / tol).max())
+            if not ratio <= 1.0:
+                raise AssertionError(f"client parallel: {name} r {r.tolist()} "
+                                     f"against the plain encode {want.tolist()}: "
+                                     f"{ratio} of the tolerance")
+            worst = max(worst, ratio)
+            rs.append(r.double())
+            tols.append(tol)
+        r_of[name], tol_of[name] = torch.cat(rs), torch.cat(tols)
+    # (b) client n's δ is client n's: nearest its own sequential δ
+    seq_d = [c[0] for c in kept["sequential"]]
+    par_d = kept["client_parallel"][0][0]
+    dist = torch.zeros((n, n), dtype=torch.float64)
+    for i in range(n):
+        for j in range(n):
+            dist[i, j] = sum(((a[i].float() - b[0].float()) ** 2).sum(dtype=torch.float64)
+                             for a, b in zip(par_d, seq_d[j])).sqrt().item()
+    own = dist.diagonal()
+    other = (dist + torch.diag(torch.full((n,), float("inf"),
+                                          dtype=torch.float64))).min(dim=1).values
+    # (c) the rounds' r apart by no more than CP_R_SIGMAS·‖Δδ‖₂ and both
+    # encodes' bounds: ⟨Δδ, v⟩ has standard deviation ‖Δδ‖₂ for a ±1 v
+    # drawn apart from Δδ
+    dr = (r_of["client_parallel"] - r_of["sequential"]).abs().cpu()
+    r_lim = (CP_R_SIGMAS * own[:, None] + tol_of["client_parallel"].cpu()
+             + tol_of["sequential"].cpu())
+    r_rms = float(torch.sqrt((r_of["sequential"] ** 2).mean()))
+    if not (bool((own < other).all()) and bool((dr <= r_lim).all())):
+        raise AssertionError(f"client parallel: |δ_par − δ_seq| own {own.tolist()}, "
+                             f"nearest other {other.tolist()}; |dr| "
+                             f"{dr.flatten().tolist()} (limits "
+                             f"{r_lim.flatten().tolist()}, r_rms {r_rms})")
+    del kept, seq_d, par_d
+    return dict(r_rms=r_rms, max_abs_dr=float(dr.max()), r_limit=r_lim.flatten().tolist(),
+                r_err_over_tolerance=worst, delta_dist_own=own.tolist(),
+                delta_dist_nearest_other=other.tolist())
+
+
+def phase_client_parallel(s: Smoke):
+    """``make_train_step_client_parallel`` against ``make_train_step``:
+    SmolLM-360M at full width and depth, bf16, N = 4, S = 2, 1 × 4096 tokens
+    a step, the same params, batch and seeds: one encode launch group for
+    the four clients against four, the loss within 1%; both rounds' time
+    and peak beside the client-parallel meta estimate.  Then both rounds
+    again with every encode's δ kept: each client's r within
+    ``tree_encode_tolerance`` of the plain encode of its own δ, each
+    client-parallel δ nearer its own client's sequential δ than any
+    other's, and each r within 6‖Δδ‖₂ plus both encodes' tolerances of
+    the sequential step's (``_client_parallel_checks``).  Then float32 at 2 layers, the card
+    against the CPU within phase 12's limits."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.dryrun import measure_step
+    from repro_torch.launch.roofline import analytic_terms
+    from repro_torch.launch.train import (
+        FLRunConfig,
+        make_train_step,
+        make_train_step_client_parallel,
+    )
+    from repro_torch.models.api import Arch
+
+    n, st = TRAIN_CLIENTS, TRAIN_STEPS
+    gb = n * st * TRAIN_PER_STEP
+    arch = Arch(get_config(TRAIN_ARCH))
+    cfg = arch.cfg
+    fl = FLRunConfig(n, st, local_lr=TRAIN_LR, server_lr=1.0)
+    meta = measure_step(arch, "train_4k", variant="client_parallel", global_batch=gb)
+    roof = analytic_terms(TRAIN_ARCH, "train_4k", "one_card", global_batch=gb)
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    if meta["peak_bytes"] > META_RUN_SHARE * capacity:
+        raise AssertionError(f"client parallel: the meta estimate "
+                             f"{meta['peak_bytes'] / 2**30:.2f} GiB does not fit")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = arch.init(seed=0, device=s.dev)
+    toks = torch.randint(0, cfg.vocab_size, (gb, TRAIN_SEQ + 1), generator=s.gen,
+                         device=s.dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    fns = _train_counters()
+    out = {}
+    for name, make in (("sequential", make_train_step),
+                       ("client_parallel", make_train_step_client_parallel)):
+        step = make(arch, fl)
+        for fn in fns.values():
+            fn.launches = 0
+        (new, m), secs, peak = _card_step(s, lambda: step(params, batch, 1), base)
+        out[name] = dict(m=m, s=secs, peak=peak,
+                         launches={k: fn.launches for k, fn in fns.items()
+                                   if fn.launches})
+        del new
+        torch.cuda.empty_cache()
+    seq_, par = out["sequential"], out["client_parallel"]
+    if seq_["launches"] != {"encode": 2 * n, "rec": 1} or par["launches"] != {
+            "encode": 2, "rec": 1}:
+        raise AssertionError(f"client parallel: launches {seq_['launches']} "
+                             f"(sequential), {par['launches']} (client-parallel)")
+    l_seq, l_par = float(seq_["m"]["loss"]), float(par["m"]["loss"])
+    dloss = abs(l_par - l_seq) / abs(l_seq)
+    if not (dloss <= CP_LOSS_RTOL and torch.equal(par["m"]["seeds"],
+                                                  seq_["m"]["seeds"])):
+        raise AssertionError(f"client parallel: loss {l_par} vs {l_seq}")
+    cp_launches = par["launches"]
+    del out
+
+    chk = _client_parallel_checks(s.dev, arch, fl, params, batch)
+    _meta_row(f"{TRAIN_ARCH} train_4k client-parallel N={n} S={st} batch {gb}",
+                    meta, par["s"], par["peak"], roof,
+                    dict(sequential_s=seq_["s"],
+                         sequential_peak_gib=seq_["peak"] / 2**30,
+                         launches_sequential=seq_["launches"],
+                         launches_client_parallel=par["launches"],
+                         loss_sequential=l_seq, loss_client_parallel=l_par,
+                         loss_rel_diff=dloss, **chk))
+    del params, batch, toks, seq_, par
+    torch.cuda.empty_cache()
+
+    # float32, 2 layers: the card against the CPU (phase 12's limits)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_PARITY_LAYERS,
+                              dtype="float32")
+    arch = Arch(cfg)
+    cpu = torch.device("cpu")
+    p_cpu = arch.init(seed=0, device=cpu)
+    p_dev = tree_map(lambda x: x.to(s.dev), p_cpu)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (gb, TRAIN_PARITY_SEQ + 1)))
+    step = make_train_step_client_parallel(arch, fl)
+    res = {}
+    for dev, p in ((s.dev, p_dev), (cpu, p_cpu)):
+        for fn in fns.values():
+            fn.launches = 0
+        res[dev.type] = step(p, {"tokens": toks[:, :-1].to(dev),
+                                 "labels": toks[:, 1:].to(dev)}, 0)
+        res[dev.type + "_launches"] = {k: fn.launches for k, fn in fns.items()
+                                       if fn.launches}
+    (p_g, m_g), (p_c, m_c) = res["cuda"], res["cpu"]
+    dloss = abs(float(m_g["loss"]) - float(m_c["loss"]))
+    r_g, r_c = m_g["r"].cpu().double(), m_c["r"].double()
+    norm = float(torch.sqrt(sum((w.double() ** 2).sum() for w in tree_leaves(p_cpu))))
+    r_lim = TRAIN_R_ULPS * st * 2.0 ** -24 * norm + TRAIN_R_RTOL * r_c.abs()
+    d_r = (r_g - r_c).abs()
+    p_tol = float(d_r.sum()) / n + 1e-6
+    dp = max(float((a.cpu() - b).abs().max())
+             for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)))
+    if not (dloss <= TRAIN_LOSS_ATOL and bool((d_r <= r_lim).all()) and dp <= p_tol
+            and res["cuda_launches"] == {"encode": 2, "rec": 1}
+            and res["cpu_launches"] == {}):
+        raise AssertionError(f"client parallel: card vs CPU |dloss| {dloss}, |dr| "
+                             f"{d_r.flatten().tolist()} (limits "
+                             f"{r_lim.flatten().tolist()}), |dparams| {dp} (limit "
+                             f"{p_tol}), launches {res['cuda_launches']}")
+    print("client parallel f32: " + json.dumps(dict(
+        layers=cfg.num_layers, seq=TRAIN_PARITY_SEQ, abs_dloss=dloss,
+        loss_limit=TRAIN_LOSS_ATOL, max_dr_over_limit=float((d_r / r_lim).max()),
+        max_abs_dparams=dp, dparams_limit=p_tol)), flush=True)
+    del res, p_cpu, p_dev
+    torch.cuda.empty_cache()
+    return cp_launches
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3704,6 +4289,30 @@ def main() -> int:
     t0 = time.perf_counter()
     name, count, smi_line = phase_device(torch)
     phase_build()
+    return _run(torch, t0, name, count, smi_line)
+
+
+def _phase_19(s: Smoke, torch):
+    """Phase 19, with the meta sweep running beside its card steps (none of
+    whose times enter the ``kernels`` line) → the three paths' launches."""
+    sweep, sweep_out = start_dryrun_sweep(torch)
+    try:
+        big_launches = phase_big_leaf(s)
+        mc_launches = phase_meta_vs_card(s)
+        cp_launches = phase_client_parallel(s)
+        phase_dryrun(s, sweep, sweep_out)
+    finally:
+        if sweep.poll() is None:
+            import os
+            import signal
+
+            os.killpg(sweep.pid, signal.SIGKILL)
+            sweep.wait()
+        sweep.log.close()
+    return big_launches, mc_launches, cp_launches
+
+
+def _run(torch, t0, name, count, smi_line) -> int:
     s = Smoke(torch)
     phase_kernels(s)
     phase_kernels_runtime(s)
@@ -3729,10 +4338,18 @@ def main() -> int:
     vlm_launches = phase_vlm_encdec_parity(s)
     vlm_serve = phase_vlm_encdec_serve(s, hd256_rows)
     phase_vlm_encdec_train(s)
+    big_launches, mc_launches, cp_launches = _phase_19(s, torch)
+    # phase 19's paths: the 2³² leaf, the card-vs-meta steps, the
+    # client-parallel round
+    for part in (big_launches, mc_launches, cp_launches):
+        launches["encode"] += part.get("encode", 0)
+        launches["fused"] += part.get("fused", 0)
+        train_launches["rec"] = train_launches.get("rec", 0) + part.get("rec", 0)
     flash_launches = {"prefill": serve_launches["prefill"],
                       "decode": serve_launches["decode"], "f32": f32_launches}
     for k in flash_launches:
-        flash_launches[k] += fam_launches[k] + fam_serve[k] + vlm_launches[k] + vlm_serve[k]
+        flash_launches[k] += (fam_launches[k] + fam_serve[k] + vlm_launches[k]
+                              + vlm_serve[k] + mc_launches.get(f"flash_{k}", 0))
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",

@@ -36,14 +36,16 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 def tree_unflatten(like: Any, leaves: list) -> Any:
     """Rebuild a tree shaped like ``like`` from leaves in sorted-key order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(sub) for sub in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    # A module-level function: a nested recursive one would sit in a
+    # reference cycle with its closure, keeping ``leaves`` alive until the
+    # garbage collector runs.
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(sub, it) for sub in node)
+    return next(it)

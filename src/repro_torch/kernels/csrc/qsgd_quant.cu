@@ -366,7 +366,7 @@ qsgd_quant_kernel(const __grid_constant__ fs::TreeTable table, const QuantArgs a
       // hash_u32(seed, row, col, tag): the first of its three rounds.
       s0 = fs::splitmix32(seed ^ QSGD_TAG);
     }
-    const int tile = t - L.tile0;
+    const int tile = (int)(t - L.tile0);
     const int rpt = rows_per_tile(L.cols);
     const int r0 = tile * rpt;
     const int r1 = r0 + rpt < L.rows ? r0 + rpt : L.rows;

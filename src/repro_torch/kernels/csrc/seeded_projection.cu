@@ -130,10 +130,10 @@ project_tree_kernel(const __grid_constant__ fs::TreeTable table,
   const int lane = threadIdx.x % 32;
   const uint32_t seed = (uint32_t)seeds[n];
   float* out = partials + ((size_t)n * k + b) * table.num_tiles;
-  for (int t = blockIdx.x; t < table.num_tiles; t += gridDim.x) {
+  for (long long t = blockIdx.x; t < table.num_tiles; t += gridDim.x) {
     const int l = fs::find_leaf(table, t);
     const fs::TreeLeaf& L = table.leaf[l];
-    const int tile = t - L.tile0;
+    const int tile = (int)(t - L.tile0);
     float lo_b = 0.0f, hi_b = 0.0f;
     if (MASKED) {
       lo_b = lo[(size_t)l * k + b];
@@ -154,11 +154,11 @@ project_tree_kernel(const __grid_constant__ fs::TreeTable table,
     float acc;
     if (L.dtype == fs::BF16)
       acc = tile_partial<__nv_bfloat16, DIST, MASKED>(
-          L, static_cast<const __nv_bfloat16*>(L.x) + n * leaf_elems, tile, s, lo_b,
+          L, static_cast<const __nv_bfloat16*>(L.x) + (size_t)n * leaf_elems, tile, s, lo_b,
           hi_b, warp, lane);
     else
       acc = tile_partial<float, DIST, MASKED>(
-          L, static_cast<const float*>(L.x) + n * leaf_elems, tile, s, lo_b, hi_b,
+          L, static_cast<const float*>(L.x) + (size_t)n * leaf_elems, tile, s, lo_b, hi_b,
           warp, lane);
     acc = warp_sum(acc);
     if (lane == 0) warp_sums[warp] = acc;
@@ -186,10 +186,11 @@ __global__ void sum_tree_partials_kernel(const __grid_constant__ fs::TreeTable t
   const float* p = partials + (size_t)w * table.num_tiles;
   float acc = accumulate ? out[w] : 0.0f;
   for (int l = 0; l < table.num_leaves; ++l) {
-    const int t0 = table.leaf[l].tile0;
-    const int t1 = l + 1 < table.num_leaves ? table.leaf[l + 1].tile0 : table.num_tiles;
+    const long long t0 = table.leaf[l].tile0;
+    const long long t1 =
+        l + 1 < table.num_leaves ? table.leaf[l + 1].tile0 : table.num_tiles;
     float s = 0.0f;
-    for (int t = t0 + lane; t < t1; t += 32) s = __fadd_rn(s, p[t]);
+    for (long long t = t0 + lane; t < t1; t += 32) s = __fadd_rn(s, p[t]);
     s = warp_sum(s);
     acc = (l == 0 && !accumulate) ? s : __fadd_rn(acc, s);
   }

@@ -220,12 +220,12 @@ decode_tree_kernel(const __grid_constant__ fs::TreeTable table,
                    float scale, float div, const float* __restrict__ lo,
                    const float* __restrict__ hi, int n, int k) {
   __shared__ Staging sh;
-  for (int t = blockIdx.x; t < table.num_tiles; t += gridDim.x) {
+  for (long long t = blockIdx.x; t < table.num_tiles; t += gridDim.x) {
     const int l = fs::find_leaf(table, t);
     const fs::TreeLeaf& L = table.leaf[l];
-    const int local = t - L.tile0;
-    const int tr = local / L.col_tiles;
-    const int tc = local % L.col_tiles;
+    const long long local = t - L.tile0;
+    const int tr = (int)(local / L.col_tiles);
+    const int tc = (int)(local % L.col_tiles);
     const float* lo_l = MASKED ? lo + (size_t)l * k : nullptr;
     const float* hi_l = MASKED ? hi + (size_t)l * k : nullptr;
     if (L.dtype == fs::BF16)

@@ -4,10 +4,16 @@
 // launches of the same kernel).
 //
 // The table travels by value as a __grid_constant__ kernel parameter
-// (3 592 bytes, under the classic 4 KB limit), so a launch needs no
+// (3 600 bytes, under the classic 4 KB limit), so a launch needs no
 // host-to-device copy: the wrapper fills it on the host and the launch
 // carries it.  Blocks walk one flat tile space over all leaves with a
 // grid-stride loop; find_leaf maps a flat tile to its leaf.
+//
+// Index range: a leaf may hold any number of elements.  Its rows and its
+// cols each stay below 2^31 (kernels/tree.py checks), its coordinates
+// (row_offset + row, col_offset + col) below 2^32, as the reference's
+// uint32 (tag, row, col) addressing; the flat tile space is 64-bit, and
+// every product of rows and cols is taken in size_t.
 //
 // The struct layout is mirrored by kernels/tree.py (ctypes); both sides
 // check sizeof(TreeTable) at load time.
@@ -23,30 +29,31 @@ struct TreeLeaf {
   const void* x;      // input: the encode's and QSGD's (n, rows, cols), a close's (rows, cols)
   void* y;            // a close's output (rows, cols), QSGD's q (n, rows, cols) or null;
                       // unused by the encode
+  long long tile0;    // the leaf's first tile in the launch's flat tile space
   int rows, cols;     // the leaf's 2-D view
   union {
     int orig_cols;    // row stride of the flat index that k-block masks use
     int offset;       // QSGD: the leaf's first column in the flat payload
   };
-  int dtype;          // fs::DType
   uint32_t tag;       // leaf ordinal (sorted-key order), folded into every seed
   uint32_t row_offset, col_offset;   // coordinates of element (0, 0)
-  int vec;            // 1: every row is 16-byte aligned (vector loads)
-  int tile0;          // the leaf's first tile in the launch's flat tile space
   union {
     int col_tiles;    // tiles across one row (the closes; 1 for the encode)
     int part0;        // QSGD: the leaf's first norm partial of a client
   };
+  short dtype;        // fs::DType
+  short vec;          // 1: every row is 16-byte aligned (vector loads)
 };
 
 struct TreeTable {
+  long long num_tiles;   // tiles over all leaves of this launch
   int num_leaves;
-  int num_tiles;      // tiles over all leaves of this launch
+  int pad_;
   TreeLeaf leaf[MAX_TREE_LEAVES];
 };
 
 // The leaf that holds flat tile t: the last leaf whose first tile is <= t.
-__device__ __forceinline__ int find_leaf(const TreeTable& table, int t) {
+__device__ __forceinline__ int find_leaf(const TreeTable& table, long long t) {
   int lo = 0, hi = table.num_leaves - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
@@ -57,7 +64,7 @@ __device__ __forceinline__ int find_leaf(const TreeTable& table, int t) {
 
 // Blocks for a grid-stride walk: enough to fill the card a few times over,
 // never more than there are tiles.
-inline int grid_blocks(int num_tiles, int per_tile_blocks) {
+inline int grid_blocks(long long num_tiles, int per_tile_blocks) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;

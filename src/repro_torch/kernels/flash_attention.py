@@ -189,6 +189,8 @@ def _stream(dev):
 def flash_prefill(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
     """Launch ``csrc/flash_prefill.cu`` (bf16) into ``out``; the inputs are
     checked by :func:`flash_attention`."""
+    if q.is_meta:                    # the dry run: no launch
+        return
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     lib = _lib("flash_prefill", "fs_flash_prefill",
@@ -214,6 +216,8 @@ def flash_decode(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
     pm = torch.empty(rows, dtype=torch.float32, device=q.device)
     pl = torch.empty(rows, dtype=torch.float32, device=q.device)
     pacc = torch.empty(rows * hd, dtype=torch.float32, device=q.device)
+    if q.is_meta:                    # the dry run: the buffers, no launch
+        return
     lib = _lib("flash_decode", "fs_flash_decode",
                [_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _I, _P])
     with torch.cuda.device(q.device):
@@ -229,6 +233,8 @@ def flash_decode(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
 def flash_f32(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
     """Launch ``csrc/flash_attention.cu`` (float32) into ``out``; the inputs
     are checked by :func:`flash_attention`."""
+    if q.is_meta:                    # the dry run: no launch
+        return
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     lib = _lib("flash_attention", "fs_flash_attention",
@@ -251,7 +257,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """→ (B, S, H, hd) in q's dtype.
 
     A CUDA tensor launches the kernel :func:`flash_route` names (or
-    raises); a CPU tensor takes the plain version.
+    raises); a CPU tensor takes the plain version; a ``meta`` tensor (the
+    dry run) takes the card's checks and allocates the kernel's output and
+    scratch, launching nothing.
     ``flash_attention.launches`` counts the calls that launched a kernel;
     ``flash_prefill.launches``, ``flash_decode.launches`` and
     ``flash_f32.launches`` count each kernel's.
@@ -259,7 +267,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, qpos, kpos, causal=causal,
                                      window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     dev = q.device
     if q.dtype not in _DTYPE_CODES:
@@ -294,7 +302,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out.zero_()
     _KERNELS[flash_route(s, h, kh, q.dtype)](q, k, v, qpos, kpos, out, causal,
                                              window)
-    flash_attention.launches += 1
+    if not q.is_meta:
+        flash_attention.launches += 1
     return out
 
 

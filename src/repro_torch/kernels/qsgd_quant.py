@@ -241,6 +241,8 @@ def _launch(table: TreeTable, seeds: torch.Tensor, n: int, levels: int, fold: bo
     tensor arguments are device addresses or None.  With ``round_word``,
     ``seeds`` holds client ids whose seeds the kernel derives."""
     dev = seeds.device
+    if dev.type == "meta":           # the dry run: plan and buffers, no launch
+        return
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().fs_qsgd_tree(
@@ -284,7 +286,7 @@ def qsgd_tree(leaves, seeds: torch.Tensor | RoundSeeds, levels: int, *,
     if dev.type == "cpu":
         return qsgd_tree_plain(leaves, seeds, levels, want_q=want_q,
                                want_levels=want_levels, norms=norms)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     round_word = None
     if isinstance(seeds, RoundSeeds):
@@ -351,7 +353,7 @@ def qsgd_quantize(x: torch.Tensor, seeds: torch.Tensor, norms: torch.Tensor,
     if x.device.type == "cpu":
         return qsgd_quantize_plain(x, seeds, norms, levels, want_q,
                                    want_levels, row_offset, col_offset)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
     check_cuda_tensor("x", x, LEAF_DTYPES, 3, dev)

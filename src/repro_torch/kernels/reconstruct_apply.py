@@ -158,6 +158,8 @@ def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: floa
             lo: int | None, hi: int | None, masked: bool, distribution: str,
             dev: torch.device) -> None:
     n, k = rs.shape
+    if dev.type == "meta":           # the dry run: plan and buffers, no launch
+        return
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().fs_fused_tree(ctypes.addressof(table), seeds.data_ptr(),
@@ -181,7 +183,7 @@ def fused_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
     dev = rs.device
     if dev.type == "cpu":
         return fused_tree_plain(leaves, seeds, rs, scale, plan, distribution)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     _, k = check_cohort(seeds, rs, distribution, dev)
     check_leaves(plan, leaves, k, dev)
@@ -228,7 +230,7 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
         return fused_apply_plain(x2d, seeds_p, rs_p, leaf_tag, lo, hi,
                                  distribution, masked, row_offset, col_offset,
                                  orig_cols)
-    if x2d.device.type != "cuda":
+    if x2d.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
     check_cuda_tensor("x2d", x2d, LEAF_DTYPES, 2, dev)

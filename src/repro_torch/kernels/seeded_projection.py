@@ -104,29 +104,37 @@ def project_blocks_plain(x: torch.Tensor, seeds: torch.Tensor, leaf_tag: int,
     """Plain PyTorch version of the encode kernel: → ``(N, k)`` in ``dtype``.
 
     Products and sums are taken in ``dtype``; ``v`` is float32 either way.
+    A leaf of more than ``_PLAIN_GROUP_ELEMS`` elements is summed in row
+    slabs of at most that many elements, one client at a time (bounds the
+    temporaries of a leaf past 2³¹ elements), each slab's sum added in
+    row order.
     """
     n, rows, cols = x.shape
     k = lo.numel()
     orig_cols = cols if orig_cols is None else orig_cols
-    row = ((torch.arange(rows, dtype=torch.int64, device=x.device) + row_offset)
-           & U32_MASK)[:, None]
+    group = max(1, _PLAIN_GROUP_ELEMS // max(rows * cols, 1))
+    slab = rows if group > 1 else max(1, _PLAIN_GROUP_ELEMS // max(cols, 1))
+    out = torch.zeros((n, k), dtype=dtype, device=x.device)
     col = ((torch.arange(cols, dtype=torch.int64, device=x.device) + col_offset)
            & U32_MASK)[None, :]
-    if masked:
-        flat = row.to(torch.float32) * float(orig_cols) + col.to(torch.float32)
-    group = max(1, _PLAIN_GROUP_ELEMS // max(rows * cols, 1))
-    xf = x.to(torch.float32).to(dtype)
-    out = torch.empty((n, k), dtype=dtype, device=x.device)
-    for j in range(k):
-        folded = fold_seed(block_seed(seeds, j), leaf_tag)
+    for r0 in range(0, rows, slab):
+        r1 = min(r0 + slab, rows)
+        row = ((torch.arange(r0, r1, dtype=torch.int64, device=x.device)
+                + row_offset) & U32_MASK)[:, None]
         if masked:
-            mask = ((flat >= lo[j]) & (flat < hi[j])).to(dtype)
-        for g in range(0, n, group):
-            v = gen_tile(folded[g:g + group, None, None], row, col, distribution)
-            contrib = xf[g:g + group] * v.to(dtype)
+            flat = row.to(torch.float32) * float(orig_cols) + col.to(torch.float32)
+        xf = x[:, r0:r1].to(torch.float32).to(dtype)
+        for j in range(k):
+            folded = fold_seed(block_seed(seeds, j), leaf_tag)
             if masked:
-                contrib = contrib * mask
-            out[g:g + group, j] = contrib.sum(dim=(1, 2))
+                mask = ((flat >= lo[j]) & (flat < hi[j])).to(dtype)
+            for g in range(0, n, group):
+                v = gen_tile(folded[g:g + group, None, None], row, col, distribution)
+                contrib = xf[g:g + group] * v.to(dtype)
+                if masked:
+                    contrib = contrib * mask
+                s = contrib.sum(dim=(1, 2))
+                out[g:g + group, j] = s if r0 == 0 else out[g:g + group, j] + s
     return out
 
 
@@ -180,6 +188,8 @@ def _launch(table: TreeTable, seeds: torch.Tensor, lo: int | None,
     dev = out.device
     partials = torch.empty((n, k, max(table.num_tiles, 1)), dtype=torch.float32,
                            device=dev)
+    if dev.type == "meta":           # the dry run: plan and buffers, no launch
+        return
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().fs_project_tree(
@@ -204,7 +214,7 @@ def project_tree(leaves, seeds: torch.Tensor, plan: TreePlan,
     dev = seeds.device
     if dev.type == "cpu":
         return project_tree_plain(leaves, seeds, plan, distribution)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     n, k = seeds.shape[0], plan.k
     check_cuda_tensor("seeds", seeds, torch.int64, 1, dev)
@@ -240,7 +250,7 @@ def project_blocks(x: torch.Tensor, seeds: torch.Tensor, leaf_tag: int,
     if x.device.type == "cpu":
         return project_blocks_plain(x, seeds, leaf_tag, lo, hi, distribution,
                                     masked, row_offset, col_offset, orig_cols)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
     check_cuda_tensor("x", x, LEAF_DTYPES, 3, dev)

@@ -193,6 +193,8 @@ def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: floa
             per_client_rounding: bool, vector: bool, distribution: str,
             dev: torch.device) -> None:
     n, k = rs.shape
+    if dev.type == "meta":           # the dry run: plan and buffers, no launch
+        return
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().fs_rec_tree(ctypes.addressof(table), seeds.data_ptr(),
@@ -221,7 +223,7 @@ def reconstruct_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float
     if dev.type == "cpu":
         return reconstruct_tree_plain(leaves, seeds, rs, scale, div, plan,
                                       distribution, per_client_rounding)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     _, k = check_cohort(seeds, rs, distribution, dev)
     if plan.kind != "decode":
@@ -272,7 +274,7 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
         return reconstruct_plain(x2d, seeds, rs, leaf_tag, scale, lo, hi,
                                  distribution, masked, row_offset, col_offset,
                                  orig_cols, per_client_rounding, div)
-    if x2d.device.type != "cuda":
+    if x2d.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
     check_cuda_tensor("x2d", x2d, LEAF_DTYPES, 2, dev)

@@ -48,7 +48,7 @@ __all__ = ["MAX_TREE_LEAVES", "ENCODE_TILE_ROWS", "CLOSE_TILE_ROWS",
            "QSGD_NORM_UNIT_ELEMS", "QSGD_NORM_UNITS_MAX", "TreeLeaf", "TreeTable",
            "TreePlan", "LaunchGroup", "leaf_block_bounds", "decode_vector",
            "qsgd_rows_per_tile", "qsgd_norm_units", "tree_plan", "shard_plan",
-           "qsgd_plan",
+           "qsgd_plan", "MAX_DIM", "check_entry_range",
            "check_leaves", "single_table"]
 
 # csrc/tree.cuh's MAX_TREE_LEAVES.
@@ -78,6 +78,10 @@ DECODE_MIN_TILES = 2 * 132
 QSGD_TILE_ELEMS = 256
 QSGD_NORM_UNIT_ELEMS = 512
 QSGD_NORM_UNITS_MAX = 512
+# The largest rows or cols of an entry's view: the kernels index a row and
+# a column in int, with up to a tile's overhang (CLOSE_TILE_ROWS rows; a
+# warp's UNROLL · 32 16-byte vectors of the encode) past the edge.
+MAX_DIM = (1 << 31) - (1 << 16)
 _KINDS = ("encode", "close", "decode", "qsgd")
 _PLAN_CACHE_MAX = 64
 
@@ -96,18 +100,19 @@ class TreeLeaf(ctypes.Structure):
 
     _anonymous_ = ("_u0", "_u1")
     _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
+                ("tile0", ctypes.c_longlong),
                 ("rows", ctypes.c_int), ("cols", ctypes.c_int),
-                ("_u0", _ColsOrOffset), ("dtype", ctypes.c_int),
+                ("_u0", _ColsOrOffset),
                 ("tag", ctypes.c_uint32), ("row_offset", ctypes.c_uint32),
-                ("col_offset", ctypes.c_uint32), ("vec", ctypes.c_int),
-                ("tile0", ctypes.c_int), ("_u1", _TilesOrPart)]
+                ("col_offset", ctypes.c_uint32), ("_u1", _TilesOrPart),
+                ("dtype", ctypes.c_int16), ("vec", ctypes.c_int16)]
 
 
 class TreeTable(ctypes.Structure):
     """``fs::TreeTable``: the leaves of one launch."""
 
-    _fields_ = [("num_leaves", ctypes.c_int), ("num_tiles", ctypes.c_int),
-                ("leaf", TreeLeaf * MAX_TREE_LEAVES)]
+    _fields_ = [("num_tiles", ctypes.c_longlong), ("num_leaves", ctypes.c_int),
+                ("pad_", ctypes.c_int), ("leaf", TreeLeaf * MAX_TREE_LEAVES)]
 
 
 def leaf_block_bounds(
@@ -126,6 +131,23 @@ def leaf_block_bounds(
         los.append(float(lo))
         his.append(float(max(hi, lo)))
     return los, his
+
+
+def check_entry_range(shape, rows: int, cols: int, row_offset: int,
+                      col_offset: int, orig_cols: int) -> None:
+    """Raise unless a table entry lies in the kernels' index range: its
+    rows, its cols and the global cols each below :data:`MAX_DIM`, its
+    coordinates ``row_offset + row`` and ``col_offset + col`` below 2³²
+    (the reference's uint32 (tag, row, col) addressing).  The number of
+    elements is not limited: the kernels take rows·cols and the flat tile
+    space in 64 bits."""
+    if max(rows, cols, orig_cols) > MAX_DIM:
+        raise ValueError(f"leaf {tuple(shape)}: a dimension of its ({rows}, "
+                         f"{cols}) view (of {orig_cols} columns) passes "
+                         f"{MAX_DIM}")
+    if row_offset + rows > 1 << 32 or col_offset + cols > 1 << 32:
+        raise ValueError(f"leaf {tuple(shape)} at ({row_offset}, {col_offset}): "
+                         "coordinates past 2^32")
 
 
 def _elem(dtype: torch.dtype) -> int:
@@ -330,12 +352,8 @@ def _build_plan(kind, shapes, dtypes, k, mode, device, shard=None) -> TreePlan:
                 parts += qsgd_norm_units(ll.size)[0]
             else:
                 row_offset, col_offset, orig_cols = coords[start + i]
-                # the table's rows, cols and offsets are 32-bit: refuse a
-                # (global) leaf whose flat index would pass them
-                if (row_offset + ll.rows) * orig_cols >= 1 << 31:
-                    raise ValueError(f"leaf {ll.shape} at ({row_offset}, "
-                                     f"{col_offset}) of {orig_cols} columns: "
-                                     "past the table's int range")
+                check_entry_range(ll.shape, ll.rows, ll.cols, row_offset,
+                                  col_offset, orig_cols)
                 tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols,
                                       orig_cols, dtypes[start + i], ll.tag,
                                       row_offset, col_offset, tiles, vector)
@@ -369,6 +387,9 @@ def single_table(kind: str, x: torch.Tensor, rows: int, cols: int,
                  y: torch.Tensor | None = None, vector: bool = True) -> TreeTable:
     """A one-leaf table: the leaf-level kernels are tree launches of one leaf
     (for "qsgd", ``orig_cols`` is the leaf's payload offset)."""
+    if kind != "qsgd":
+        check_entry_range(tuple(x.shape), rows, cols, row_offset, col_offset,
+                          orig_cols)
     table = TreeTable()
     entry = table.leaf[0]
     table.num_tiles = _fill_static(entry, kind, rows, cols, orig_cols, x.dtype, tag,

@@ -9,6 +9,13 @@ over the devices in contiguous groups: shard ``s`` of ``S`` runs on
 devices: on one card a ``(2, 4)`` mesh is 8 shards on that card, decoded
 by one tree launch (one per 64 (shard, leaf) entries).  One process
 drives every device's group; nothing here uses ``torch.distributed``.
+
+:func:`make_production_mesh` gives the dry run's meshes
+(``launch/dryrun.py``): the reference's 16 × 16 (``data``, ``model``)
+pod and 2 × 16 × 16 (``pod``, ``data``, ``model``) pods, abstract (no
+card behind them: their one device is ``meta``; the specs and the
+roofline divide the work over their axes), and the one-card mesh (1, 1),
+which a card can check.
 """
 from __future__ import annotations
 
@@ -19,7 +26,15 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["FedMesh", "make_fed_mesh", "mesh_axes_sizes"]
+__all__ = ["FedMesh", "make_fed_mesh", "make_production_mesh", "mesh_axes_sizes",
+           "PRODUCTION_MESHES"]
+
+# The dry run's meshes by name: axis names and shape.
+PRODUCTION_MESHES = {
+    "pod16x16": (("data", "model"), (16, 16)),
+    "pod2x16x16": (("pod", "data", "model"), (2, 16, 16)),
+    "one_card": (("data", "model"), (1, 1)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +83,15 @@ def make_fed_mesh(shape: tuple = (1, 1), device="cuda",
     if not devices:
         raise ValueError("a mesh needs at least one device")
     return FedMesh(axis_names=("data", "model"), shape=shape, devices=devices)
+
+
+def make_production_mesh(multi_pod: bool = False) -> FedMesh:
+    """The reference's production mesh, (16, 16) ``data, model`` or with
+    ``multi_pod`` (2, 16, 16) ``pod, data, model``, abstract (its one
+    device ``meta``).  The one-card (1, 1) mesh is
+    ``PRODUCTION_MESHES["one_card"]``."""
+    axes, shape = PRODUCTION_MESHES["pod2x16x16" if multi_pod else "pod16x16"]
+    return FedMesh(axis_names=axes, shape=shape, devices=(torch.device("meta"),))
 
 
 def mesh_axes_sizes(mesh: FedMesh) -> dict:

@@ -12,13 +12,17 @@ with uniform entry points:
 * ``decode(params, token, caches, pos)``  → (logits, caches), caches
   updated in place
 * ``init_caches(batch, capacity, device)``
+* ``param_shapes()``                      → the params as ``meta`` tensors
+* ``input_specs(shape_name)``             → ``meta`` stand-ins for every
+  input of the entry point of one of the four input shapes
 
 ``batch`` holds ``tokens`` (and ``labels`` for the loss) and, for a
 frontend, ``embeds``: the VLM's patch embeddings, prepended to the text,
 or the enc-dec's audio frames, which the encoder consumes.  Entry points
-run on the CUDA card unless the caller passes ``device="cpu"``.
-``input_specs``/``param_shapes`` wait for the meta-device dry run
-(ROADMAP A11).
+run on the CUDA card unless the caller passes ``device="cpu"``, or
+``device="meta"``: shapes and dtypes with no storage, the reference's
+``jax.eval_shape`` and ``ShapeDtypeStruct`` (the dry run,
+``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import generator_for, resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -52,18 +56,28 @@ class Arch:
 
     # ---------------- parameters ----------------
     def init(self, seed: int = 0, device="cuda"):
-        """Random parameters drawn from a ``torch.Generator`` seeded with ``seed``."""
+        """Random parameters drawn from a ``torch.Generator`` seeded with
+        ``seed``; on ``"meta"`` shapes and dtypes only, nothing allocated."""
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = generator_for(dev, seed)
         if self.is_encdec:
-            return ed.init_encdec(self.cfg, gen)
-        return lm.init_lm(self.cfg, gen)
+            return ed.init_encdec(self.cfg, gen, dev)
+        return lm.init_lm(self.cfg, gen, dev)
+
+    def param_shapes(self):
+        """The parameter tree as ``meta`` tensors (the reference's
+        ``jax.eval_shape`` of ``init``)."""
+        return self.init(0, device="meta")
 
     # ---------------- training ----------------
-    def loss(self, params, batch, window: Optional[int] = None):
+    def loss(self, params, batch, window: Optional[int] = None,
+             clients: bool = False):
+        """Scalar CE; with ``clients`` every param and batch leaf leads with a
+        client axis (N stacked replicas) → each client's CE, (N,)."""
         if self.is_encdec:
-            return ed.encdec_loss(params, self.cfg, batch, window=window)
-        return lm.lm_loss(params, self.cfg, batch, window=window)
+            return ed.encdec_loss(params, self.cfg, batch, window=window,
+                                  clients=clients)
+        return lm.lm_loss(params, self.cfg, batch, window=window, clients=clients)
 
     # ---------------- serving ----------------
     def prefill(self, params, batch, capacity: int, window: Optional[int] = None):
@@ -99,6 +113,58 @@ class Arch:
         if seq_len > 32768:
             return LONG_WINDOW
         return seq_len
+
+    def supports(self, shape_name: str) -> bool:
+        return shape_name in INPUT_SHAPES
+
+    def input_specs(self, shape_name: str, global_batch: Optional[int] = None) -> dict:
+        """``meta`` stand-ins for every model input of this shape, under the
+        reference's keys (int32 tokens and scalars, as its
+        ``ShapeDtypeStruct`` stand-ins); ``global_batch`` cuts the shape's
+        batch (the dry run's checks on one card):
+
+          train:   {"batch": {tokens, labels[, embeds]}, "round_idx"}
+          prefill: {"batch": {tokens[, embeds]}}
+          decode:  {"token", "caches", "position"}
+        """
+        cfg = self.cfg
+        seq, gbatch, mode = INPUT_SHAPES[shape_name]
+        if global_batch is not None:
+            gbatch = global_batch
+        meta = torch.device("meta")
+
+        def sd(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=meta)
+
+        def frontend_embeds(b):
+            if cfg.frontend == "vision":
+                return sd((b, cfg.num_frontend_tokens, cfg.d_model), cfg.torch_dtype)
+            if cfg.frontend == "audio":
+                return sd((b, cfg.encoder_seq, cfg.d_model), cfg.torch_dtype)
+            return None
+
+        i32 = torch.int32
+        if mode in ("train", "prefill"):
+            text = seq
+            if cfg.frontend == "vision":
+                text = seq - cfg.num_frontend_tokens
+            batch = {"tokens": sd((gbatch, text), i32)}
+            if mode == "train":
+                batch["labels"] = sd((gbatch, text), i32)
+            fe = frontend_embeds(gbatch)
+            if fe is not None:
+                batch["embeds"] = fe
+            if mode == "train":
+                return {"batch": batch, "round_idx": sd((), i32)}
+            return {"batch": batch}
+
+        # decode: one new token against a filled cache
+        capacity = self.decode_window(seq)
+        return {
+            "token": sd((gbatch, 1), i32),
+            "caches": self.init_caches(gbatch, capacity, device=meta),
+            "position": sd((), i32),
+        }
 
     def serve_window(self, shape_name: str) -> Optional[int]:
         """Window override passed to decode for this shape."""

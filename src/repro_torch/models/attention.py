@@ -43,15 +43,18 @@ class KVCache(NamedTuple):
     idx: torch.Tensor        # () int32 — number of tokens seen so far
 
 
-def init_attention(gen: torch.Generator, cfg):
+def init_attention(gen: torch.Generator, cfg, device=None):
     """Projection params (wq, wk, wv with the config's bias, wo without)."""
     hd = cfg.resolved_head_dim
     dt = cfg.torch_dtype
+    kw = dict(device=device)
     return {
-        "wq": init_linear(gen, cfg.d_model, cfg.num_heads * hd, cfg.qkv_bias, dt),
-        "wk": init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd, cfg.qkv_bias, dt),
-        "wv": init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd, cfg.qkv_bias, dt),
-        "wo": init_linear(gen, cfg.num_heads * hd, cfg.d_model, False, dt),
+        "wq": init_linear(gen, cfg.d_model, cfg.num_heads * hd, cfg.qkv_bias, dt, **kw),
+        "wk": init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd, cfg.qkv_bias, dt,
+                          **kw),
+        "wv": init_linear(gen, cfg.d_model, cfg.num_kv_heads * hd, cfg.qkv_bias, dt,
+                          **kw),
+        "wo": init_linear(gen, cfg.num_heads * hd, cfg.d_model, False, dt, **kw),
     }
 
 
@@ -98,8 +101,12 @@ def _sdpa(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     scores = _mask_logits(scores, qpos, kpos, causal=causal, window=window,
                           prefix_len=prefix_len)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype).to(torch.float32),
-                       v.to(torch.float32))
+    # P·V keeps P's (k, g, s) order and permutes the small result: with the
+    # output in (s, k, g) order einsum would copy P into that order, and
+    # hand its gradient back strided, which the card's softmax backward
+    # copies again (the sums are the same either way)
+    out = torch.einsum("bkgst,btkd->bkgsd", probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32)).permute(0, 3, 1, 2, 4)
     return out.reshape(b, s, h, hd).to(q.dtype)
 
 
@@ -183,9 +190,19 @@ def _sdpa_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     recurrence itself.  When every query lies at or past the prefix (a
     decode step), the prefix term of the mask is empty and the mask is
     the causal one, which the kernels take.
+
+    A ``meta`` tensor (the dry run) takes the card's branches; its
+    positions hold no values, so a call of more than one query counts as
+    a prefill from position 0 (inside any prefix) and a single query as a
+    decode step past it, as the dry run's steps are.
     """
-    if (prefix_len and int(qpos.min()) < prefix_len) or (
-            q.is_cuda and torch.is_grad_enabled() and (
+    on_card = q.is_cuda or q.is_meta
+    if q.is_meta:
+        inside_prefix = bool(prefix_len) and q.shape[1] > 1
+    else:
+        inside_prefix = bool(prefix_len) and int(qpos.min()) < prefix_len
+    if inside_prefix or (
+            on_card and torch.is_grad_enabled() and (
                 q.requires_grad or k.requires_grad or v.requires_grad)):
         return _sdpa_blocked_plain(q, k, v, qpos, kpos, causal=causal,
                                    window=window, prefix_len=prefix_len)

@@ -24,6 +24,7 @@ mesh, and are dropped.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -33,7 +34,13 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.models.attention import KVCache, attention, init_attention, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, init_embedding, init_norm
-from repro_torch.models.lm import init_stacked, remat_call, stack_slice
+from repro_torch.models.lm import (
+    client_map,
+    init_stacked,
+    mean_nll,
+    remat_call,
+    stack_slice,
+)
 from repro_torch.models.mlp import ffn, init_ffn
 
 __all__ = [
@@ -58,53 +65,62 @@ def _sinusoid(length: int, d: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _init_enc_layer(gen, cfg):
-    dt, dev = cfg.torch_dtype, gen.device
+def _init_enc_layer(gen, cfg, dev):
+    dt = cfg.torch_dtype
     return {
         "norm1": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "attn": init_attention(gen, cfg),
+        "attn": init_attention(gen, cfg, dev),
         "norm2": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "ffn": init_ffn(gen, cfg),
+        "ffn": init_ffn(gen, cfg, dev),
     }
 
 
-def _init_dec_layer(gen, cfg):
-    dt, dev = cfg.torch_dtype, gen.device
+def _init_dec_layer(gen, cfg, dev):
+    dt = cfg.torch_dtype
     return {
         "norm1": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "self_attn": init_attention(gen, cfg),
+        "self_attn": init_attention(gen, cfg, dev),
         "norm_x": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "cross_attn": init_attention(gen, cfg),
+        "cross_attn": init_attention(gen, cfg, dev),
         "norm2": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "ffn": init_ffn(gen, cfg),
+        "ffn": init_ffn(gen, cfg, dev),
     }
 
 
-def init_encdec(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Full parameter tree on ``gen``'s device, each stack of layers with a
-    leading layer axis.  Draws from ``gen`` (not ``jax.random``): the
-    numbers differ from the reference's, the layout does not."""
-    dt, dev = cfg.torch_dtype, gen.device
+def init_encdec(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+    """Full parameter tree on ``device`` (``gen``'s by default), each stack
+    of layers with a leading layer axis.  Draws from ``gen`` (not
+    ``jax.random``): the numbers differ from the reference's, the layout
+    does not."""
+    dt = cfg.torch_dtype
+    dev = gen.device if device is None else device
     max_pos = cfg.max_position or 4096
     return {
-        "enc_layers": init_stacked(lambda: _init_enc_layer(gen, cfg), cfg.encoder_layers),
+        "enc_layers": init_stacked(lambda: _init_enc_layer(gen, cfg, dev),
+                                   cfg.encoder_layers),
         "enc_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "dec_layers": init_stacked(lambda: _init_dec_layer(gen, cfg), cfg.num_layers),
+        "dec_layers": init_stacked(lambda: _init_dec_layer(gen, cfg, dev),
+                                   cfg.num_layers),
         "dec_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
-        "pos_embed": init_embedding(gen, max_pos, cfg.d_model, dt),
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+        "pos_embed": init_embedding(gen, max_pos, cfg.d_model, dt, dev),
     }
 
 
-def _layers(stack: dict):
-    """Each layer's params of a stack (views)."""
-    return (stack_slice(stack, i) for i in range(tree_leaves(stack)[0].shape[0]))
+def _layers(stack: dict, clients: bool = False):
+    """Each layer's params of a stack (views; behind the client axis with
+    ``clients``)."""
+    n = tree_leaves(stack)[0].shape[1 if clients else 0]
+    return (stack_slice(stack, i, clients) for i in range(n))
 
 
-def encode(params, cfg: ModelConfig, frames: torch.Tensor, remat: bool = True):
-    """frames: (B, T, d) stubbed conv-frontend output → encoder states."""
+def encode(params, cfg: ModelConfig, frames: torch.Tensor, remat: bool = True,
+           clients: bool = False):
+    """frames: (B, T, d) stubbed conv-frontend output → encoder states
+    (``clients``: as ``lm.lm_forward``'s)."""
+    cmap = functools.partial(client_map, clients=clients)
     x = frames.to(cfg.torch_dtype)
-    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    x = x + _sinusoid(x.shape[-2], cfg.d_model, x.device).to(x.dtype)[None]
 
     def body(layer, x):
         h = apply_norm(layer["norm1"], x, cfg.norm)
@@ -113,9 +129,9 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, remat: bool = True):
         h = apply_norm(layer["norm2"], x, cfg.norm)
         return x + ffn(layer["ffn"], h, cfg)
 
-    for layer in _layers(params["enc_layers"]):
-        x = remat_call(body, layer, x, remat)
-    return apply_norm(params["enc_norm"], x, cfg.norm)
+    for layer in _layers(params["enc_layers"], clients):
+        x = remat_call(cmap(body), layer, x, remat)
+    return cmap(lambda p, x: apply_norm(p, x, cfg.norm))(params["enc_norm"], x)
 
 
 def _dec_sublayer(layer, x, cfg, enc_states, positions, cache=None,
@@ -145,23 +161,27 @@ def _logits(params, x):
     return x.to(torch.float32) @ params["embed"]["embedding"].to(torch.float32).T
 
 
-def encdec_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None):
-    """batch: dict(embeds=(B,T,d) frames, tokens=(B,S), labels=(B,S))."""
-    enc = encode(params, cfg, batch["embeds"])
+def encdec_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None,
+                clients: bool = False):
+    """batch: dict(embeds=(B,T,d) frames, tokens=(B,S), labels=(B,S)); each
+    layer under checkpoint; with ``clients`` (as ``lm.lm_forward``'s) → each
+    client's loss, (N,)."""
+    cmap = functools.partial(client_map, clients=clients)
+    enc = encode(params, cfg, batch["embeds"], clients=clients)
     tokens = batch["tokens"]
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-    x = _dec_embed(params, cfg, tokens, positions)
+    positions = torch.arange(tokens.shape[-1], dtype=torch.int32, device=tokens.device)
+    x = cmap(lambda p, t: _dec_embed(p, cfg, t, positions))(params, tokens)
     win = cfg.window if window is None else window
 
-    def body(layer, x):
-        return _dec_sublayer(layer, x, cfg, enc, positions, window=win)[0]
+    def body(layer_enc, x):
+        return _dec_sublayer(layer_enc["layer"], x, cfg, layer_enc["enc"], positions,
+                             window=win)[0]
 
-    for layer in _layers(params["dec_layers"]):
-        x = remat_call(body, layer, x, remat=True)
-    x = apply_norm(params["dec_norm"], x, cfg.norm)
-    logp = torch.log_softmax(_logits(params, x), dim=-1)
-    nll = -torch.take_along_dim(logp, batch["labels"][..., None].to(torch.int64), dim=-1)
-    return torch.mean(nll)
+    for layer in _layers(params["dec_layers"], clients):
+        x = remat_call(cmap(body), {"enc": enc, "layer": layer}, x, remat=True)
+    x = cmap(lambda p, x: apply_norm(p, x, cfg.norm))(params["dec_norm"], x)
+    logits = cmap(lambda p, x: _logits(p, x))(params, x)
+    return cmap(mean_nll)(logits, batch["labels"])
 
 
 class DecCaches(NamedTuple):

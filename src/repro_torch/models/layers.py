@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/models/layers.py``.  Parameters are plain dicts of
 tensors; every ``init_*`` draws from an explicit ``torch.Generator`` and
-returns params on the generator's device, every other function is pure.
+returns params on the generator's device (or on ``device``: a CPU
+generator draws for ``meta``), every other function is pure.
 The generator's numbers differ from ``jax.random``'s: tests carry the
 reference's parameters across (``repro_torch.convert.params_from_jax``).
 Norms and RoPE compute in float32 and cast back, as the reference does.
@@ -27,15 +28,17 @@ __all__ = [
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, bias: bool = False,
-                dtype=torch.bfloat16, scale: float | None = None):
-    """Truncated-normal fan-in init (standard normal cut at ±2, times scale)."""
+                dtype=torch.bfloat16, scale: float | None = None, device=None):
+    """Truncated-normal fan-in init (standard normal cut at ±2, times scale),
+    on ``device`` (``gen``'s by default)."""
     if scale is None:
         scale = d_in ** -0.5
-    w = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
+    dev = gen.device if device is None else device
+    w = torch.empty((d_in, d_out), dtype=torch.float32, device=dev)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     p = {"w": (w * scale).to(dtype)}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
     return p
 
 
@@ -76,9 +79,10 @@ def apply_norm(p, x: torch.Tensor, kind: str) -> torch.Tensor:
     return layernorm(p, x) if kind == "layernorm" else rmsnorm(p, x)
 
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat16):
+def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat16,
+                   device=None):
     e = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+                    device=gen.device if device is None else device)
     return {"embedding": (e * (d ** -0.5)).to(dtype)}
 
 

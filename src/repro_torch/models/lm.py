@@ -30,6 +30,7 @@ are dropped.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple, Optional
 
@@ -67,6 +68,8 @@ __all__ = [
     "init_lm_caches",
     "init_stacked",
     "stack_slice",
+    "client_map",
+    "mean_nll",
     "remat_call",
 ]
 
@@ -90,17 +93,18 @@ def period_structure(cfg: ModelConfig):
     return p, cfg.num_layers // p, kinds
 
 
-def _init_sublayer(gen, cfg, kind: str, ffn_kind: str):
+def _init_sublayer(gen, cfg, kind: str, ffn_kind: str, dev=None):
     dt = cfg.torch_dtype
-    dev = gen.device
+    dev = gen.device if dev is None else dev
     p: dict[str, Any] = {"norm1": init_norm(cfg.d_model, cfg.norm, dt, dev)}
     if kind == "attn":
-        p["attn"] = init_attention(gen, cfg)
+        p["attn"] = init_attention(gen, cfg, dev)
     else:
-        p["mamba"] = init_mamba(gen, cfg)
+        p["mamba"] = init_mamba(gen, cfg, dev)
     if ffn_kind != "none":
         p["norm2"] = init_norm(cfg.d_model, cfg.norm, dt, dev)
-        p["ffn"] = init_moe(gen, cfg) if ffn_kind == "moe" else init_ffn(gen, cfg)
+        p["ffn"] = (init_moe(gen, cfg, dev) if ffn_kind == "moe"
+                    else init_ffn(gen, cfg, dev))
     return p
 
 
@@ -121,26 +125,30 @@ def init_stacked(make, n: int):
     return stacked
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Full parameter tree on ``gen``'s device; per-period-position stacks.
+def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+    """Full parameter tree on ``device`` (``gen``'s by default; ``meta``
+    from a CPU generator allocates nothing); per-period-position stacks.
 
     Draws from ``gen`` (not ``jax.random``): the numbers differ from the
     reference's, the layout does not.  Position by position, period by
     period, each sublayer in ``_init_sublayer``'s order.
     """
     plen, nper, kinds = period_structure(cfg)
-    dt, dev = cfg.torch_dtype, gen.device
-    period = [init_stacked(lambda: _init_sublayer(gen, cfg, kind, ffn_kind), nper)
+    dt = cfg.torch_dtype
+    dev = gen.device if device is None else device
+    period = [init_stacked(lambda: _init_sublayer(gen, cfg, kind, ffn_kind, dev), nper)
               for kind, ffn_kind in kinds]
     params = {
-        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
         "period": period,
         "final_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, False, dt)
+        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, False, dt,
+                                        device=dev)
     if cfg.max_position and not cfg.use_rope:
-        params["pos_embed"] = init_embedding(gen, cfg.max_position, cfg.d_model, dt)
+        params["pos_embed"] = init_embedding(gen, cfg.max_position, cfg.d_model, dt,
+                                             dev)
     return params
 
 
@@ -194,14 +202,24 @@ def _logits(params, cfg, x):
     return linear(params["lm_head"], x).to(torch.float32)
 
 
-def stack_slice(tree, i: int):
+def stack_slice(tree, i: int, clients: bool = False):
     """Slice ``i`` of every stacked leaf of ``tree`` (views into the stacks):
-    the i-th period's params, or the i-th layer's."""
+    the i-th period's params, or the i-th layer's; with ``clients`` the
+    stacks lead with a client axis, and slice ``i`` is taken behind it."""
     if isinstance(tree, dict):
-        return {k: stack_slice(v, i) for k, v in tree.items()}
+        return {k: stack_slice(v, i, clients) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [stack_slice(v, i) for v in tree]
-    return tree[i]
+        return [stack_slice(v, i, clients) for v in tree]
+    return tree[:, i] if clients else tree[i]
+
+
+def client_map(fn, clients: bool):
+    """``fn``, or with ``clients`` its ``torch.func.vmap`` over a leading
+    client axis of every argument: the client-parallel train step
+    (``launch/train.py``) runs each stage of the forward over its N
+    stacked replicas at once, with each period's checkpoint outside the
+    vmap (a checkpoint inside one would recompute outside it)."""
+    return torch.func.vmap(fn) if clients else fn
 
 
 def remat_call(body, params, x, remat: bool):
@@ -220,16 +238,25 @@ def remat_call(body, params, x, remat: bool):
 
 
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
-               window: Optional[int] = None, remat: bool = True):
+               window: Optional[int] = None, remat: bool = True,
+               clients: bool = False):
     """Training-mode forward without caches → logits (B, S_total, V), float32.
 
     With ``remat`` each period runs under :func:`remat_call`'s checkpoint:
     the backward pass recomputes the period from its input activation (the
-    reference's ``jax.checkpoint(period_body)``).
+    reference's ``jax.checkpoint(period_body)``).  With ``clients`` every
+    param and input leads with a client axis (N stacked replicas) and each
+    stage runs under :func:`client_map` → logits (N, B, S_total, V).
     """
     plen, nper, kinds = period_structure(cfg)
-    x = _embed_inputs(params, cfg, tokens, embeds)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    cmap = functools.partial(client_map, clients=clients)
+    if embeds is None:
+        x = cmap(lambda p, t: _embed_inputs(p, cfg, t, None))(params, tokens)
+    elif tokens is None:
+        x = cmap(lambda p, e: _embed_inputs(p, cfg, None, e))(params, embeds)
+    else:
+        x = cmap(lambda p, t, e: _embed_inputs(p, cfg, t, e))(params, tokens, embeds)
+    positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
     win = cfg.window if window is None else window
 
     def body(period_slice, x):
@@ -239,20 +266,26 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
         return x
 
     for i in range(nper):
-        x = remat_call(body, stack_slice(params["period"], i), x, remat)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    return _logits(params, cfg, x)
+        x = remat_call(cmap(body), stack_slice(params["period"], i, clients), x, remat)
+    x = cmap(lambda p, x: apply_norm(p, x, cfg.norm))(params["final_norm"], x)
+    return cmap(lambda p, x: _logits(p, cfg, x))(params, x)
 
 
-def lm_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None) -> torch.Tensor:
+def lm_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None,
+            clients: bool = False) -> torch.Tensor:
     """Mean next-token cross-entropy.  batch: dict(tokens, labels[, embeds]).
 
     Frontends prepend non-text positions, so only the trailing
     ``labels.shape[1]`` positions are scored, as in the reference.
+    ``clients`` as :func:`lm_forward`'s → each client's loss, (N,).
     """
     logits = lm_forward(params, cfg, tokens=batch.get("tokens"),
-                        embeds=batch.get("embeds"), window=window)
-    labels = batch["labels"]
+                        embeds=batch.get("embeds"), window=window, clients=clients)
+    return client_map(mean_nll, clients)(logits, batch["labels"])
+
+
+def mean_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of the trailing ``labels.shape[1]`` positions."""
     logits = logits[:, -labels.shape[1]:]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.take_along_dim(logp, labels[..., None].to(torch.int64), dim=-1)

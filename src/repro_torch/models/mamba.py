@@ -44,16 +44,17 @@ class MambaCache(NamedTuple):
     conv: torch.Tensor   # (B, conv_width−1, d_inner) rolling conv inputs
 
 
-def init_mamba(gen: torch.Generator, cfg):
-    dt, dev = cfg.torch_dtype, gen.device
+def init_mamba(gen: torch.Generator, cfg, device=None):
+    dt = cfg.torch_dtype
+    dev = gen.device if device is None else device
     d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
     r, cw = cfg.resolved_dt_rank, cfg.ssm_conv
-    in_proj = init_linear(gen, d, 2 * di, False, dt)
+    in_proj = init_linear(gen, d, 2 * di, False, dt, device=dev)
     conv_w = torch.empty((cw, di), dtype=torch.float32, device=dev)
     torch.nn.init.trunc_normal_(conv_w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    x_proj = init_linear(gen, di, r + 2 * n, False, dt)
-    dt_proj = init_linear(gen, r, di, True, dt, scale=r ** -0.5)
-    out_proj = init_linear(gen, di, d, False, dt, scale=di ** -0.5)
+    x_proj = init_linear(gen, di, r + 2 * n, False, dt, device=dev)
+    dt_proj = init_linear(gen, r, di, True, dt, scale=r ** -0.5, device=dev)
+    out_proj = init_linear(gen, di, d, False, dt, scale=di ** -0.5, device=dev)
     # S4-style A init: A[:, j] = −(j+1) (real negative diagonal)
     a = torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None, :].repeat(di, 1)
     return {

@@ -13,21 +13,21 @@ from repro_torch.models.layers import init_linear, linear
 __all__ = ["init_ffn", "ffn"]
 
 
-def init_ffn(gen: torch.Generator, cfg):
+def init_ffn(gen: torch.Generator, cfg, device=None):
     dt = cfg.torch_dtype
     if cfg.activation in ("swiglu", "geglu"):
         return {
-            "w_gate": init_linear(gen, cfg.d_model, cfg.d_ff, False, dt),
-            "w_up": init_linear(gen, cfg.d_model, cfg.d_ff, False, dt),
+            "w_gate": init_linear(gen, cfg.d_model, cfg.d_ff, False, dt, device=device),
+            "w_up": init_linear(gen, cfg.d_model, cfg.d_ff, False, dt, device=device),
             "w_down": init_linear(gen, cfg.d_ff, cfg.d_model, False, dt,
-                                  scale=cfg.d_ff ** -0.5),
+                                  scale=cfg.d_ff ** -0.5, device=device),
         }
     # non-gated MLP: gelu (whisper, biases) or relu² (nemotron/minitron)
     bias = cfg.activation == "gelu"
     return {
-        "w_up": init_linear(gen, cfg.d_model, cfg.d_ff, bias, dt),
+        "w_up": init_linear(gen, cfg.d_model, cfg.d_ff, bias, dt, device=device),
         "w_down": init_linear(gen, cfg.d_ff, cfg.d_model, bias, dt,
-                              scale=cfg.d_ff ** -0.5),
+                              scale=cfg.d_ff ** -0.5, device=device),
     }
 
 

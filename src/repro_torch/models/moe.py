@@ -33,17 +33,18 @@ from repro_torch.models.layers import init_linear
 __all__ = ["init_moe", "moe_ffn"]
 
 
-def init_moe(gen: torch.Generator, cfg):
+def init_moe(gen: torch.Generator, cfg, device=None):
     dt = cfg.torch_dtype
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    dev = gen.device if device is None else device
 
     def expert_mat(shape, scale):
-        w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
         torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return w.mul_(scale).to(dt)
 
     return {
-        "router": init_linear(gen, d, e, False, torch.float32),  # router in fp32
+        "router": init_linear(gen, d, e, False, torch.float32, device=dev),  # fp32
         "w_gate": expert_mat((e, d, f), d ** -0.5),
         "w_up": expert_mat((e, d, f), d ** -0.5),
         "w_down": expert_mat((e, f, d), f ** -0.5),

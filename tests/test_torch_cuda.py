@@ -35,6 +35,10 @@ grids (524 288 × 1, QSGD 262 144 × 2) are bitwise; the train step's
 close (per-client rounding) is bitwise equal to ``server_aggregate``;
 the plain blocked attention recurrence is held against the plain
 ``_sdpa`` (values within 1e-5, gradients within 1e-4 of their largest).
+A bf16 leaf of 2³¹ + 2²⁰ elements goes through the encode (within
+``encode_tolerance`` of its float64 plain sum), the fused close and the
+per-client decode (bitwise their plain versions on its first and last
+rows).
 """
 import numpy as np
 import pytest
@@ -1313,3 +1317,55 @@ def test_cuda_mesh_run_is_the_decode_route(cuda_device):
     for key in h[None]["final_params"]:
         assert torch.equal(h[(2, 4)]["final_params"][key],
                            h[None]["final_params"][key])
+
+
+# ---------------------------------------------------------------------------
+# the FedScalar tree kernels on a leaf past 2³¹ elements
+# ---------------------------------------------------------------------------
+
+# 131 136 × 16 384 bf16: 2³¹ + 2²⁰ elements (4 GiB), past the int range
+# that the table's fields once held.
+_LARGE = (131136, 16384)
+
+
+@pytest.mark.parametrize("kind", ["encode", "close", "decode"])
+def test_cuda_tree_leaf_past_2_31_elements(cuda_device, kind):
+    """One tree launch over a leaf of 2³¹ + 2²⁰ bf16 elements: the decode
+    (N = 4, per-client rounding) and the fused close (N = 4) bitwise their
+    plain versions on the leaf's first and last 64 rows (the plain
+    versions at those rows' coordinates), the encode (N = 1) within
+    ``encode_tolerance`` of its plain float64 sum over the whole leaf."""
+    rows, cols = _LARGE
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(_LARGE, generator=gen, device=cuda_device).to(torch.bfloat16)
+    seeds = torch.tensor([101, 202, 303, 404], dtype=torch.int64, device=cuda_device)
+    rs = torch.tensor([[0.5], [-1.25], [2.0], [0.75]], device=cuda_device)
+    if kind == "encode":
+        before = project_blocks.launches
+        r = ops.project_tree_kernel({"w": x[None]}, seeds[:1])
+        assert project_blocks.launches - before == 2
+        exact = project_blocks_plain(x[None], seeds[:1], 0, torch.zeros(1, device=cuda_device),
+                                     torch.full((1,), 1e12, device=cuda_device),
+                                     dtype=torch.float64)
+        tol = encode_tolerance(x[None], "rademacher")
+        assert ((r.double() - exact).abs() <= tol).all()
+        return
+    if kind == "close":
+        before = fused_reconstruct_apply.launches
+        y = ops.server_update_fused({"w": x}, rs, seeds)["w"]
+        assert fused_reconstruct_apply.launches - before == 1
+        seeds_p, rs_p = pad_cohort(seeds, rs * torch.tensor(0.25, device=cuda_device))
+        lo, hi = torch.zeros(1, device=cuda_device), torch.zeros(1, device=cuda_device)
+        for r0 in (0, rows - 64):
+            want = fused_apply_plain(x[r0:r0 + 64], seeds_p, rs_p, 0, lo, hi,
+                                     row_offset=r0, orig_cols=cols)
+            assert torch.equal(y[r0:r0 + 64], want)
+        return
+    before = reconstruct_apply_clients.launches
+    y = ops.server_update_kernel({"w": x}, rs, seeds, per_client_rounding=True)["w"]
+    assert reconstruct_apply_clients.launches - before == 1
+    for r0 in (0, rows - 64):
+        want = reconstruct_plain(x[r0:r0 + 64], seeds, rs, 0, 1.0, None, None,
+                                 row_offset=r0, orig_cols=cols,
+                                 per_client_rounding=True, div=4.0)
+        assert torch.equal(y[r0:r0 + 64], want)

@@ -70,6 +70,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_tile_class,
 )
 from repro_torch.models.api import Arch as TArch  # noqa: E402
+from torch_parity import Elsewhere  # noqa: E402
 
 TOL = {"float32": dict(rtol=1e-3, atol=2e-5), "bfloat16": dict(rtol=1e-3, atol=3e-2)}
 T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -402,10 +403,10 @@ def test_cpu_call_counts_no_launch():
 
 
 def test_wrapper_refuses_other_devices():
-    q = torch.empty((1, 4, 2, 32), device="meta")
     pos = torch.arange(4, dtype=torch.int32)
+    k = torch.zeros((1, 4, 2, 32))
     with pytest.raises(ValueError, match="unsupported device"):
-        flash_attention(q, q, q, pos, pos)
+        flash_attention(Elsewhere((1, 4, 2, 32)), k, k, pos, pos)
 
 
 def test_shipped_threshold_dispatch(monkeypatch):

@@ -68,5 +68,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "repro_torch.optim.adam", "repro_torch.optim.sgd",
                 "repro_torch.optim.schedule", "repro_torch.checkpoint",
                 "repro_torch.checkpoint.msgpack_ckpt",
-                "repro_torch.checkpoint.msgpack_codec"):
+                "repro_torch.checkpoint.msgpack_codec",
+                "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                "repro_torch.launch.mesh", "repro_torch.sharding.rules",
+                "repro_torch.sharding.activations"):
         assert mod in out["modules"]

@@ -60,7 +60,12 @@ from repro_torch.kernels.seeded_projection import (  # noqa: E402
     project_blocks,
     project_blocks_plain,
 )
-from torch_parity import jax_kernels, mlp_params_np, seeds_np  # noqa: E402,F401
+from torch_parity import (  # noqa: E402,F401
+    Elsewhere,
+    jax_kernels,
+    mlp_params_np,
+    seeds_np,
+)
 
 FAMILIES = ["rademacher", "gaussian", "sparse_rademacher", "hadamard"]
 VMAX = {"rademacher": 1.0, "hadamard": 1.0, "sparse_rademacher": 2.0,
@@ -269,10 +274,15 @@ def test_fold_upload_weights_bitwise(jax_kernels, k, mode):
 
 
 def test_wrappers_reject_other_devices():
-    x = torch.zeros((1, 2, 3), device="meta")
-    with pytest.raises(ValueError):
-        project_blocks(x, torch.zeros(1, dtype=torch.int64, device="meta"), 0,
-                       torch.zeros(1, device="meta"), torch.ones(1, device="meta"))
+    """A device that is not a card, the CPU or ``meta`` (the dry run's, which
+    the wrappers take) is refused."""
+    with pytest.raises(ValueError, match="unsupported device"):
+        project_blocks(Elsewhere((1, 2, 3)), torch.zeros(1, dtype=torch.int64), 0,
+                       torch.zeros(1), torch.ones(1))
+    meta = project_blocks(torch.zeros((1, 2, 3), device="meta"),
+                          torch.zeros(1, dtype=torch.int64, device="meta"), 0,
+                          torch.zeros(1, device="meta"), torch.ones(1, device="meta"))
+    assert meta.is_meta and meta.shape == (1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -421,15 +431,12 @@ def test_qsgd_roundtrip_kernel_matches_oracles(jax_kernels, bits):
 
 
 def test_new_wrappers_reject_other_devices_and_bad_requests():
-    x = torch.zeros((2, 3), device="meta")
-    with pytest.raises(ValueError):
-        reconstruct_apply_clients(x, torch.zeros(1, dtype=torch.int64,
-                                                 device="meta"),
-                                  torch.zeros(1, 1, device="meta"), 0, 1.0)
-    with pytest.raises(ValueError):
-        qsgd_quantize(torch.zeros((1, 2, 3), device="meta"),
-                      torch.zeros(1, dtype=torch.int64, device="meta"),
-                      torch.ones(1, device="meta"), 127)
+    with pytest.raises(ValueError, match="unsupported device"):
+        reconstruct_apply_clients(Elsewhere((2, 3)), torch.zeros(1, dtype=torch.int64),
+                                  torch.zeros(1, 1), 0, 1.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        qsgd_quantize(Elsewhere((1, 2, 3)), torch.zeros(1, dtype=torch.int64),
+                      torch.ones(1), 127)
     with pytest.raises(ValueError, match="ask for"):
         qsgd_quantize(torch.zeros((1, 2, 3)), torch.zeros(1, dtype=torch.int64),
                       torch.ones(1), 127, want_q=False, want_levels=False)

@@ -63,7 +63,7 @@ from repro_torch.kernels.tree import (  # noqa: E402
     qsgd_rows_per_tile,
 )
 from repro_torch.models.mlp_classifier import init_mlp  # noqa: E402
-from torch_parity import seeds_np  # noqa: E402
+from torch_parity import Elsewhere, seeds_np  # noqa: E402
 
 MLP = [(24,), (12,), (10,), (64, 24), (24, 12), (12, 10)]
 # 1-D, ragged and 16-byte-multiple columns, a 3-D leaf, a wide leaf.
@@ -93,7 +93,8 @@ def _per_leaf(leaves, seeds, levels):
 
 
 def test_leaf_table_keeps_its_size_and_shares_two_slots():
-    assert ctypes.sizeof(TreeLeaf) == 56 and ctypes.sizeof(TreeTable) == 8 + 64 * 56
+    # a 64-bit tile count and pad before the 64 entries (csrc/tree.cuh)
+    assert ctypes.sizeof(TreeLeaf) == 56 and ctypes.sizeof(TreeTable) == 16 + 64 * 56
     entry = TreeLeaf()
     entry.offset, entry.part0 = 1582, 7
     assert (entry.orig_cols, entry.col_tiles) == (1582, 7)
@@ -279,8 +280,7 @@ def test_round_seeds_are_the_quant_seeds(round_idx):
 
 def test_tree_entry_refuses_other_devices_and_empty_requests():
     with pytest.raises(ValueError, match="unsupported device"):
-        qsgd_tree([torch.zeros((2, 3), device="meta")],
-                  torch.zeros(2, dtype=torch.int64, device="meta"), 127)
+        qsgd_tree([torch.zeros((2, 3))], Elsewhere((2,), torch.int64), 127)
     with pytest.raises(ValueError, match="ask for"):
         qsgd_tree([torch.zeros((2, 3))], torch.zeros(2, dtype=torch.int64), 127,
                   want_q=False)

@@ -31,6 +31,8 @@ plan, group by group.  Held here:
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -53,9 +55,11 @@ from repro_torch.kernels.tree import (  # noqa: E402
     CLOSE_TILE_THREADS,
     DECODE_MIN_TILES,
     ENCODE_TILE_ROWS,
+    MAX_DIM,
     MAX_TREE_LEAVES,
     TreeTable,
     decode_vector,
+    qsgd_plan,
     shard_plan,
     tree_plan,
 )
@@ -229,23 +233,140 @@ def test_plans_split_cache_and_bound_blocks(jax_kernels):
 
 
 
+# The leaves past 2³¹ elements of five reference configs (each a stacked
+# (layers or periods, …) leaf of bf16): Qwen3-MoE-30B-A3B's and
+# Qwen3-MoE-235B-A22B's expert w_gate/w_up, Jamba-v0.1-52B's expert
+# stacks, Falcon-Mamba-7B's in_proj (2³² elements) and out_proj (2³¹),
+# Minitron-8B's stacked w_up (2³¹).
+LARGE_LEAVES = {"qwen3-moe-30b-a3b": (48, 128, 2048, 768),
+                "qwen3-moe-235b-a22b": (94, 128, 4096, 1536),
+                "jamba-v0.1-52b": (4, 16, 4096, 14336),
+                "falcon-mamba-7b-in": (64, 4096, 16384),
+                "falcon-mamba-7b-out": (64, 8192, 4096),
+                "minitron-8b": (32, 4096, 16384)}
+
+
+def _tile_to_element(table, t):
+    """The kernels' walk of a flat tile (64-bit): → (leaf, first row, first
+    col) of tile ``t``, as find_leaf and the closes' tile split compute it."""
+    lo, hi = 0, table.num_leaves - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if table.leaf[mid].tile0 <= t:
+            lo = mid
+        else:
+            hi = mid - 1
+    entry = table.leaf[lo]
+    local = t - entry.tile0
+    return lo, local // entry.col_tiles, local % entry.col_tiles
+
+
 @pytest.mark.parametrize("kind", ["encode", "close", "decode"])
-def test_plans_refuse_leaves_past_the_int_range(kind):
-    """The table's rows, cols and offsets are 32-bit: a leaf whose flat
-    index reaches 2³¹ (Qwen3-MoE-30B's stacked ``w_gate``, 48·128·2048·768
-    ≈ 9.7e9 elements) is refused, and a sharded one where its global
-    index does; a leaf just under 2³¹ is planned."""
+@pytest.mark.parametrize("name", list(LARGE_LEAVES))
+def test_plans_take_leaves_past_the_int_range(kind, name):
+    """A leaf of any number of elements is planned (its rows and cols each
+    under ``MAX_DIM``): the table holds its view, and the 64-bit tile space
+    walks to its last rows; a shard plan whose global index passes 2³² is
+    planned with global row offsets."""
+    shape = LARGE_LEAVES[name]
+    rows, cols = int(np.prod(shape[:-1])), shape[-1]
     bf16 = [torch.bfloat16]
+    plan = tree_plan(kind, [shape, (1000,)], bf16 + [torch.float32], 1, TM.FULL,
+                     "cpu")
+    table = TreeTable.from_buffer_copy(plan.groups[0].template)
+    leaf = table.leaf[0]
+    assert (leaf.rows, leaf.cols, leaf.orig_cols, leaf.tile0) == (rows, cols, cols, 0)
+    per_row = 1 if kind == "encode" else -(-cols // (CLOSE_TILE_THREADS * 8))
+    tile_rows = ENCODE_TILE_ROWS if kind == "encode" else CLOSE_TILE_ROWS
+    tiles = -(-rows // tile_rows) * per_row
+    assert table.leaf[1].tile0 == tiles and table.num_tiles == tiles + 1 + (
+        0 if kind == "encode" else -(-1000 // (CLOSE_TILE_THREADS * 4)) - 1)
+    assert _tile_to_element(table, tiles - 1) == (0, tiles // per_row - 1, per_row - 1)
+    assert (tiles // per_row - 1) * tile_rows < rows <= tiles // per_row * tile_rows
+    assert _tile_to_element(table, tiles)[0] == 1
+    # sharded over 8 row ranges: shard 7's rows start at 7/8 of the leaf
+    shards = [(0, rows // 8)]
+    splan = shard_plan(kind, [shape], bf16, 8, shards, [0, 7], 1, TM.FULL, "cpu")
+    assert [c[0] for c in splan.coords] == [0, 7 * (rows // 8)]
+    stable = TreeTable.from_buffer_copy(splan.groups[0].template)
+    assert stable.leaf[1].row_offset == 7 * (rows // 8)
+
+
+@pytest.mark.parametrize("kind", ["encode", "close", "decode"])
+def test_plans_refuse_views_past_the_kernels_index_range(kind):
+    """What stays refused: a view with rows or cols past ``MAX_DIM``, and
+    coordinates past 2³² (the uint32 (row, col) of the direction chain)."""
+    bf16 = [torch.bfloat16]
+    with pytest.raises(ValueError, match="passes"):
+        tree_plan(kind, [(2**31, 2)], bf16, 1, TM.FULL, "cpu")
+    with pytest.raises(ValueError, match="passes"):
+        tree_plan(kind, [(2, 2**31)], bf16, 1, TM.FULL, "cpu")
+    with pytest.raises(ValueError, match="2\\^32"):
+        shard_plan(kind, [(8 * (2**29 + 1), 4)], bf16, 8, [(0, 2**29 + 1)],
+                   [7], 1, TM.FULL, "cpu")
+    assert tree_plan(kind, [(MAX_DIM, 2)], bf16, 1, TM.FULL, "cpu").layout
+
+
+def test_qsgd_plan_still_refuses_past_the_int_range():
+    """QSGD's payload column and per-leaf norm stay 32-bit (no LLM path
+    quantizes a leaf past 2³¹ elements): its plan refuses such a leaf."""
     with pytest.raises(ValueError, match="int range"):
-        tree_plan(kind, [(48, 128, 2048, 768)], bf16, 1, TM.FULL, "cpu")
+        qsgd_plan([(64, 4096, 16384)], [torch.bfloat16], "cpu")
     with pytest.raises(ValueError, match="int range"):
-        tree_plan(kind, [(2**21, 1024)], bf16, 1, TM.FULL, "cpu")
-    assert tree_plan(kind, [(2**21, 1023)], bf16, 1, TM.FULL, "cpu").layout
-    # rows split 8 ways: shard 0's global index ends at 2²⁸, shard 7's at 2³¹
-    shards = [(0, 2**21 // 8)]
-    assert shard_plan(kind, [(2**21, 1024)], bf16, 8, shards, [0], 1, TM.FULL, "cpu")
-    with pytest.raises(ValueError, match="int range"):
-        shard_plan(kind, [(2**21, 1024)], bf16, 8, shards, [0, 7], 1, TM.FULL, "cpu")
+        qsgd_plan([(2**30,), (2**30,), (8,)], [torch.float32] * 3, "cpu")
+    assert qsgd_plan([(2**20, 1024)], [torch.float32], "cpu").layout
+
+
+def test_tile_space_past_2_31_tiles():
+    """The table's tile fields are 64-bit: a leaf's first tile and the
+    launch's tile count past 2³¹ survive the ctypes round trip."""
+    table = TreeTable()
+    table.num_tiles = 3 * 2**31 + 5
+    table.leaf[1].tile0 = 2**32 + 7
+    again = TreeTable.from_buffer_copy(bytes(table))
+    assert (again.num_tiles, again.leaf[1].tile0) == (3 * 2**31 + 5, 2**32 + 7)
+    assert ctypes.sizeof(TreeTable) == 3600
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rounding", [False, True])
+def test_plain_slabs_change_no_bit(monkeypatch, dtype, rounding):
+    """The plain versions bound their memory over a large leaf by row
+    slabs: slabs of a few rows give the one-slab bits for both closes, and
+    the encode's slab sums stay within float32 rounding of one sum (the
+    float64 encode within 1e-12)."""
+    from repro_torch.kernels import reconstruct_apply as ra
+    from repro_torch.kernels import seeded_projection as sp
+    from repro_torch.kernels import seeded_reconstruct as sr
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 37, 200), generator=gen).to(dt)
+    params = {"a": x[0], "b": x[1, :3]}
+    seeds = torch.tensor([11, 12, 13], dtype=torch.int64)
+    rs = torch.randn((3, 1), generator=gen)
+    one = (ops.server_update_fused(params, rs, seeds),
+           ops.server_update_kernel(params, rs, seeds,
+                                    per_client_rounding=rounding),
+           ops.project_tree_kernel({"a": x[1:]}, seeds, TD.RADEMACHER))
+    exact = sp.project_blocks_plain(x[1:], seeds, 0, torch.zeros(1),
+                                    torch.full((1,), 1e9), dtype=torch.float64)
+    monkeypatch.setattr(ra, "_PLAIN_SLAB_ELEMS", 3 * 16 * 200)
+    monkeypatch.setattr(sr, "_PLAIN_SLAB_ELEMS", 5 * 32 * 200)
+    monkeypatch.setattr(sp, "_PLAIN_GROUP_ELEMS", 7 * 200)
+    slabs = (ops.server_update_fused(params, rs, seeds),
+             ops.server_update_kernel(params, rs, seeds,
+                                      per_client_rounding=rounding),
+             ops.project_tree_kernel({"a": x[1:]}, seeds, TD.RADEMACHER))
+    for key in params:
+        assert torch.equal(one[0][key], slabs[0][key])
+        assert torch.equal(one[1][key], slabs[1][key])
+    tol = sp.encode_tolerance(x[1:], "rademacher")
+    assert ((slabs[2] - one[2]).abs() <= tol).all()
+    slab64 = sp.project_blocks_plain(x[1:], seeds, 0, torch.zeros(1),
+                                     torch.full((1,), 1e9), dtype=torch.float64)
+    assert torch.allclose(slab64, exact, rtol=1e-12, atol=1e-12)
+
 
 # (k, mode, per-client rounding): the plain decode, ROUND_ONE (k = 1) and
 # ROUND_ANY (k = 8), FULL and BLOCK.

@@ -81,6 +81,27 @@ def jax_sharding():
                                  "repro.launch.mesh"), load)
 
 
+class Elsewhere:
+    """A tensor on a device the port serves neither as a card, the CPU nor
+    ``meta`` (``xpu``): no storage, and any op on it fails.  The wrappers'
+    device checks must refuse it before touching it."""
+
+    def __new__(cls, shape, dtype=None):
+        import torch
+
+        class _Elsewhere(torch.Tensor):
+            @staticmethod
+            def __new__(inner, shape, dtype):
+                return torch.Tensor._make_wrapper_subclass(
+                    inner, shape, dtype=dtype, device=torch.device("xpu"))
+
+            @classmethod
+            def __torch_dispatch__(inner, func, types, args=(), kwargs=None):
+                raise RuntimeError(f"{func} on a tensor of another device")
+
+        return _Elsewhere(shape, torch.float32 if dtype is None else dtype)
+
+
 @pytest.fixture
 def cuda_device():
     import torch
