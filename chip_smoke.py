@@ -251,7 +251,28 @@ Phases (any failure exits non-zero and the final line is not printed):
    encode of its own δ, each client-parallel δ nearest its own client's
    sequential δ, each r within 6‖Δδ‖₂ and both encodes' tolerances of the
    sequential step's; then float32 at 2 layers, the card against the CPU
-   within phase 12's limits.
+   within phase 12's limits.  QSGD past 2³¹ (``qsgd_tree``, 8 bits, N =
+   1): the 2³² leaf, and a two-leaf tree whose second leaf (8 × 8) starts
+   at payload column 2³¹; q and the payload bitwise ``qsgd_quantize_plain``
+   over row ranges given the kernel's norms, the norms within
+   ``norm_tolerance``; the 2³² leaf's call timed beside its bound, and
+   with the norms given (the quantize pass alone).
+
+20. the fused close's autotuner (after phase 19; ``kernels/tune.py``, a
+   temporary cache file): the sweep over ``tree.CLOSE_TILES`` at the MLP's
+   dominant leaf (64 × 24, float32, N = 20: bucket 32) and SmolLM-360M's
+   tied embedding (float32 N = 256 and 1024, bf16 N = 256), each tile's
+   CUDA-event median of 3 beside its bound, and the winner against the
+   default in turns (5 calls each); a second sweep with a measure
+   that raises returns the stored winners, as does another process; every
+   tile bitwise the default tile for all four families (the MLP tree at
+   k = 1, FULL 8 and BLOCK 8, float32 and bf16; the (960, 2560) leaf in
+   BLOCK 8; the tied embedding at N = 256, float32 and bf16) and against
+   the plain version as the default is (bitwise for the ±1/±2 families,
+   gaussian within rtol/atol 1e-5); phase 5's fused-close run at 10⁵
+   clients with a non-default tile cached for its dominant leaf bitwise
+   the run without.  The ``kernels`` line's fused-close entry carries each
+   workload's winner and default tile with their ms in turns.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -801,11 +822,13 @@ def _fused_bound(shapes, n, k, elem=4):
 _rec_bound = _fused_bound
 
 
-def _qsgd_bound(shapes, n, outputs):
-    """Bytes: x read by the norm pass and by the kernel, ``outputs`` float32
-    arrays written, seeds and norms; ops: QSGD_ELEM_OPS per element."""
+def _qsgd_bound(shapes, n, outputs, elem=4, written=None):
+    """Bytes: x (``elem`` bytes an element) read by the norm pass and by the
+    kernel, ``outputs`` float32 arrays written (or ``written`` bytes an
+    element), seeds and norms; ops: QSGD_ELEM_OPS per element."""
     d = sum(r * c for r, c in shapes)
-    nbytes = n * d * 4 * (2 + outputs) + len(shapes) * n * (8 + 4)
+    written = 4 * outputs if written is None else written
+    nbytes = n * d * (2 * elem + written) + len(shapes) * n * (8 + 4)
     ops = {c: n * d * QSGD_ELEM_OPS[c] for c in QSGD_ELEM_OPS}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = 1e3 * max(ops["int"] / INT32_OPS_PER_S, ops["imul"] / INT32_OPS_PER_S,
@@ -3850,12 +3873,105 @@ def phase_big_leaf(s: Smoke):
             kernel=kernel, leaf=list(BIG_LEAF), elements=rows * cols, dtype="bfloat16",
             clients=1 if kernel == "encode" else n, ms=ms, bound_ms=bound,
             bound_by=by, over_bound=ms / bound, plain_ms=plain_ms)), flush=True)
+    del exact
+    launches["qsgd"] = _big_leaf_qsgd(s, x)
     print("big leaf: " + json.dumps(dict(
         encode_abs_err=enc_err, encode_tolerance=enc_tol, decode_bitwise=True,
-        fused_bitwise=True, launches=launches,
+        fused_bitwise=True, qsgd_bitwise=True, launches=launches,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         s=time.perf_counter() - t0)), flush=True)
-    del x, exact
+    del x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _big_leaf_qsgd(s: Smoke, x):
+    """QSGD past 2³¹ (phase 19): ``qsgd_tree`` (8 bits, N = 1) on the 2³²
+    leaf ``x``, then on a two-leaf tree whose second leaf (8 × 8, float32)
+    starts at payload column 2³¹ (the first is ``x``'s first 2³¹ elements):
+    q and the payload bitwise ``qsgd_quantize_plain`` over row ranges given
+    the kernel's norms, each norm within h·2⁻²⁴·‖x‖₂ (``norm_tolerance``,
+    the float64 norm summed over the same ranges); the 2³² leaf's call timed
+    beside its bound.  → the QSGD launches of the two checked calls."""
+    import torch
+
+    from repro_torch.kernels.common import fold_seed
+    from repro_torch.kernels.qsgd_quant import (
+        norm_depth,
+        qsgd_quantize,
+        qsgd_quantize_plain,
+        qsgd_tree,
+    )
+
+    rows, cols = BIG_LEAF
+    levels = 127
+    seeds = s.seeds(1)
+    launches = 0
+
+    def check(leaves, what):
+        nonlocal launches
+        before = qsgd_quantize.launches
+        q, pay, norms = qsgd_tree(leaves, seeds, levels, want_q=True,
+                                  want_levels=True)
+        torch.cuda.synchronize()
+        launches += qsgd_quantize.launches - before
+        if qsgd_quantize.launches - before != 2:
+            raise AssertionError(f"qsgd past 2^31 ({what}): "
+                                 f"{qsgd_quantize.launches - before} launches")
+        t = time.perf_counter()
+        offset, worst = 0, 0.0
+        for tag, leaf in enumerate(leaves):
+            n_rows, n_cols = leaf.shape[1:]
+            folded, nm = fold_seed(seeds, tag), norms[:, tag].contiguous()
+            sq = 0.0
+            for r0 in range(0, n_rows, BIG_SLAB_ROWS):
+                r1 = min(r0 + BIG_SLAB_ROWS, n_rows)
+                qp, lp = qsgd_quantize_plain(leaf[:, r0:r1], folded, nm, levels,
+                                             True, True, row_offset=r0)
+                got_lv = pay[:, offset + r0 * n_cols:offset + r1 * n_cols]
+                if not (torch.equal(q[tag][:, r0:r1], qp)
+                        and torch.equal(got_lv, lp.reshape(1, -1))):
+                    raise AssertionError(f"qsgd past 2^31 ({what}): leaf {tag} "
+                                         f"rows {r0}.. differ from the plain version")
+                sq += float(leaf[:, r0:r1].double().pow(2).sum())
+            exact = math.sqrt(sq)
+            err = abs(float(nm[0]) - exact)
+            tol = norm_depth(n_rows * n_cols) * 2.0 ** -24 * exact
+            if not err <= tol:
+                raise AssertionError(f"qsgd past 2^31 ({what}): leaf {tag} norm off "
+                                     f"by {err} (tolerance {tol})")
+            worst = max(worst, err / tol)
+            s.norm_ratio = max(s.norm_ratio, err / tol)
+            offset += n_rows * n_cols
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        print("big leaf: qsgd " + json.dumps(dict(
+            tree=what, payload_columns=offset + len(leaves),
+            second_leaf_offset=leaves[0][0].numel() if len(leaves) > 1 else None,
+            bitwise=True, norm_err_over_tolerance=worst, plain_ms=plain_ms)),
+            flush=True)
+        return plain_ms
+
+    plain_ms = check([x[None]], "the 2^32 leaf")
+    # The call, and the quantize pass alone (the norms given): their
+    # difference is the norm pass, whose spans are capped at
+    # QSGD_NORM_UNITS_MAX a (client, leaf).
+    norms = qsgd_tree([x[None]], seeds, levels, want_q=False, want_levels=True)[2]
+    ms = s.time_ms(lambda: qsgd_tree([x[None]], seeds, levels, want_q=True,
+                                     want_levels=True), reps=3, warmup=1)
+    quant_ms = s.time_ms(lambda: qsgd_tree([x[None]], seeds, levels, want_q=True,
+                                           want_levels=True, norms=norms),
+                         reps=3, warmup=1)
+    bound, by = _qsgd_bound([BIG_LEAF], 1, 0, elem=2, written=2 + 4)
+    print("big leaf: " + json.dumps(dict(
+        kernel="qsgd", leaf=list(BIG_LEAF), elements=rows * cols, dtype="bfloat16",
+        clients=1, outputs="q and levels", ms=ms, quantize_pass_ms=quant_ms,
+        norm_pass_ms=ms - quant_ms, bound_ms=bound, bound_by=by,
+        over_bound=ms / bound, plain_ms=plain_ms)), flush=True)
+    del norms
+    torch.cuda.empty_cache()
+    small = s.randn(1, 8, 8)
+    check([x[:rows // 2][None], small], "second leaf at payload column 2^31")
     torch.cuda.empty_cache()
     return launches
 
@@ -4271,6 +4387,246 @@ def phase_client_parallel(s: Smoke):
     return cp_launches
 
 
+# Phase 20: the fused close's autotuner.  The sweep's workloads, (rows,
+# cols, dtype, cohort, k): the paper MLP's dominant leaf (N = 20, bucket
+# 32) and SmolLM-360M's tied embedding at the cohorts of phase 6.
+TUNE_SWEEP = ((64, 24, "float32", 20, 1), (49152, 960, "float32", 256, 1),
+              (49152, 960, "float32", 1024, 1), (49152, 960, "bfloat16", 256, 1))
+SM90 = "cuda-sm_90a"
+
+
+def _tile_checks(s: Smoke, params, n, family, k, mode, what, plain=True):
+    """``ops.server_update_fused`` at every tile of ``tree.CLOSE_TILES``
+    (one launch each) bitwise the default tile, and against the plain tree
+    close as the default is (``plain``)."""
+    import torch
+
+    from repro_torch.core.prng import Distribution
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply, fused_tree_plain
+    from repro_torch.kernels.tree import CLOSE_TILES, tree_plan
+
+    mode = ProjectionMode(mode)
+    dist = Distribution(family)
+    seeds, rs = s.seeds(n), s.randn(n, k)
+    leaves = tree_leaves(params)
+    default = tree_leaves(ops.server_update_fused(params, rs, seeds, 0.9, dist,
+                                                  mode=mode))
+    want = None
+    if plain:
+        plan = tree_plan("close", [tuple(x.shape) for x in leaves],
+                         [x.dtype for x in leaves], k, mode, s.dev)
+        frs, scale = ops.fold_upload_weights(rs, 0.9, None, mode, None)
+        want = fused_tree_plain(leaves, seeds, frs, scale, plan, family)
+    for tile in CLOSE_TILES:
+        before = fused_reconstruct_apply.launches
+        got = tree_leaves(ops.server_update_fused(params, rs, seeds, 0.9, dist,
+                                                  mode=mode, block=tile))
+        torch.cuda.synchronize()
+        if fused_reconstruct_apply.launches - before != 1:
+            raise AssertionError(f"tune: tile {tile}: not one launch: {what}")
+        if not all(torch.equal(g, d) for g, d in zip(got, default)):
+            raise AssertionError(f"tune: tile {tile} differs from the default tile: "
+                                 f"{what}")
+        if want is not None:
+            err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+            if not all(_decode_agrees(family, g, w) and bool(torch.isfinite(g).all())
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"tune: tile {tile} disagrees with the plain "
+                                     f"version: {what} max err {err}")
+            s._record("fused", f"{family} tile={list(tile)}", err,
+                      all(torch.equal(g, w) for g, w in zip(got, want)))
+
+
+_TUNE_READER = """
+import json, sys
+from repro_torch.kernels import tune
+print(json.dumps([tune.cached_fused_params(r, c, n, k, "rademacher",
+                                           dtype_bits=b, backend={backend!r},
+                                           cache_path={path!r})
+                  for r, c, n, k, b in {work!r}]))
+"""
+
+
+def phase_tune(s: Smoke):
+    """Phase 20: the fused close's autotuner (``kernels/tune.py``) with a
+    temporary cache file.  The sweep at ``TUNE_SWEEP`` (each tile's median
+    of 3 CUDA-event times beside its bound); every tile bitwise the default
+    tile, and the plain version as the default is, for all four families
+    (the MLP tree at k = 1, FULL 8 and BLOCK 8; the (960, 2560) leaf in
+    BLOCK 8; the large leaf in float32 and bf16 against the default, and
+    in float32 rademacher against the plain version); a second sweep with
+    a measure that raises returns the stored winners, and so does another
+    process; phase 5's fused-close run at 10⁵ clients with a non-default
+    tile cached for its dominant leaf bitwise the run without.
+    → per workload: the winner's and the default tile's ms."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import load_digits, make_client_datasets
+    from repro_torch.data import train_test_split_arrays
+    from repro_torch.fed.runtime import RuntimeConfig, run_federation
+    from repro_torch.kernels import ops, tune
+    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
+    from repro_torch.kernels.tree import CLOSE_TILES, DEFAULT_CLOSE_TILE
+    from repro_torch.models.mlp_classifier import init_mlp
+
+    t0 = time.perf_counter()
+    n0 = s.checks
+    tmp = tempfile.TemporaryDirectory(prefix="fused-tune-")
+    path = os.path.join(tmp.name, "fused_tune_torch.json")
+    if tune.backend_of(s.dev) != SM90:
+        raise AssertionError(f"tune: backend {tune.backend_of(s.dev)}, expected {SM90}")
+    rows_out = []
+    for rows, cols, dtype, n, k in TUNE_SWEEP:
+        bits = 16 if dtype == "bfloat16" else 32
+        bucket = tune.cohort_bucket(n)
+        timer = tune._default_measure(rows, cols, bucket, k, "rademacher", bits, s.dev)
+        ms = {}
+
+        def measure(cand, timer=timer, ms=ms):
+            sec = timer(cand)
+            ms[tuple(cand["block"])] = sec * 1e3
+            return sec
+
+        won = tune.autotune_fused(rows, cols, n, k, "rademacher", bits,
+                                  cache_path=path, measure=measure, device=s.dev)
+        if set(ms) != set(CLOSE_TILES) or tuple(won["block"]) not in CLOSE_TILES:
+            raise AssertionError(f"tune: sweep timed {sorted(ms)}, won {won}")
+
+        def raising(cand):
+            raise AssertionError(f"tune: a cache hit timed {cand}")
+
+        again = tune.autotune_fused(rows, cols, n, k, "rademacher", bits,
+                                    cache_path=path, measure=raising, device=s.dev)
+        if again != won:
+            raise AssertionError(f"tune: the hit returned {again}, stored {won}")
+        bound, by = _fused_bound([(rows, cols)], bucket, k, elem=bits // 8)
+        # The winner against the default in turns (default, winner, winner,
+        # default; 5 calls each after a warm-up), as the sweep timed each
+        # tile once, in CLOSE_TILES order.
+        x = s.randn(rows, cols).to(getattr(torch, dtype))
+        sd, rs = s.seeds(bucket), s.randn(bucket, k)
+        turns = {}
+        for name, block in (("default", None), ("winner", won["block"]),
+                            ("winner2", won["block"]), ("default2", None)):
+            turns[name] = s.time_ms(lambda b=block: fused_reconstruct_apply(
+                x, sd, rs, 0, 0.01, block=b), reps=5, warmup=1)
+        del x
+        row = dict(shape=[rows, cols], dtype=dtype, cohort=n, bucket=bucket, k=k,
+                   key=tune.cache_key(SM90, rows, cols, n, k, "rademacher", bits),
+                   winner=won["block"], winner_ms=ms[tuple(won["block"])],
+                   default=list(DEFAULT_CLOSE_TILE), default_ms=ms[DEFAULT_CLOSE_TILE],
+                   winner_turns_ms=(turns["winner"] + turns["winner2"]) / 2,
+                   default_turns_ms=(turns["default"] + turns["default2"]) / 2,
+                   turns=turns, bound_ms=bound, bound_by=by,
+                   tiles=[dict(tile=list(t), ms=ms[t], over_bound=ms[t] / bound)
+                          for t in CLOSE_TILES])
+        rows_out.append(row)
+        print("tune: sweep " + json.dumps(row), flush=True)
+
+    # Another process reads the same winners from the file.
+    work = [(r, c, n, k, 16 if dt == "bfloat16" else 32)
+            for r, c, dt, n, k in TUNE_SWEEP]
+    out = subprocess.run(
+        [sys.executable, "-c", _TUNE_READER.format(backend=SM90, path=path, work=work)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    if out.returncode != 0:
+        raise AssertionError(f"tune: the reading process failed:\n{out.stderr}")
+    read = json.loads(out.stdout.strip().splitlines()[-1])
+    if [r["block"] for r in read] != [row["winner"] for row in rows_out]:
+        raise AssertionError(f"tune: another process read {read}")
+    print(f"tune: another process read the same {len(read)} winners", flush=True)
+
+    # Every tile: bitwise the default tile, and the plain version as it is.
+    s.group = ("tune: every tile, the MLP tree (N=20; k=1, FULL 8, BLOCK 8) and "
+               f"the block leaf {LARGE_BLOCK} (N=33, BLOCK 8), float32 and bf16")
+    mlp = [(24,), (12,), (10,), (64, 24), (24, 12), (12, 10)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for family in FAMILIES:
+            for k, mode in ((1, "full"), (8, "full"), (8, "block")):
+                _tile_checks(s, _rand_tree(s, mlp, dtype), 20, family, k, mode,
+                             f"mlp tree {str(dtype)[6:]} {family} k={k} {mode}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for family in FAMILIES:
+            _tile_checks(s, {"w": s.randn(*LARGE_BLOCK).to(dtype)}, 33, family, 8,
+                         "block", f"block leaf {str(dtype)[6:]} {family}")
+    for dtype in (torch.float32, torch.bfloat16):
+        params = {"w": s.randn(*LARGE).to(dtype)}
+        for family in FAMILIES:
+            _tile_checks(s, params, 256, family, 1, "full",
+                         f"large leaf {str(dtype)[6:]} {family} N=256",
+                         plain=dtype == torch.float32 and family == "rademacher")
+        del params
+    torch.cuda.empty_cache()
+    s.report()
+
+    # Phase 5's fused-close run with a non-default tile cached for its
+    # dominant leaf (the MLP's (64, 24); cohort 1000, bucket 1024).
+    x, y = load_digits()
+    xtr, ytr, xte, yte = train_test_split_arrays(x, y)
+    clients = make_client_datasets(xtr, ytr, RT_SHARDS)
+    over, _ = RT_CONFIGS["fedscalar_fused"]
+    cfg = RuntimeConfig(rounds=RT_ROUNDS, population=RT_POPULATION,
+                        participation=RT_PARTICIPATION, eval_every=1, seed=0, **over)
+    key = tune.cache_key(SM90, 64, 24, cfg.cohort_size(), 1, "rademacher", 32)
+    cache = tune._load(path)
+    tile = tuple(cache.setdefault(key, {"impl": "cuda", "block": list(CLOSE_TILES[-1]),
+                                        "row_slab": None})["block"])
+    if tile == DEFAULT_CLOSE_TILE:
+        raise AssertionError(f"tune: {key} holds the default tile")
+    tune._store(path, cache)
+    blocks = []
+    real_fused = ops.server_update_fused
+
+    def spy(*args, **kwargs):
+        blocks.append(kwargs.get("block"))
+        return real_fused(*args, **kwargs)
+
+    runs = {}
+    saved = tune.DEFAULT_CACHE_PATH
+    ops.server_update_fused = spy
+    try:
+        for name, cache_file in (("untuned", os.path.join(tmp.name, "none.json")),
+                                 ("tuned", path)):
+            tune.DEFAULT_CACHE_PATH = cache_file
+            blocks.clear()
+            runs[name] = run_federation(cfg, init_mlp(seed=0, device=s.dev), clients,
+                                        xte, yte, device=s.dev)
+            runs[name]["blocks"] = {str(b) for b in blocks}
+    finally:
+        tune.DEFAULT_CACHE_PATH = saved
+        ops.server_update_fused = real_fused
+    tuned, untuned = runs["tuned"], runs["untuned"]
+    if (untuned["blocks"] != {"None"} or tuned["blocks"] != {str(list(tile))}
+            or len(blocks) != RT_ROUNDS):
+        raise AssertionError(f"tune: the runs passed tiles {untuned['blocks']} and "
+                             f"{tuned['blocks']} over {len(blocks)} applies")
+    same = all(torch.equal(tuned["final_params"][k], untuned["final_params"][k])
+               for k in untuned["final_params"])
+    if not same or not np.array_equal(tuned["loss"], untuned["loss"]):
+        raise AssertionError("tune: the run with a tuned tile differs from the run "
+                             "without")
+    print("tune: " + json.dumps(dict(
+        runtime=f"{RT_POPULATION} clients, {RT_ROUNDS} rounds, fused close",
+        cached_tile=list(tile), key=key, bitwise_untuned=True)), flush=True)
+    tmp.cleanup()
+    print(f"tune: {s.checks - n0} tile checks, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return [dict(shape=r["shape"], dtype=r["dtype"], cohort=r["cohort"],
+                 winner=r["winner"], winner_ms=r["winner_turns_ms"],
+                 default=r["default"], default_ms=r["default_turns_ms"],
+                 bound_ms=r["bound_ms"])
+            for r in rows_out]
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4339,6 +4695,8 @@ def _run(torch, t0, name, count, smi_line) -> int:
     vlm_serve = phase_vlm_encdec_serve(s, hd256_rows)
     phase_vlm_encdec_train(s)
     big_launches, mc_launches, cp_launches = _phase_19(s, torch)
+    tuned = phase_tune(s)
+    launches["qsgd"] += big_launches.get("qsgd", 0)
     # phase 19's paths: the 2³² leaf, the card-vs-meta steps, the
     # client-parallel round
     for part in (big_launches, mc_launches, cp_launches):
@@ -4361,7 +4719,7 @@ def _run(torch, t0, name, count, smi_line) -> int:
              source="src/repro_torch/kernels/csrc/reconstruct_apply.cu",
              replaces="src/repro/kernels/reconstruct_apply.py:134",
              launches=launches["fused"], max_abs_err=s.errs["fused"],
-             library_ms=None, **times["fused"]),
+             library_ms=None, tuned=tuned, **times["fused"]),
         dict(name="seeded_reconstruct", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_reconstruct.cu",
              replaces="src/repro/kernels/seeded_reconstruct.py:60",

@@ -139,19 +139,24 @@ class FedScalarProtocol(UplinkProtocol):
 
     def server_apply(self, params, payloads, seeds, weights, *,
                      use_kernel: bool = False, mesh=None,
-                     use_fused: bool = False):
+                     use_fused: bool = False,
+                     fused_params: dict | None = None):
         """fori (plain per-client loop), ``use_kernel`` (per-client decode
-        kernel), ``use_fused`` (fused close kernel) or, on a ``mesh``, the
-        sharded decode (:func:`repro_torch.core.fedscalar.server_aggregate_mesh`)."""
+        kernel), ``use_fused`` (fused close kernel, with the tuned knobs of
+        ``fused_params``: ``kernels.tune``'s winner, bits-invariant) or, on
+        a ``mesh``, the sharded decode
+        (:func:`repro_torch.core.fedscalar.server_aggregate_mesh`)."""
         cfg = self.config
         if mesh is not None:
             return fs.server_aggregate_mesh(params, payloads, seeds, cfg, mesh,
                                             weights=weights)
         if use_fused:
             from repro_torch.kernels import ops
+            fp = fused_params or {}
             return ops.server_update_fused(
                 params, payloads, seeds, server_lr=cfg.server_lr,
-                distribution=cfg.distribution, weights=weights, mode=cfg.mode)
+                distribution=cfg.distribution, weights=weights, mode=cfg.mode,
+                block=fp.get("block"), row_slab=fp.get("row_slab"))
         if use_kernel:
             from repro_torch.kernels import ops
             return ops.server_update_kernel(

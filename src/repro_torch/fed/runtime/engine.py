@@ -49,7 +49,7 @@ import torch
 
 from repro_torch.core import fedscalar as fs
 from repro_torch.core.prng import Distribution, U32_MASK
-from repro_torch.core.projection import tree_size
+from repro_torch.core.projection import tree_size, view2d
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.fed.costmodel import ChannelConfig, CostModel
@@ -401,6 +401,23 @@ class EngineCore:
             kern_thresh = 512 if device.type == "cuda" else None
         self.kern_thresh = kern_thresh
 
+        # The fused close (projection_mode="fused_kernel") reads the tuning
+        # cache once, read-only, for the dominant leaf's 2-D view: a miss
+        # means the defaults.  Both knobs are bits-invariant, so tuned and
+        # untuned applies agree to the bit.
+        self.fused_params = None
+        if cfg.projection_mode == "fused_kernel" and proto.name == "fedscalar":
+            from repro_torch.kernels.tune import cached_fused_params
+
+            lead = max(tree_leaves(init_params), key=lambda x: x.numel(),
+                       default=None)
+            if lead is not None and lead.dim():
+                rows, cols = view2d(tuple(lead.shape))
+                self.fused_params = cached_fused_params(
+                    rows, cols, cfg.cohort_size(), cfg.num_projections,
+                    cfg.resolved_distribution().value,
+                    dtype_bits=torch.finfo(lead.dtype).bits, device=device)
+
         # The mesh-sharded apply: each device decodes its shards of the
         # tree.  Params stay replicated (the client chunks and eval read the
         # full model every round), so each apply shards and unshards the
@@ -499,7 +516,8 @@ class EngineCore:
                 params = self.proto.server_apply(
                     params, rs_b, seeds_b, w_b, mesh=self.mesh,
                     use_fused=use_kernel == "fused",
-                    use_kernel=use_kernel is True)
+                    use_kernel=use_kernel is True,
+                    fused_params=self.fused_params)
             else:
                 uniform_exact = (self.cfg.sampler == "uniform"
                                  and a == cohort_size

@@ -43,10 +43,11 @@
 //    the tile's rows with 16-byte loads and stores where the table's vec
 //    says x and q are aligned, and a coalesced scalar loop otherwise.  The
 //    levels go straight into the caller's payload at column offset +
-//    r*cols + c of the client's row (row stride lv_ld), 16 bytes at a time
-//    where that row is aligned and one float at a time otherwise (a
-//    payload row of d + L floats is aligned only when d + L is a multiple
-//    of 4).  The ragged edge is masked, never padded.  The first tile of
+//    r*cols + c of the client's row (row stride lv_ld; the offset and that
+//    index are 64-bit, so a leaf may start past payload column 2^31), 16
+//    bytes at a time where that row is aligned and one float at a time
+//    otherwise (a payload row of d + L floats is aligned only when d + L is
+//    a multiple of 4).  The ragged edge is masked, never padded.  The first tile of
 //    each (client, leaf) writes its norm (to the payload's norm column
 //    when the caller asks for the payload).
 //
@@ -75,6 +76,9 @@ constexpr int NORM_UNIT_ELEMS = 512;      // QSGD_NORM_UNIT_ELEMS
 constexpr int NORM_UNITS_MAX = 512;        // QSGD_NORM_UNITS_MAX
 constexpr uint32_t QSGD_TAG = 0x7FEB352Du; // repro.core.qsgd.QSGD_TAG
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// A leaf's first norm partial (part0) is a 16-bit slot of the leaf table.
+static_assert(fs::MAX_TREE_LEAVES * NORM_UNITS_MAX <= 0xffff + 1,
+              "part0 must fit tree.cuh's 16-bit slot");
 
 __device__ __forceinline__ int rows_per_tile(int cols) {
   const int r = TILE_ELEMS / (cols > 0 ? cols : 1);
@@ -172,8 +176,8 @@ qsgd_norm_kernel(const __grid_constant__ fs::TreeTable table, float* __restrict_
   long long w = gw * per_warp;
   const long long w_end = w + per_warp < total ? w + per_warp : total;
   for (; w < w_end; ++w) {
-    const int c = (int)(w / parts);
-    const int u = (int)(w - (long long)c * parts);
+    const long long c = w / parts;
+    const int u = (int)(w - c * parts);
     const fs::TreeLeaf& L = table.leaf[find_part_leaf(table, u)];
     const long long size = (long long)L.rows * L.cols;
     const long long span = norm_span(size, norm_units(size));
@@ -349,7 +353,7 @@ qsgd_quant_kernel(const __grid_constant__ fs::TreeTable table, const QuantArgs a
   uint32_t s0 = 0u;
   for (; w < w_end; ++w) {
     const int c = (int)(w / table.num_tiles);
-    const int t = (int)(w - (long long)c * table.num_tiles);
+    const long long t = w - (long long)c * table.num_tiles;
     const int l = fs::find_leaf(table, t);
     const fs::TreeLeaf& L = table.leaf[l];
     const long long size = (long long)L.rows * L.cols;
@@ -372,9 +376,9 @@ qsgd_quant_kernel(const __grid_constant__ fs::TreeTable table, const QuantArgs a
     const int r1 = r0 + rpt < L.rows ? r0 + rpt : L.rows;
     if (tile == 0 && a.norms_out != nullptr && lane == 0)
       a.norms_out[c * a.norms_ld + l] = norm;
-    const long long first = c * size + (long long)r0 * L.cols;
+    const long long first = (long long)c * size + (long long)r0 * L.cols;
     float* lv = a.lv != nullptr
-                    ? a.lv + c * a.lv_ld + L.offset + (long long)r0 * L.cols
+                    ? a.lv + (long long)c * a.lv_ld + L.offset + (long long)r0 * L.cols
                     : nullptr;
     const bool lv_vec = lv != nullptr && aligned16(lv);
     const int count = (r1 - r0) * L.cols;

@@ -30,9 +30,22 @@
 // tree.cuh); blocks walk the flat tile space of all leaves with a
 // grid-stride loop, which also leaves no limit on a leaf's rows.  A
 // tile is TILE_R rows by TILE_C * V columns of one leaf, V = 16 bytes of
-// the leaf's type (4 float32, 8 bf16); each thread owns V consecutive
-// columns of one row and reads x and writes y with one 16-byte access
-// where the leaf's rows are 16-byte aligned (else V scalar accesses).
+// the leaf's type (4 float32, 8 bf16) or, in the narrow tiles, 1; each
+// thread owns V consecutive columns of one row and reads x and writes y
+// with one 16-byte access where the leaf's rows are 16-byte aligned (else
+// V scalar accesses).
+//
+// The tile is a knob (the TPU kernel's (br, bc), which its autotuner
+// sweeps): TILES below lists the instantiations, fs_fused_tree takes one
+// by its index, and kernels/tune.py picks one per workload.  The default
+// (8, 32, V = 16 bytes) fits wide leaves; the paper MLP's widest leaf has
+// 24 columns, so there a 128-column tile idles 13 lanes in 16 and the
+// narrow tile (V = 1) idles 1 in 4.  Every tile gives the same bits: an
+// element's sum order is fixed by the chunk spec (a left fold of 16, then
+// acc +=, block by block, chunk by chunk), and the tile only decides which
+// thread computes which element.  Constraints: TILE_C >= CHUNK (CHUNK *
+// TILE_R threads stage the row states), TILE_R * TILE_C <= 1024 threads,
+// and Staging within the 48 KB of static shared memory.
 // For each (block, chunk) the first threads derive the chunk's per-block
 // leaf-folded seeds fold_seed(splitmix32(seed ^ (PROJ_SALT + b)),
 // leaf_tag) and stage its scaled scalars in shared memory, then
@@ -50,23 +63,33 @@
 
 namespace {
 
-constexpr int TILE_C = 32;
-constexpr int TILE_R = 8;
 constexpr int CHUNK = 16;   // FUSED_CHUNK: part of the numeric spec
 
+// The tiles, in kernels/tree.py's CLOSE_TILES order: rows, threads across
+// a row, and whether a thread owns a 16-byte vector (else one column).
+struct TileShape {
+  int rows, threads, vec;
+};
+constexpr TileShape TILES[] = {{8, 32, 1}, {16, 16, 1}, {32, 16, 1}, {4, 64, 1},
+                               {8, 32, 0}};
+constexpr int NUM_TILES = sizeof(TILES) / sizeof(TILES[0]);
+
+template <int TILE_R>
 struct Staging {
   uint32_t seed[CHUNK];
   float r[CHUNK];
   fs::RowState state[CHUNK][TILE_R];
 };
 
-template <typename T, int DIST, bool MASKED>
+template <typename T, int TILE_R, int TILE_C, bool VEC, int DIST, bool MASKED>
 __device__ void close_tile(const fs::TreeLeaf& L, int tr, int tc,
                            const int64_t* __restrict__ seeds,
                            const float* __restrict__ rs, float scale,
                            const float* __restrict__ lo, const float* __restrict__ hi,
-                           int n, int k, Staging& sh) {
-  constexpr int V = fs::VecOf<T>::V;
+                           int n, int k, Staging<TILE_R>& sh) {
+  static_assert(TILE_C >= CHUNK && TILE_R * TILE_C <= 1024, "tile shape");
+  static_assert(sizeof(Staging<TILE_R>) <= 48 * 1024, "static shared memory");
+  constexpr int V = VEC ? fs::VecOf<T>::V : 1;
   const int tx = threadIdx.x % TILE_C;
   const int ty = threadIdx.x / TILE_C;
   const int tid = threadIdx.x;
@@ -132,26 +155,28 @@ __device__ void close_tile(const fs::TreeLeaf& L, int tr, int tc,
   const size_t idx = (size_t)r * L.cols + c0;
   const T* x = static_cast<const T*>(L.x) + idx;
   T* y = static_cast<T*>(L.y) + idx;
-  if (L.vec) {
-    const uint4 w = __ldg(reinterpret_cast<const uint4*>(x));
-    float out[V];
+  if constexpr (VEC) {
+    if (L.vec) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(x));
+      float out[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) out[j] = __fadd_rn(fs::vec_f32<T>(w, j), acc[j]);
-    *reinterpret_cast<uint4*>(y) = fs::vec_pack<T>(out);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (c0 + j < L.cols) fs::store_rn(y + j, __fadd_rn(fs::load_f32(x + j), acc[j]));
+      for (int j = 0; j < V; ++j) out[j] = __fadd_rn(fs::vec_f32<T>(w, j), acc[j]);
+      *reinterpret_cast<uint4*>(y) = fs::vec_pack<T>(out);
+      return;
+    }
   }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (c0 + j < L.cols) fs::store_rn(y + j, __fadd_rn(fs::load_f32(x + j), acc[j]));
 }
 
-template <int DIST, bool MASKED>
+template <int TILE_R, int TILE_C, bool VEC, int DIST, bool MASKED>
 __global__ void __launch_bounds__(TILE_C * TILE_R)
 fused_tree_kernel(const __grid_constant__ fs::TreeTable table,
                   const int64_t* __restrict__ seeds, const float* __restrict__ rs,
                   float scale, const float* __restrict__ lo,
                   const float* __restrict__ hi, int n, int k) {
-  __shared__ Staging sh;
+  __shared__ Staging<TILE_R> sh;
   for (long long t = blockIdx.x; t < table.num_tiles; t += gridDim.x) {
     const int l = fs::find_leaf(table, t);
     const fs::TreeLeaf& L = table.leaf[l];
@@ -161,35 +186,70 @@ fused_tree_kernel(const __grid_constant__ fs::TreeTable table,
     const float* lo_l = MASKED ? lo + (size_t)l * k : nullptr;
     const float* hi_l = MASKED ? hi + (size_t)l * k : nullptr;
     if (L.dtype == fs::BF16)
-      close_tile<__nv_bfloat16, DIST, MASKED>(L, tr, tc, seeds, rs, scale, lo_l, hi_l,
-                                              n, k, sh);
+      close_tile<__nv_bfloat16, TILE_R, TILE_C, VEC, DIST, MASKED>(
+          L, tr, tc, seeds, rs, scale, lo_l, hi_l, n, k, sh);
     else
-      close_tile<float, DIST, MASKED>(L, tr, tc, seeds, rs, scale, lo_l, hi_l, n, k,
-                                      sh);
+      close_tile<float, TILE_R, TILE_C, VEC, DIST, MASKED>(
+          L, tr, tc, seeds, rs, scale, lo_l, hi_l, n, k, sh);
     __syncthreads();   // the next tile's staging waits for this tile's reads
   }
 }
 
-template <int DIST>
+template <int TILE_R, int TILE_C, bool VEC, int DIST>
 void launch(bool masked, int blocks, cudaStream_t st, const fs::TreeTable& table,
             const int64_t* seeds, const float* rs, float scale, const float* lo,
             const float* hi, int n, int k) {
   if (masked)
-    fused_tree_kernel<DIST, true><<<blocks, TILE_C * TILE_R, 0, st>>>(
-        table, seeds, rs, scale, lo, hi, n, k);
+    fused_tree_kernel<TILE_R, TILE_C, VEC, DIST, true>
+        <<<blocks, TILE_C * TILE_R, 0, st>>>(table, seeds, rs, scale, lo, hi, n, k);
   else
-    fused_tree_kernel<DIST, false><<<blocks, TILE_C * TILE_R, 0, st>>>(
-        table, seeds, rs, scale, lo, hi, n, k);
+    fused_tree_kernel<TILE_R, TILE_C, VEC, DIST, false>
+        <<<blocks, TILE_C * TILE_R, 0, st>>>(table, seeds, rs, scale, lo, hi, n, k);
+}
+
+// One tile's kernels for every family; false for an unknown family.
+template <int I>
+bool launch_tile(int dist, bool masked, int blocks, cudaStream_t st,
+                 const fs::TreeTable& table, const int64_t* seeds, const float* rs,
+                 float scale, const float* lo, const float* hi, int n, int k) {
+  constexpr int R = TILES[I].rows, C = TILES[I].threads;
+  constexpr bool VEC = TILES[I].vec != 0;
+  switch (dist) {
+    case fs::RADEMACHER:
+      launch<R, C, VEC, fs::RADEMACHER>(masked, blocks, st, table, seeds, rs, scale, lo,
+                                        hi, n, k);
+      return true;
+    case fs::GAUSSIAN:
+      launch<R, C, VEC, fs::GAUSSIAN>(masked, blocks, st, table, seeds, rs, scale, lo,
+                                      hi, n, k);
+      return true;
+    case fs::SPARSE_RADEMACHER:
+      launch<R, C, VEC, fs::SPARSE_RADEMACHER>(masked, blocks, st, table, seeds, rs,
+                                               scale, lo, hi, n, k);
+      return true;
+    case fs::HADAMARD:
+      launch<R, C, VEC, fs::HADAMARD>(masked, blocks, st, table, seeds, rs, scale, lo,
+                                      hi, n, k);
+      return true;
+    default:
+      return false;
+  }
 }
 
 }  // namespace
 
 extern "C" int fs_fused_chunk() { return CHUNK; }
 
-// Tile shape for the wrapper's flat tile space: TILE_R rows by
-// TILE_C * (16 / element bytes) columns.
-extern "C" int fs_fused_tile_rows() { return TILE_R; }
-extern "C" int fs_fused_tile_threads() { return TILE_C; }
+// The tiles for the wrapper's flat tile space: tile i is rows[i] rows by
+// threads[i] * V columns (V = 16 / element bytes where vec[i], else 1).
+extern "C" int fs_fused_num_tiles() { return NUM_TILES; }
+extern "C" int fs_fused_tile(int i, int* rows, int* threads, int* vec) {
+  if (i < 0 || i >= NUM_TILES) return -1;
+  *rows = TILES[i].rows;
+  *threads = TILES[i].threads;
+  *vec = TILES[i].vec;
+  return 0;
+}
 
 extern "C" int fs_fused_table_bytes() { return (int)sizeof(fs::TreeTable); }
 
@@ -197,35 +257,44 @@ extern "C" int fs_fused_table_bytes() { return (int)sizeof(fs::TreeTable); }
 // into the launch by value); seeds: (n,) int64 round seeds (low 32 bits
 // used); rs: (n, k) float32 with every weight folded in but the scale;
 // lo, hi: (table.num_leaves, k) float32 leaf-local block bounds, read only
-// when masked (may be null otherwise).  The cohort is not padded: the
+// when masked (may be null otherwise); tile: an index into TILES, the tile
+// the table's tile space was laid out with.  The cohort is not padded: the
 // kernel computes the padded spec's bits without the padded slots.
 // Returns cudaGetLastError() after the launch.
 extern "C" int fs_fused_tree(const fs::TreeTable* table, const int64_t* seeds,
                              const float* rs, float scale, const float* lo,
                              const float* hi, int n, int k, int masked, int dist,
-                             void* stream) {
+                             int tile, void* stream) {
   if (n < 0 || k <= 0 || table->num_leaves <= 0
-      || table->num_leaves > fs::MAX_TREE_LEAVES)
+      || table->num_leaves > fs::MAX_TREE_LEAVES || tile < 0 || tile >= NUM_TILES)
     return (int)cudaErrorInvalidValue;
   if (table->num_tiles <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = fs::grid_blocks(table->num_tiles, 1);
-  switch (dist) {
-    case fs::RADEMACHER:
-      launch<fs::RADEMACHER>(masked, blocks, st, *table, seeds, rs, scale, lo, hi, n, k);
+  static_assert(NUM_TILES == 5, "one case per tile");
+  bool known = false;
+  switch (tile) {
+    case 0:
+      known = launch_tile<0>(dist, masked, blocks, st, *table, seeds, rs, scale, lo, hi,
+                             n, k);
       break;
-    case fs::GAUSSIAN:
-      launch<fs::GAUSSIAN>(masked, blocks, st, *table, seeds, rs, scale, lo, hi, n, k);
+    case 1:
+      known = launch_tile<1>(dist, masked, blocks, st, *table, seeds, rs, scale, lo, hi,
+                             n, k);
       break;
-    case fs::SPARSE_RADEMACHER:
-      launch<fs::SPARSE_RADEMACHER>(masked, blocks, st, *table, seeds, rs, scale, lo,
-                                    hi, n, k);
+    case 2:
+      known = launch_tile<2>(dist, masked, blocks, st, *table, seeds, rs, scale, lo, hi,
+                             n, k);
       break;
-    case fs::HADAMARD:
-      launch<fs::HADAMARD>(masked, blocks, st, *table, seeds, rs, scale, lo, hi, n, k);
+    case 3:
+      known = launch_tile<3>(dist, masked, blocks, st, *table, seeds, rs, scale, lo, hi,
+                             n, k);
       break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 4:
+      known = launch_tile<4>(dist, masked, blocks, st, *table, seeds, rs, scale, lo, hi,
+                             n, k);
+      break;
   }
+  if (!known) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

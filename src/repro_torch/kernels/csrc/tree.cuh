@@ -13,7 +13,8 @@
 // cols each stay below 2^31 (kernels/tree.py checks), its coordinates
 // (row_offset + row, col_offset + col) below 2^32, as the reference's
 // uint32 (tag, row, col) addressing; the flat tile space is 64-bit, and
-// every product of rows and cols is taken in size_t.
+// every product of rows and cols is taken in size_t.  QSGD's payload
+// offset is 64-bit too: a leaf may start past column 2^31 of the payload.
 //
 // The struct layout is mirrored by kernels/tree.py (ctypes); both sides
 // check sizeof(TreeTable) at load time.
@@ -30,20 +31,23 @@ struct TreeLeaf {
   void* y;            // a close's output (rows, cols), QSGD's q (n, rows, cols) or null;
                       // unused by the encode
   long long tile0;    // the leaf's first tile in the launch's flat tile space
-  int rows, cols;     // the leaf's 2-D view
   union {
-    int orig_cols;    // row stride of the flat index that k-block masks use
-    int offset;       // QSGD: the leaf's first column in the flat payload
+    struct {
+      int orig_cols;  // row stride of the flat index that k-block masks use
+      int col_tiles;  // tiles across one row (the closes; 1 for the encode)
+    };
+    long long offset; // QSGD: the leaf's first column in the flat payload
   };
+  int rows, cols;     // the leaf's 2-D view
   uint32_t tag;       // leaf ordinal (sorted-key order), folded into every seed
   uint32_t row_offset, col_offset;   // coordinates of element (0, 0)
-  union {
-    int col_tiles;    // tiles across one row (the closes; 1 for the encode)
-    int part0;        // QSGD: the leaf's first norm partial of a client
-  };
-  short dtype;        // fs::DType
-  short vec;          // 1: every row is 16-byte aligned (vector loads)
+  uint16_t part0;     // QSGD: the leaf's first norm partial of a client (at most
+                      // MAX_TREE_LEAVES * 512, qsgd_quant.cu checks)
+  uint8_t dtype;      // fs::DType
+  uint8_t vec;        // 1: every row is 16-byte aligned (vector loads)
 };
+
+static_assert(sizeof(TreeLeaf) == 56, "kernels/tree.py mirrors a 56-byte TreeLeaf");
 
 struct TreeTable {
   long long num_tiles;   // tiles over all leaves of this launch

@@ -4,7 +4,8 @@
   under ``vmap``: every client's update in one tree launch → ``(N, k)``.
 * ``server_update_fused``  ≡ ``repro.kernels.ops.server_update_fused``:
   the fused round close in one tree launch, bitwise equal to the
-  reference's fused spec for the ±1/±2 families.
+  reference's fused spec for the ±1/±2 families; ``block``/``row_slab``
+  take the tuned knobs (``kernels/tune.py``).
 * ``server_update_kernel`` ≡ ``repro.kernels.ops.server_update_kernel``:
   the per-client decode (clients added one by one, scale applied last),
   the federation runtime's large-cohort apply and its digest replay, one
@@ -104,19 +105,24 @@ def server_update_fused(
     weights: torch.Tensor | None = None,
     mode: ProjectionMode = ProjectionMode.FULL,
     block_weights: torch.Tensor | None = None,
+    block=None,                          # the kernel's tile (tuned)
+    row_slab: int | None = None,         # the plain version's slab (tuned)
 ) -> Any:
     """Fused round close: x ← x + (lr/N)·Σₙⱼ rₙⱼ vₙⱼ (or lr·Σ wₙ… with weights).
 
-    One tree launch per group of ``tree.MAX_TREE_LEAVES`` leaves.
+    One tree launch per group of ``tree.MAX_TREE_LEAVES`` leaves.  ``block``
+    (the kernel's tile, one of ``tree.CLOSE_TILES``; the card) and
+    ``row_slab`` (the plain version's rows at once; the CPU) take
+    ``kernels.tune``'s winners; neither moves a bit.
     """
     rs, scale = fold_upload_weights(rs, server_lr, weights, mode, block_weights)
     leaves = [leaf if leaf.is_contiguous() else leaf.contiguous()
               for leaf in tree_leaves(params)]
     plan = tree_plan("close", [tuple(leaf.shape) for leaf in leaves],
                      [leaf.dtype for leaf in leaves], rs.shape[1], mode,
-                     leaves[0].device)
+                     leaves[0].device, tile=block)
     out = fused_tree(leaves, seeds.to(torch.int64), rs.contiguous(), scale, plan,
-                     distribution.value)
+                     distribution.value, row_slab)
     return tree_unflatten(params, out)
 
 

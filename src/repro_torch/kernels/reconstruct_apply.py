@@ -24,6 +24,13 @@ FUSED_CHUNK is a numerics constant: changing it changes output bits.
 The kernel folds the scale in as it stages each chunk and skips the
 padded slots, which leaves these bits unchanged (its note says why).
 ``fused_reconstruct_apply.launches`` counts kernel launches.
+
+Two knobs move no bit, as in the reference, and ``kernels/tune.py``
+tunes them: the kernel's tile (``block``, one of ``tree.CLOSE_TILES``;
+the plan of a tree fixes it) and the plain version's ``row_slab``, the
+rows it computes at once (None: as many as keep its temporaries near
+2²² elements).  Each element's value depends only on its coordinates and
+the chunk spec, never on which thread or slab computes it.
 """
 from __future__ import annotations
 
@@ -43,11 +50,11 @@ from repro_torch.kernels.common import (
     raise_on_cuda_error,
 )
 from repro_torch.kernels.tree import (
-    CLOSE_TILE_ROWS,
-    CLOSE_TILE_THREADS,
+    CLOSE_TILES,
     TreePlan,
     TreeTable,
     check_leaves,
+    close_tile,
     single_table,
 )
 
@@ -74,11 +81,13 @@ def fused_apply_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
                       leaf_tag: int, lo: torch.Tensor, hi: torch.Tensor,
                       distribution: str = "rademacher", masked: bool = False,
                       row_offset: int = 0, col_offset: int = 0,
-                      orig_cols: int | None = None) -> torch.Tensor:
+                      orig_cols: int | None = None,
+                      row_slab: int | None = None) -> torch.Tensor:
     """Plain version of the fused kernel on padded, pre-scaled ``rs``.
 
-    Row slabs only bound memory: every element's value is independent of
-    the slab, so the bits do not depend on it.
+    ``row_slab`` rows are computed at once (None: enough to keep the
+    temporaries near ``_PLAIN_SLAB_ELEMS``).  Every element's value is
+    independent of the slab, so the bits do not depend on it.
     """
     rows, cols = x2d.shape
     n_pad, k = rs.shape
@@ -88,7 +97,10 @@ def fused_apply_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
            & U32_MASK)[None, None, :]
     salts = (PROJ_SALT + torch.arange(k, dtype=torch.int64, device=dev)) & U32_MASK
     folded = fold_seed(splitmix32(seeds[:, None] ^ salts[None, :]), leaf_tag)
-    slab = max(1, _PLAIN_SLAB_ELEMS // (FUSED_CHUNK * max(cols, 1)))
+    slab = (max(1, _PLAIN_SLAB_ELEMS // (FUSED_CHUNK * max(cols, 1)))
+            if row_slab is None else int(row_slab))
+    if slab < 1:
+        raise ValueError(f"row_slab {row_slab} must be positive")
     out = []
     for r0 in range(0, rows, slab):
         r1 = min(r0 + slab, rows)
@@ -117,10 +129,11 @@ def fused_apply_plain(x2d: torch.Tensor, seeds: torch.Tensor, rs: torch.Tensor,
 
 
 def fused_tree_plain(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
-                     plan: TreePlan, distribution: str = "rademacher") -> list:
+                     plan: TreePlan, distribution: str = "rademacher",
+                     row_slab: int | None = None) -> list:
     """Plain version of a tree close: the cohort scaled and padded once,
-    then :func:`fused_apply_plain` entry by entry, at the plan's
-    coordinates → the new leaves."""
+    then :func:`fused_apply_plain` entry by entry (``row_slab`` rows at
+    once), at the plan's coordinates → the new leaves."""
     rs = rs * torch.tensor(scale, dtype=torch.float32, device=rs.device)
     seeds_p, rs_p = pad_cohort(seeds.to(torch.int64) & U32_MASK, rs)
     out = []
@@ -129,7 +142,7 @@ def fused_tree_plain(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float
             ll, x = plan.layout[i], leaves[i]
             y = fused_apply_plain(x.reshape(ll.rows, ll.cols), seeds_p, rs_p,
                                   ll.tag, plan.lo[i], plan.hi[i], distribution,
-                                  plan.masked, *plan.coords[i])
+                                  plan.masked, *plan.coords[i], row_slab=row_slab)
             out.append(y.reshape(x.shape))
     return out
 
@@ -138,25 +151,30 @@ def _lib():
     lib = _build.library("reconstruct_apply")
     if not getattr(lib, "_fs_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fs_fused_tree.argtypes = [p, p, p, f, p, p, i, i, i, i, p]
+        lib.fs_fused_tree.argtypes = [p, p, p, f, p, p, i, i, i, i, i, p]
         lib.fs_fused_tree.restype = i
-        for name in ("fs_fused_chunk", "fs_fused_tile_rows", "fs_fused_tile_threads",
-                     "fs_fused_table_bytes"):
+        for name in ("fs_fused_chunk", "fs_fused_num_tiles", "fs_fused_table_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
-        if (lib.fs_fused_chunk() != FUSED_CHUNK
-                or lib.fs_fused_tile_rows() != CLOSE_TILE_ROWS
-                or lib.fs_fused_tile_threads() != CLOSE_TILE_THREADS
+        ip = ctypes.POINTER(i)
+        lib.fs_fused_tile.argtypes = [i, ip, ip, ip]
+        lib.fs_fused_tile.restype = i
+        tiles = []
+        for t in range(lib.fs_fused_num_tiles()):
+            rows, threads, vec = i(), i(), i()
+            lib.fs_fused_tile(t, rows, threads, vec)
+            tiles.append((rows.value, threads.value, bool(vec.value)))
+        if (lib.fs_fused_chunk() != FUSED_CHUNK or tuple(tiles) != CLOSE_TILES
                 or lib.fs_fused_table_bytes() != ctypes.sizeof(TreeTable)):
             raise RuntimeError("csrc/reconstruct_apply.cu disagrees on FUSED_CHUNK, "
-                               "its tile or its leaf table")
+                               "its tiles or its leaf table")
         lib._fs_typed = True
     return lib
 
 
 def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
             lo: int | None, hi: int | None, masked: bool, distribution: str,
-            dev: torch.device) -> None:
+            tile: tuple, dev: torch.device) -> None:
     n, k = rs.shape
     if dev.type == "meta":           # the dry run: plan and buffers, no launch
         return
@@ -164,25 +182,29 @@ def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: floa
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().fs_fused_tree(ctypes.addressof(table), seeds.data_ptr(),
                                    rs.data_ptr(), float(scale), lo, hi, n, k,
-                                   int(masked), DIST_CODES[distribution], stream)
+                                   int(masked), DIST_CODES[distribution],
+                                   CLOSE_TILES.index(tile), stream)
     raise_on_cuda_error("fs_fused_tree", err)
     if table.num_tiles > 0:          # a table of empty leaves launches nothing
         fused_reconstruct_apply.launches += 1
 
 
 def fused_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
-               plan: TreePlan, distribution: str = "rademacher") -> list:
+               plan: TreePlan, distribution: str = "rademacher",
+               row_slab: int | None = None) -> list:
     """→ the new leaves ``x + Σₙⱼ (scale·rₙⱼ)·vₙⱼ`` of a tree, in leaf order.
 
     ``leaves`` are the tree's leaves in sorted-key order with the shapes
     and dtypes ``plan`` was made for; ``seeds`` the ``(N,)`` round seeds
     (int64 words), ``rs`` the ``(N, k)`` float32 scalars with every weight
     but ``scale`` folded in.  CUDA tensors take one launch per launch
-    group of ``plan`` (or raise); CPU tensors the plain version.
+    group of ``plan``, with the plan's tile (or raise); CPU tensors the
+    plain version, ``row_slab`` rows at once.
     """
     dev = rs.device
     if dev.type == "cpu":
-        return fused_tree_plain(leaves, seeds, rs, scale, plan, distribution)
+        return fused_tree_plain(leaves, seeds, rs, scale, plan, distribution,
+                                row_slab)
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     _, k = check_cohort(seeds, rs, distribution, dev)
@@ -194,7 +216,7 @@ def fused_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
         _launch(group.table(leaves[sl], out[sl]), seeds, rs, scale,
                 plan.lo.data_ptr() + group.start * row_bytes,
                 plan.hi.data_ptr() + group.start * row_bytes, plan.masked,
-                distribution, dev)
+                distribution, plan.tile, dev)
     return out
 
 
@@ -205,14 +227,17 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
                             hi: torch.Tensor | None = None,
                             masked: bool = False, row_offset: int = 0,
                             col_offset: int = 0,
-                            orig_cols: int | None = None) -> torch.Tensor:
+                            orig_cols: int | None = None, block=None,
+                            row_slab: int | None = None) -> torch.Tensor:
     """→ ``x + Σₙⱼ (scale·rₙⱼ)·vₙⱼ`` for one leaf's 2-D view (shape/dtype of x2d).
 
     ``seeds`` are the ``(N,)`` round seeds (int64 words), ``rs`` the
     ``(N,)`` or ``(N, k)`` float32 scalars; ``x2d`` is float32 or bf16.
-    A CUDA tensor launches the kernel on a one-leaf table (or raises); a
-    CPU tensor takes the plain version.
+    A CUDA tensor launches the kernel on a one-leaf table with the tile
+    ``block`` (``tree.close_tile``; None: the default) or raises; a CPU
+    tensor takes the plain version, ``row_slab`` rows at once.
     """
+    tile = close_tile(block)
     rs = rs.to(torch.float32)
     if rs.dim() == 1:
         rs = rs[:, None]
@@ -229,7 +254,7 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
         seeds_p, rs_p = pad_cohort(seeds.to(torch.int64) & U32_MASK, rs)
         return fused_apply_plain(x2d, seeds_p, rs_p, leaf_tag, lo, hi,
                                  distribution, masked, row_offset, col_offset,
-                                 orig_cols)
+                                 orig_cols, row_slab)
     if x2d.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {x2d.device}")
     dev = x2d.device
@@ -245,9 +270,9 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
     y = torch.empty_like(x2d)
     table = single_table("close", x2d, rows, cols,
                          cols if orig_cols is None else orig_cols, leaf_tag,
-                         row_offset, col_offset, y)
+                         row_offset, col_offset, y, tile=tile)
     _launch(table, seeds, rs, scale, lo.data_ptr() if masked else None,
-            hi.data_ptr() if masked else None, masked, distribution, dev)
+            hi.data_ptr() if masked else None, masked, distribution, tile, dev)
     return y
 
 

@@ -7,14 +7,16 @@ it carries a leaf table (``csrc/tree.cuh``: data pointers, the 2-D view,
 leaf tag, offsets, dtype code and each leaf's first tile in one flat
 tile space) by value as a kernel parameter, so a launch copies nothing
 to the card.  A tree of more than :data:`MAX_TREE_LEAVES` leaves is
-split into several launches of the same kernel, in leaf order.
+split into several launches of the same kernel, in leaf order.  The fused
+close runs with one of several tiles (:data:`CLOSE_TILES`), which its plan
+fixes.
 
 A :class:`TreePlan` holds what does not change from call to call for one
 tree layout: the leaves' views and tags, each launch group's table with
 every field but the data pointers filled in, and the k-block bounds of
 every leaf, computed once and kept on the device.  Plans are cached per
-(kernel, leaf shapes and dtypes, k, mode, device), so a call's host work
-is filling in the pointers and launching.
+(kernel, leaf shapes and dtypes, k, mode, device, shard layout, close
+tile), so a call's host work is filling in the pointers and launching.
 
 A shard plan (:func:`shard_plan`) tiles the shards of a mesh-sharded
 tree: its entries are (shard, leaf) pairs, shard-major, each the local
@@ -29,8 +31,9 @@ The QSGD plan (kind ``"qsgd"``, :func:`qsgd_plan`) tiles differently: a
 tile is a span of whole rows of one (client, leaf), about
 ``QSGD_TILE_ELEMS`` elements, worked by one warp, so a narrow leaf packs
 many rows into a warp's work; each leaf carries its column in the flat
-payload (``offset``) and its first norm partial (``part0``): the norm
-pass splits each (client, leaf) into :func:`qsgd_norm_units` spans.
+payload (``offset``, 64-bit: a leaf may start past column 2³¹) and its
+first norm partial (``part0``): the norm pass splits each (client, leaf)
+into :func:`qsgd_norm_units` spans.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from repro_torch.core.projection import LeafLayout, ProjectionMode, view2d
 from repro_torch.kernels.common import LEAF_DTYPES
 
 __all__ = ["MAX_TREE_LEAVES", "ENCODE_TILE_ROWS", "CLOSE_TILE_ROWS",
-           "CLOSE_TILE_THREADS", "DECODE_MIN_TILES", "QSGD_TILE_ELEMS",
+           "CLOSE_TILE_THREADS", "CLOSE_TILES", "DEFAULT_CLOSE_TILE", "close_tile",
+           "DECODE_MIN_TILES", "QSGD_TILE_ELEMS",
            "QSGD_NORM_UNIT_ELEMS", "QSGD_NORM_UNITS_MAX", "TreeLeaf", "TreeTable",
            "TreePlan", "LaunchGroup", "leaf_block_bounds", "decode_vector",
            "qsgd_rows_per_tile", "qsgd_norm_units", "tree_plan", "shard_plan",
@@ -54,11 +58,21 @@ __all__ = ["MAX_TREE_LEAVES", "ENCODE_TILE_ROWS", "CLOSE_TILE_ROWS",
 # csrc/tree.cuh's MAX_TREE_LEAVES.
 MAX_TREE_LEAVES = 64
 # Tile shapes: the encode's tile is ENCODE_TILE_ROWS rows of a leaf
-# (seeded_projection.cu's TILE_ROWS); the close's CLOSE_TILE_ROWS rows by
-# CLOSE_TILE_THREADS · (16 / element bytes) columns (reconstruct_apply.cu).
+# (seeded_projection.cu's TILE_ROWS); the per-client decode's
+# CLOSE_TILE_ROWS rows by CLOSE_TILE_THREADS · V columns (below).
 ENCODE_TILE_ROWS = 32
 CLOSE_TILE_ROWS = 8
 CLOSE_TILE_THREADS = 32
+# The fused close's tiles, the instantiations of reconstruct_apply.cu in
+# its order: (rows, threads across a row, vector); a thread owns V = 16 /
+# element bytes consecutive columns of its row (vector) or one (V = 1), so
+# a tile is rows × threads · V columns.  The tile only decides which thread
+# computes which element, never an element's sum order, so every tile gives
+# the same bits; kernels/tune.py picks one per workload.  The default is
+# the decode's tile.
+CLOSE_TILES = ((8, 32, True), (16, 16, True), (32, 16, True), (4, 64, True),
+               (8, 32, False))
+DEFAULT_CLOSE_TILE = CLOSE_TILES[0]
 # The per-client decode ("decode", seeded_reconstruct.cu) tiles as the
 # close does, CLOSE_TILE_ROWS rows by CLOSE_TILE_THREADS · V columns, and
 # chooses V once per launch: V = 16 / element bytes (a thread owns one
@@ -86,26 +100,26 @@ _KINDS = ("encode", "close", "decode", "qsgd")
 _PLAN_CACHE_MAX = 64
 
 
+class _CloseCols(ctypes.Structure):
+    _fields_ = [("orig_cols", ctypes.c_int), ("col_tiles", ctypes.c_int)]
+
+
 class _ColsOrOffset(ctypes.Union):
-    _fields_ = [("orig_cols", ctypes.c_int), ("offset", ctypes.c_int)]
-
-
-class _TilesOrPart(ctypes.Union):
-    _fields_ = [("col_tiles", ctypes.c_int), ("part0", ctypes.c_int)]
+    _anonymous_ = ("_c",)
+    _fields_ = [("_c", _CloseCols), ("offset", ctypes.c_longlong)]
 
 
 class TreeLeaf(ctypes.Structure):
-    """``fs::TreeLeaf``; ``offset`` and ``part0`` (QSGD) share the slots of
-    ``orig_cols`` and ``col_tiles`` (the encode and the closes)."""
+    """``fs::TreeLeaf``; QSGD's 64-bit payload ``offset`` shares the slots
+    of ``orig_cols`` and ``col_tiles`` (the encode and the closes)."""
 
-    _anonymous_ = ("_u0", "_u1")
+    _anonymous_ = ("_u0",)
     _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
-                ("tile0", ctypes.c_longlong),
+                ("tile0", ctypes.c_longlong), ("_u0", _ColsOrOffset),
                 ("rows", ctypes.c_int), ("cols", ctypes.c_int),
-                ("_u0", _ColsOrOffset),
                 ("tag", ctypes.c_uint32), ("row_offset", ctypes.c_uint32),
-                ("col_offset", ctypes.c_uint32), ("_u1", _TilesOrPart),
-                ("dtype", ctypes.c_int16), ("vec", ctypes.c_int16)]
+                ("col_offset", ctypes.c_uint32), ("part0", ctypes.c_uint16),
+                ("dtype", ctypes.c_uint8), ("vec", ctypes.c_uint8)]
 
 
 class TreeTable(ctypes.Structure):
@@ -166,19 +180,38 @@ def qsgd_norm_units(size: int) -> tuple[int, int]:
     return units, -(-(-(-size // units)) // 8) * 8
 
 
+def close_tile(block=None) -> tuple[int, int, bool]:
+    """The fused close's tile named by ``block``, ``(rows, threads across a
+    row, vector)`` (a list too, as a tuning cache stores it), or the default
+    for None; raise unless it is one of :data:`CLOSE_TILES`."""
+    if block is None:
+        return DEFAULT_CLOSE_TILE
+    tile = tuple(block)
+    if len(tile) == 3:
+        tile = (int(tile[0]), int(tile[1]), bool(tile[2]))
+    if tile not in CLOSE_TILES:
+        raise ValueError(f"fused close tile {block!r} is not one of {CLOSE_TILES}")
+    return tile
+
+
 def _tiles(kind: str, rows: int, cols: int, dtype: torch.dtype,
-           vector: bool = True) -> tuple[int, int]:
+           vector: bool = True, tile=None) -> tuple[int, int]:
     """→ (tiles of one leaf, tiles across one of its rows); ``vector`` False
-    gives the decode's tiles of one column a thread."""
+    gives the decode's tiles of one column a thread, ``tile`` the close's
+    tile (default :data:`DEFAULT_CLOSE_TILE`)."""
     if rows == 0 or cols == 0:
         return 0, 1
     if kind == "encode":
         return -(-rows // ENCODE_TILE_ROWS), 1
     if kind == "qsgd":
         return -(-rows // qsgd_rows_per_tile(cols)), 1
+    if kind == "close":
+        tile_rows, threads, vector = tile or DEFAULT_CLOSE_TILE
+    else:
+        tile_rows, threads = CLOSE_TILE_ROWS, CLOSE_TILE_THREADS
     per_thread = 16 // _elem(dtype) if vector else 1
-    col_tiles = -(-cols // (CLOSE_TILE_THREADS * per_thread))
-    return -(-rows // CLOSE_TILE_ROWS) * col_tiles, col_tiles
+    col_tiles = -(-cols // (threads * per_thread))
+    return -(-rows // tile_rows) * col_tiles, col_tiles
 
 
 def decode_vector(leaves) -> bool:
@@ -190,12 +223,13 @@ def decode_vector(leaves) -> bool:
 
 def _fill_static(entry: TreeLeaf, kind: str, rows: int, cols: int, orig_cols: int,
                  dtype: torch.dtype, tag: int, row_offset: int, col_offset: int,
-                 tile0: int, vector: bool = True, part0: int = 0) -> int:
+                 tile0: int, vector: bool = True, part0: int = 0,
+                 tile=None) -> int:
     """Fill every field of ``entry`` but the pointers and ``vec``; → its tiles.
 
     For ``kind`` "qsgd", ``orig_cols`` is the leaf's payload offset and
-    ``part0`` its first norm partial."""
-    tiles, col_tiles = _tiles(kind, rows, cols, dtype, vector)
+    ``part0`` its first norm partial; ``tile`` is the close's tile."""
+    tiles, col_tiles = _tiles(kind, rows, cols, dtype, vector, tile)
     entry.rows, entry.cols = rows, cols
     entry.dtype = LEAF_DTYPES[dtype]
     entry.tag = tag & 0xFFFFFFFF
@@ -257,28 +291,35 @@ class TreePlan:
     groups: tuple[LaunchGroup, ...]
     coords: tuple[tuple[int, int, int], ...]   # per entry: (row offset,
                                                # col offset, orig cols)
+    tile: tuple | None = None                  # the close's tile (close_tile)
 
 
 _plans: dict = {}
 
 
 def tree_plan(kind: str, shapes, dtypes, k: int, mode: ProjectionMode,
-              device, shard=None) -> TreePlan:
+              device, shard=None, tile=None) -> TreePlan:
     """The cached plan of ``kind`` ("encode", "close", "decode" or "qsgd")
     for leaves of these per-client shapes and dtypes in sorted-key order
-    (``shard``: see :func:`shard_plan`)."""
+    (``shard``: see :func:`shard_plan`; ``tile``: the close's tile, see
+    :func:`close_tile`)."""
     if kind not in _KINDS:
         raise ValueError(kind)
+    if kind == "close":
+        tile = close_tile(tile)
+    elif tile is not None:
+        raise ValueError(f"only the fused close takes a tile, not {kind!r}")
     device = torch.device(device)
-    # The shard layout is part of the key: a local view may have the shape
-    # of some unsharded leaf, whose plan has offsets 0.
-    key = (kind, tuple(shapes), tuple(dtypes), k, mode, device, shard)
+    # The shard layout and the tile are part of the key: a local view may
+    # have the shape of some unsharded leaf, whose plan has offsets 0, and
+    # the tile sets the tile space.
+    key = (kind, tuple(shapes), tuple(dtypes), k, mode, device, shard, tile)
     plan = _plans.get(key)
     if plan is None:
         if len(_plans) >= _PLAN_CACHE_MAX:
             _plans.clear()
         plan = _plans[key] = _build_plan(kind, key[1], key[2], k, mode, device,
-                                         shard)
+                                         shard, tile)
     return plan
 
 
@@ -302,7 +343,8 @@ def shard_plan(kind: str, shapes, dtypes, num_shards: int, shards, ordinals,
     return tree_plan(kind, shapes, dtypes, k, mode, device, shard)
 
 
-def _build_plan(kind, shapes, dtypes, k, mode, device, shard=None) -> TreePlan:
+def _build_plan(kind, shapes, dtypes, k, mode, device, shard=None,
+                tile=None) -> TreePlan:
     leaves, offset = [], 0
     for tag, shape in enumerate(shapes):
         rows, cols = view2d(shape)
@@ -343,9 +385,7 @@ def _build_plan(kind, shapes, dtypes, k, mode, device, shard=None) -> TreePlan:
         tiles = parts = 0
         for i, ll in enumerate(layout[start:stop]):
             if kind == "qsgd":
-                if ll.offset >= 1 << 31 or ll.size >= 1 << 31:
-                    raise ValueError(f"leaf {ll.shape} at payload column "
-                                     f"{ll.offset}: past the table's int range")
+                check_entry_range(ll.shape, ll.rows, ll.cols, 0, 0, ll.cols)
                 tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols,
                                       ll.offset, dtypes[start + i], ll.tag, 0, 0,
                                       tiles, part0=parts)
@@ -356,13 +396,14 @@ def _build_plan(kind, shapes, dtypes, k, mode, device, shard=None) -> TreePlan:
                                   col_offset, orig_cols)
                 tiles += _fill_static(table.leaf[i], kind, ll.rows, ll.cols,
                                       orig_cols, dtypes[start + i], ll.tag,
-                                      row_offset, col_offset, tiles, vector)
+                                      row_offset, col_offset, tiles, vector,
+                                      tile=tile)
         table.num_leaves, table.num_tiles = stop - start, tiles
         groups.append(LaunchGroup(start, stop, tiles, bytes(table), vector, parts))
     return TreePlan(kind=kind, layout=tuple(layout), dtypes=tuple(dtypes), k=k,
                     masked=mode == ProjectionMode.BLOCK and k > 1,
                     lo=lo.to(device), hi=hi.to(device), groups=tuple(groups),
-                    coords=tuple(coords))
+                    coords=tuple(coords), tile=tile)
 
 
 def qsgd_plan(shapes, dtypes, device) -> TreePlan:
@@ -384,16 +425,17 @@ def check_leaves(plan: TreePlan, leaves, k: int, device: torch.device) -> None:
 
 def single_table(kind: str, x: torch.Tensor, rows: int, cols: int,
                  orig_cols: int, tag: int, row_offset: int, col_offset: int,
-                 y: torch.Tensor | None = None, vector: bool = True) -> TreeTable:
+                 y: torch.Tensor | None = None, vector: bool = True,
+                 tile=None) -> TreeTable:
     """A one-leaf table: the leaf-level kernels are tree launches of one leaf
-    (for "qsgd", ``orig_cols`` is the leaf's payload offset)."""
-    if kind != "qsgd":
-        check_entry_range(tuple(x.shape), rows, cols, row_offset, col_offset,
-                          orig_cols)
+    (for "qsgd", ``orig_cols`` is the leaf's payload offset; for "close",
+    ``tile`` is its tile)."""
+    check_entry_range(tuple(x.shape), rows, cols, row_offset, col_offset,
+                      cols if kind == "qsgd" else orig_cols)
     table = TreeTable()
     entry = table.leaf[0]
     table.num_tiles = _fill_static(entry, kind, rows, cols, orig_cols, x.dtype, tag,
-                                   row_offset, col_offset, 0, vector)
+                                   row_offset, col_offset, 0, vector, tile=tile)
     table.num_leaves = 1
     entry.x = x.data_ptr()
     entry.vec = _vec(cols, x.dtype, x.data_ptr()) and (

@@ -1369,3 +1369,106 @@ def test_cuda_tree_leaf_past_2_31_elements(cuda_device, kind):
                                  row_offset=r0, orig_cols=cols,
                                  per_client_rounding=True, div=4.0)
         assert torch.equal(y[r0:r0 + 64], want)
+
+
+# ---------------------------------------------------------------------------
+# the fused close's tiles and its autotuner (kernels/tune.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("k,mode", MODES)
+def test_cuda_fused_tiles_give_the_default_bits(cuda_device, family, k, mode):
+    """Every tile of ``tree.CLOSE_TILES`` bitwise the default tile, and
+    against the plain version as the default is: the MLP tree (N = 20,
+    float32) and a (960, 2560) bf16 leaf (N = 33); BLOCK k = 8 masks."""
+    from repro_torch.kernels.tree import CLOSE_TILES
+
+    rng = np.random.RandomState(k + 5)
+    dist = Distribution(family)
+    trees = [
+        (_params(2), 20),
+        ({"w": torch.from_numpy(rng.randn(960, 2560).astype(np.float32)).to(
+            torch.bfloat16)}, 33),
+    ]
+    for p, n in trees:
+        rs = torch.from_numpy(rng.randn(n, k).astype(np.float32))
+        seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
+        want = ops.server_update_fused(p, rs, seeds, 0.8, dist,
+                                       mode=ProjectionMode(mode))
+        dev = ({key: v.to(cuda_device) for key, v in p.items()},
+               rs.to(cuda_device), seeds.to(cuda_device))
+        default = ops.server_update_fused(*dev, 0.8, dist, mode=ProjectionMode(mode))
+        for tile in CLOSE_TILES:
+            before = fused_reconstruct_apply.launches
+            got = ops.server_update_fused(*dev, 0.8, dist, mode=ProjectionMode(mode),
+                                          block=tile)
+            assert fused_reconstruct_apply.launches - before == 1
+            for key in p:
+                assert torch.equal(got[key], default[key]), (tile, key)
+                g = got[key].cpu()
+                if family == "gaussian":
+                    torch.testing.assert_close(
+                        g.float(), want[key].float(), rtol=1e-5 + (
+                            2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0),
+                        atol=1e-5)
+                else:
+                    assert torch.equal(g, want[key]), (tile, key)
+
+
+def test_cuda_autotune_sweeps_the_tiles_once(cuda_device, tmp_path):
+    """A real sweep at the paper MLP's dominant leaf: the winner is a tile
+    of the kernel, stored under the card's key; a hit does not time."""
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.tree import CLOSE_TILES
+
+    path = str(tmp_path / "tune.json")
+    assert tune.backend_of(cuda_device) == "cuda-sm_90a"
+    won = tune.autotune_fused(64, 24, 20, 1, "rademacher", cache_path=path,
+                              device=cuda_device)
+    assert won["impl"] == "cuda" and tuple(won["block"]) in CLOSE_TILES
+
+    def raising(cand):
+        raise AssertionError("a hit must not time")
+
+    assert tune.autotune_fused(64, 24, 32, 1, "rademacher", cache_path=path,
+                               measure=raising, device=cuda_device) == won
+    assert tune.cached_fused_params(64, 24, 20, 1, "rademacher", cache_path=path,
+                                    device=cuda_device) == won
+
+
+def test_cuda_qsgd_payload_past_2_31_columns(cuda_device):
+    """A two-leaf tree whose second leaf starts at payload column 2³¹ (the
+    first is 2³¹ bf16 elements, 4 GiB): q and the payload bitwise
+    ``qsgd_tree_plain``'s given the kernel's norms, on the first leaf's
+    first and last 256 rows and the whole second leaf; the norms within
+    ``norm_tolerance``."""
+    from repro_torch.kernels.common import fold_seed
+    from repro_torch.kernels.qsgd_quant import norm_depth, qsgd_tree
+
+    rows, cols = 65536, 32768
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    big = torch.randn((1, rows, cols), generator=gen, device=cuda_device).to(
+        torch.bfloat16)
+    small = torch.randn((1, 8, 8), generator=gen, device=cuda_device)
+    seeds = torch.tensor([12345], dtype=torch.int64, device=cuda_device)
+    before = qsgd_quantize.launches
+    q, pay, norms = qsgd_tree([big, small], seeds, 127, want_q=True, want_levels=True)
+    assert qsgd_quantize.launches - before == 2
+    d = rows * cols
+    assert pay.shape == (1, d + 64 + 2)
+    for tag, x in enumerate((big, small)):
+        sq = sum(float(x[:, r0:r0 + 4096].double().pow(2).sum())
+                 for r0 in range(0, x.shape[1], 4096))
+        exact = sq ** 0.5
+        assert abs(float(norms[0, tag]) - exact) <= norm_depth(x[0].numel()) * 2.0 ** -24 * exact
+    folded = fold_seed(seeds, 0)
+    for r0 in (0, rows - 256):
+        qp, lp = qsgd_quantize_plain(big[:, r0:r0 + 256], folded, norms[:, 0], 127,
+                                     True, True, row_offset=r0)
+        assert torch.equal(q[0][:, r0:r0 + 256], qp)
+        assert torch.equal(pay[:, r0 * cols:(r0 + 256) * cols], lp.reshape(1, -1))
+    qp, lp = qsgd_quantize_plain(small, fold_seed(seeds, 1), norms[:, 1].contiguous(),
+                                 127, True, True)
+    assert torch.equal(q[1], qp)
+    assert torch.equal(pay[:, d:d + 64], lp.reshape(1, -1))
+    assert torch.equal(pay[:, d + 64:], norms)

@@ -96,8 +96,33 @@ def test_leaf_table_keeps_its_size_and_shares_two_slots():
     # a 64-bit tile count and pad before the 64 entries (csrc/tree.cuh)
     assert ctypes.sizeof(TreeLeaf) == 56 and ctypes.sizeof(TreeTable) == 16 + 64 * 56
     entry = TreeLeaf()
-    entry.offset, entry.part0 = 1582, 7
-    assert (entry.orig_cols, entry.col_tiles) == (1582, 7)
+    # QSGD's 64-bit payload offset shares the two slots of orig_cols and
+    # col_tiles; part0 has a 16-bit slot of its own
+    entry.offset, entry.part0 = (7 << 32) | 1582, 40_000
+    assert (entry.orig_cols, entry.col_tiles, entry.part0) == (1582, 7, 40_000)
+    assert QSGD_NORM_UNITS_MAX * MAX_TREE_LEAVES <= 1 << 16
+
+
+def test_qsgd_plan_past_2_31_payload_columns():
+    """A leaf of 2³¹ elements and a leaf after it, at payload column 2³¹:
+    the plan builds from the shapes alone (nothing is allocated), with the
+    second leaf's 64-bit offset and its first norm partial after the
+    first leaf's 512 spans."""
+    shapes = [(65536, 32768), (8, 8)]
+    plan = qsgd_plan(shapes, [torch.bfloat16] * 2, "cpu")
+    table = TreeTable.from_buffer_copy(plan.groups[0].template)
+    big, small = table.leaf[0], table.leaf[1]
+    assert (big.offset, big.part0, big.rows, big.cols) == (0, 0, 65536, 32768)
+    assert qsgd_norm_units(1 << 31)[0] == QSGD_NORM_UNITS_MAX
+    assert (small.offset, small.part0) == (1 << 31, QSGD_NORM_UNITS_MAX)
+    assert plan.layout[1].offset == 1 << 31
+    assert small.tile0 == 65536 and table.num_tiles == 65537   # one row a tile
+    assert plan.groups[0].num_parts == QSGD_NORM_UNITS_MAX + 1
+    # a leaf of 2³² elements, and a view past the kernels' dimensions
+    wide = qsgd_plan([(1 << 16, 1 << 16), (3,)], [torch.bfloat16] * 2, "cpu")
+    assert TreeTable.from_buffer_copy(wide.groups[0].template).leaf[1].offset == 1 << 32
+    with pytest.raises(ValueError, match="passes"):
+        qsgd_plan([(2, 1 << 31)], [torch.float32], "cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -308,12 +308,18 @@ def test_plans_refuse_views_past_the_kernels_index_range(kind):
 
 
 def test_qsgd_plan_still_refuses_past_the_int_range():
-    """QSGD's payload column and per-leaf norm stay 32-bit (no LLM path
-    quantizes a leaf past 2³¹ elements): its plan refuses such a leaf."""
-    with pytest.raises(ValueError, match="int range"):
-        qsgd_plan([(64, 4096, 16384)], [torch.bfloat16], "cpu")
-    with pytest.raises(ValueError, match="int range"):
-        qsgd_plan([(2**30,), (2**30,), (8,)], [torch.float32] * 3, "cpu")
+    """QSGD's payload offset is 64-bit: a leaf of 2³² elements plans, and so
+    does a leaf at payload column 2³¹.  What stays in the kernels' int
+    range is each view's rows and cols (under ``MAX_DIM``), as for the
+    FedScalar kinds: the plan refuses a wider view."""
+    assert qsgd_plan([(64, 4096, 16384)], [torch.bfloat16], "cpu").layout
+    plan = qsgd_plan([(2**30,), (2**30,), (8,)], [torch.float32] * 3, "cpu")
+    table = TreeTable.from_buffer_copy(plan.groups[0].template)
+    assert [table.leaf[i].offset for i in range(3)] == [0, 2**30, 2**31]
+    with pytest.raises(ValueError, match="passes"):
+        qsgd_plan([(2**31,)], [torch.float32], "cpu")
+    with pytest.raises(ValueError, match="passes"):
+        qsgd_plan([(8, MAX_DIM + 1)], [torch.float32], "cpu")
     assert qsgd_plan([(2**20, 1024)], [torch.float32], "cpu").layout
 
 

@@ -1,7 +1,7 @@
 """Shared fixtures of the PyTorch port's parity tests (``test_torch_*.py``).
 
 * ``jax_kernels`` reaches ``repro.kernels.ops`` / ``ref`` /
-  ``reconstruct_apply``.  Under jax 0.9 those modules fail to import:
+  ``reconstruct_apply`` / ``tune``.  Under jax 0.9 those modules fail to import:
   ``repro.core.compat.ensure_optimization_barrier_batching`` raises
   ``TypeError`` on ``prim in batching.primitive_batchers``, and jax 0.9
   already batches the barrier.  The fixture stubs that function to a
@@ -58,10 +58,11 @@ def _stubbed_imports(prefixes: tuple, load):
 @pytest.fixture(scope="module")
 def jax_kernels():
     def load():
-        from repro.kernels import ops, reconstruct_apply, ref
+        from repro.kernels import ops, reconstruct_apply, ref, tune
 
         return types.SimpleNamespace(ops=ops, ref=ref,
-                                     reconstruct_apply=reconstruct_apply)
+                                     reconstruct_apply=reconstruct_apply,
+                                     tune=tune)
 
     yield from _stubbed_imports(("repro.kernels",), load)
 
