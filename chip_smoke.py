@@ -274,6 +274,30 @@ Phases (any failure exits non-zero and the final line is not printed):
    the run without.  The ``kernels`` line's fused-close entry carries each
    workload's winner and default tile with their ms in turns.
 
+21. the train step on a device mesh (after phase 20;
+   ``launch/train.py::make_train_step(..., mesh=)``,
+   ``sharding/resident.py``): SmolLM-360M at full width and depth, bf16,
+   rademacher, k = 1, N = 2, S = 1, a global batch of 4 × 4096 tokens,
+   on (1, 4) and (2, 2) meshes of four entries on the one card against
+   the unsharded round.  A check round each (deterministic algorithms on:
+   the embedding's backward sums in a fixed order): on (1, 4) every
+   client's δ bitwise the unsharded round's, its r within
+   ``tree_encode_tolerance`` (over the shards' views) of the float64
+   encode of that δ, and, given the unsharded round's r, the close
+   bitwise the unsharded close.  Then a timed round each (unsharded,
+   (1, 4), (2, 2)): round s, ``max_memory_allocated`` (and above the
+   round's start), the weights gathered a step, resident bytes per mesh
+   entry beside ``per_device_bytes(param_specs)``; the (1, 4) loss
+   bitwise the unsharded loss, the (2, 2) round's r within 2⁻⁸·√S·‖x‖₂
+   and its params within Σₙ(|Δrₙ| + 2⁻⁸(|rₙ| + |r'ₙ|))/N plus one bf16
+   ulp of the unsharded round's; each round's encode (two counts per device's tree launch per
+   client) and close (one per device) launches exact.  The bf16 bound on
+   r is far above r itself, so a float32 round of the same shape on
+   (2, 2) holds the data groups' gradient sum: its loss within 1e-4, each
+   r within 1e-5·(1 + |r|) and its params within Σₙ|Δrₙ|/N + 1e-6 of the
+   float32 unsharded round's (the card tests' float32 limits; a group's
+   gradient lost or the groups' losses summed moves r by about |r|).
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
 """
@@ -413,6 +437,14 @@ TRAIN_LOSS_ATOL, TRAIN_R_ULPS, TRAIN_R_RTOL = 1e-4, 16, 1e-4
 # loss within 1e-5 and each gradient within 1e-4 of its leaf's largest
 # |gradient|; a lost chunk or a wrong mask moves them by far more.
 TRAIN_LONG_SEQ, TRAIN_LONG_LOSS_ATOL, TRAIN_LONG_GRAD_RTOL = 8448, 1e-5, 1e-4
+# Phase 21: the mesh train step (N = 2, S = 1, a global batch of 4 × 4096),
+# on meshes of four entries on the one card.
+MESH_CLIENTS, MESH_STEPS, MESH_BATCH = 2, 1, 4
+MESH_SHAPES = ((1, 4), (2, 2))
+# Its float32 (2, 2) round against the float32 unsharded round: two data
+# groups sum the gradients in another order (≈ 1e-7 of r), and so do the
+# shards' partial encodes; the limits are the card tests' float32 ones.
+MESH_F32_LOSS_ATOL, MESH_F32_R_RTOL, MESH_F32_PARAM_SLACK = 1e-4, 1e-5, 1e-6
 # The flash kernels' names in the report, by flash_route's route.
 FLASH_KERNELS = {"prefill": "flash_prefill", "decode": "flash_decode",
                  "f32": "flash_attention"}
@@ -2365,8 +2397,8 @@ def _moe_spy(dropped, layer_in=None):
 
     moe_ffn = lm.moe_ffn
 
-    def spy(params, x, cfg, dropless=False):
-        y, aux = moe_ffn(params, x, cfg, dropless=dropless)
+    def spy(params, x, cfg, dropless=False, **kw):
+        y, aux = moe_ffn(params, x, cfg, dropless=dropless, **kw)
         if not dropless:
             dropped.append(aux["moe_dropped_frac"])
             if layer_in is not None:
@@ -4627,6 +4659,206 @@ def phase_tune(s: Smoke):
             for r in rows_out]
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the train step on a device mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_counted(counters, fn):
+    """→ (fn's result, the launches it made by kernel)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def phase_mesh_train(s: Smoke):
+    """SmolLM-360M's round on (1, 4) and (2, 2) meshes over the card against
+    the unsharded round → the mesh rounds' encode and close launches."""
+    import torch
+
+    import repro_torch.kernels.ops as ops
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.models.api import Arch
+    from repro_torch.sharding import fed_rules
+    from repro_torch.sharding.resident import shard_resident
+    from repro_torch.sharding.rules import param_specs, per_device_bytes
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    arch = Arch(cfg)
+    params = arch.init(seed=0, device=s.dev)
+    leaves = tree_leaves(params)
+    n, st = MESH_CLIENTS, MESH_STEPS
+    fl = FLRunConfig(num_virtual_clients=n, local_steps=st, local_lr=TRAIN_LR,
+                     server_lr=1.0)
+    toks = torch.randint(0, cfg.vocab_size, (MESH_BATCH, TRAIN_SEQ + 1),
+                         generator=s.gen, device=s.dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    meshes = {shape: make_fed_mesh(shape, devices=[s.dev] * 4) for shape in MESH_SHAPES}
+    counters = _train_counters()
+    unsharded = make_train_step(arch, fl)
+    steps = {shape: make_train_step(arch, fl, mesh=m) for shape, m in meshes.items()}
+    resident = {shape: shard_resident(params, m) for shape, m in meshes.items()}
+    plan = tree_plan("encode", [tuple(w.shape) for w in leaves], [w.dtype for w in leaves],
+                     1, ProjectionMode.FULL, s.dev)
+
+    # ---- the check rounds: δ, r and the close on (1, 4) ----
+    deltas, u_rs, rows = [], [], []
+    project, sharded = ops.project_tree_kernel, fed_rules.sharded_project_tree
+
+    def spy_u(delta, seeds, *a):
+        deltas.append([d[0].clone() for d in tree_leaves(delta)])
+        r = project(delta, seeds, *a)
+        u_rs.append(r[0])
+        return r
+
+    def spy_m(mesh, delta, seed, *a):
+        i = len(rows)
+        same = all(torch.equal(delta.gather(j, s.dev), w) for j, w in enumerate(deltas[i]))
+        r = sharded(mesh, delta, seed, *a)
+        exact = project_tree_plain([w[None] for w in deltas[i]], seed.reshape(1), plan,
+                                   dtype=torch.float64)
+        tol = tree_encode_tolerance([x[None] for x in delta.flat_shards()], "rademacher")
+        err = abs(float(r[0]) - float(exact[0, 0]))
+        rows.append(dict(client=i, delta_bitwise=same, r=float(r[0]),
+                         unsharded_r=float(u_rs[i][0]), exact_r=float(exact[0, 0]),
+                         err=err, tol=float(tol[0, 0])))
+        return u_rs[i]                    # the close takes the unsharded r
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ops.project_tree_kernel = spy_u
+        (u_new, u_m), u_launch = _mesh_counted(counters, lambda: unsharded(params, batch, 0))
+        ops.project_tree_kernel = project
+        fed_rules.sharded_project_tree = spy_m
+        (m_new, m_m), m_launch = _mesh_counted(
+            counters, lambda: steps[(1, 4)](resident[(1, 4)], batch, 0))
+    finally:
+        ops.project_tree_kernel, fed_rules.sharded_project_tree = project, sharded
+        torch.use_deterministic_algorithms(False)
+    close_same = all(torch.equal(m_new.gather(j, s.dev), w)
+                     for j, w in enumerate(tree_leaves(u_new)))
+    loss_same = bool(torch.equal(m_m["loss"], u_m["loss"]))
+    print("mesh check: " + json.dumps(dict(
+        clients=rows, loss=float(u_m["loss"]), loss_bitwise=loss_same,
+        close_bitwise_given_r=close_same, launches=[u_launch, m_launch])), flush=True)
+    bad = [r for r in rows if not (r["delta_bitwise"] and r["err"] <= r["tol"])]
+    if bad or not close_same or not loss_same:
+        raise AssertionError(f"mesh: the (1, 4) round differs from the unsharded "
+                             f"round: {bad}, close bitwise {close_same}, loss "
+                             f"bitwise {loss_same}")
+    del deltas, u_new, m_new
+
+    # ---- the timed rounds ----
+    stacked = sum(w.numel() * w.element_size() for key in arch.stacked_keys
+                  if key in params for w in tree_leaves(params[key]))
+    unstacked = sum(w.numel() * w.element_size() for w in leaves) - stacked
+    out, launches = {}, {}
+    for name in ("unsharded",) + MESH_SHAPES:
+        if name == "unsharded":
+            def run():
+                return unsharded(params, batch, 1)
+        else:
+            def run(name=name):
+                return steps[name](resident[name], batch, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        (new, m), got = _mesh_counted(counters, run)
+        torch.cuda.synchronize()
+        round_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        entries = 1 if name == "unsharded" else len(meshes[name].device_groups())
+        want = {"encode": 2 * n * entries, "rec": entries}
+        if got != want:
+            raise AssertionError(f"mesh {name}: launches {got}, expected {want}")
+        row = dict(mesh=str(name), round_s=round_s, peak_gib=peak / 2**30,
+                   peak_above_start_gib=(peak - start) / 2**30,
+                   train_tokens_per_s=MESH_BATCH * TRAIN_SEQ / round_s,
+                   loss=float(m["loss"]), r=m["r"].flatten().tolist(), launches=got)
+        if name != "unsharded":
+            mesh = meshes[name]
+            groups = len(mesh.data_groups())
+            row.update(
+                gathered_gb_per_step=groups * (2 * stacked + unstacked) / 1e9,
+                resident_bytes_per_entry=new.resident_bytes(),
+                per_device_bytes_param_specs=per_device_bytes(
+                    arch.param_shapes(), param_specs(arch.param_shapes(), mesh), mesh))
+            launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        print("mesh round: " + json.dumps(row), flush=True)
+        out[name] = (new, m, row)
+    u_new, u_m, u_row = out["unsharded"]
+    if not torch.equal(out[(1, 4)][1]["loss"], u_m["loss"]):
+        raise AssertionError("mesh: the (1, 4) loss differs from the unsharded loss")
+    # (2, 2): two data groups sum the loss and the gradients in another
+    # order, so δ and r move (r within phase 13's bf16 bound); each new
+    # element then moves by Σₙ|Δrₙ|/N, plus each client's reconstruction
+    # rounded to bf16 on either side (2⁻⁸|rₙ|) and one bf16 ulp of the sum.
+    new, m, row = out[(2, 2)]
+    norm = math.sqrt(sum(float((w.float() ** 2).sum()) for w in leaves))
+    r_tol = 2.0 ** -8 * math.sqrt(st) * norm
+    dr = (m["r"] - u_m["r"]).abs()
+    spread = float((dr + 2.0 ** -8 * (m["r"].abs() + u_m["r"].abs())).sum()) / n
+    worst = 0.0
+    for j, w in enumerate(tree_leaves(u_new)):
+        a, b = new.gather(j, s.dev).float(), w.float()
+        bound = spread + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+        worst = max(worst, float(((a - b).abs() / bound).max()))
+    ok = (float(dr.max()) <= r_tol and worst <= 1.0
+          and abs(float(m["loss"]) - float(u_m["loss"])) <= 1e-2)
+    print("mesh (2, 2): " + json.dumps(dict(
+        max_dr=float(dr.max()), r_tol=r_tol, params_worst_share_of_bound=worst,
+        loss=float(m["loss"]), unsharded_loss=float(u_m["loss"]),
+        round_s_over_unsharded={str(k): out[k][2]["round_s"] / u_row["round_s"]
+                                for k in MESH_SHAPES},
+        peak_over_unsharded={str(k): out[k][2]["peak_gib"] / u_row["peak_gib"]
+                             for k in MESH_SHAPES},
+        unstacked_gb=unstacked / 1e9, stacked_gb=stacked / 1e9)), flush=True)
+    if not ok:
+        raise AssertionError("mesh: the (2, 2) round is past its bounds")
+    del out, resident, params, leaves, new, u_new
+    torch.cuda.empty_cache()
+
+    # ---- float32 (2, 2) against the float32 unsharded round ----
+    arch32 = Arch(dataclasses.replace(cfg, dtype="float32"))
+    p32 = arch32.init(seed=0, device=s.dev)
+    mesh = meshes[(2, 2)]
+    u_new, u_m = make_train_step(arch32, fl)(p32, batch, 2)
+    (new, m), got = _mesh_counted(counters, lambda: make_train_step(
+        arch32, fl, mesh=mesh)(shard_resident(p32, mesh), batch, 2))
+    want = {"encode": 2 * n * len(mesh.device_groups()), "rec": len(mesh.device_groups())}
+    if got != want:
+        raise AssertionError(f"mesh float32 (2, 2): launches {got}, expected {want}")
+    launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    dr = (m["r"] - u_m["r"]).abs()
+    r_lim = MESH_F32_R_RTOL * (1 + u_m["r"].abs())
+    spread = float(dr.sum()) / n + MESH_F32_PARAM_SLACK
+    worst = max(float((new.gather(j, s.dev) - w).abs().max())
+                for j, w in enumerate(tree_leaves(u_new)))
+    dloss = abs(float(m["loss"]) - float(u_m["loss"]))
+    print("mesh (2, 2) float32: " + json.dumps(dict(
+        r=m["r"].flatten().tolist(), unsharded_r=u_m["r"].flatten().tolist(),
+        dr=dr.flatten().tolist(), r_limit=r_lim.flatten().tolist(), dloss=dloss,
+        loss_limit=MESH_F32_LOSS_ATOL, params_max_diff=worst, params_limit=spread,
+        launches=got)), flush=True)
+    if not (bool((dr <= r_lim).all()) and dloss <= MESH_F32_LOSS_ATOL and worst <= spread):
+        raise AssertionError("mesh: the float32 (2, 2) round is past its bounds")
+    del p32, u_new, new
+    torch.cuda.empty_cache()
+    print(f"mesh: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4696,6 +4928,9 @@ def _run(torch, t0, name, count, smi_line) -> int:
     phase_vlm_encdec_train(s)
     big_launches, mc_launches, cp_launches = _phase_19(s, torch)
     tuned = phase_tune(s)
+    mesh_launches = phase_mesh_train(s)
+    launches["encode"] += mesh_launches.get("encode", 0)
+    train_launches["rec"] = train_launches.get("rec", 0) + mesh_launches.get("rec", 0)
     launches["qsgd"] += big_launches.get("qsgd", 0)
     # phase 19's paths: the 2³² leaf, the card-vs-meta steps, the
     # client-parallel round

@@ -13,11 +13,17 @@ A bf16 leaf is written as the reference writes one — its 16-bit words as
 a ``V2`` array, with ``"bfloat16"`` in the manifest — and restored bit
 for bit from the manifest's dtype, with no ``ml_dtypes``.  (The
 reference's own restore cannot read such a leaf back.)  Arrays pass
-through host memory, as in the reference.
+through host memory, as in the reference, one leaf at a time: the
+archive is written entry by entry (``np.savez``'s layout) and read
+lazily.  A tree resident in shards over a mesh (``sharding/resident.py``)
+is saved unsharded, leaf by leaf, and ``restore_checkpoint(...,
+mesh=)`` places each leaf straight into its shards (the reference's
+``shardings=``), so neither the host nor a device holds the whole tree.
 """
 from __future__ import annotations
 
 import os
+import zipfile
 from typing import Any, Optional
 
 import numpy as np
@@ -26,6 +32,7 @@ import torch
 from repro_torch.checkpoint import msgpack_codec
 from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.device import resolve_device
+from repro_torch.sharding.resident import ResidentTree
 
 __all__ = ["save_checkpoint", "restore_checkpoint"]
 
@@ -60,8 +67,12 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def save_checkpoint(directory: str, tree: Any, step: int = 0,
                     metadata: Optional[dict] = None) -> str:
+    """Write ``tree`` (a tree of tensors or a :class:`ResidentTree`) under
+    ``directory``; a resident tree is gathered to the host a leaf at a
+    time."""
     os.makedirs(directory, exist_ok=True)
-    flat = _flatten_with_paths(tree)
+    resident = isinstance(tree, ResidentTree)
+    flat = _flatten_with_paths(tree.like if resident else tree)
     manifest = {
         "step": step,
         "metadata": metadata or {},
@@ -70,8 +81,14 @@ def save_checkpoint(directory: str, tree: Any, step: int = 0,
     }
     with open(os.path.join(directory, "manifest.msgpack"), "wb") as f:
         f.write(msgpack_codec.packb(manifest))
-    np.savez(os.path.join(directory, "arrays.npz"),
-             **{k: _to_numpy(v) for k, v in flat.items()})
+    # np.savez's archive (stored ``<key>.npy`` entries), one leaf at a time
+    with zipfile.ZipFile(os.path.join(directory, "arrays.npz"), "w",
+                         compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for j, (key, leaf) in enumerate(flat.items()):
+            if resident:
+                leaf = tree.gather(j, "cpu")
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, _to_numpy(leaf), allow_pickle=False)
     return directory
 
 
@@ -83,15 +100,22 @@ def _tensor(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
-def restore_checkpoint(directory: str, like: Any, device="cuda") -> tuple:
+def restore_checkpoint(directory: str, like: Any, device="cuda",
+                       mesh=None) -> tuple:
     """→ (tree shaped like ``like``, step, metadata).
 
     ``like`` gives the structure and each leaf's shape and dtype (tensors,
-    or anything with ``.shape`` and a torch ``.dtype``); leaves land on
-    ``device`` (the card unless the caller names the CPU), cast to the
-    ``like`` leaf's dtype as the reference casts them.
+    or anything with ``.shape`` and a torch ``.dtype``; a
+    :class:`ResidentTree`'s ``like``); leaves land on ``device`` (the card
+    unless the caller names the CPU), cast to the ``like`` leaf's dtype as
+    the reference casts them.  With ``mesh`` (``launch/mesh.py``) →
+    a :class:`ResidentTree` on it, each leaf placed in its shards as it is
+    read (``device`` unused).
     """
-    dev = resolve_device(device)
+    if isinstance(like, ResidentTree):
+        like = like.like
+    out = None if mesh is None else ResidentTree.empty(like, mesh)
+    dev = None if mesh is not None else resolve_device(device)
     with open(os.path.join(directory, "manifest.msgpack"), "rb") as f:
         manifest = msgpack_codec.unpackb(f.read())
     flat_like = _flatten_with_paths(like)
@@ -106,6 +130,12 @@ def restore_checkpoint(directory: str, like: Any, device="cuda") -> tuple:
                 raise ValueError(f"{key}: shape {arr.shape} != expected "
                                  f"{tuple(ref.shape)}")
             t = _tensor(arr, manifest["leaves"][key]["dtype"])
-            leaves.append(t.to(device=dev, dtype=ref.dtype))
+            if out is not None:
+                out.write(len(leaves), t.to(dtype=ref.dtype))
+                leaves.append(None)
+            else:
+                leaves.append(t.to(device=dev, dtype=ref.dtype))
+    if out is not None:
+        return out, manifest["step"], manifest["metadata"]
     # flat_like is in sorted-key order, which tree_unflatten expects
     return tree_unflatten(like, leaves), manifest["step"], manifest["metadata"]

@@ -8,7 +8,14 @@ over the devices in contiguous groups: shard ``s`` of ``S`` runs on
 ``devices[s · len(devices) // S]``.  A mesh may hold more shards than
 devices: on one card a ``(2, 4)`` mesh is 8 shards on that card, decoded
 by one tree launch (one per 64 (shard, leaf) entries).  One process
-drives every device's group; nothing here uses ``torch.distributed``.
+drives every device of the mesh (a single controller, as one JAX process
+drives the reference's mesh): it places the shards
+(``sharding/resident.py``), launches each device's kernels and moves
+tensors between devices with ``.to``; nothing here uses
+``torch.distributed``.  The mesh train step
+(``launch/train.py::make_train_step(..., mesh=)``) keeps the parameters
+resident in those shards and splits each step's batch over the
+``data`` axis (:meth:`FedMesh.data_groups`).
 
 :func:`make_production_mesh` gives the dry run's meshes
 (``launch/dryrun.py``): the reference's 16 × 16 (``data``, ``model``)
@@ -63,6 +70,15 @@ class FedMesh:
             groups[s * len(self.devices) // self.size].append(s)
         return [(dev, tuple(g)) for dev, g in zip(self.devices, groups) if g]
 
+    def data_groups(self) -> list[tuple[torch.device, tuple[int, ...]]]:
+        """→ ``(compute device, shard ordinals)`` for each ``data`` index:
+        the shards of that row of the mesh (every axis before ``model``
+        indexes the rows, row-major) and the device of its first shard,
+        where the row's slice of a batch is computed."""
+        model = self.shape[-1] if self.axis_names[-1] == "model" else 1
+        return [(self.shard_device(r * model), tuple(range(r * model, (r + 1) * model)))
+                for r in range(self.size // model)]
+
 
 def make_fed_mesh(shape: tuple = (1, 1), device="cuda",
                   devices=None) -> FedMesh:
@@ -79,7 +95,7 @@ def make_fed_mesh(shape: tuple = (1, 1), device="cuda",
         dev = resolve_device(device)
         devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                    if dev.type == "cuda" else [dev])
-    devices = tuple(torch.device(d) for d in devices)
+    devices = tuple(resolve_device(d) for d in devices)
     if not devices:
         raise ValueError("a mesh needs at least one device")
     return FedMesh(axis_names=("data", "model"), shape=shape, devices=devices)

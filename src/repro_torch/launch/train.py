@@ -27,6 +27,30 @@ turned into the delta in place.  On the card the encode and the close are
 the hand-written kernels, with no fallback; on the CPU their plain
 versions.
 
+With a ``mesh`` (``launch/mesh.py``) ``make_train_step`` runs the same
+round on parameters resident in shards across the mesh's devices
+(``sharding/resident.py``), one process driving every device, ZeRO-3
+over the ``data`` axis as the reference's round on its pod mesh:
+
+  * x and each client's ψ stay in the server's shard layout
+    (``fed_rules.plan_tree``); ψ is a shard-by-shard copy of x;
+  * each local step splits its batch over ``mesh.data_groups()``; a
+    group computes on its first shard's device, gathering each period's
+    weights from the shards inside the period's checkpoint, and the
+    step's loss is the mean of the groups' losses.  Autograd sums each
+    shard's gradient, over every gather and every group, on the shard's
+    device, and ``w −= α·g`` runs shard by shard in the leaf dtype;
+  * δ = ψ − x is formed in place, shard by shard; the encode
+    (``fed_rules.sharded_project_tree``) and the per-client-rounding
+    close (``fed_rules.sharded_apply_blocks``) run on the shards where
+    they lie, one tree launch per device per 64 (shard, leaf) entries.
+
+With one data group the loss, each δ and (given the same r) the new
+parameters are the unsharded step's bit for bit; only the encode's sum
+order differs.  An MoE layer dispatches each group as the step's whole
+batch (``models/moe.py::BatchDispatch``): the same capacity and the same
+dropped tokens as the unsharded step's.
+
 ``make_train_step_client_parallel`` is the reference's client-parallel
 placement: the N replicas are stacked (N, …) and the clients' local SGD
 is one batched computation, each stage of the forward under
@@ -50,7 +74,11 @@ from repro_torch.core.fedscalar import FedScalarConfig, round_seeds
 from repro_torch.core.prng import Distribution
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import FedMesh
+from repro_torch.models.moe import BatchDispatch
+from repro_torch.sharding import fed_rules
 from repro_torch.sharding.activations import batch_mode
+from repro_torch.sharding.resident import ResidentTree
 
 __all__ = ["FLRunConfig", "make_train_step", "make_train_step_client_parallel"]
 
@@ -76,38 +104,28 @@ class FLRunConfig:
         )
 
 
-def make_train_step(arch, fl: FLRunConfig, window: Optional[int] = None):
+def make_train_step(arch, fl: FLRunConfig, window: Optional[int] = None,
+                    mesh: Optional[FedMesh] = None):
     """→ ``train_step(params, batch, round_idx) -> (new_params, metrics)``.
 
     ``batch`` leaves lead with the global batch (``tokens``, ``labels``);
     ``params`` is the global tree, left unchanged.  ``metrics``: ``loss``
     (mean over clients of the mean over local steps, float32), ``r_rms``,
     ``uploaded_scalars`` = N·(k+1), and the round's uploads ``r`` (N, k)
-    and ``seeds`` (N,).
+    and ``seeds`` (N,).  With ``mesh``, ``params`` and ``new_params`` are
+    :class:`~repro_torch.sharding.resident.ResidentTree` s on it (the
+    module docstring).
     """
+    if mesh is not None:
+        return _make_mesh_train_step(arch, fl, window, mesh)
     pcfg = fl.protocol()
-
-    def loss_fn(params, batch):
-        return arch.loss(params, batch, window=window)
 
     def client_update(params, client_batches, s: int):
         """S local SGD steps from ``params`` → (δ in place of the copy, Σ loss)."""
         p = tree_map(lambda w: w.detach().clone().requires_grad_(True), params)
-        leaves = tree_leaves(p)
-        lsum = None
-        for step in range(s):
-            b = tree_map(lambda x: x[step], client_batches)
-            loss = loss_fn(p, b)
-            grads = torch.autograd.grad(loss, leaves)
-            with torch.no_grad():
-                for w, g in zip(leaves, grads):
-                    w.sub_(fl.local_lr * g.to(w.dtype))
-            del grads
-            loss = loss.detach().to(torch.float32)
-            lsum = loss if lsum is None else lsum + loss
-        with torch.no_grad():
-            for w, w0 in zip(leaves, tree_leaves(params)):
-                w.sub_(w0)                           # δ = ψ_S − x, leaf dtype
+        lsum = _local_sgd(tree_leaves(p), tree_leaves(params),
+                          lambda b: arch.loss(p, b, window=window), client_batches, s,
+                          fl.local_lr)
         return tree_map(lambda w: w.detach(), p), lsum
 
     def train_step(params: Any, batch: Any, round_idx):
@@ -132,14 +150,99 @@ def make_train_step(arch, fl: FLRunConfig, window: Optional[int] = None):
             new_params = ops.server_update_kernel(
                 params, rs, seeds, pcfg.server_lr, pcfg.distribution,
                 mode=pcfg.mode, per_client_rounding=True)
-        metrics = {
-            "loss": torch.mean(torch.stack(losses)),
-            "r_rms": torch.sqrt(torch.mean(rs.to(torch.float32) ** 2)),
-            "uploaded_scalars": n * (pcfg.num_projections + 1),
-            "r": rs,
-            "seeds": seeds,
-        }
-        return new_params, metrics
+        return new_params, _round_metrics(torch.stack(losses), rs, seeds, pcfg)
+
+    return train_step
+
+
+def _local_sgd(leaves, base, loss_of, client_batches, s: int, lr: float):
+    """S local SGD steps on ``leaves`` in place, ``w −= α·g`` in the leaf
+    dtype with ``g`` the gradient of ``loss_of(step's batch).sum()`` (the
+    client-parallel step's loss is a vector, one per client), then
+    δ = ψ_S − x in place (``base``: x's leaves, broadcast over a client
+    axis) → Σ of the steps' losses, float32."""
+    lsum = None
+    for step in range(s):
+        loss = loss_of(tree_map(lambda x: x[step], client_batches))
+        grads = torch.autograd.grad(loss.sum(), leaves)
+        with torch.no_grad():
+            for w, g in zip(leaves, grads):
+                w.sub_(lr * g.to(w.dtype))
+        del grads
+        loss = loss.detach().to(torch.float32)
+        lsum = loss if lsum is None else lsum + loss
+    with torch.no_grad():
+        for w, w0 in zip(leaves, base):
+            w.sub_(w0)                               # δ = ψ_S − x, leaf dtype
+    return lsum
+
+
+def _round_metrics(losses, rs, seeds, pcfg) -> dict:
+    """The round's metrics from each client's mean loss, (N,)."""
+    return {
+        "loss": torch.mean(losses),
+        "r_rms": torch.sqrt(torch.mean(rs.to(torch.float32) ** 2)),
+        "uploaded_scalars": rs.shape[0] * (pcfg.num_projections + 1),
+        "r": rs,
+        "seeds": seeds,
+    }
+
+
+def _make_mesh_train_step(arch, fl: FLRunConfig, window: Optional[int],
+                          mesh: FedMesh):
+    """``make_train_step`` on a mesh: the round on resident shards."""
+    pcfg = fl.protocol()
+    groups = mesh.data_groups()
+
+    def step_loss(p: ResidentTree, b):
+        """The mean over the data groups of each group's loss on its share,
+        the groups run in batch order (MoE dispatches the whole batch)."""
+        d = len(groups)
+        per = tree_leaves(b)[0].shape[0]
+        if per % d:
+            raise ValueError(f"per-step batch {per} does not split over {d} data groups")
+        moe = BatchDispatch(d) if arch.cfg.num_experts and d > 1 else None
+        losses = [arch.loss(p, tree_map(lambda x: x[g * (per // d):(g + 1) * (per // d)]
+                                        .to(dev), b), window=window,
+                            moe_dispatch=None if moe is None else (moe, g))
+                  for g, (dev, _) in enumerate(groups)]
+        if d == 1:
+            return losses[0]
+        return torch.stack([l.to(groups[0][0]) for l in losses]).mean()
+
+    def client_update(params: ResidentTree, client_batches, s: int):
+        """S local SGD steps from ``params`` → (δ in place of the copy, Σ loss).
+        A shard of padding alone is zero in x and in ψ (no gather reads
+        it), so it takes no step and its δ is zero as it stands."""
+        p = params.clone(requires_grad=True)
+        lsum = _local_sgd(p.data_shards(), params.data_shards(),
+                          lambda b: step_loss(p, b), client_batches, s, fl.local_lr)
+        return ResidentTree(mesh, p.plan, p.like,
+                            [[w.detach() for w in sh] for sh in p.shards]), lsum
+
+    def train_step(params: ResidentTree, batch: Any, round_idx):
+        if not isinstance(params, ResidentTree) or params.mesh != mesh:
+            raise TypeError(f"the mesh step takes a ResidentTree on its mesh "
+                            f"{mesh.shape} (sharding.resident.shard_resident)")
+        n, s = fl.num_virtual_clients, fl.local_steps
+        sb = _split_batch(batch, n, s)
+        seeds = round_seeds(int(round_idx), n, device=groups[0][0])
+        rs, losses = [], []
+        for i in range(n):
+            delta, lsum = client_update(params, tree_map(lambda x: x[i], sb), s)
+            rs.append(fed_rules.sharded_project_tree(
+                mesh, delta, seeds[i], pcfg.distribution, pcfg.num_projections,
+                pcfg.mode)[None])
+            losses.append(lsum / s)
+            del delta
+        rs = torch.cat(rs)
+        with torch.no_grad():
+            shards = fed_rules.sharded_apply_blocks(
+                mesh, params.plan, params.shards, rs, seeds, pcfg.server_lr,
+                pcfg.distribution, mode=pcfg.mode, per_client_rounding=True)
+        new_params = ResidentTree(mesh, params.plan, params.like, shards)
+        new_params.clear_padding()
+        return new_params, _round_metrics(torch.stack(losses), rs, seeds, pcfg)
 
     return train_step
 
@@ -162,8 +265,10 @@ def make_train_step_client_parallel(arch, fl: FLRunConfig, param_spec_tp=None,
     :func:`make_train_step`.
 
     ``param_spec_tp`` is the reference's placement of the replicas over a
-    mesh's model axis; one process places nothing, and it is kept only so
-    that the signature matches the reference's.  The replicas' local steps run with
+    mesh's model axis.  This step runs on one device and takes it only so
+    that the signature matches the reference's; the mesh round is
+    :func:`make_train_step`'s ``mesh=`` (which keeps one replica at a
+    time).  The replicas' local steps run with
     ``batch_mode("off")``, as the reference's (the client axis owns the
     data axis).
     """
@@ -178,23 +283,12 @@ def make_train_step_client_parallel(arch, fl: FLRunConfig, param_spec_tp=None,
         with batch_mode("off"):
             p = tree_map(lambda w: w.detach()[None].expand(
                 (n,) + tuple(w.shape)).clone().requires_grad_(True), params)
-            leaves = tree_leaves(p)
-            lsum = None
-            for step in range(s):
-                losses = arch.loss(p, tree_map(lambda x: x[:, step], sb),
-                                   window=window, clients=True)
-                grads = torch.autograd.grad(losses.sum(), leaves)
-                with torch.no_grad():
-                    for w, g in zip(leaves, grads):
-                        w.sub_(fl.local_lr * g.to(w.dtype))
-                del grads
-                losses = losses.detach().to(torch.float32)
-                lsum = losses if lsum is None else lsum + losses
-            with torch.no_grad():
-                for w, w0 in zip(leaves, tree_leaves(params)):
-                    w.sub_(w0)                       # δ = ψ_S − x, leaf dtype
+            lsum = _local_sgd(tree_leaves(p), tree_leaves(params),
+                              lambda b: arch.loss(p, b, window=window, clients=True),
+                              tree_map(lambda x: x.transpose(0, 1), sb), s,
+                              fl.local_lr)
             deltas = tree_map(lambda w: w.detach(), p)
-            del p, leaves
+            del p
             rs = ops.project_tree_kernel(deltas, seeds, pcfg.distribution,
                                          pcfg.num_projections, pcfg.mode)
             del deltas
@@ -202,14 +296,6 @@ def make_train_step_client_parallel(arch, fl: FLRunConfig, param_spec_tp=None,
             new_params = ops.server_update_kernel(
                 params, rs, seeds, pcfg.server_lr, pcfg.distribution,
                 mode=pcfg.mode, per_client_rounding=True)
-        losses = lsum / s
-        metrics = {
-            "loss": torch.mean(losses),
-            "r_rms": torch.sqrt(torch.mean(rs.to(torch.float32) ** 2)),
-            "uploaded_scalars": n * (pcfg.num_projections + 1),
-            "r": rs,
-            "seeds": seeds,
-        }
-        return new_params, metrics
+        return new_params, _round_metrics(lsum / s, rs, seeds, pcfg)
 
     return train_step

@@ -6,7 +6,8 @@ VLM with its stubbed vision embeddings; ``models/lm.py`` takes each
 layer's kind from the config) and the enc-dec (``models/encdec.py``),
 with uniform entry points:
 
-* ``init(seed, device)``                  → params
+* ``init(seed, device, mesh=None)``      → params (on a mesh: resident in
+  its shards, ``sharding/resident.py``)
 * ``loss(params, batch)``                 → scalar CE  (train shapes)
 * ``prefill(params, batch, capacity)``    → (logits, caches)
 * ``decode(params, token, caches, pos)``  → (logits, caches), caches
@@ -34,6 +35,7 @@ from repro_torch.device import generator_for, resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.resident import ResidentTree
 
 __all__ = ["Arch", "INPUT_SHAPES", "LONG_WINDOW"]
 
@@ -53,16 +55,26 @@ class Arch:
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
         self.is_encdec = cfg.encoder_layers > 0
+        # the top-level keys of the param tree that stack periods or layers
+        self.stacked_keys = ed.STACKED_KEYS if self.is_encdec else lm.STACKED_KEYS
 
     # ---------------- parameters ----------------
-    def init(self, seed: int = 0, device="cuda"):
+    def init(self, seed: int = 0, device="cuda", mesh=None):
         """Random parameters drawn from a ``torch.Generator`` seeded with
-        ``seed``; on ``"meta"`` shapes and dtypes only, nothing allocated."""
+        ``seed``; on ``"meta"`` shapes and dtypes only, nothing allocated.
+
+        With ``mesh`` (``launch/mesh.py``) → a
+        :class:`~repro_torch.sharding.resident.ResidentTree` on it: the
+        same draws on ``device``, bit for bit, each leaf (a stacked leaf
+        one period at a time) placed in its shards before the next is
+        drawn, so a model larger than one card can be initialised on a
+        mesh of cards."""
         dev = resolve_device(device)
         gen = generator_for(dev, seed)
+        into = None if mesh is None else ResidentTree.empty(self.param_shapes(), mesh)
         if self.is_encdec:
-            return ed.init_encdec(self.cfg, gen, dev)
-        return lm.init_lm(self.cfg, gen, dev)
+            return ed.init_encdec(self.cfg, gen, dev, into)
+        return lm.init_lm(self.cfg, gen, dev, into)
 
     def param_shapes(self):
         """The parameter tree as ``meta`` tensors (the reference's
@@ -71,13 +83,15 @@ class Arch:
 
     # ---------------- training ----------------
     def loss(self, params, batch, window: Optional[int] = None,
-             clients: bool = False):
+             clients: bool = False, moe_dispatch=None):
         """Scalar CE; with ``clients`` every param and batch leaf leads with a
-        client axis (N stacked replicas) → each client's CE, (N,)."""
+        client axis (N stacked replicas) → each client's CE, (N,).
+        ``moe_dispatch``: ``lm.lm_forward``'s (the enc-dec has no MoE)."""
         if self.is_encdec:
             return ed.encdec_loss(params, self.cfg, batch, window=window,
                                   clients=clients)
-        return lm.lm_loss(params, self.cfg, batch, window=window, clients=clients)
+        return lm.lm_loss(params, self.cfg, batch, window=window, clients=clients,
+                          moe_dispatch=moe_dispatch)
 
     # ---------------- serving ----------------
     def prefill(self, params, batch, capacity: int, window: Optional[int] = None):

@@ -19,8 +19,11 @@ runs under ``torch.utils.checkpoint`` (the reference's
 The decoder's KV caches are updated in place, like the port's
 ``KVCache``.  Cross-attention K/V are recomputed from the encoder states
 at every decode step, as in the reference (no cross-K/V cache).  The
-reference's ``constrain(...)`` calls are sharding hints, no-ops off a
-mesh, and are dropped.
+reference's ``constrain(...)`` calls are sharding hints for its
+partitioner, and are dropped.  :func:`encode` and :func:`encdec_loss`
+also take a resident tree (the mesh train step's), as ``lm.lm_forward``
+does: the unstacked leaves gathered once, each layer's weights (under
+:data:`STACKED_KEYS`) inside its checkpoint.
 """
 from __future__ import annotations
 
@@ -36,8 +39,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_norm, init_embedding, init_norm
 from repro_torch.models.lm import (
     client_map,
-    init_stacked,
+    compute_view,
     mean_nll,
+    placer,
     remat_call,
     stack_slice,
 )
@@ -51,7 +55,11 @@ __all__ = [
     "encdec_decode",
     "init_decoder_caches",
     "DecCaches",
+    "STACKED_KEYS",
 ]
+
+# The top-level keys whose leaves stack the layers on a leading axis.
+STACKED_KEYS = ("enc_layers", "dec_layers")
 
 
 def _sinusoid(length: int, d: int, device=None) -> torch.Tensor:
@@ -87,24 +95,28 @@ def _init_dec_layer(gen, cfg, dev):
     }
 
 
-def init_encdec(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+def init_encdec(cfg: ModelConfig, gen: torch.Generator, device=None, into=None):
     """Full parameter tree on ``device`` (``gen``'s by default), each stack
     of layers with a leading layer axis.  Draws from ``gen`` (not
     ``jax.random``): the numbers differ from the reference's, the layout
-    does not."""
+    does not.  ``into``: as ``lm.init_lm``'s."""
     dt = cfg.torch_dtype
     dev = gen.device if device is None else device
     max_pos = cfg.max_position or 4096
-    return {
-        "enc_layers": init_stacked(lambda: _init_enc_layer(gen, cfg, dev),
-                                   cfg.encoder_layers),
-        "enc_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "dec_layers": init_stacked(lambda: _init_dec_layer(gen, cfg, dev),
-                                   cfg.num_layers),
-        "dec_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
-        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
-        "pos_embed": init_embedding(gen, max_pos, cfg.d_model, dt, dev),
+    put = placer(into)
+    params = {
+        "enc_layers": put(("enc_layers",), lambda: _init_enc_layer(gen, cfg, dev),
+                          cfg.encoder_layers),
+        "enc_norm": put(("enc_norm",), lambda: init_norm(cfg.d_model, cfg.norm, dt, dev)),
+        "dec_layers": put(("dec_layers",), lambda: _init_dec_layer(gen, cfg, dev),
+                          cfg.num_layers),
+        "dec_norm": put(("dec_norm",), lambda: init_norm(cfg.d_model, cfg.norm, dt, dev)),
+        "embed": put(("embed",), lambda: init_embedding(gen, cfg.vocab_size,
+                                                        cfg.d_model, dt, dev)),
+        "pos_embed": put(("pos_embed",), lambda: init_embedding(gen, max_pos,
+                                                                cfg.d_model, dt, dev)),
     }
+    return params if into is None else into
 
 
 def _layers(stack: dict, clients: bool = False):
@@ -118,6 +130,7 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, remat: bool = True,
            clients: bool = False):
     """frames: (B, T, d) stubbed conv-frontend output → encoder states
     (``clients``: as ``lm.lm_forward``'s)."""
+    params = compute_view(params, frames.device, STACKED_KEYS)
     cmap = functools.partial(client_map, clients=clients)
     x = frames.to(cfg.torch_dtype)
     x = x + _sinusoid(x.shape[-2], cfg.d_model, x.device).to(x.dtype)[None]
@@ -166,6 +179,7 @@ def encdec_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None,
     """batch: dict(embeds=(B,T,d) frames, tokens=(B,S), labels=(B,S)); each
     layer under checkpoint; with ``clients`` (as ``lm.lm_forward``'s) → each
     client's loss, (N,)."""
+    params = compute_view(params, batch["tokens"].device, STACKED_KEYS)
     cmap = functools.partial(client_map, clients=clients)
     enc = encode(params, cfg, batch["embeds"], clients=clients)
     tokens = batch["tokens"]

@@ -25,8 +25,15 @@ body under ``jax.checkpoint``: only period-boundary activations are kept
 for the backward pass.  As in the reference, the MoE FFN runs with its
 capacity limit in training and prefill and dropless at decode, and its
 aux dict is discarded.  The reference's ``constrain(...)`` calls are
-sharding hints that are no-ops off a mesh; one card has none, so they
-are dropped.
+sharding hints for its partitioner; the port has none, so they are
+dropped.
+
+``params`` may also be a tree resident in shards (the mesh train step's
+``sharding/resident.py::ResidentTree``, or anything with its
+``compute_tree``): ``lm_forward`` then reads it through
+:func:`compute_view` on the inputs' device, which gathers the unstacked
+leaves once and each period's weights (under :data:`STACKED_KEYS`)
+inside that period's checkpoint (:func:`remat_call`).
 """
 from __future__ import annotations
 
@@ -67,10 +74,13 @@ __all__ = [
     "LayerCaches",
     "init_lm_caches",
     "init_stacked",
+    "placer",
     "stack_slice",
     "client_map",
     "mean_nll",
     "remat_call",
+    "STACKED_KEYS",
+    "compute_view",
 ]
 
 
@@ -125,31 +135,52 @@ def init_stacked(make, n: int):
     return stacked
 
 
-def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
+def placer(into):
+    """``put(path, make, n=None)``: with ``into`` None, ``make()`` (or with
+    ``n`` the stacks of ``n`` draws, :func:`init_stacked`); with a resident
+    tree, each draw written into its shards at ``path`` (each of the ``n``
+    at its slice) as soon as it is made, returning None."""
+    def put(path, make, n=None):
+        if into is None:
+            return make() if n is None else init_stacked(make, n)
+        for i in (None,) if n is None else range(n):
+            into.write_tree(path, make(), i)
+        return None
+    return put
+
+
+def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None, into=None):
     """Full parameter tree on ``device`` (``gen``'s by default; ``meta``
     from a CPU generator allocates nothing); per-period-position stacks.
 
     Draws from ``gen`` (not ``jax.random``): the numbers differ from the
     reference's, the layout does not.  Position by position, period by
-    period, each sublayer in ``_init_sublayer``'s order.
+    period, each sublayer in ``_init_sublayer``'s order.  With ``into`` (an
+    empty :class:`~repro_torch.sharding.resident.ResidentTree` of this
+    tree's shapes) the same draws are placed in its shards one sublayer
+    or leaf at a time, and ``into`` is returned.
     """
     plen, nper, kinds = period_structure(cfg)
     dt = cfg.torch_dtype
     dev = gen.device if device is None else device
-    period = [init_stacked(lambda: _init_sublayer(gen, cfg, kind, ffn_kind, dev), nper)
-              for kind, ffn_kind in kinds]
+    put = placer(into)
+    period = [put(("period", pos),
+                  lambda: _init_sublayer(gen, cfg, kind, ffn_kind, dev), nper)
+              for pos, (kind, ffn_kind) in enumerate(kinds)]
     params = {
-        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
+        "embed": put(("embed",), lambda: init_embedding(gen, cfg.vocab_size,
+                                                        cfg.d_model, dt, dev)),
         "period": period,
-        "final_norm": init_norm(cfg.d_model, cfg.norm, dt, dev),
+        "final_norm": put(("final_norm",),
+                          lambda: init_norm(cfg.d_model, cfg.norm, dt, dev)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, False, dt,
-                                        device=dev)
+        params["lm_head"] = put(("lm_head",), lambda: init_linear(
+            gen, cfg.d_model, cfg.vocab_size, False, dt, device=dev))
     if cfg.max_position and not cfg.use_rope:
-        params["pos_embed"] = init_embedding(gen, cfg.max_position, cfg.d_model, dt,
-                                             dev)
-    return params
+        params["pos_embed"] = put(("pos_embed",), lambda: init_embedding(
+            gen, cfg.max_position, cfg.d_model, dt, dev))
+    return params if into is None else into
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +188,9 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 def _sublayer_fwd(sub, x, cfg, kind, ffn_kind, positions, window, prefix_len,
-                  cache=None, update_cache=False, decode=False):
-    """One (attn|mamba) + optional FFN sublayer with pre-norms + residuals."""
+                  cache=None, update_cache=False, decode=False, moe_dispatch=None):
+    """One (attn|mamba) + optional FFN sublayer with pre-norms + residuals
+    (``moe_dispatch``: ``moe_ffn``'s ``dispatch``)."""
     new_cache = cache
     h = apply_norm(sub["norm1"], x, cfg.norm)
     if kind == "attn":
@@ -176,7 +208,8 @@ def _sublayer_fwd(sub, x, cfg, kind, ffn_kind, positions, window, prefix_len,
     if ffn_kind != "none":
         h = apply_norm(sub["norm2"], x, cfg.norm)
         if ffn_kind == "moe":
-            y, _aux = moe_ffn(sub["ffn"], h, cfg, dropless=decode)
+            y, _aux = moe_ffn(sub["ffn"], h, cfg, dropless=decode,
+                              dispatch=moe_dispatch)
         else:
             y = ffn(sub["ffn"], h, cfg)
         x = x + y
@@ -202,14 +235,35 @@ def _logits(params, cfg, x):
     return linear(params["lm_head"], x).to(torch.float32)
 
 
+# The top-level keys whose leaves stack the periods on a leading axis.
+STACKED_KEYS = ("period",)
+
+
+def compute_view(params, device, stacked_keys: tuple):
+    """``params``, or, for a tree resident in shards (anything with a
+    ``compute_tree``, as ``sharding/resident.py::ResidentTree``), the tree
+    a forward on ``device`` reads: the leaves outside ``stacked_keys``
+    gathered, each stacked leaf handing out its periods' shards."""
+    compute = getattr(params, "compute_tree", None)
+    return params if compute is None else compute(device, stacked_keys)
+
+
 def stack_slice(tree, i: int, clients: bool = False):
     """Slice ``i`` of every stacked leaf of ``tree`` (views into the stacks):
     the i-th period's params, or the i-th layer's; with ``clients`` the
-    stacks lead with a client axis, and slice ``i`` is taken behind it."""
+    stacks lead with a client axis, and slice ``i`` is taken behind it.  A
+    leaf that is not a tensor (a resident tree's stacked leaf,
+    ``sharding/resident.py::StackedLeaf``) gives its ``slice(i)``: the
+    slice's shards, gathered by :func:`remat_call`."""
     if isinstance(tree, dict):
         return {k: stack_slice(v, i, clients) for k, v in tree.items()}
     if isinstance(tree, list):
         return [stack_slice(v, i, clients) for v in tree]
+    if not isinstance(tree, torch.Tensor):
+        if clients:
+            raise ValueError("the client-parallel forward takes stacked "
+                             "replicas, not a resident tree")
+        return tree.slice(i)
     return tree[:, i] if clients else tree[i]
 
 
@@ -227,19 +281,36 @@ def remat_call(body, params, x, remat: bool):
     ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` with the
     params' leaves passed as its inputs (in sorted-key order), so that the
     backward pass recomputes it from ``x`` (the reference's
-    ``jax.checkpoint``).  The values are the same either way."""
-    def run(x, *leaves):
-        return body(tree_unflatten(params, list(leaves)), x)
+    ``jax.checkpoint``).  The values are the same either way.
 
-    leaves = tree_leaves(params)
+    A leaf that is not a tensor (a slice of shards,
+    ``sharding/resident.py::ShardSlice``) passes its ``inputs`` (the
+    shards' views) and is ``build``-gathered inside: the gathered weights
+    are rebuilt in the backward pass, not kept, and each shard view gets
+    its gradient."""
+    nodes = tree_leaves(params)
+    inputs, counts = [], []
+    for node in nodes:
+        ins = (node,) if isinstance(node, torch.Tensor) else node.inputs
+        inputs.extend(ins)
+        counts.append(len(ins))
+
+    def run(x, *flat):
+        it = iter(flat)
+        built = []
+        for node, c in zip(nodes, counts):
+            part = [next(it) for _ in range(c)]
+            built.append(part[0] if isinstance(node, torch.Tensor) else node.build(part))
+        return body(tree_unflatten(params, built), x)
+
     if remat:
-        return checkpoint(run, x, *leaves, use_reentrant=False)
-    return run(x, *leaves)
+        return checkpoint(run, x, *inputs, use_reentrant=False)
+    return run(x, *inputs)
 
 
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
                window: Optional[int] = None, remat: bool = True,
-               clients: bool = False):
+               clients: bool = False, moe_dispatch=None):
     """Training-mode forward without caches → logits (B, S_total, V), float32.
 
     With ``remat`` each period runs under :func:`remat_call`'s checkpoint:
@@ -247,8 +318,13 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     reference's ``jax.checkpoint(period_body)``).  With ``clients`` every
     param and input leads with a client axis (N stacked replicas) and each
     stage runs under :func:`client_map` → logits (N, B, S_total, V).
+    ``moe_dispatch`` ``(moe.BatchDispatch, group)``: the inputs are that
+    group of a batch split in groups, whose MoE layers dispatch as the
+    whole batch's would.
     """
     plen, nper, kinds = period_structure(cfg)
+    params = compute_view(params, (tokens if tokens is not None else embeds).device,
+                          STACKED_KEYS)
     cmap = functools.partial(client_map, clients=clients)
     if embeds is None:
         x = cmap(lambda p, t: _embed_inputs(p, cfg, t, None))(params, tokens)
@@ -259,28 +335,33 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
     win = cfg.window if window is None else window
 
-    def body(period_slice, x):
+    def body(period_slice, x, i):
         for pos, (kind, ffn_kind) in enumerate(kinds):
             x, _ = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
-                                 positions, win, cfg.prefix_bidirectional)
+                                 positions, win, cfg.prefix_bidirectional,
+                                 moe_dispatch=None if moe_dispatch is None
+                                 else (*moe_dispatch, (i, pos)))
         return x
 
     for i in range(nper):
-        x = remat_call(cmap(body), stack_slice(params["period"], i, clients), x, remat)
+        x = remat_call(cmap(functools.partial(body, i=i)),
+                       stack_slice(params["period"], i, clients), x, remat)
     x = cmap(lambda p, x: apply_norm(p, x, cfg.norm))(params["final_norm"], x)
     return cmap(lambda p, x: _logits(p, cfg, x))(params, x)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None,
-            clients: bool = False) -> torch.Tensor:
+            clients: bool = False, moe_dispatch=None) -> torch.Tensor:
     """Mean next-token cross-entropy.  batch: dict(tokens, labels[, embeds]).
 
     Frontends prepend non-text positions, so only the trailing
     ``labels.shape[1]`` positions are scored, as in the reference.
-    ``clients`` as :func:`lm_forward`'s → each client's loss, (N,).
+    ``clients`` as :func:`lm_forward`'s → each client's loss, (N,);
+    ``moe_dispatch`` as its.
     """
     logits = lm_forward(params, cfg, tokens=batch.get("tokens"),
-                        embeds=batch.get("embeds"), window=window, clients=clients)
+                        embeds=batch.get("embeds"), window=window, clients=clients,
+                        moe_dispatch=moe_dispatch)
     return client_map(mean_nll, clients)(logits, batch["labels"])
 
 

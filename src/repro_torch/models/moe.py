@@ -22,6 +22,15 @@ einsums, so the port's are ``torch.einsum`` (batched matmuls).  Kept
 (expert, slot) pairs are unique, so step 3 is a plain write (dropped
 pairs go to a spare slot that the products never see) and is exact and
 deterministic on the card.
+
+A batch split into groups that run one after the other (the mesh train
+step's data groups, ``launch/train.py``) keeps the whole batch's
+dispatch through a :class:`BatchDispatch`: C is the whole batch's, and
+each group's positions start after the pairs that the groups before it
+routed to each expert at the same layer (the order is token major, so
+nothing after a group moves its slots).  Each group then keeps and drops
+the same pairs as one call over the whole batch, and each kept token
+sits at the same slot of an (E, C, d) buffer.
 """
 from __future__ import annotations
 
@@ -30,7 +39,33 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import init_linear
 
-__all__ = ["init_moe", "moe_ffn"]
+__all__ = ["init_moe", "moe_ffn", "BatchDispatch"]
+
+
+class BatchDispatch:
+    """The whole batch's capacity dispatch for a batch split into ``groups``
+    equal groups run in order: group ``g``'s MoE layers take
+    ``dispatch=(this, g, layer key)``.  Each group's per-expert counts are
+    kept per layer key on its first (forward) call, so a checkpoint's
+    recompute finds the same offsets."""
+
+    def __init__(self, groups: int):
+        self.groups = groups
+        self._counts: dict = {}
+
+    def offsets(self, g: int, key, counts: torch.Tensor) -> torch.Tensor:
+        """→ the pairs that the groups before ``g`` routed to each expert at
+        layer ``key`` (``counts``: group ``g``'s, (E,) int64)."""
+        rec = self._counts.setdefault(key, [None] * self.groups)
+        if rec[g] is None:
+            rec[g] = counts.detach()
+        if any(c is None for c in rec[:g]):
+            raise RuntimeError(f"MoE layer {key}: group {g} ran before the groups "
+                               "ahead of it in the batch")
+        out = torch.zeros_like(counts)
+        for c in rec[:g]:
+            out = out + c.to(counts.device)
+        return out
 
 
 def init_moe(gen: torch.Generator, cfg, device=None):
@@ -62,11 +97,13 @@ def _route(logits: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_ffn(params, x: torch.Tensor, cfg, dropless: bool = False):
+def moe_ffn(params, x: torch.Tensor, cfg, dropless: bool = False, dispatch=None):
     """x: (B, S, d) → (B, S, d), plus aux dict with load-balance stats.
 
     ``dropless=True`` sets capacity = T (no token ever dropped) — used
     for decode steps, where T is small and quality matters per token.
+    ``dispatch=(BatchDispatch, group, layer key)``: ``x`` is that group of a
+    batch split in equal groups, dispatched as the whole batch would be.
     """
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
@@ -77,10 +114,11 @@ def moe_ffn(params, x: torch.Tensor, cfg, dropless: bool = False):
     topv, topi = _route(logits, k)                                    # (T, k)
     probs = torch.softmax(topv, dim=-1)                               # normalize over k
 
+    total = t if dispatch is None else t * dispatch[0].groups
     if dropless:
-        capacity = t
+        capacity = total
     else:
-        capacity = int(min(t, max(1, round(t * k / e * cfg.capacity_factor))))
+        capacity = int(min(total, max(1, round(total * k / e * cfg.capacity_factor))))
 
     # position of each (token, choice) within its expert's capacity buffer
     onehot = F.one_hot(topi, e)                                       # (T, k, E)
@@ -88,6 +126,9 @@ def moe_ffn(params, x: torch.Tensor, cfg, dropless: bool = False):
     # The cumsum over T·k runs along the innermost axis of the transposed
     # copy: along dim 0 of (T·k, E), CUDA scans with one thread a column.
     pos_in_expert = torch.cumsum(flat.t().contiguous(), dim=1).t() - flat  # (T·k, E)
+    if dispatch is not None:           # after the earlier groups' pairs
+        batch, g, key = dispatch
+        pos_in_expert = pos_in_expert + batch.offsets(g, key, flat.sum(dim=0))
     pos = torch.sum(flat * pos_in_expert, dim=-1).reshape(t, k)       # (T, k)
     keep = pos < capacity                                             # overflow drop
 

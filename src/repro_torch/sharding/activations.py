@@ -6,10 +6,13 @@ MODEL)``-style calls: logical axes resolved against the ambient mesh
 (``BATCH`` → whichever of ('pod', 'data') exist, or all three axes in
 ``dp256`` mode, nothing in ``off`` mode; ``MODEL`` → 'model'), an axis
 dropped where the mesh's size does not divide the dim, and no constraint
-at all off a mesh.  One process has no partitioner: :func:`constrain`
+at all off a mesh.  The port has no partitioner to hint: its mesh train
+step places the parameters in shards itself (``sharding/resident.py``)
+and splits each step's batch over the ``data`` axis itself
+(``launch/train.py``, ``FedMesh.data_groups``).  So :func:`constrain`
 resolves the spec as the reference does and returns ``x`` unchanged, and
 :func:`resolve` is that resolution as a pure function of the dims, the
-logical axes, the mesh's axis sizes and the mode.
+logical axes, the mesh's axis sizes and the mode (the dry run's).
 """
 from __future__ import annotations
 

@@ -13,9 +13,12 @@ the same 32-bit seeds, and the decode moves no bytes between devices.
 * The **paths**: :func:`sharded_apply_blocks` (the decode on sharded
   views), :func:`sharded_server_update` (the same on a replicated tree)
   and :func:`sharded_project_tree` (the encode: the shards' partial
-  block scalars, then one sum of the k scalars).  Each runs one tree
-  launch per device (one per 64 (shard, leaf) entries) over a shard plan
-  (``kernels/tree.py::shard_plan``): the per-client decode
+  block scalars, then one sum of the k scalars).  The decode and the
+  encode also take a tree already resident in its shards
+  (``sharding/resident.py``: the mesh train step's parameters and
+  updates), and the decode the train close's per-client rounding.  Each
+  runs one tree launch per device (one per 64 (shard, leaf) entries) over
+  a shard plan (``kernels/tree.py::shard_plan``): the per-client decode
   (``csrc/seeded_reconstruct.cu``), the fused close
   (``csrc/reconstruct_apply.cu``) or the encode
   (``csrc/seeded_projection.cu``) on CUDA tensors, their plain tree
@@ -164,20 +167,20 @@ def upload_spec() -> tuple:
     return ()
 
 
+def _padded_view(leaf: torch.Tensor, ls: LeafShard, num_shards: int) -> torch.Tensor:
+    ll = ls.layout
+    x = leaf.reshape(ll.rows, ll.cols)
+    pr = ls.per_shard * num_shards - ll.rows if ls.axis == 0 else 0
+    pc = ls.per_shard * num_shards - ll.cols if ls.axis == 1 else 0
+    return torch.nn.functional.pad(x, (0, pc, 0, pr)) if pr or pc else x
+
+
 def to_sharded_2d(tree: Any, plan: FedShardPlan) -> list[torch.Tensor]:
     """Leaves → padded global 2-D views, ``num_shards · per_shard`` along
     the sharded axis (a leaf that needs no padding comes back as a view
     of the caller's tensor)."""
-    out = []
-    for ls, leaf in zip(plan.leaves, tree_leaves(tree)):
-        ll = ls.layout
-        x = leaf.reshape(ll.rows, ll.cols)
-        pr = ls.per_shard * plan.num_shards - ll.rows if ls.axis == 0 else 0
-        pc = ls.per_shard * plan.num_shards - ll.cols if ls.axis == 1 else 0
-        if pr or pc:
-            x = torch.nn.functional.pad(x, (0, pc, 0, pr))
-        out.append(x)
-    return out
+    return [_padded_view(leaf, ls, plan.num_shards)
+            for ls, leaf in zip(plan.leaves, tree_leaves(tree))]
 
 
 def _split(view, ls: LeafShard, mesh: FedMesh, copy: bool = False) -> list:
@@ -216,15 +219,15 @@ def from_sharded_2d(arrs, plan: FedShardPlan, like: Any) -> Any:
 def shard_tree(tree: Any, plan: FedShardPlan, mesh: FedMesh) -> list[list[torch.Tensor]]:
     """Place the padded views' shards on their devices (persistent
     residency): per leaf, the shards' local views, each a fresh contiguous
-    tensor.
+    tensor; one leaf is padded at a time.
 
     Pair with :func:`sharded_apply_blocks` to keep the global model
     sharded across rounds, so the per-round apply moves no parameter
     bytes.  (The federation engine keeps params replicated instead: its
     client compute and eval read the full model each round.)
     """
-    return [_split(view, ls, mesh, copy=True)
-            for ls, view in zip(plan.leaves, to_sharded_2d(tree, plan))]
+    return [_split(_padded_view(leaf, ls, plan.num_shards), ls, mesh, copy=True)
+            for ls, leaf in zip(plan.leaves, tree_leaves(tree))]
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +318,7 @@ def sharded_apply_blocks(
     block_weights: torch.Tensor | None = None,
     use_kernel: bool | None = None,
     use_fused: bool = False,
+    per_client_rounding: bool = False,
 ) -> list[list[torch.Tensor]]:
     """The decode on sharded views → per leaf, the shards' updated local
     views (fresh tensors, each on its shard's device).
@@ -326,8 +330,17 @@ def sharded_apply_blocks(
     per 64 entries), or of the fused close with ``use_fused``.
     ``use_kernel`` None takes the kernel on a card and the plain tree
     version elsewhere; False takes the plain version on any device.
+    ``per_client_rounding`` takes the train step's close (the per-client
+    decode's ``ROUND_ONE`` mode, as ``ops.server_update_kernel``'s): each
+    client's reconstruction rounded to the leaf dtype, then x + lr·(Σ/N)
+    (Σ alone with ``weights``).
     """
     rs, scale = fold_upload_weights(rs, server_lr, weights, mode, block_weights)
+    div = 1.0
+    if per_client_rounding:
+        if use_fused:
+            raise ValueError("the fused close has no per-client rounding")
+        scale, div = server_lr, (float(rs.shape[0]) if weights is None else 1.0)
     rs = rs.contiguous()
     k = rs.shape[1]
     dist = _dist_name(distribution)
@@ -343,7 +356,7 @@ def sharded_apply_blocks(
             ys = fn(entries, sd, rd, scale, tplan, dist)
         else:
             fn = reconstruct_tree if kernel else reconstruct_tree_plain
-            ys = fn(entries, sd, rd, scale, 1.0, tplan, dist)
+            ys = fn(entries, sd, rd, scale, div, tplan, dist, per_client_rounding)
         for j, y in enumerate(ys):
             s, i = divmod(j, len(local))
             out[i][ordinals[s]] = y
@@ -399,15 +412,24 @@ def sharded_project_tree(
     ≡ :func:`repro_torch.kernels.ops.project_tree_kernel` up to float32
     reassociation: each device encodes its shards' slices in one tree
     launch (and its reduction), then the devices' k partial scalars are
-    summed on the first device in shard order.
+    summed on the first device in shard order.  ``delta`` is a tree, split
+    here, or a resident tree (``sharding/resident.py``), whose shards are
+    encoded where they lie (its padding must be zero).
     """
-    if plan is None:
-        plan = plan_tree(delta, num_mesh_shards(mesh))
+    resident = getattr(delta, "shards", None)
+    if resident is not None:
+        plan = delta.plan
+        local = [[x.detach()[None] if x.dtype in LEAF_DTYPES
+                  else x.detach().to(torch.float32)[None] for x in sh]
+                 for sh in resident]
+    else:
+        if plan is None:
+            plan = plan_tree(delta, num_mesh_shards(mesh))
+        views = [x if x.dtype in LEAF_DTYPES else x.to(torch.float32)
+                 for x in to_sharded_2d(delta, plan)]
+        local = [[x[None] for x in _split(v, ls, mesh)]
+                 for ls, v in zip(plan.leaves, views)]
     dist = _dist_name(distribution)
-    views = [x if x.dtype in LEAF_DTYPES else x.to(torch.float32)
-             for x in to_sharded_2d(delta, plan)]
-    local = [[x[None] for x in _split(v, ls, mesh)]
-             for ls, v in zip(plan.leaves, views)]
     seeds = u32(seed).reshape(1)
     total = None
     for dev, _, entries, tplan in _device_entries(mesh, plan, local, "encode",

@@ -23,9 +23,13 @@ walked in ``jax.tree_util``'s order, dict keys sorted, a NamedTuple's
 fields in order, and a leaf's path renders as the reference's
 ``_path_str`` (keys and indices joined by ``/``, a NamedTuple field as
 ``.name``), so ``_STACKED_MARKERS`` match as there.  The reference's
-``named`` (a ``NamedSharding`` per spec) has no torch counterpart: one
-process places nothing over a mesh.  :func:`shard_shape` and
-:func:`per_device_bytes` give what it fixes, each device's shard.
+``named`` (a ``NamedSharding`` per spec, placed by ``jax.device_put``)
+has its counterpart in ``sharding/resident.py``, which places a tree in
+the federation server's shard layout (``fed_rules.plan_tree``: each
+leaf's 2-D view cut into contiguous slices) rather than in these specs'
+2-D blocks, whose blocks of a stacked leaf are not contiguous ranges of
+its view.  These specs stay the dry run's estimate: :func:`shard_shape`
+and :func:`per_device_bytes` give what they would place on each device.
 """
 from __future__ import annotations
 

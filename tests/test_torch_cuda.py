@@ -38,7 +38,13 @@ the plain blocked attention recurrence is held against the plain
 A bf16 leaf of 2³¹ + 2²⁰ elements goes through the encode (within
 ``encode_tolerance`` of its float64 plain sum), the fused close and the
 per-client decode (bitwise their plain versions on its first and last
-rows).
+rows).  The mesh train step runs on meshes whose entries all name the
+card: with one data group (deterministic algorithms on) its loss and
+every δ are the unsharded round's bit for bit, each r within
+``tree_encode_tolerance`` of its float64 encode, the close bitwise given
+the same r; on (2, 2) it is held to the unsharded round within the float32
+limits of ``tests/test_torch_mesh_train.py`` and, in bf16, r within
+2⁻⁸·√S·‖x‖₂; placement and checkpoints across meshes are bitwise.
 """
 import numpy as np
 import pytest
@@ -1472,3 +1478,159 @@ def test_cuda_qsgd_payload_past_2_31_columns(cuda_device):
     assert torch.equal(q[1], qp)
     assert torch.equal(pay[:, d:d + 64], lp.reshape(1, -1))
     assert torch.equal(pay[:, d + 64:], norms)
+
+
+# ---------------------------------------------------------------------------
+# the train step on a device mesh (sharding/resident.py): meshes whose
+# entries all name the one card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic():
+    """Deterministic algorithms (the embedding's backward sums in a fixed
+    order), so that two rounds can be compared bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _mesh_setup(dev, dtype, shape, name="smollm-360m"):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.models.api import Arch
+
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype)
+    if name == "smollm-360m":       # the GQA variant
+        cfg = dataclasses.replace(cfg, d_model=384, num_heads=6, num_kv_heads=2,
+                                  head_dim=64)
+    arch = Arch(cfg)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab_size,
+                                                             (8, 33))).to(dev)
+    mesh = make_fed_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+    return arch, arch.init(seed=0, device=dev), {"tokens": toks[:, :-1],
+                                                 "labels": toks[:, 1:]}, mesh
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 4), (1, 3)], ids=["1x4", "1x3"])
+def test_cuda_mesh_train_step_one_group_is_bitwise(cuda_device, deterministic, shape,
+                                                    dtype, monkeypatch):
+    """One data group on the card: the loss and every δ bitwise the unsharded
+    round's, each r (the sharded encode kernel) within
+    ``tree_encode_tolerance`` of the float64 encode of its δ, and, given the
+    unsharded r, the close (the per-client decode kernel on every mesh
+    entry) bitwise the unsharded close; two encode counts per entry and
+    client, one close launch per entry."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.sharding import fed_rules
+    from repro_torch.sharding.resident import shard_resident
+
+    arch, params, batch, mesh = _mesh_setup(cuda_device, dtype, shape)
+    fl = FLRunConfig(num_virtual_clients=2, local_steps=2, local_lr=0.05)
+    leaves = tree_leaves(params)
+    u_deltas, u_rs = [], []
+    project = ops.project_tree_kernel
+
+    def spy_u(delta, seeds, *a):
+        u_deltas.append([d[0].clone() for d in tree_leaves(delta)])
+        r = project(delta, seeds, *a)
+        u_rs.append(r[0])
+        return r
+
+    monkeypatch.setattr(ops, "project_tree_kernel", spy_u)
+    u_new, u_m = make_train_step(arch, fl)(params, batch, 4)
+    monkeypatch.undo()
+    plan = tree_plan("encode", [tuple(w.shape) for w in leaves], [w.dtype for w in leaves],
+                     1, ProjectionMode.FULL, cuda_device)
+    sharded = fed_rules.sharded_project_tree
+    seen = []
+
+    def spy_m(mesh_, delta, seed, *a):
+        i = len(seen)
+        for j, w in enumerate(u_deltas[i]):
+            assert torch.equal(delta.gather(j, cuda_device), w)
+        r = sharded(mesh_, delta, seed, *a)
+        exact = project_tree_plain([w[None] for w in u_deltas[i]], seed.reshape(1), plan,
+                                   dtype=torch.float64)
+        tol = tree_encode_tolerance([x[None] for x in delta.flat_shards()], "rademacher")
+        assert abs(float(r[0]) - float(exact[0, 0])) <= float(tol[0, 0])
+        seen.append(r)
+        return u_rs[i]
+
+    monkeypatch.setattr(fed_rules, "sharded_project_tree", spy_m)
+    enc0, rec0 = project_blocks.launches, reconstruct_apply_clients.launches
+    new, m = make_train_step(arch, fl, mesh=mesh)(shard_resident(params, mesh), batch, 4)
+    entries = len(mesh.device_groups())
+    assert project_blocks.launches - enc0 == 2 * 2 * entries
+    assert reconstruct_apply_clients.launches - rec0 == entries
+    assert len(seen) == 2 and torch.equal(m["loss"], u_m["loss"])
+    for j, w in enumerate(tree_leaves(u_new)):
+        assert torch.equal(new.gather(j, cuda_device), w)
+
+
+@pytest.mark.parametrize("name,dtype", [("smollm-360m", "float32"),
+                                        ("smollm-360m", "bfloat16"),
+                                        ("qwen3-moe-30b-a3b", "float32")])
+def test_cuda_mesh_train_step_two_data_groups(cuda_device, name, dtype):
+    """A (2, 2) mesh on the card against the unsharded round (the MoE
+    layers dispatching each data group as the whole batch): float32
+    within the CPU tests' limits (loss 1e-5, r 1e-5·(1 + |r|), params
+    Σₙ|Δrₙ|/N + 1e-6); bf16 r within 2⁻⁸·√S·‖x‖₂ and the params within
+    Σₙ(|Δrₙ| + 2⁻⁸(|rₙ| + |r'ₙ|))/N plus one bf16 ulp (each client's
+    reconstruction is rounded to bf16)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.sharding.resident import shard_resident
+
+    arch, params, batch, mesh = _mesh_setup(cuda_device, dtype, (2, 2), name)
+    fl = FLRunConfig(num_virtual_clients=2, local_steps=2, local_lr=0.05)
+    u_new, u_m = make_train_step(arch, fl)(params, batch, 6)
+    new, m = make_train_step(arch, fl, mesh=mesh)(shard_resident(params, mesh), batch, 6)
+    assert torch.equal(m["seeds"], u_m["seeds"])
+    dr = (m["r"] - u_m["r"]).abs()
+    if dtype == "float32":
+        assert abs(float(m["loss"]) - float(u_m["loss"])) <= 1e-5
+        assert bool((dr <= 1e-5 * (1 + u_m["r"].abs())).all())
+        spread, ulp = float(dr.sum()) / 2 + 1e-6, 0.0
+    else:
+        assert abs(float(m["loss"]) - float(u_m["loss"])) <= 1e-2
+        norm = float(sum((w.float() ** 2).sum() for w in tree_leaves(params))) ** 0.5
+        assert float(dr.max()) <= 2.0 ** -8 * 2 ** 0.5 * norm
+        spread = float((dr + 2.0 ** -8 * (m["r"].abs() + u_m["r"].abs())).sum()) / 2
+        ulp = 2.0 ** -7
+    for j, w in enumerate(tree_leaves(u_new)):
+        a, b = new.gather(j, cuda_device).float(), w.float()
+        assert bool(((a - b).abs() <= spread + ulp * torch.maximum(a.abs(), b.abs())).all())
+
+
+def test_cuda_resident_placement(cuda_device, tmp_path):
+    """Arch.init on a mesh of the card bitwise the unsharded init, every
+    period's gather the stacked leaf's slice, and a checkpoint saved from a
+    (2, 4) resident tree restored onto a (4, 2) one, bitwise."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.sharding.resident import ResidentTree
+
+    arch, params, _, mesh = _mesh_setup(cuda_device, "bfloat16", (2, 4))
+    rt = arch.init(seed=0, device=cuda_device, mesh=mesh)
+    assert isinstance(rt, ResidentTree)
+    stacked = rt.stacked_leaves(arch.stacked_keys)
+    for j, w in enumerate(tree_leaves(params)):
+        assert torch.equal(rt.gather(j, cuda_device), w)
+        for i in range(w.shape[0] if stacked[j] else 0):
+            assert torch.equal(rt.gather(j, cuda_device, i), w[i])
+    save_checkpoint(str(tmp_path), rt, step=2)
+    other = make_fed_mesh((4, 2), devices=[cuda_device] * 8)
+    got, step, _ = restore_checkpoint(str(tmp_path), params, mesh=other)
+    assert step == 2 and got.mesh is other
+    for a, b in zip(tree_leaves(got.unshard(cuda_device)), tree_leaves(params)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
