@@ -297,6 +297,30 @@ Phases (any failure exits non-zero and the final line is not printed):
    r within 1e-5·(1 + |r|) and its params within Σₙ|Δrₙ|/N + 1e-6 of the
    float32 unsharded round's (the card tests' float32 limits; a group's
    gradient lost or the groups' losses summed moves r by about |r|).
+22. serving from resident shards on a mesh (after phase 21;
+   ``models/api.py``, ``sharding/resident.py::place_rows``): SmolLM-360M
+   at full width and depth, bf16, batch 4, a 16 384-token prompt and 32
+   greedy steps through the serve steps, on (1, 4) and (2, 2) meshes of
+   four entries on the one card, in the reference's zero3 (one resident
+   tree) and tp (a resident tree a data row) layouts, beside the unsharded
+   serve of the whole batch and of each half: on (1, 4) the tokens, the
+   last logits and every cache tensor bitwise the unsharded serve's, on
+   (2, 2) each data group's bitwise the unsharded serve of its own two
+   rows; the flash launches exact (one prefill launch per attention layer
+   and group, one decode launch per attention layer, group and step) and
+   no other kernel; prefill s, decode ms a step and peak GiB each.
+23. the client-parallel step on a mesh (after phase 22;
+   ``launch/train.py::make_train_step_client_parallel(..., mesh=)``):
+   SmolLM-360M, bf16, N = 2, S = 2, 1 × 4096 tokens a step, on a (2, 2)
+   mesh of four entries on the one card (a client a data row, its replica
+   over the row's two entries) against the one-device client-parallel
+   round at the same N, S, batch and seeds: round s and peak GiB beside the
+   one-device round's and the meta estimate, the launches exact; then, with
+   deterministic algorithms, each δ bitwise the one-device step run on its
+   row's clients alone, each r within ``tree_encode_tolerance`` of the
+   float64 encode of that δ, and the close given the one-device r bitwise
+   the one-device close; a replica's resident bytes per entry beside
+   ``per_device_bytes`` under ``param_specs(layout="tp")``.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -445,6 +469,9 @@ MESH_SHAPES = ((1, 4), (2, 2))
 # groups sum the gradients in another order (≈ 1e-7 of r), and so do the
 # shards' partial encodes; the limits are the card tests' float32 ones.
 MESH_F32_LOSS_ATOL, MESH_F32_R_RTOL, MESH_F32_PARAM_SLACK = 1e-4, 1e-5, 1e-6
+# Phase 23: the client-parallel step on a (2, 2) mesh (N = 2, S = 2, 1 × 4096
+# a step: a client a data row).
+MESH_CP_CLIENTS, MESH_CP_STEPS = 2, 2
 # The flash kernels' names in the report, by flash_route's route.
 FLASH_KERNELS = {"prefill": "flash_prefill", "decode": "flash_decode",
                  "f32": "flash_attention"}
@@ -4859,6 +4886,292 @@ def phase_mesh_train(s: Smoke):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: serving from resident shards on a mesh
+# ---------------------------------------------------------------------------
+
+def _keep_logits(arch, keep):
+    """Wrap ``arch.prefill`` and ``arch.decode`` (which the serve steps call)
+    to keep the last logits they return in ``keep["logits"]``."""
+    for name in ("prefill", "decode"):
+        def wrapped(*a, _fn=getattr(arch, name), **k):
+            out = _fn(*a, **k)
+            keep["logits"] = out[0]
+            return out
+        setattr(arch, name, wrapped)
+
+
+def _mesh_serve_run(s: Smoke, arch, keep, params, inputs, groups):
+    """One prefill of ``inputs`` and ``SERVE_GEN`` greedy steps through the
+    serve steps, timed, the flash launches exact for ``groups`` data groups
+    (one prefill launch per attention layer and group, one decode launch
+    per attention layer, group and step) and no other kernel → the run's
+    tokens, last logits (``keep``: :func:`_keep_logits`'), caches (a
+    list, a group's each) and row."""
+    import torch
+
+    from repro_torch.launch.serve import make_decode_step, make_prefill_step
+
+    batch = inputs["tokens"].shape[0]
+    prefill = make_prefill_step(arch, capacity=SERVE_CAPACITY)
+    decode = make_decode_step(arch)
+    fns, counters = _kernel_fns(), _flash_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for fn in (*fns.values(), *counters.values()):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tok, caches = prefill(params, inputs)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    generated = [tok]
+    t0 = time.perf_counter()
+    for i in range(SERVE_GEN):
+        tok, caches = decode(params, tok.reshape(batch, 1), caches, SERVE_PROMPT + i)
+        generated.append(tok.reshape(batch))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stray = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = _attn_layers(arch.cfg)
+    want = {"all": groups * n_attn * (1 + SERVE_GEN), "prefill": groups * n_attn,
+            "decode": groups * n_attn * SERVE_GEN, "f32": 0}
+    if launches != want or stray:
+        raise AssertionError(f"mesh serve: flash launches {launches} (expected {want}), "
+                             f"other kernels {stray}")
+    row = dict(groups=groups, prefill_s=prefill_s,
+               decode_ms_per_step=decode_s / SERVE_GEN * 1e3,
+               peak_gib=peak / 2**30, peak_above_start_gib=(peak - start) / 2**30,
+               flash_launches=launches)
+    groups_caches = list(caches.groups) if hasattr(caches, "groups") else [caches]
+    return torch.stack(generated, dim=1), keep["logits"], groups_caches, row
+
+
+def _same_caches(a, b):
+    """Every tensor of two LayerCaches equal."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+
+    x, y = tree_leaves(tuple(a)), tree_leaves(tuple(b))
+    return len(x) == len(y) and all(torch.equal(p, q) for p, q in zip(x, y))
+
+
+def phase_mesh_serve(s: Smoke):
+    """SmolLM-360M served from resident shards on (1, 4) and (2, 2) meshes
+    of four entries on the card, in the reference's zero3 and tp layouts,
+    against the unsharded serve → the flash launches."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.models.api import Arch
+    from repro_torch.sharding.resident import place_rows, shard_resident
+
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    arch = Arch(cfg)
+    params = arch.init(seed=0, device=s.dev)
+    inputs = _frontend(cfg, SERVE_BATCH, SERVE_PROMPT, gen=s.gen, device=s.dev)
+    # warm-up on a short prompt (cuBLAS handles, the allocator): no flash
+    with torch.no_grad():
+        warm = {"tokens": inputs["tokens"][:, :64]}
+        _, caches = arch.prefill(params, warm, capacity=80)
+    del caches
+    keep = {}
+    _keep_logits(arch, keep)
+    half = SERVE_BATCH // 2
+    launches = {"prefill": 0, "decode": 0, "f32": 0}
+    rows = {}
+
+    def count(row):
+        for k in launches:
+            launches[k] += row["flash_launches"][k]
+
+    with torch.no_grad():
+        u_tok, u_logits, u_caches, u_row = _mesh_serve_run(s, arch, keep, params, inputs, 1)
+        count(u_row)
+        rows["unsharded"] = u_row
+        own = []
+        for g in range(2):
+            part = {k: v[g * half:(g + 1) * half] for k, v in inputs.items()}
+            tok, logits, caches, row = _mesh_serve_run(s, arch, keep, params, part, 1)
+            count(row)
+            rows[f"unsharded rows {g * half}-{(g + 1) * half - 1}"] = row
+            own.append((tok, logits, caches[0]))
+        checks = {}
+        for shape in MESH_SHAPES:
+            mesh = make_fed_mesh(shape, devices=[s.dev] * 4)
+            for layout, place in (("zero3", shard_resident), ("tp", place_rows)):
+                placed = place(params, mesh)
+                tok, logits, caches, row = _mesh_serve_run(s, arch, keep, placed,
+                                                           inputs, shape[0])
+                count(row)
+                name = f"{shape} {layout}"
+                if shape[0] == 1:
+                    ok = (torch.equal(tok, u_tok) and torch.equal(logits, u_logits)
+                          and _same_caches(caches[0], u_caches[0]))
+                else:
+                    ok = all(torch.equal(tok[g * half:(g + 1) * half], own[g][0])
+                             and torch.equal(logits[g * half:(g + 1) * half], own[g][1])
+                             and _same_caches(caches[g], own[g][2]) for g in range(2))
+                row.update(resident_bytes_per_entry=placed.resident_bytes(),
+                           prefill_over_unsharded=row["prefill_s"] / u_row["prefill_s"],
+                           decode_over_unsharded=(row["decode_ms_per_step"]
+                                                  / u_row["decode_ms_per_step"]))
+                rows[name], checks[name] = row, ok
+                del placed, caches, tok, logits
+    for name, row in rows.items():
+        print(f"mesh serve {name}: " + json.dumps(row), flush=True)
+    print("mesh serve checks (tokens, last logits and caches bitwise: (1, 4) the "
+          "unsharded serve's, (2, 2) each group its own rows'): " + json.dumps(checks),
+          flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"mesh serve: {checks}")
+    del params, u_caches, own
+    torch.cuda.empty_cache()
+    print(f"mesh serve: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the client-parallel step on a mesh
+# ---------------------------------------------------------------------------
+
+def phase_mesh_client_parallel(s: Smoke):
+    """SmolLM-360M's client-parallel round on a (2, 2) mesh of four entries
+    on the card (a client a data row, each replica over its row's two
+    entries) against the one-device client-parallel round → launches."""
+    import torch
+
+    import repro_torch.kernels.ops as ops
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.projection import ProjectionMode
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.dryrun import measure_fit
+    from repro_torch.launch.mesh import make_fed_mesh
+    from repro_torch.launch.train import FLRunConfig, make_train_step_client_parallel
+    from repro_torch.models.api import Arch
+    from repro_torch.sharding import fed_rules
+    from repro_torch.sharding.resident import place_rows, shard_resident
+    from repro_torch.sharding.rules import param_specs, per_device_bytes
+
+    t0 = time.perf_counter()
+    n, st = MESH_CP_CLIENTS, MESH_CP_STEPS
+    gb = n * st * TRAIN_PER_STEP
+    arch = Arch(get_config(TRAIN_ARCH))
+    cfg = arch.cfg
+    fl = FLRunConfig(n, st, local_lr=TRAIN_LR, server_lr=1.0)
+    meta = measure_fit(arch, "train_4k", variant="client_parallel", global_batch=gb,
+                       clients=n, local_steps=st)
+    params = arch.init(seed=0, device=s.dev)
+    leaves = tree_leaves(params)
+    toks = torch.randint(0, cfg.vocab_size, (gb, TRAIN_SEQ + 1), generator=s.gen,
+                         device=s.dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    mesh = make_fed_mesh((2, 2), devices=[s.dev] * 4)
+    x = shard_resident(params, mesh)
+    counters = _train_counters()
+    one_device = make_train_step_client_parallel(arch, fl)
+    on_mesh = make_train_step_client_parallel(arch, fl, param_specs(params, mesh,
+                                                                    layout="tp"),
+                                              mesh=mesh)
+    per = n // mesh.shape[0]
+    plan = tree_plan("encode", [tuple(w.shape) for w in leaves], [w.dtype for w in leaves],
+                     1, ProjectionMode.FULL, s.dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t1 = time.perf_counter()
+        out, got = _mesh_counted(counters, fn)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return out, got, dict(round_s=time.perf_counter() - t1, peak_gib=peak / 2**30,
+                              peak_above_start_gib=(peak - start) / 2**30, launches=got)
+
+    # ---- the timed rounds: one device, then the mesh ----
+    (u_new, u_m), u_launch, u_row = timed(lambda: one_device(params, batch, 1))
+    (m_new, m_m), m_launch, m_row = timed(lambda: on_mesh(x, batch, 1))
+    entries = len(mesh.row_mesh(0).device_groups())
+    want = {"encode": 2 * entries * n, "rec": len(mesh.device_groups())}
+    if u_launch != {"encode": 2, "rec": 1} or m_launch != want:
+        raise AssertionError(f"mesh client parallel: launches {u_launch} (one device), "
+                             f"{m_launch} (mesh; expected {want})")
+    launches = {k: u_launch.get(k, 0) + m_launch.get(k, 0) for k in ("encode", "rec")}
+    del m_new
+
+    # ---- the check rounds (deterministic algorithms: the embedding's
+    # backward sums in one order) ----
+    encode, sharded = ops.project_tree_kernel, fed_rules.sharded_project_tree
+    row_deltas, checks = [], []
+
+    def keep(d, seeds, *a):
+        stacked = tree_leaves(d)
+        row_deltas.extend([w[c].clone() for w in stacked]
+                          for c in range(stacked[0].shape[0]))
+        return encode(d, seeds, *a)
+
+    def check(row_mesh, delta, seed, *a):
+        i = len(checks)
+        r = sharded(row_mesh, delta, seed, *a)
+        same = all(torch.equal(delta.gather(j, s.dev), w)
+                   for j, w in enumerate(row_deltas[i]))
+        exact = project_tree_plain([w[None] for w in row_deltas[i]], seed.reshape(1),
+                                   plan, dtype=torch.float64)
+        tol = tree_encode_tolerance([w[None] for w in delta.flat_shards()], "rademacher")
+        checks.append(dict(client=i, delta_bitwise=same, r=float(r[0]),
+                           exact_r=float(exact[0, 0]),
+                           err=abs(float(r[0]) - float(exact[0, 0])),
+                           tol=float(tol[0, 0])))
+        return u_m["r"][i].to(r.dtype)      # the close takes the one-device r
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ops.project_tree_kernel = keep
+        row_fl = FLRunConfig(per, st, local_lr=TRAIN_LR, server_lr=1.0)
+        for r in range(mesh.shape[0]):
+            rows = slice(r * per * st * TRAIN_PER_STEP, (r + 1) * per * st * TRAIN_PER_STEP)
+            _, got = _mesh_counted(counters, lambda: make_train_step_client_parallel(
+                arch, row_fl)(params, {k: v[rows] for k, v in batch.items()}, 1))
+            launches = {k: launches[k] + got.get(k, 0) for k in launches}
+        ops.project_tree_kernel = encode
+        fed_rules.sharded_project_tree = check
+        (c_new, _), got = _mesh_counted(counters, lambda: on_mesh(x, batch, 1))
+        launches = {k: launches[k] + got.get(k, 0) for k in launches}
+    finally:
+        ops.project_tree_kernel, fed_rules.sharded_project_tree = encode, sharded
+        torch.use_deterministic_algorithms(False)
+    close_same = all(torch.equal(c_new.gather(j, s.dev), w)
+                     for j, w in enumerate(tree_leaves(u_new)))
+    replica = place_rows(x, mesh).rows[0]
+    tp_bytes = per_device_bytes(arch.param_shapes(), param_specs(arch.param_shapes(), mesh,
+                                                                 layout="tp"), mesh)
+    print("mesh client parallel: " + json.dumps(dict(
+        one_device=u_row, mesh=m_row, round_s_over_one_device=m_row["round_s"]
+        / u_row["round_s"], meta_peak_gib=meta["peak_bytes"] / 2**30,
+        loss=float(m_m["loss"]), one_device_loss=float(u_m["loss"]),
+        clients=checks, close_bitwise_given_r=close_same,
+        replica_resident_bytes_per_entry=replica.resident_bytes(),
+        per_device_bytes_tp_specs=tp_bytes,
+        x_resident_bytes_per_entry=x.resident_bytes())), flush=True)
+    bad = [c for c in checks if not (c["delta_bitwise"] and c["err"] <= c["tol"])]
+    if bad or not close_same or len(checks) != n:
+        raise AssertionError(f"mesh client parallel: {bad}, close bitwise {close_same}")
+    del params, x, u_new, c_new, row_deltas, replica
+    torch.cuda.empty_cache()
+    print(f"mesh client parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     src = REPO / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4929,8 +5242,11 @@ def _run(torch, t0, name, count, smi_line) -> int:
     big_launches, mc_launches, cp_launches = _phase_19(s, torch)
     tuned = phase_tune(s)
     mesh_launches = phase_mesh_train(s)
-    launches["encode"] += mesh_launches.get("encode", 0)
-    train_launches["rec"] = train_launches.get("rec", 0) + mesh_launches.get("rec", 0)
+    serve_mesh = phase_mesh_serve(s)
+    cp_mesh = phase_mesh_client_parallel(s)
+    for part in (mesh_launches, cp_mesh):
+        launches["encode"] += part.get("encode", 0)
+        train_launches["rec"] = train_launches.get("rec", 0) + part.get("rec", 0)
     launches["qsgd"] += big_launches.get("qsgd", 0)
     # phase 19's paths: the 2³² leaf, the card-vs-meta steps, the
     # client-parallel round
@@ -4942,7 +5258,8 @@ def _run(torch, t0, name, count, smi_line) -> int:
                       "decode": serve_launches["decode"], "f32": f32_launches}
     for k in flash_launches:
         flash_launches[k] += (fam_launches[k] + fam_serve[k] + vlm_launches[k]
-                              + vlm_serve[k] + mc_launches.get(f"flash_{k}", 0))
+                              + vlm_serve[k] + mc_launches.get(f"flash_{k}", 0)
+                              + serve_mesh[k])
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",

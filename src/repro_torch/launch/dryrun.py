@@ -8,8 +8,14 @@ the card, eagerly, on ``meta`` tensors (shapes and dtypes, no storage):
      params and inputs on ``meta``;
   2. the real step runs on them: ``launch/train.py``'s ``make_train_step``
      (N = 4 clients, S = 2 local steps, as the reference's dry run) or
-     ``make_train_step_client_parallel`` (``--variant client_parallel``),
-     ``make_prefill_step`` or ``make_decode_step``.  Every kernel wrapper
+     ``make_train_step_client_parallel`` (``--variant client_parallel``,
+     N = pod × data, a client a data row, as the reference's),
+     ``make_prefill_step`` or ``make_decode_step``.  The reference's other
+     variants: ``dp256`` (``make_train_step(dp_axes=("pod", "data",
+     "model"))`` under ``batch_mode("dp256")``; its FLOPs divided over every
+     device the global batch reaches), ``tp`` (weights over ``model``
+     alone in the per-device bytes and the roofline) and ``cf1`` (the
+     config at MoE capacity factor 1.0, in every mode).  Every kernel wrapper
      on the path takes its ``meta`` route: the launch plan is built as on
      the card (a plan that the card would refuse fails the dry run) and
      exactly the kernel's outputs and scratch are allocated;
@@ -28,7 +34,11 @@ single H100 holds, which ``chip_smoke.py`` checks against
 (``pod16x16``, ``pod2x16x16``) one process cannot run a device's share,
 so those records hold the per-device argument and output bytes from the
 specs and the roofline; their collectives are modelled only, by the
-roofline, as one-card records say too.
+roofline, as one-card records say too.  A decode step's cache bytes there
+are ``input_specs_sharding``'s estimate, as the reference's, which also
+shards each cache's ``head_dim`` over ``model``; the port's serve on a
+mesh (``models/api.py``) keeps each data row's caches whole on the row's
+device, so on a real mesh it holds more cache a device than the estimate.
 
 ``--fit`` takes the same figures from cheaper runs (:func:`measure_fit`:
 two and three periods of depth, extended linearly; one client's one
@@ -45,6 +55,7 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -67,6 +78,7 @@ from repro_torch.launch.train import (
 )
 from repro_torch.models.api import INPUT_SHAPES, Arch
 from repro_torch.models.lm import period_structure
+from repro_torch.sharding.activations import batch_mode
 from repro_torch.sharding.rules import (
     input_specs_sharding,
     param_specs,
@@ -84,6 +96,11 @@ OUTDIR = "experiments/dryrun_torch"
 H100_BYTES = 85_017_493_504
 # measure_fit's two depths, in periods
 FIT_PERIODS = (2, 3)
+# The reference's five variants (repro/launch/dryrun.py): the baseline;
+# dp256, the train batch over every mesh axis; client_parallel, a client a
+# data row; tp, weights over the model axis alone; cf1, MoE capacity 1.0.
+VARIANTS = ("baseline", "dp256", "client_parallel", "tp", "cf1")
+DP256_AXES = ("pod", "data", "model")
 
 
 def _storages(tree) -> dict:
@@ -154,15 +171,23 @@ def _cut(arch: Arch, periods: int | None) -> Arch:
 def _build(arch: Arch, shape_name: str, variant: str, global_batch: int | None,
            clients: int, local_steps: int):
     """→ (step, args, global batch) for one combination, on ``meta``."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: want one of {VARIANTS}")
+    if variant == "cf1":
+        # the reference's MoE iteration: capacity factor 1.25 → 1.0
+        arch = Arch(dataclasses.replace(arch.cfg, capacity_factor=1.0))
     seq, gb, mode = INPUT_SHAPES[shape_name]
     gb = gb if global_batch is None else global_batch
     specs = arch.input_specs(shape_name, gb)
     params = arch.param_shapes()
     if mode == "train":
         fl = FLRunConfig(num_virtual_clients=clients, local_steps=local_steps)
-        make = (make_train_step_client_parallel if variant == "client_parallel"
-                else make_train_step)
-        return make(arch, fl), (params, specs["batch"], 0), gb
+        if variant == "client_parallel":
+            step = make_train_step_client_parallel(arch, fl)
+        else:
+            step = make_train_step(arch, fl, dp_axes=DP256_AXES if variant == "dp256"
+                                   else ("data",))
+        return step, (params, specs["batch"], 0), gb
     if mode == "prefill":
         return make_prefill_step(arch, capacity=seq), (params, specs["batch"]), gb
     step = make_decode_step(arch, window=arch.serve_window(shape_name))
@@ -182,7 +207,9 @@ def measure_step(arch: Arch, shape_name: str, variant: str = "baseline",
     live = LiveBytes()
     argument = live.hold(args)
     flops = FlopCounterMode(display=False)
-    with flops, live:
+    # the reference's run_one lowers dp256 under batch_mode("dp256")
+    mode_ctx = batch_mode("dp256") if variant == "dp256" else contextlib.nullcontext()
+    with flops, live, mode_ctx:
         if mode == "train":
             out = step(*args)
         else:
@@ -209,17 +236,18 @@ def measure_fit(arch: Arch, shape_name: str, variant: str = "baseline",
     the first can differ: Falcon-Mamba-7B's prefill peaks 25 GiB higher at
     two periods than at one, and 0.2 GiB higher at three than at two; the
     enc-dec runs whole).
-    Clients: the sequential train step runs its clients' local steps one
-    after another and keeps one client's state at a time, so its peak is
-    one local step's; it runs one client's one step (N = S = 1 at the same
-    per-step batch) and its FLOPs count N·S times.
+    Clients: the sequential train step (every variant but
+    ``client_parallel``) runs its clients' local steps one after another
+    and keeps one client's state at a time, so its peak is one local
+    step's; it runs one client's one step (N = S = 1 at the same per-step
+    batch) and its FLOPs count N·S times.
     """
     seq, gb, mode = INPUT_SHAPES[shape_name]
     gb = gb if global_batch is None else global_batch
     steps = 1
     kw = dict(variant=variant, global_batch=gb, clients=clients,
               local_steps=local_steps)
-    if mode == "train" and variant == "baseline":
+    if mode == "train" and variant != "client_parallel":
         steps = clients * local_steps
         kw.update(global_batch=gb // steps, clients=1, local_steps=1)
     _, nper, _ = period_structure(arch.cfg)
@@ -252,15 +280,20 @@ def run_combo(arch_name: str, shape_name: str, meshes=("one_card",),
               clients: int = FL_CLIENTS, local_steps: int = FL_STEPS,
               fit: bool = False, capacity: int = H100_BYTES,
               save: bool = True, outdir: str = OUTDIR) -> list:
-    """The meta step of one (arch, shape) once, recorded for each mesh."""
+    """The meta step of one (arch, shape) once, recorded for each mesh;
+    ``client_parallel`` once for each cohort its meshes give (N = pod ×
+    data, as the reference's)."""
     arch = get_arch(arch_name)
-    kw = dict(variant=variant, global_batch=global_batch, clients=clients,
-              local_steps=local_steps)
-    m = (measure_fit if fit else measure_step)(arch, shape_name, **kw)
+    measured = {}
     records = []
     for mesh_name in meshes:
-        records.append(_record(arch, arch_name, shape_name, mesh_name, variant, m,
-                               capacity, clients, local_steps))
+        n = cohort(mesh_name, variant, clients)
+        if n not in measured:
+            measured[n] = (measure_fit if fit else measure_step)(
+                arch, shape_name, variant=variant, global_batch=global_batch,
+                clients=n, local_steps=local_steps)
+        records.append(_record(arch, arch_name, shape_name, mesh_name, variant,
+                               measured[n], capacity, n, local_steps))
         if save:
             os.makedirs(outdir, exist_ok=True)
             tag = f"{arch_name}__{shape_name}__{mesh_name}"
@@ -271,18 +304,29 @@ def run_combo(arch_name: str, shape_name: str, meshes=("one_card",),
     return records
 
 
+def cohort(mesh_name: str, variant: str, clients: int = FL_CLIENTS) -> int:
+    """The round's N on ``mesh_name``: ``clients``, or for
+    ``client_parallel`` a client a data row, pod × data (the reference's
+    ``dryrun.py``)."""
+    if variant != "client_parallel":
+        return clients
+    return MESHES[mesh_name]["pod"] * MESHES[mesh_name]["data"]
+
+
 def _record(arch: Arch, arch_name: str, shape_name: str, mesh_name: str,
             variant: str, m: dict, capacity: int, clients: int,
             local_steps: int) -> dict:
     one = mesh_name == "one_card"
     gb = m["global_batch"]
+    # the parameters' layout: the client-parallel replicas lie in the tp
+    # layout, a replica a data row
+    layout = "tp" if variant in ("tp", "client_parallel") else "zero3"
     if one:
         argument, output = m["argument_bytes"], m["output_bytes"]
     else:
         mesh = make_production_mesh(multi_pod=mesh_name == "pod2x16x16")
         specs = arch.input_specs(shape_name, gb)
         pshapes = arch.param_shapes()
-        layout = "tp" if variant == "tp" else "zero3"
         pspec = param_specs(pshapes, mesh, num_experts=arch.cfg.num_experts,
                             layout=layout)
         argument = per_device_bytes(pshapes, pspec, mesh)
@@ -298,14 +342,24 @@ def _record(arch: Arch, arch_name: str, shape_name: str, mesh_name: str,
                           clients=clients, local_steps=local_steps)
     sizes = MESHES[mesh_name]
     n_dev = sizes["pod"] * sizes["data"] * sizes["model"]
-    # the roofline's compute shards: the batch over (pod, data), and the
-    # model axis too under tp
-    shards = max(1, min(sizes["pod"] * sizes["data"], gb)) * (
-        sizes["model"] if variant == "tp" else 1)
+    # the roofline's compute shards: the batch over (pod, data), the model
+    # axis too under tp, and the batch over all three under dp256 (the
+    # reference's "removes the model-axis compute replication"); never
+    # more shards than the global batch has rows
+    if variant == "dp256":
+        shards = max(1, min(n_dev, gb))
+    else:
+        shards = max(1, min(sizes["pod"] * sizes["data"], gb)) * (
+            sizes["model"] if variant == "tp" else 1)
     peak = m["peak_bytes"] if one else None
+    extra = {}
+    if variant == "dp256":
+        extra["layout_note"] = ("the reference's roofline has no dp256 layout: "
+                                "its zero3 terms")
     return {
         "arch": arch_name, "shape": shape_name, "mesh": mesh_name,
-        "variant": variant, "num_devices": n_dev, "ok": True,
+        "variant": variant, "layout": layout, **extra,
+        "clients": clients, "num_devices": n_dev, "ok": True,
         "global_batch": gb, "meta_s": m["seconds"],
         "fit": bool(m.get("fit")),
         "per_device": {
@@ -357,8 +411,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--mesh", default=None, choices=list(PRODUCTION_MESHES),
                     help="one mesh (default: all three)")
-    ap.add_argument("--variant", default="baseline",
-                    choices=["baseline", "client_parallel", "tp"])
+    ap.add_argument("--variant", default="baseline", choices=list(VARIANTS))
     ap.add_argument("--fit", action="store_true",
                     help="measure_fit: two and three periods, one client step")
     ap.add_argument("--capacity-bytes", type=int, default=H100_BYTES,

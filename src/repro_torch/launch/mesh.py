@@ -15,7 +15,10 @@ tensors between devices with ``.to``; nothing here uses
 ``torch.distributed``.  The mesh train step
 (``launch/train.py::make_train_step(..., mesh=)``) keeps the parameters
 resident in those shards and splits each step's batch over the
-``data`` axis (:meth:`FedMesh.data_groups`).
+``data`` axis (:meth:`FedMesh.data_groups`), or over every entry with
+``dp_axes`` naming ``model`` (:meth:`FedMesh.entry_groups`); serving on a
+mesh splits its batch over the data rows too, and the reference's ``tp``
+layout keeps one replica a row (:meth:`FedMesh.row_mesh`).
 
 :func:`make_production_mesh` gives the dry run's meshes
 (``launch/dryrun.py``): the reference's 16 × 16 (``data``, ``model``)
@@ -78,6 +81,25 @@ class FedMesh:
         model = self.shape[-1] if self.axis_names[-1] == "model" else 1
         return [(self.shard_device(r * model), tuple(range(r * model, (r + 1) * model)))
                 for r in range(self.size // model)]
+
+    def entry_groups(self) -> list[tuple[torch.device, tuple[int, ...]]]:
+        """→ ``(device, (s,))`` for each shard ``s``: the D·M groups of a batch
+        split over every axis (the reference's ``dp_axes`` with ``model``,
+        its ``dp256`` variant), in shard order."""
+        return [(self.shard_device(s), (s,)) for s in range(self.size)]
+
+    def row_mesh(self, row: int) -> "FedMesh":
+        """The (1, M) mesh of row ``row``'s shards (:meth:`data_groups`'),
+        each on the device it has here, over the entries of ``devices``
+        that hold them: the place of one replica in the reference's ``tp``
+        layout (``sharding/resident.py::RowTrees``)."""
+        _, shards = self.data_groups()[row]
+        entries = [s * len(self.devices) // self.size for s in shards]
+        held = sorted(set(entries))
+        if any(entries.count(e) * len(held) != len(shards) for e in held):
+            held = entries                     # unequal shares: an entry a shard
+        return FedMesh(axis_names=("data", "model"), shape=(1, len(shards)),
+                       devices=tuple(self.devices[e] for e in held))
 
 
 def make_fed_mesh(shape: tuple = (1, 1), device="cuda",

@@ -6,7 +6,10 @@ protocol; serving exercises the trained global model.
 and picks the first token; ``make_decode_step`` is the one-token step
 (greedy next token included).  PyTorch runs eagerly, so the steps are
 plain closures, not jitted programs; the decode step updates the caches
-in place and returns them.
+in place and returns them.  On parameters resident on a mesh
+(``models/api.py``: the reference's zero3 and tp serve layouts) the
+caches are each data row's (``MeshCaches``) and the tokens come back in
+batch order.
 """
 from __future__ import annotations
 

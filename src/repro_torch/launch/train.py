@@ -78,7 +78,8 @@ from repro_torch.launch.mesh import FedMesh
 from repro_torch.models.moe import BatchDispatch
 from repro_torch.sharding import fed_rules
 from repro_torch.sharding.activations import batch_mode
-from repro_torch.sharding.resident import ResidentTree
+from repro_torch.sharding.resident import ReplicaStack, ResidentTree, place_rows
+from repro_torch.sharding.rules import _spec_paths, path_str
 
 __all__ = ["FLRunConfig", "make_train_step", "make_train_step_client_parallel"]
 
@@ -104,8 +105,12 @@ class FLRunConfig:
         )
 
 
+# The mesh axes a batch may be split over (the reference's ``dp_axes``).
+DP_AXES = ("pod", "data", "model")
+
+
 def make_train_step(arch, fl: FLRunConfig, window: Optional[int] = None,
-                    mesh: Optional[FedMesh] = None):
+                    mesh: Optional[FedMesh] = None, dp_axes: tuple = ("data",)):
     """→ ``train_step(params, batch, round_idx) -> (new_params, metrics)``.
 
     ``batch`` leaves lead with the global batch (``tokens``, ``labels``);
@@ -114,10 +119,16 @@ def make_train_step(arch, fl: FLRunConfig, window: Optional[int] = None,
     ``uploaded_scalars`` = N·(k+1), and the round's uploads ``r`` (N, k)
     and ``seeds`` (N,).  With ``mesh``, ``params`` and ``new_params`` are
     :class:`~repro_torch.sharding.resident.ResidentTree` s on it (the
-    module docstring).
+    module docstring).  ``dp_axes`` are the mesh axes the batch is split
+    over, as the reference's: ``("data",)`` (or with ``"pod"``) splits each
+    step's batch over the mesh's data rows, and with ``"model"`` over every
+    entry of the mesh (the reference's ``dp256`` variant); off a mesh the
+    split does not arise.
     """
+    if not dp_axes or any(a not in DP_AXES for a in dp_axes) or "data" not in dp_axes:
+        raise ValueError(f"dp_axes {dp_axes}: want 'data' and any of {DP_AXES}")
     if mesh is not None:
-        return _make_mesh_train_step(arch, fl, window, mesh)
+        return _make_mesh_train_step(arch, fl, window, mesh, dp_axes)
     pcfg = fl.protocol()
 
     def client_update(params, client_batches, s: int):
@@ -189,18 +200,19 @@ def _round_metrics(losses, rs, seeds, pcfg) -> dict:
 
 
 def _make_mesh_train_step(arch, fl: FLRunConfig, window: Optional[int],
-                          mesh: FedMesh):
+                          mesh: FedMesh, dp_axes: tuple):
     """``make_train_step`` on a mesh: the round on resident shards."""
     pcfg = fl.protocol()
-    groups = mesh.data_groups()
+    groups = mesh.entry_groups() if "model" in dp_axes else mesh.data_groups()
 
     def step_loss(p: ResidentTree, b):
-        """The mean over the data groups of each group's loss on its share,
-        the groups run in batch order (MoE dispatches the whole batch)."""
+        """The mean over the groups (data rows, or every entry) of each
+        group's loss on its share, the groups run in batch order (MoE
+        dispatches the whole batch)."""
         d = len(groups)
         per = tree_leaves(b)[0].shape[0]
         if per % d:
-            raise ValueError(f"per-step batch {per} does not split over {d} data groups")
+            raise ValueError(f"per-step batch {per} does not split over {d} groups")
         moe = BatchDispatch(d) if arch.cfg.num_experts and d > 1 else None
         losses = [arch.loss(p, tree_map(lambda x: x[g * (per // d):(g + 1) * (per // d)]
                                         .to(dev), b), window=window,
@@ -217,13 +229,10 @@ def _make_mesh_train_step(arch, fl: FLRunConfig, window: Optional[int],
         p = params.clone(requires_grad=True)
         lsum = _local_sgd(p.data_shards(), params.data_shards(),
                           lambda b: step_loss(p, b), client_batches, s, fl.local_lr)
-        return ResidentTree(mesh, p.plan, p.like,
-                            [[w.detach() for w in sh] for sh in p.shards]), lsum
+        return _detached(p), lsum
 
     def train_step(params: ResidentTree, batch: Any, round_idx):
-        if not isinstance(params, ResidentTree) or params.mesh != mesh:
-            raise TypeError(f"the mesh step takes a ResidentTree on its mesh "
-                            f"{mesh.shape} (sharding.resident.shard_resident)")
+        _check_resident(params, mesh)
         n, s = fl.num_virtual_clients, fl.local_steps
         sb = _split_batch(batch, n, s)
         seeds = round_seeds(int(round_idx), n, device=groups[0][0])
@@ -236,15 +245,32 @@ def _make_mesh_train_step(arch, fl: FLRunConfig, window: Optional[int],
             losses.append(lsum / s)
             del delta
         rs = torch.cat(rs)
-        with torch.no_grad():
-            shards = fed_rules.sharded_apply_blocks(
-                mesh, params.plan, params.shards, rs, seeds, pcfg.server_lr,
-                pcfg.distribution, mode=pcfg.mode, per_client_rounding=True)
-        new_params = ResidentTree(mesh, params.plan, params.like, shards)
-        new_params.clear_padding()
-        return new_params, _round_metrics(torch.stack(losses), rs, seeds, pcfg)
+        return (_mesh_close(mesh, params, rs, seeds, pcfg),
+                _round_metrics(torch.stack(losses), rs, seeds, pcfg))
 
     return train_step
+
+
+def _check_resident(params, mesh: FedMesh) -> None:
+    if not isinstance(params, ResidentTree) or params.mesh != mesh:
+        raise TypeError(f"the mesh step takes a ResidentTree on its mesh "
+                        f"{mesh.shape} (sharding.resident.shard_resident)")
+
+
+def _mesh_close(mesh: FedMesh, params: ResidentTree, rs, seeds, pcfg) -> ResidentTree:
+    """The per-client-rounding close on x's shards, where they lie."""
+    with torch.no_grad():
+        shards = fed_rules.sharded_apply_blocks(
+            mesh, params.plan, params.shards, rs, seeds, pcfg.server_lr,
+            pcfg.distribution, mode=pcfg.mode, per_client_rounding=True)
+    new_params = ResidentTree(mesh, params.plan, params.like, shards)
+    new_params.clear_padding()
+    return new_params
+
+
+def _detached(tree: ResidentTree) -> ResidentTree:
+    return ResidentTree(tree.mesh, tree.plan, tree.like,
+                        [[w.detach() for w in sh] for sh in tree.shards])
 
 
 def _split_batch(batch, n: int, s: int):
@@ -259,23 +285,42 @@ def _split_batch(batch, n: int, s: int):
 
 
 def make_train_step_client_parallel(arch, fl: FLRunConfig, param_spec_tp=None,
-                                    window: Optional[int] = None):
+                                    window: Optional[int] = None,
+                                    mesh: Optional[FedMesh] = None):
     """→ ``train_step(params, batch, round_idx) -> (new_params, metrics)``,
     the client-parallel placement; the same contract and metrics as
-    :func:`make_train_step`.
-
-    ``param_spec_tp`` is the reference's placement of the replicas over a
-    mesh's model axis.  This step runs on one device and takes it only so
-    that the signature matches the reference's; the mesh round is
-    :func:`make_train_step`'s ``mesh=`` (which keeps one replica at a
-    time).  The replicas' local steps run with
+    :func:`make_train_step`.  The replicas' local steps run with
     ``batch_mode("off")``, as the reference's (the client axis owns the
     data axis).
+
+    With ``mesh`` the clients live on its data rows, as the reference's
+    placement on its pod mesh: N/D clients a row (N a multiple of the D
+    rows), each client's replica in the row's ``tp`` placement
+    (``sharding/resident.py::place_rows``: resident over the row's M
+    entries), x the ``zero3`` :class:`ResidentTree` that
+    :func:`make_train_step`'s mesh step takes and returns.  A row's
+    replicas run under the one-device step's vmap, each period's slices
+    gathered from each replica's shards and stacked inside the period's
+    checkpoint (``ReplicaStack``), the gradients flowing back to each
+    replica's shards; each δ is encoded on the row's shards where it lies
+    (``fed_rules.sharded_project_tree``), and the close is the mesh step's
+    on x's shards.
+
+    ``param_spec_tp``, where given, is the reference's ``tp`` layout of the
+    replicas (``sharding/rules.py::param_specs(layout="tp")``): checked to
+    name no ``data`` or ``pod`` axis and only the mesh's axes, and to hold
+    one spec a parameter leaf; a mismatch raises.  Without a mesh the step
+    is the one-device step.
     """
-    del param_spec_tp
+    if param_spec_tp is not None:
+        _check_tp_specs(param_spec_tp, mesh)
+    if mesh is not None:
+        return _make_mesh_client_parallel_step(arch, fl, param_spec_tp, window, mesh)
     pcfg = fl.protocol()
 
     def train_step(params: Any, batch: Any, round_idx):
+        if param_spec_tp is not None:
+            _check_spec_count(param_spec_tp, len(tree_leaves(params)))
         n, s = fl.num_virtual_clients, fl.local_steps
         sb = _split_batch(batch, n, s)
         device = tree_leaves(params)[0].device
@@ -297,5 +342,72 @@ def make_train_step_client_parallel(arch, fl: FLRunConfig, param_spec_tp=None,
                 params, rs, seeds, pcfg.server_lr, pcfg.distribution,
                 mode=pcfg.mode, per_client_rounding=True)
         return new_params, _round_metrics(lsum / s, rs, seeds, pcfg)
+
+    return train_step
+
+
+def _check_tp_specs(specs, mesh: Optional[FedMesh]) -> None:
+    """The reference's ``tp`` layout: no spec names ``data`` or ``pod`` (the
+    replicas are whole over the rows), and every axis named is the
+    mesh's."""
+    axes = set(mesh.axis_names) if mesh is not None else set(DP_AXES)
+    for path, spec in _spec_paths(specs):
+        for entry in spec:
+            names = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            if "data" in names or "pod" in names or not set(names) <= axes:
+                raise ValueError(f"param_spec_tp at {path_str(path)} is {spec}: the "
+                                 f"tp layout shards over 'model' alone, on a mesh "
+                                 f"of axes {sorted(axes)}")
+
+
+def _check_spec_count(specs, leaves: int) -> None:
+    if len(_spec_paths(specs)) != leaves:
+        raise ValueError(f"param_spec_tp holds {len(_spec_paths(specs))} specs "
+                         f"for {leaves} parameter leaves")
+
+
+def _make_mesh_client_parallel_step(arch, fl: FLRunConfig, param_spec_tp,
+                                    window: Optional[int], mesh: FedMesh):
+    """``make_train_step_client_parallel`` on a mesh: N/D clients on each
+    data row, each replica resident over the row's entries."""
+    pcfg = fl.protocol()
+    rows = mesh.data_groups()
+    d = len(rows)
+
+    def train_step(params: ResidentTree, batch: Any, round_idx):
+        _check_resident(params, mesh)
+        if param_spec_tp is not None:
+            _check_spec_count(param_spec_tp, len(params.shards))
+        n, s = fl.num_virtual_clients, fl.local_steps
+        if n % d:
+            raise ValueError(f"{n} clients do not split over {d} data rows")
+        per_row = n // d
+        sb = _split_batch(batch, n, s)
+        seeds = round_seeds(int(round_idx), n, device=rows[0][0])
+        base = place_rows(params, mesh)              # x in each row's tp placement
+        rs, losses = [], []
+        with batch_mode("off"):
+            for r, (dev, _) in enumerate(rows):
+                x_row = base.rows[r]
+                reps = [x_row.clone(requires_grad=True) for _ in range(per_row)]
+                stack = ReplicaStack(reps)
+                lo = r * per_row
+                lsum = _local_sgd(
+                    [w for rep in reps for w in rep.data_shards()],
+                    [w for _ in reps for w in x_row.data_shards()],
+                    lambda b: arch.loss(stack, b, window=window, clients=True),
+                    tree_map(lambda x: x[lo:lo + per_row].transpose(0, 1).to(dev), sb),
+                    s, fl.local_lr)
+                del stack
+                for c, rep in enumerate(reps):
+                    rs.append(fed_rules.sharded_project_tree(
+                        rep.mesh, _detached(rep), seeds[lo + c], pcfg.distribution,
+                        pcfg.num_projections, pcfg.mode).to(rows[0][0])[None])
+                losses.append(lsum.to(rows[0][0]) / s)
+                del reps
+        del base
+        rs = torch.cat(rs)
+        return (_mesh_close(mesh, params, rs, seeds, pcfg),
+                _round_metrics(torch.cat(losses), rs, seeds, pcfg))
 
     return train_step

@@ -11,7 +11,10 @@ with uniform entry points:
 * ``loss(params, batch)``                 → scalar CE  (train shapes)
 * ``prefill(params, batch, capacity)``    → (logits, caches)
 * ``decode(params, token, caches, pos)``  → (logits, caches), caches
-  updated in place
+  updated in place; both also serve from parameters resident on a mesh
+  (the reference's ``zero3`` and ``tp`` serve layouts: a ``ResidentTree``,
+  or ``sharding/resident.py::place_rows``' ``RowTrees``), the batch split
+  over the data rows and each row's caches on its device (:class:`MeshCaches`)
 * ``init_caches(batch, capacity, device)``
 * ``param_shapes()``                      → the params as ``meta`` tensors
 * ``input_specs(shape_name)``             → ``meta`` stand-ins for every
@@ -27,7 +30,7 @@ run on the CUDA card unless the caller passes ``device="cpu"``, or
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,9 +38,10 @@ from repro_torch.device import generator_for, resolve_device
 from repro_torch.models import encdec as ed
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import BatchDispatch
 from repro_torch.sharding.resident import ResidentTree
 
-__all__ = ["Arch", "INPUT_SHAPES", "LONG_WINDOW"]
+__all__ = ["Arch", "INPUT_SHAPES", "LONG_WINDOW", "MeshCaches"]
 
 # The four assigned input shapes: name → (seq_len, global_batch, mode)
 INPUT_SHAPES = {
@@ -49,6 +53,30 @@ INPUT_SHAPES = {
 
 # Sliding window used by full-attention archs at 500k decode.
 LONG_WINDOW = 8192
+
+
+class MeshCaches(NamedTuple):
+    """The caches of a serve on a mesh: each data group's own (a
+    ``LayerCaches`` or ``DecCaches`` of its rows), on its device, in batch
+    order; ``Arch.prefill`` returns them and ``Arch.decode`` takes them."""
+    groups: tuple
+
+
+def _mesh_groups(params):
+    """→ ``(compute device, tree)`` per data row for parameters resident on
+    a mesh (``ResidentTree``: the reference's ``zero3`` serve; ``RowTrees``:
+    its ``tp`` serve), None for a plain tree."""
+    groups = getattr(params, "group_trees", None)
+    return None if groups is None else groups()
+
+
+def _rows(x, g: int, d: int, dev):
+    """Group ``g``'s rows of ``x``'s leading (batch) axis split in ``d``, on
+    ``dev``."""
+    b = x.shape[0]
+    if b % d:
+        raise ValueError(f"batch {b} does not split over {d} data groups")
+    return x[g * (b // d):(g + 1) * (b // d)].to(dev)
 
 
 class Arch:
@@ -95,15 +123,52 @@ class Arch:
 
     # ---------------- serving ----------------
     def prefill(self, params, batch, capacity: int, window: Optional[int] = None):
+        """→ (last-token logits, caches).  ``params`` resident on a mesh (a
+        ``ResidentTree``, or the ``tp`` layout's ``RowTrees``): the batch is
+        split over the mesh's data rows, each row's prefill runs on its
+        device with its caches there (→ :class:`MeshCaches`), each MoE layer
+        dispatching the row as the whole batch's (``moe.BatchDispatch``);
+        the logits come back in batch order on the first row's device."""
+        groups = _mesh_groups(params)
+        if groups is None:
+            return self._prefill(params, batch, capacity, window)
+        d = len(groups)
+        moe = BatchDispatch(d) if self.cfg.num_experts and d > 1 else None
+        logits, caches = [], []
+        for g, (dev, tree) in enumerate(groups):
+            part = {k: _rows(v, g, d, dev) for k, v in batch.items()}
+            out, c = self._prefill(tree, part, capacity, window,
+                                   None if moe is None else (moe, g))
+            logits.append(out.to(groups[0][0]))
+            caches.append(c)
+        return torch.cat(logits), MeshCaches(tuple(caches))
+
+    def _prefill(self, params, batch, capacity, window, moe_dispatch=None):
         if self.is_encdec:
             return ed.encdec_prefill(params, self.cfg, batch["embeds"],
                                      batch["tokens"], capacity=capacity,
                                      window=window)
         return lm.lm_prefill(params, self.cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), capacity=capacity,
-                             window=window)
+                             window=window, moe_dispatch=moe_dispatch)
 
     def decode(self, params, token, caches, position, window: Optional[int] = None):
+        """→ (logits, caches), the caches updated in place; on a mesh (as
+        :meth:`prefill`) each data row decodes its rows of ``token``
+        against its own caches of the :class:`MeshCaches` given."""
+        groups = _mesh_groups(params)
+        if groups is None:
+            return self._decode(params, token, caches, position, window)
+        if not isinstance(caches, MeshCaches) or len(caches.groups) != len(groups):
+            raise TypeError(f"a serve on {len(groups)} data rows takes the "
+                            "MeshCaches of its prefill")
+        d = len(groups)
+        logits = [self._decode(tree, _rows(token, g, d, dev), caches.groups[g],
+                               position, window)[0].to(groups[0][0])
+                  for g, (dev, tree) in enumerate(groups)]
+        return torch.cat(logits), caches
+
+    def _decode(self, params, token, caches, position, window):
         if self.is_encdec:
             return ed.encdec_decode(params, self.cfg, token, caches, position,
                                     window=window)

@@ -23,7 +23,8 @@ reference's ``constrain(...)`` calls are sharding hints for its
 partitioner, and are dropped.  :func:`encode` and :func:`encdec_loss`
 also take a resident tree (the mesh train step's), as ``lm.lm_forward``
 does: the unstacked leaves gathered once, each layer's weights (under
-:data:`STACKED_KEYS`) inside its checkpoint.
+:data:`STACKED_KEYS`) inside its checkpoint; so do :func:`encdec_prefill`
+and :func:`encdec_decode`, each decoder layer gathered as it starts.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from repro_torch.models.lm import (
     placer,
     remat_call,
     stack_slice,
+    unstacked,
 )
 from repro_torch.models.mlp import ffn, init_ffn
 
@@ -184,7 +186,8 @@ def encdec_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None,
     enc = encode(params, cfg, batch["embeds"], clients=clients)
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[-1], dtype=torch.int32, device=tokens.device)
-    x = cmap(lambda p, t: _dec_embed(p, cfg, t, positions))(params, tokens)
+    top = unstacked(params, STACKED_KEYS)
+    x = cmap(lambda p, t: _dec_embed(p, cfg, t, positions))(top, tokens)
     win = cfg.window if window is None else window
 
     def body(layer_enc, x):
@@ -194,7 +197,7 @@ def encdec_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None,
     for layer in _layers(params["dec_layers"], clients):
         x = remat_call(cmap(body), {"enc": enc, "layer": layer}, x, remat=True)
     x = cmap(lambda p, x: apply_norm(p, x, cfg.norm))(params["dec_norm"], x)
-    logits = cmap(lambda p, x: _logits(p, x))(params, x)
+    logits = cmap(lambda p, x: _logits(p, x))(top, x)
     return cmap(mean_nll)(logits, batch["labels"])
 
 
@@ -215,19 +218,27 @@ def init_decoder_caches(cfg: ModelConfig, batch: int, capacity: int,
 
 def _decoder_with_caches(params, cfg, x, caches: DecCaches, positions, window):
     """Every decoder layer, writing its cache slice in place (k, v and pos by
-    the attention itself, idx here)."""
+    the attention itself, idx here); a resident tree's layer gathered as it
+    starts and dropped after it (``remat_call`` with no checkpoint)."""
     st = caches.self_caches
-    for i, layer in enumerate(_layers(params["dec_layers"])):
+
+    def body(layer, x, i):
         cache = KVCache(*(t[i] for t in st))
         x, nc = _dec_sublayer(layer, x, cfg, caches.enc_states, positions,
                               cache=cache, update_cache=True, window=window)
         st.idx[i] = nc.idx
+        return x
+
+    for i, layer in enumerate(_layers(params["dec_layers"])):
+        x = remat_call(functools.partial(body, i=i), layer, x, remat=False)
     return apply_norm(params["dec_norm"], x, cfg.norm)
 
 
 def encdec_prefill(params, cfg: ModelConfig, frames, tokens,
                    capacity: Optional[int] = None, window: Optional[int] = None):
-    """Encode audio + consume the decoder prompt → (last logits, caches)."""
+    """Encode audio + consume the decoder prompt → (last logits, caches).
+    ``params`` may be resident in shards, as ``lm.lm_prefill``'s."""
+    params = compute_view(params, tokens.device, STACKED_KEYS)
     enc = encode(params, cfg, frames)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)
@@ -243,8 +254,9 @@ def encdec_decode(params, cfg: ModelConfig, token, caches: DecCaches, position,
     """One decode step.  token: (B, 1) int; position: int or () tensor.
 
     → (logits (B, 1, V), caches).  ``caches`` is updated in place and
-    returned.
+    returned.  ``params`` as :func:`encdec_prefill`'s.
     """
+    params = compute_view(params, token.device, STACKED_KEYS)
     emb = params["embed"]["embedding"]
     positions = torch.as_tensor(position, dtype=torch.int32, device=emb.device).reshape(1)
     x = _dec_embed(params, cfg, token, positions)

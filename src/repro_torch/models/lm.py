@@ -30,10 +30,14 @@ dropped.
 
 ``params`` may also be a tree resident in shards (the mesh train step's
 ``sharding/resident.py::ResidentTree``, or anything with its
-``compute_tree``): ``lm_forward`` then reads it through
-:func:`compute_view` on the inputs' device, which gathers the unstacked
-leaves once and each period's weights (under :data:`STACKED_KEYS`)
-inside that period's checkpoint (:func:`remat_call`).
+``compute_tree``): ``lm_forward``, ``lm_prefill`` and ``lm_decode`` then
+read it through :func:`compute_view` on the inputs' device, which
+gathers the unstacked leaves once a call and each period's weights
+(under :data:`STACKED_KEYS`) inside that period's checkpoint
+(:func:`remat_call`; serving gathers each period as it starts, with no
+checkpoint, so one period's weights are alive at a time).  A
+``ReplicaStack`` of resident replicas feeds the client-parallel forward
+(``clients=True``) in the same way, each period's slices stacked.
 """
 from __future__ import annotations
 
@@ -81,6 +85,7 @@ __all__ = [
     "remat_call",
     "STACKED_KEYS",
     "compute_view",
+    "unstacked",
 ]
 
 
@@ -248,21 +253,31 @@ def compute_view(params, device, stacked_keys: tuple):
     return params if compute is None else compute(device, stacked_keys)
 
 
+def unstacked(params, stacked_keys: tuple) -> dict:
+    """``params`` less its top-level ``stacked_keys``: what a stage outside
+    the period loop reads (a stacked leaf of a resident tree is no tensor,
+    and :func:`client_map`'s vmap takes tensors only)."""
+    return {k: v for k, v in params.items() if k not in stacked_keys}
+
+
 def stack_slice(tree, i: int, clients: bool = False):
     """Slice ``i`` of every stacked leaf of ``tree`` (views into the stacks):
     the i-th period's params, or the i-th layer's; with ``clients`` the
     stacks lead with a client axis, and slice ``i`` is taken behind it.  A
     leaf that is not a tensor (a resident tree's stacked leaf,
     ``sharding/resident.py::StackedLeaf``) gives its ``slice(i)``: the
-    slice's shards, gathered by :func:`remat_call`."""
+    slice's shards, gathered by :func:`remat_call`; under ``clients`` only
+    a stacked leaf of replicas (``ReplicaStack``'s) is taken."""
     if isinstance(tree, dict):
         return {k: stack_slice(v, i, clients) for k, v in tree.items()}
     if isinstance(tree, list):
         return [stack_slice(v, i, clients) for v in tree]
     if not isinstance(tree, torch.Tensor):
-        if clients:
-            raise ValueError("the client-parallel forward takes stacked "
-                             "replicas, not a resident tree")
+        if clients != getattr(tree, "clients", False):
+            raise ValueError("the client-parallel forward takes stacked replicas "
+                             "(sharding/resident.py::ReplicaStack), not one "
+                             "resident tree" if clients else
+                             "a stack of replicas feeds the client-parallel forward")
         return tree.slice(i)
     return tree[:, i] if clients else tree[i]
 
@@ -326,12 +341,13 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
     params = compute_view(params, (tokens if tokens is not None else embeds).device,
                           STACKED_KEYS)
     cmap = functools.partial(client_map, clients=clients)
+    top = unstacked(params, STACKED_KEYS)
     if embeds is None:
-        x = cmap(lambda p, t: _embed_inputs(p, cfg, t, None))(params, tokens)
+        x = cmap(lambda p, t: _embed_inputs(p, cfg, t, None))(top, tokens)
     elif tokens is None:
-        x = cmap(lambda p, e: _embed_inputs(p, cfg, None, e))(params, embeds)
+        x = cmap(lambda p, e: _embed_inputs(p, cfg, None, e))(top, embeds)
     else:
-        x = cmap(lambda p, t, e: _embed_inputs(p, cfg, t, e))(params, tokens, embeds)
+        x = cmap(lambda p, t, e: _embed_inputs(p, cfg, t, e))(top, tokens, embeds)
     positions = torch.arange(x.shape[-2], dtype=torch.int32, device=x.device)
     win = cfg.window if window is None else window
 
@@ -347,7 +363,7 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeds=None,
         x = remat_call(cmap(functools.partial(body, i=i)),
                        stack_slice(params["period"], i, clients), x, remat)
     x = cmap(lambda p, x: apply_norm(p, x, cfg.norm))(params["final_norm"], x)
-    return cmap(lambda p, x: _logits(p, cfg, x))(params, x)
+    return cmap(lambda p, x: _logits(p, cfg, x))(top, x)
 
 
 def lm_loss(params, cfg: ModelConfig, batch, window: Optional[int] = None,
@@ -398,30 +414,44 @@ def init_lm_caches(cfg: ModelConfig, batch: int, capacity: int, device="cuda"):
 
 
 def _scan_with_caches(params, cfg, x, caches, positions, window, prefix_len,
-                      decode):
+                      decode, moe_dispatch=None):
     """Run every period, writing each layer's cache slice in place (the KV
     ring's k, v and pos by the attention itself, its idx and the Mamba
-    state here)."""
+    state here).  A resident tree's period is gathered as the period
+    starts (:func:`remat_call` with no checkpoint) and dropped after it;
+    ``moe_dispatch``: as :func:`lm_forward`'s."""
     plen, nper, kinds = period_structure(cfg)
-    for i in range(nper):
-        period_slice = stack_slice(params["period"], i)
+
+    def body(period_slice, x, i):
         for pos, (kind, ffn_kind) in enumerate(kinds):
             st = caches.caches[pos]
             cache = type(st)(*(t[i] for t in st))
             x, nc = _sublayer_fwd(period_slice[pos], x, cfg, kind, ffn_kind,
                                   positions, window, prefix_len, cache=cache,
-                                  update_cache=True, decode=decode)
+                                  update_cache=True, decode=decode,
+                                  moe_dispatch=None if moe_dispatch is None
+                                  else (*moe_dispatch, (i, pos)))
             if kind == "attn":
                 st.idx[i] = nc.idx
             else:
                 st.h[i].copy_(nc.h)
                 st.conv[i].copy_(nc.conv)
+        return x
+
+    for i in range(nper):
+        x = remat_call(functools.partial(body, i=i), stack_slice(params["period"], i),
+                       x, remat=False)
     return x, caches
 
 
 def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None,
-               capacity: Optional[int] = None, window: Optional[int] = None):
-    """Process the full prompt, fill caches → (last-token logits, caches)."""
+               capacity: Optional[int] = None, window: Optional[int] = None,
+               moe_dispatch=None):
+    """Process the full prompt, fill caches → (last-token logits, caches).
+    ``params`` may be resident in shards (read through :func:`compute_view`
+    on the inputs' device); ``moe_dispatch``: as :func:`lm_forward`'s."""
+    params = compute_view(params, (tokens if tokens is not None else embeds).device,
+                          STACKED_KEYS)
     x = _embed_inputs(params, cfg, tokens, embeds)
     b, s = x.shape[0], x.shape[1]
     cap = capacity or s
@@ -429,7 +459,8 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeds=None,
     caches = init_lm_caches(cfg, b, cap, device=x.device)
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     x, caches = _scan_with_caches(params, cfg, x, caches, positions, win,
-                                  cfg.prefix_bidirectional, decode=False)
+                                  cfg.prefix_bidirectional, decode=False,
+                                  moe_dispatch=moe_dispatch)
     x = apply_norm(params["final_norm"], x[:, -1:], cfg.norm)
     return _logits(params, cfg, x), caches
 
@@ -439,8 +470,10 @@ def lm_decode(params, cfg: ModelConfig, token, caches, position,
     """One decode step.  token: (B, 1) int; position: int or () tensor.
 
     → (logits (B, 1, V), caches).  ``caches`` is updated in place and
-    returned.
+    returned.  ``params`` as :func:`lm_prefill`'s (the MoE layers run
+    dropless, so a batch split in groups needs no dispatch).
     """
+    params = compute_view(params, token.device, STACKED_KEYS)
     emb = params["embed"]["embedding"]
     x = emb[token]
     positions = torch.as_tensor(position, dtype=torch.int32,

@@ -36,7 +36,8 @@ from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch.mesh import FedMesh
 from repro_torch.sharding.fed_rules import FedShardPlan, plan_tree, shard_tree
 
-__all__ = ["ResidentTree", "StackedLeaf", "ShardSlice", "shard_resident"]
+__all__ = ["ResidentTree", "StackedLeaf", "ShardSlice", "RowTrees", "ReplicaStack",
+           "shard_resident", "place_rows"]
 
 
 class ShardSlice:
@@ -51,19 +52,33 @@ class ShardSlice:
 
 class StackedLeaf:
     """A stacked leaf of a resident tree inside a forward on ``device``:
-    :meth:`slice` hands out each period's :class:`ShardSlice`."""
+    :meth:`slice` hands out each period's :class:`ShardSlice`.  With
+    ``clients`` it is the same leaf of N replicas (``trees``, one plan),
+    and a slice gathers each replica's and stacks them on a leading client
+    axis (the client-parallel forward, ``models/lm.py::stack_slice(...,
+    clients=True)``)."""
 
-    def __init__(self, tree: "ResidentTree", leaf: int, device: torch.device):
-        self.tree, self.leaf, self.device = tree, leaf, device
+    def __init__(self, trees: list, leaf: int, device: torch.device,
+                 clients: bool = False):
+        self.trees, self.leaf, self.device, self.clients = list(trees), leaf, device, clients
 
     @property
     def shape(self) -> tuple:
-        return self.tree.plan.leaves[self.leaf].layout.shape
+        lead = (len(self.trees),) if self.clients else ()
+        return lead + tuple(self.trees[0].plan.leaves[self.leaf].layout.shape)
 
     def slice(self, index: int) -> ShardSlice:
-        tree, leaf, dev = self.tree, self.leaf, self.device
-        return ShardSlice(tree.pieces(leaf, index),
-                          lambda parts: tree.assemble(leaf, parts, dev, index))
+        leaf, dev = self.leaf, self.device
+        pieces = [t.pieces(leaf, index) for t in self.trees]
+
+        def build(parts):
+            out, at = [], 0
+            for tree, p in zip(self.trees, pieces):
+                out.append(tree.assemble(leaf, parts[at:at + len(p)], dev, index))
+                at += len(p)
+            return torch.stack(out) if self.clients else out[0]
+
+        return ShardSlice([x for p in pieces for x in p], build)
 
 
 class ResidentTree:
@@ -201,9 +216,15 @@ class ResidentTree:
         :class:`StackedLeaf` whose periods are gathered inside their
         checkpoints."""
         device = torch.device(device)
-        leaves = [StackedLeaf(self, j, device) if stacked else self.gather(j, device)
+        leaves = [StackedLeaf([self], j, device) if stacked else self.gather(j, device)
                   for j, stacked in enumerate(self.stacked_leaves(stacked_keys))]
         return tree_unflatten(self.like, leaves)
+
+    def group_trees(self) -> list[tuple[torch.device, "ResidentTree"]]:
+        """→ ``(compute device, this tree)`` per data row of the mesh: a
+        serve of the reference's ``zero3`` layout, each row's slice of the
+        batch gathering from every shard (``models/api.py``)."""
+        return [(dev, self) for dev, _ in self.mesh.data_groups()]
 
     def stacked_leaves(self, stacked_keys: tuple) -> list[bool]:
         """Per leaf: does it lie under one of the top-level keys
@@ -268,3 +289,66 @@ def shard_resident(tree: Any, mesh: FedMesh) -> ResidentTree:
     plan = plan_tree(tree, mesh.size)
     return ResidentTree(mesh, plan, _meta(tree), shard_tree(tree, plan, mesh))
 
+
+class RowTrees:
+    """The reference's ``tp`` layout (``param_specs(layout="tp")``: weights
+    over ``model`` only, replicated over ``data``) on ``mesh``: one
+    :class:`ResidentTree` a data row, over that row's M entries
+    (``FedMesh.row_mesh``), so a row's forward gathers from its own row
+    alone.  Built by :func:`place_rows`."""
+
+    def __init__(self, mesh: FedMesh, rows: list[ResidentTree]):
+        if len(rows) != len(mesh.data_groups()):
+            raise ValueError(f"{len(rows)} row trees for a mesh of "
+                             f"{len(mesh.data_groups())} data rows")
+        self.mesh, self.rows = mesh, rows
+
+    def group_trees(self) -> list[tuple[torch.device, ResidentTree]]:
+        """→ ``(compute device, the row's tree)`` per data row."""
+        return [(dev, row) for (dev, _), row in zip(self.mesh.data_groups(), self.rows)]
+
+    def resident_bytes(self) -> list[int]:
+        """Bytes held by each row's entries, row after row."""
+        return [b for row in self.rows for b in row.resident_bytes()]
+
+
+def place_rows(tree: Any, mesh: FedMesh) -> RowTrees:
+    """``tree`` (a tree on any device, or a :class:`ResidentTree` of any
+    mesh) in the ``tp`` layout on ``mesh``: each row's tree is
+    ``ResidentTree.empty`` on the row's entries, written one leaf at a time
+    (a resident tree's leaf gathered onto the row's device first), so the
+    whole tree never sits on one device."""
+    src = tree if isinstance(tree, ResidentTree) else None
+    leaves = None if src is not None else [w.detach() for w in tree_leaves(tree)]
+    like = src.like if src is not None else tree
+    rows = []
+    for r, (dev, _) in enumerate(mesh.data_groups()):
+        row = ResidentTree.empty(like, mesh.row_mesh(r))
+        for j in range(len(row.shards)):
+            row.write(j, src.gather(j, dev) if src is not None else leaves[j])
+        rows.append(row)
+    return RowTrees(mesh, rows)
+
+
+class ReplicaStack:
+    """N replicas of one model, each a :class:`ResidentTree` of one plan (the
+    client-parallel step's clients of a data row, each in the row's ``tp``
+    placement), read as the stacked ``(N, …)`` tree of the one-device
+    client-parallel forward (``Arch.loss(..., clients=True)``): through
+    :meth:`compute_tree` each leaf outside the stacks is gathered from each
+    replica and stacked once, each stacked leaf hands out periods that
+    gather and stack each replica's slice inside their checkpoint, and the
+    gradients flow back to each replica's shards."""
+
+    def __init__(self, replicas: list[ResidentTree]):
+        if not replicas or any(r.plan != replicas[0].plan for r in replicas):
+            raise ValueError("a replica stack takes one or more trees of one plan")
+        self.replicas = replicas
+
+    def compute_tree(self, device, stacked_keys: tuple) -> Any:
+        device = torch.device(device)
+        reps = self.replicas
+        leaves = [StackedLeaf(reps, j, device, clients=True) if stacked
+                  else torch.stack([r.gather(j, device) for r in reps])
+                  for j, stacked in enumerate(reps[0].stacked_leaves(stacked_keys))]
+        return tree_unflatten(reps[0].like, leaves)

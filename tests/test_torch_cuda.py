@@ -45,6 +45,12 @@ every δ are the unsharded round's bit for bit, each r within
 the same r; on (2, 2) it is held to the unsharded round within the float32
 limits of ``tests/test_torch_mesh_train.py`` and, in bf16, r within
 2⁻⁸·√S·‖x‖₂; placement and checkpoints across meshes are bitwise.
+Serving from resident shards (both of the reference's serve layouts,
+the flash kernels on a short prompt) is bitwise the unsharded serve on
+(1, 4) and, group by group, the unsharded serve of the group's own rows
+on (2, 2); the client-parallel step on (2, 2) gives each δ bitwise the
+one-device step's on its row's clients, each r within
+``tree_encode_tolerance``, and the close bitwise given the same r.
 """
 import numpy as np
 import pytest
@@ -1634,3 +1640,115 @@ def test_cuda_resident_placement(cuda_device, tmp_path):
     assert step == 2 and got.mesh is other
     for a, b in zip(tree_leaves(got.unshard(cuda_device)), tree_leaves(params)):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# serving from resident shards and the client-parallel step on a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["zero3", "tp"])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_cuda_mesh_serve_is_bitwise(cuda_device, shape, layout, monkeypatch):
+    """Reduced GQA SmolLM in bf16 served from resident shards on the card
+    (the blocked threshold at 16, so the flash kernels serve a 40-token
+    prompt): on (1, 4) the logits and every cache tensor bitwise the
+    unsharded serve's, on (2, 2) each data group's bitwise the unsharded
+    serve of its own rows; one flash prefill launch per layer and group,
+    one decode launch per layer, group and step."""
+    import repro_torch.models.attention as t_attention
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.sharding.resident import place_rows, shard_resident
+
+    monkeypatch.setattr(t_attention, "BLOCKED_SDPA_THRESHOLD", 16)
+    arch, params, batch, mesh = _mesh_setup(cuda_device, "bfloat16", shape)
+    tokens = torch.cat([batch["tokens"]] * 2, dim=1)[:4, :40]
+
+    def serve(p, tok):
+        with torch.no_grad():
+            logits, caches = arch.prefill(p, {"tokens": tok}, capacity=48)
+            out = [logits]
+            for i in range(3):
+                nxt = torch.argmax(logits[:, -1], dim=-1, keepdim=True).to(torch.int32)
+                logits, caches = arch.decode(p, nxt, caches, 40 + i)
+                out.append(logits)
+        groups = caches.groups if hasattr(caches, "groups") else (caches,)
+        return out, [tree_leaves(tuple(c)) for c in groups]
+
+    place = shard_resident if layout == "zero3" else place_rows
+    before = [f.launches for f in (fa.flash_prefill, fa.flash_decode, fa.flash_f32)]
+    got, got_caches = serve(place(params, mesh), tokens)
+    launched = [f.launches - n for f, n in
+                zip((fa.flash_prefill, fa.flash_decode, fa.flash_f32), before)]
+    d, layers = shape[0], arch.cfg.num_layers
+    assert launched == [d * layers, d * layers * 3, 0]
+    rows = tokens.shape[0] // d
+    for g in range(d):
+        want, want_caches = serve(params, tokens[g * rows:(g + 1) * rows])
+        for a, b in zip(got, want):
+            assert torch.equal(a[g * rows:(g + 1) * rows], b)
+        assert all(torch.equal(a, b) for a, b in zip(got_caches[g], want_caches[0]))
+
+
+def test_cuda_mesh_client_parallel_step(cuda_device, deterministic, monkeypatch):
+    """The client-parallel step on a (2, 2) mesh of the card (reduced GQA
+    SmolLM, bf16, N = 4, S = 2): each δ bitwise the one-device step run on
+    its row's clients alone, each r (the sharded encode kernel over the
+    row's entries) within ``tree_encode_tolerance`` of the float64 encode
+    of its δ, and, given the one-device r, the close bitwise the one-device
+    close; two encode counts per row entry and client, one close launch
+    per mesh entry."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.seeded_projection import (
+        project_tree_plain,
+        tree_encode_tolerance,
+    )
+    from repro_torch.kernels.tree import tree_plan
+    from repro_torch.launch.train import FLRunConfig, make_train_step_client_parallel
+    from repro_torch.sharding import fed_rules
+    from repro_torch.sharding.resident import shard_resident
+
+    arch, params, batch, mesh = _mesh_setup(cuda_device, "bfloat16", (2, 2))
+    fl = FLRunConfig(num_virtual_clients=4, local_steps=2, local_lr=0.05)
+    u_new, u_m = make_train_step_client_parallel(arch, fl)(params, batch, 4)
+    encode = ops.project_tree_kernel
+    row_deltas = []
+
+    def keep(d, seeds, *a):
+        stacked = tree_leaves(d)
+        row_deltas.extend([w[c].clone() for w in stacked] for c in range(stacked[0].shape[0]))
+        return encode(d, seeds, *a)
+
+    monkeypatch.setattr(ops, "project_tree_kernel", keep)
+    row_fl = FLRunConfig(num_virtual_clients=2, local_steps=2, local_lr=0.05)
+    for r in range(2):
+        make_train_step_client_parallel(arch, row_fl)(
+            params, {k: v[r * 4:(r + 1) * 4] for k, v in batch.items()}, 4)
+    monkeypatch.undo()
+    leaves = tree_leaves(params)
+    plan = tree_plan("encode", [tuple(w.shape) for w in leaves], [w.dtype for w in leaves],
+                     1, ProjectionMode.FULL, cuda_device)
+    sharded = fed_rules.sharded_project_tree
+    seen = []
+
+    def check(row_mesh, delta, seed, *a):
+        i = len(seen)
+        for j, w in enumerate(row_deltas[i]):
+            assert torch.equal(delta.gather(j, cuda_device), w)
+        r = sharded(row_mesh, delta, seed, *a)
+        exact = project_tree_plain([w[None] for w in row_deltas[i]], seed.reshape(1),
+                                   plan, dtype=torch.float64)
+        tol = tree_encode_tolerance([x[None] for x in delta.flat_shards()], "rademacher")
+        assert abs(float(r[0]) - float(exact[0, 0])) <= float(tol[0, 0])
+        seen.append(r)
+        return u_m["r"][i]
+
+    monkeypatch.setattr(fed_rules, "sharded_project_tree", check)
+    enc0, rec0 = project_blocks.launches, reconstruct_apply_clients.launches
+    new, m = make_train_step_client_parallel(arch, fl, mesh=mesh)(
+        shard_resident(params, mesh), batch, 4)
+    row_entries = len(mesh.row_mesh(0).device_groups())
+    assert project_blocks.launches - enc0 == 2 * row_entries * 4
+    assert reconstruct_apply_clients.launches - rec0 == len(mesh.device_groups())
+    assert len(seen) == 4 and torch.equal(m["seeds"], u_m["seeds"])
+    for j, w in enumerate(tree_leaves(u_new)):
+        assert torch.equal(new.gather(j, cuda_device), w)

@@ -15,7 +15,12 @@
 * ``measure_fit`` (two and three periods, one client's step) gives
   ``measure_step``'s FLOPs exactly and its peak within 2% (train) and 1%
   (prefill);
-* the CLI writes one record per mesh.
+* the CLI writes one record per mesh;
+* the reference's other variants: ``cf1`` (the MoE dispatch at capacity
+  factor 1.0: the reference's capacity, fewer FLOPs; a dense config's
+  figures unchanged), ``dp256`` (the FLOPs a device over pod·data·model)
+  and ``client_parallel``'s cohort of pod × data clients with the ``tp``
+  specs' argument bytes.
 """
 import dataclasses
 import json
@@ -320,3 +325,98 @@ def test_train_step_hands_softmax_contiguous_operands():
         make_train_step(arch, FLRunConfig(2, 1))(
             arch.param_shapes(), arch.input_specs("train_4k", 2)["batch"], 0)
     assert strided == []
+
+
+# ---------------------------------------------------------------------------
+# the reference's dp256 and cf1 variants, and client_parallel's cohort
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_cf1_shrinks_the_moe_dispatch(shape, monkeypatch):
+    """Reduced Qwen3-MoE at two experts a token (which drops): cf1's
+    capacity is the reference's C = min(T, max(1, round(T·k/E·1.0))), its
+    FLOPs are below the baseline's, and so is its peak where the (E, C, d)
+    dispatch holds the peak (the prefill).  The train step's peak lies in
+    the attention scores of a 4096-token sequence, which cf1 leaves as it
+    is."""
+    arch = TArch(dataclasses.replace(t_registry.get_config("qwen3-moe-30b-a3b").reduced(),
+                                     experts_per_token=2))
+    seen = []
+    einsum = torch.einsum
+
+    def spy(eq, *ops_):
+        if eq == "ecd,edf->ecf":
+            seen.append(ops_[0].shape[1])
+        return einsum(eq, *ops_)
+
+    monkeypatch.setattr(torch, "einsum", spy)
+    figures = {v: dryrun.measure_fit(arch, shape, variant=v, global_batch=CUT[shape])
+               for v in ("baseline", "cf1")}
+    monkeypatch.undo()
+    cfg = arch.cfg
+    tokens = INPUT_SHAPES[shape][0]      # one sequence a step (the cut batch)
+    want = int(min(tokens, max(1, round(tokens * cfg.experts_per_token
+                                        / cfg.num_experts * 1.0))))
+    cf125 = int(min(tokens, max(1, round(tokens * cfg.experts_per_token
+                                         / cfg.num_experts * cfg.capacity_factor))))
+    assert sorted(set(seen)) == sorted({want, cf125})
+    base, cf1 = figures["baseline"], figures["cf1"]
+    assert cf1["flops"] < base["flops"] and cf1["peak_bytes"] <= base["peak_bytes"]
+    if shape == "prefill_32k":
+        assert cf1["peak_bytes"] < base["peak_bytes"]
+    assert cf1["argument_bytes"] == base["argument_bytes"]
+
+
+def test_cf1_on_a_dense_config_is_the_baseline():
+    arch = _family_arch("smollm-360m")[0]
+    base = dryrun.measure_fit(arch, "train_4k", global_batch=CUT["train_4k"])
+    cf1 = dryrun.measure_fit(arch, "train_4k", variant="cf1", global_batch=CUT["train_4k"])
+    for key in ("argument_bytes", "output_bytes", "alias_bytes", "peak_bytes", "flops"):
+        assert cf1[key] == base[key], key
+
+
+def test_cli_writes_dp256_and_cf1_records(tmp_path):
+    for variant, shape in (("dp256", "train_4k"), ("cf1", "decode_32k")):
+        dryrun.main(["--arch", "smollm-360m", "--shape", shape, "--variant", variant,
+                     "--fit", "--outdir", str(tmp_path)])
+    recs = {p.name: json.loads(p.read_text()) for p in tmp_path.iterdir()}
+    assert sorted(recs) == sorted(
+        [f"smollm-360m__train_4k__{m}__dp256.json" for m in dryrun.PRODUCTION_MESHES]
+        + [f"smollm-360m__decode_32k__{m}__cf1.json" for m in dryrun.PRODUCTION_MESHES])
+    for mesh in ("pod16x16", "pod2x16x16"):
+        rec = recs[f"smollm-360m__train_4k__{mesh}__dp256.json"]
+        sizes = dryrun.MESHES[mesh]
+        devices = sizes["pod"] * sizes["data"] * sizes["model"]
+        pd = rec["per_device"]
+        # the global batch of 256 over every device it reaches
+        assert pd["flops"] == pd["flops_step"] / min(devices, rec["global_batch"])
+        assert rec["layout"] == "zero3" and "dp256" in rec["layout_note"]
+        assert rec["roofline"]["layout"] == "zero3"
+    one = recs["smollm-360m__decode_32k__one_card__cf1.json"]
+    assert one["variant"] == "cf1" and one["layout"] == "zero3"
+    assert one["per_device"]["peak_bytes_est"] >= one["per_device"]["argument_bytes"]
+
+
+def test_client_parallel_takes_a_client_a_data_row():
+    """N = pod × data, as the reference's dry run; the replicas' argument
+    bytes from the tp specs."""
+    assert [dryrun.cohort(m, "client_parallel") for m in
+            ("one_card", "pod16x16", "pod2x16x16")] == [1, 16, 32]
+    assert dryrun.cohort("pod16x16", "baseline") == dryrun.FL_CLIENTS
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding.rules import input_specs_sharding, param_specs, per_device_bytes
+
+    arch = t_registry.get_arch("smollm-360m")
+    m = dict(argument_bytes=0, output_bytes=0, alias_bytes=0, peak_bytes=0, flops=1.0,
+             global_batch=256, seconds=0.0)
+    rec = dryrun._record(arch, "smollm-360m", "train_4k", "pod16x16", "client_parallel",
+                         m, dryrun.H100_BYTES, 16, 2)
+    mesh = make_production_mesh()
+    shapes = arch.param_shapes()
+    batch = arch.input_specs("train_4k")
+    want = (per_device_bytes(shapes, param_specs(shapes, mesh, layout="tp"), mesh)
+            + per_device_bytes(batch["batch"], input_specs_sharding(batch["batch"], mesh,
+                                                                     256), mesh)
+            + batch["round_idx"].element_size())
+    assert rec["per_device"]["argument_bytes"] == want
+    assert rec["layout"] == "tp" and rec["clients"] == 16

@@ -32,6 +32,9 @@ Tolerances, with their reasons:
 * Placement: ``shard_resident`` → ``unshard``, every ``gather``,
   ``Arch.init(mesh=)`` and a checkpoint restored onto another mesh, all
   bitwise.
+* ``dp_axes=("data", "model")`` (the reference's ``dp256`` variant) on
+  (1, 4) and (2, 2): each step's batch split over every mesh entry, the
+  round within the float32 limits above of the unsharded round.
 """
 import dataclasses
 
@@ -379,3 +382,31 @@ def test_a_mesh_naming_cuda_raises_without_a_card():
         make_fed_mesh((1, 4), devices=["cuda"] * 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_fed_mesh((2, 2), device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# (g) dp_axes with "model": the batch over every entry (the dp256 variant)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_dp256_splits_the_batch_over_every_entry(shape, monkeypatch):
+    """Each local step's batch over the mesh's D·M entries, a row of it each
+    (``FedMesh.entry_groups``): the round within the float32 limits above
+    of the unsharded round."""
+    arch = Arch(_cfg("smollm-360m"))
+    params = arch.init(seed=2, device="cpu")
+    batch = _batch(arch.cfg, 8, 12, 3)
+    fl = FLRunConfig(num_virtual_clients=2, local_steps=1, local_lr=0.05)
+    want, want_m = make_train_step(arch, fl)(params, batch, 5)
+    mesh = _mesh(shape)
+    rows = []
+    loss = arch.loss
+    monkeypatch.setattr(arch, "loss", lambda p, b, **kw: rows.append(
+        b["tokens"].shape[0]) or loss(p, b, **kw))
+    new, m = make_train_step(arch, fl, mesh=mesh, dp_axes=("data", "model"))(
+        shard_resident(params, mesh), batch, 5)
+    assert rows == [1] * 8               # 4 entries × 2 clients × 1 step
+    assert len(mesh.entry_groups()) == 4
+    _close_enough(new.unshard("cpu"), want, m, want_m)
+    with pytest.raises(ValueError, match="dp_axes"):
+        make_train_step(arch, fl, mesh=mesh, dp_axes=("model",))
