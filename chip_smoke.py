@@ -594,16 +594,15 @@ class Smoke:
         float64 norm (a zero leaf's exactly 1) and the same bits on a rerun."""
         from repro_torch.kernels.qsgd_quant import (
             norm_tolerance,
-            qsgd_quantize,
             qsgd_tree,
             qsgd_tree_plain,
         )
         from repro_torch.kernels.tree import MAX_TREE_LEAVES
         torch = self.torch
         n, levels = seeds.shape[0], (1 << (bits - 1)) - 1
-        before = qsgd_quantize.launches
+        before = _totals()["qsgd.launches"]
         q, pay, norms = qsgd_tree(leaves, seeds, levels, want_q=True, want_levels=True)
-        launches = qsgd_quantize.launches - before
+        launches = _totals()["qsgd.launches"] - before
         q2, pay2, norms2 = qsgd_tree(leaves, seeds, levels, want_q=True,
                                      want_levels=True)
         torch.cuda.synchronize()
@@ -686,7 +685,6 @@ class Smoke:
         from repro_torch.core.tree import tree_leaves
         from repro_torch.kernels import ops
         from repro_torch.kernels.seeded_projection import (
-            project_blocks,
             project_tree_plain,
             tree_encode_tolerance,
         )
@@ -697,10 +695,10 @@ class Smoke:
         mode = ProjectionMode(mode)
         plan = tree_plan("encode", [tuple(x.shape[1:]) for x in leaves],
                          [x.dtype for x in leaves], k, mode, self.dev)
-        before = project_blocks.launches
+        before = _totals()["encode.launches"]
         got = ops.project_tree_kernel(deltas, seeds, Distribution(family), k, mode)
         again = ops.project_tree_kernel(deltas, seeds, Distribution(family), k, mode)
-        launches = project_blocks.launches - before
+        launches = _totals()["encode.launches"] - before
         want = project_tree_plain(leaves, seeds, plan, family, dtype=torch.float64)
         torch.cuda.synchronize()
         if launches != 4 * len(plan.groups) or not torch.equal(got, again):
@@ -723,20 +721,17 @@ class Smoke:
         from repro_torch.core.projection import ProjectionMode
         from repro_torch.core.tree import tree_leaves
         from repro_torch.kernels import ops
-        from repro_torch.kernels.reconstruct_apply import (
-            fused_reconstruct_apply,
-            fused_tree_plain,
-        )
+        from repro_torch.kernels.reconstruct_apply import fused_tree_plain
         from repro_torch.kernels.tree import tree_plan
         torch = self.torch
         mode = ProjectionMode(mode)
         leaves = tree_leaves(params)
         plan = tree_plan("close", [tuple(x.shape) for x in leaves],
                          [x.dtype for x in leaves], k, mode, self.dev)
-        before = fused_reconstruct_apply.launches
+        before = _totals()["close.launches"]
         got = tree_leaves(ops.server_update_fused(params, rs, seeds, 0.9,
                                                   Distribution(family), mode=mode))
-        launches = fused_reconstruct_apply.launches - before
+        launches = _totals()["close.launches"] - before
         frs, scale = ops.fold_upload_weights(rs, 0.9, None, mode, None)
         want = fused_tree_plain(leaves, seeds, frs, scale, plan, family)
         torch.cuda.synchronize()
@@ -759,10 +754,7 @@ class Smoke:
         from repro_torch.core.projection import ProjectionMode
         from repro_torch.core.tree import tree_leaves
         from repro_torch.kernels import ops
-        from repro_torch.kernels.seeded_reconstruct import (
-            reconstruct_apply_clients,
-            reconstruct_tree_plain,
-        )
+        from repro_torch.kernels.seeded_reconstruct import reconstruct_tree_plain
         from repro_torch.kernels.tree import tree_plan
         torch = self.torch
         mode = ProjectionMode(mode)
@@ -770,11 +762,11 @@ class Smoke:
         n = rs.shape[0]
         plan = tree_plan("decode", [tuple(x.shape) for x in leaves],
                          [x.dtype for x in leaves], k, mode, self.dev)
-        before = reconstruct_apply_clients.launches
+        before = _totals()["decode.launches"]
         got = tree_leaves(ops.server_update_kernel(params, rs, seeds, 0.9,
                                                    Distribution(family), mode=mode,
                                                    per_client_rounding=rounding))
-        launches = reconstruct_apply_clients.launches - before
+        launches = _totals()["decode.launches"] - before
         frs, scale = ops.fold_upload_weights(rs, 0.9, None, mode, None)
         scale, div = (0.9, float(n)) if rounding else (scale, 1.0)
         want = reconstruct_tree_plain(leaves, seeds, frs, scale, div, plan, family,
@@ -1222,14 +1214,36 @@ def phase_tree_kernels(s: Smoke):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def _kernel_fns():
-    from repro_torch.kernels.qsgd_quant import qsgd_quantize
-    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply
-    from repro_torch.kernels.seeded_projection import project_blocks
-    from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients
+def _totals():
+    """The port's counters so far (``repro_torch.obs``)."""
+    from repro_torch import obs
 
-    return {"encode": project_blocks, "fused": fused_reconstruct_apply,
-            "rec": reconstruct_apply_clients, "qsgd": qsgd_quantize}
+    return obs.totals()
+
+
+class Launches(dict):
+    """Kernel launch counters by key (key → the port's counter name),
+    read as the launches since the last :meth:`reset`."""
+
+    def __init__(self, names):
+        super().__init__(names)
+        self.reset()
+
+    def reset(self) -> None:
+        self.base = _totals()
+
+    def read(self) -> dict:
+        now = _totals()
+        return {k: now[c] - self.base[c] for k, c in self.items()}
+
+    def moved(self) -> dict:
+        """The counters that moved since the last reset."""
+        return {k: n for k, n in self.read().items() if n}
+
+
+def _kernel_fns():
+    return Launches({"encode": "encode.launches", "fused": "close.launches",
+                     "rec": "decode.launches", "qsgd": "qsgd.launches"})
 
 
 def phase_runtime(s: Smoke):
@@ -1253,13 +1267,12 @@ def phase_runtime(s: Smoke):
                             participation=RT_PARTICIPATION, eval_every=1,
                             seed=0, **over)
         params = init_mlp(seed=0, device="cuda")
-        for fn in fns.values():
-            fn.launches = 0
+        fns.reset()
         t0 = time.perf_counter()
         h = run_federation(cfg, params, clients, xte, yte, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {k: fn.launches for k, fn in fns.items()}
+        got = fns.read()
         for k in launches:
             launches[k] += got[k]
         missing = [k for k in expect if got[k] == 0]
@@ -1359,10 +1372,10 @@ def _check_modeled(name, s, h, row):
 
 
 def _sched_launches(name, cfg, h, fns, expect):
-    """The wrappers' counts since they were set to 0, held to a scheduled
+    """The launches since ``fns`` was reset, held to a scheduled
     run: the encode and QSGD twice a chunk, each close kernel in
     ``expect`` once a round, and nothing outside ``expect``."""
-    got = {k: fn.launches for k, fn in fns.items()}
+    got = fns.read()
     chunks = int(sum(-(-int(c) // cfg.client_chunk) for c in h["cohort_size"]))
     want = {"encode": 2 * chunks, "rec": cfg.rounds, "fused": cfg.rounds,
             "qsgd": 2 * chunks}
@@ -1390,8 +1403,7 @@ def _phase_scheduler(clients, xte, yte, fns, launches):
     for name, (over, sched, expect, csv_mode) in SCHED_RUNS.items():
         cfg = _sched_config(over, sched)
         params = init_mlp(seed=0, device="cuda")
-        for fn in fns.values():
-            fn.launches = 0
+        fns.reset()
         t0 = time.perf_counter()
         h = run_federation(cfg, params, clients, xte, yte, device="cuda")
         torch.cuda.synchronize()
@@ -1449,13 +1461,12 @@ def _phase_scheduler(clients, xte, yte, fns, launches):
                             rounds=SCHED_PARITY_ROUNDS)
         hs = {}
         for dev in ("cuda", "cpu"):
-            for fn in fns.values():
-                fn.launches = 0
+            fns.reset()
             hs[dev] = run_federation(cfg, init_mlp(seed=2, device=dev), clients,
                                      xte, yte, device=dev)
             if dev == "cuda":
                 got = _sched_launches(name, cfg, hs[dev], fns, expect)
-            elif any(fn.launches for fn in fns.values()):
+            elif any(fns.read().values()):
                 raise AssertionError(f"runtime {name}: the CPU run launched "
                                      "a kernel")
         for key in stat_keys:
@@ -1482,8 +1493,7 @@ def _phase_scheduler(clients, xte, yte, fns, launches):
              channel=ChannelConfig(base_latency_s=0.05, lognormal_sigma=0.5)),
         dict(mode="async", period_s=0.004, max_rounds_in_flight=4,
              quorum_frac=0.5, staleness_window=2, audit_queues=True), rounds=2)
-    for fn in fns.values():
-        fn.launches = 0
+    fns.reset()
     t0 = time.perf_counter()
     h = run_federation(cfg, init_mlp(seed=0, device="cuda"), clients, xte, yte,
                        device="cuda")
@@ -1527,16 +1537,15 @@ def phase_main_path(s: Smoke):
     x, y = load_digits()
     xtr, ytr, xte, yte = train_test_split_arrays(x, y)
     clients = make_client_datasets(xtr, ytr, 20)
-    fns = {k: fn for k, fn in _kernel_fns().items() if k != "rec"}
+    fns = Launches({k: c for k, c in _kernel_fns().items() if k != "rec"})
     launches = dict.fromkeys(fns, 0)
     for method in MAIN_METHODS:
         cfg = SimulationConfig(method=method, rounds=MAIN_ROUNDS, num_clients=20,
                                local_steps=5, batch_size=32, seed=0)
         params = init_mlp(seed=0, device="cuda")
-        for fn in fns.values():
-            fn.launches = 0
+        fns.reset()
         h = run_simulation(cfg, params, clients, xte, yte, device="cuda")
-        got = {k: fn.launches for k, fn in fns.items()}
+        got = fns.read()
         for k in launches:
             launches[k] += got[k]
         expect = MAIN_KERNELS.get(method, ("encode", "fused"))
@@ -1635,11 +1644,11 @@ def phase_times(s: Smoke):
     def fus_plain():
         fused_tree_plain(p_leaves, seeds, rs, 1.0 / n, fus_plan)
 
-    e0, f0 = project_blocks.launches, fused_reconstruct_apply.launches
+    e0, f0 = _totals()["encode.launches"], _totals()["close.launches"]
     enc_kernel()
     fus_kernel()
-    per_round = {"encode": project_blocks.launches - e0,
-                 "fused": fused_reconstruct_apply.launches - f0}
+    per_round = {"encode": _totals()["encode.launches"] - e0,
+                 "fused": _totals()["close.launches"] - f0}
     # plain, kernel, kernel, plain: two turns each, on one card.
     t = {}
     for name, fn in (("enc_plain", enc_plain), ("enc_kernel", enc_kernel),
@@ -1763,12 +1772,12 @@ def phase_times_runtime(s: Smoke):
                             tq.quant_seeds(3, ids, s.dev), 127, want_q=False,
                             want_levels=True)
 
-    r0 = reconstruct_apply_clients.launches
+    r0 = _totals()["decode.launches"]
     rec_kernel()
-    rec_launches = reconstruct_apply_clients.launches - r0
-    q0 = qsgd_quantize.launches
+    rec_launches = _totals()["decode.launches"] - r0
+    q0 = _totals()["qsgd.launches"]
     q_kernel()
-    q_launches = qsgd_quantize.launches - q0
+    q_launches = _totals()["qsgd.launches"] - q0
     t = {}
     for name, fn, reps in (("rec_plain", rec_plain, 3), ("rec_kernel", rec_kernel, 50),
                            ("rec_kernel2", rec_kernel, 50), ("rec_plain2", rec_plain, 3),
@@ -1954,7 +1963,7 @@ def _flash_time_row(s: Smoke, route, b, s_len, t, h, kh, hd, dtype, qpos, kpos):
              SDPBackend.CUDNN_ATTENTION]
     if fa.flash_route(s_len, h, kh, dtype) != route:
         raise AssertionError(f"flash times: the {route} shape routes elsewhere")
-    kernel_fn = _flash_counters()[route]
+    kernel = _flash_counters()[route]
     q = s.randn(b, s_len, h, hd).to(dtype)
     k = s.randn(b, t, kh, hd).to(dtype)
     v = s.randn(b, t, kh, hd).to(dtype)
@@ -1981,11 +1990,11 @@ def _flash_time_row(s: Smoke, route, b, s_len, t, h, kh, hd, dtype, qpos, kpos):
 
     tt = {"plain": s.time_ms(lambda: fa.flash_attention_plain(q, k, v, qpos, kpos),
                              reps=1, warmup=1)}
-    before = kernel_fn.launches
+    before = _totals()[kernel]
     tt["kernel"] = s.time_ms(kern, reps=reps, warmup=1)
     tt["library"] = s.time_ms(lib, reps=reps, warmup=1)
     tt["kernel2"] = s.time_ms(kern, reps=reps, warmup=1)
-    if kernel_fn.launches - before != 2 * (reps + 1):
+    if _totals()[kernel] - before != 2 * (reps + 1):
         raise AssertionError(f"flash times: {route} timed another kernel")
     ref = lib().transpose(1, 2).float()
     lib_err = float((ref - kern().float()).abs().max())
@@ -2032,10 +2041,8 @@ def phase_flash_times(s: Smoke):
 
 
 def _flash_counters():
-    import repro_torch.kernels.flash_attention as fa
-
-    return {"all": fa.flash_attention, "prefill": fa.flash_prefill,
-            "decode": fa.flash_decode, "f32": fa.flash_f32}
+    return Launches({"all": "flash.launches", "prefill": "flash_prefill.launches",
+                     "decode": "flash_decode.launches", "f32": "flash_f32.launches"})
 
 
 def _positions(cfg, batch):
@@ -2118,20 +2125,19 @@ def _card_vs_cpu(s: Smoke, cfg, hooks=None, prefill_kernel=True):
                                                              (PARITY_GEN, 1, 1)))
     logits, caches = {}, {}
     for dev in (s.dev, cpu):
-        for fn in counters.values():
-            fn.launches = 0
+        counters.reset()
         with hooks(dev) if hooks else contextlib.nullcontext():
             logits[dev], caches[dev] = _serve_logits(
                 arch, params[dev], {k: x.to(dev) for k, x in batch.items()},
                 feed.to(dev))
         if dev == s.dev:
             torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters.items()}
+            launches = counters.read()
     n_attn = _attn_layers(cfg)
     n_pre = n_attn if prefill_kernel else 0
     want = {"all": n_pre + n_attn * PARITY_GEN, "prefill": 0,
             "decode": n_attn * PARITY_GEN, "f32": n_pre}
-    if launches != want or any(fn.launches for fn in counters.values()):
+    if launches != want or any(counters.read().values()):
         raise AssertionError(f"{cfg.name}: flash launches {launches} on the card "
                              f"(expected {want}), or the CPU run launched a kernel")
     err = float((logits[s.dev] - logits[cpu]).abs().max())
@@ -2199,11 +2205,10 @@ def phase_serve_parity(s: Smoke):
     rng = np.random.RandomState(0)
     tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, PARITY_PROMPT))).to(s.dev)
     feed = torch.from_numpy(rng.randint(0, cfg.vocab_size, (PARITY_GEN, 1, 1))).to(s.dev)
-    for fn in counters.values():
-        fn.launches = 0
+    counters.reset()
     kern, _ = _serve_logits(arch, params, {"tokens": tokens}, feed)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = counters.read()
     blocked = attention._sdpa_blocked
 
     def plain_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
@@ -2216,7 +2221,7 @@ def phase_serve_parity(s: Smoke):
         attention._sdpa_blocked = blocked
     want = {"all": PARITY_LAYERS * (1 + PARITY_GEN), "prefill": PARITY_LAYERS,
             "decode": PARITY_LAYERS * PARITY_GEN, "f32": 0}
-    if launches != want or counters["all"].launches != want["all"]:
+    if launches != want or counters.read()["all"] != want["all"]:
         raise AssertionError(f"bf16 serve check: flash launches {launches}, "
                              f"expected {want} (and none from the plain run)")
     err = float((kern - plain).abs().max())
@@ -2276,8 +2281,8 @@ def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext,
     fns = _kernel_fns()
     counters = _flash_counters()
     with hooks():
-        for fn in (*fns.values(), *counters.values()):
-            fn.launches = 0
+        fns.reset()
+        counters.reset()
         t0 = time.perf_counter()
         tok, caches = prefill(params, inputs)
         prefill_enqueue_s = time.perf_counter() - t0
@@ -2293,8 +2298,8 @@ def _serve_run(s: Smoke, cfg, batch, hooks=contextlib.nullcontext,
             generated.append(tok.reshape(batch))
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
-        stray = {k: fn.launches for k, fn in fns.items() if fn.launches}
+        launches = counters.read()
+        stray = fns.moved()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     n_attn = _attn_layers(cfg)
@@ -2558,8 +2563,8 @@ def phase_families_serve(s: Smoke):
 
 def _train_counters():
     """The launch counters the training slice may move, by kernel."""
-    fns = _kernel_fns()
-    return {**fns, **{f"flash_{k}": fn for k, fn in _flash_counters().items()}}
+    return Launches({**_kernel_fns(),
+                     **{f"flash_{k}": c for k, c in _flash_counters().items()}})
 
 
 def phase_train_kernels(s: Smoke):
@@ -2682,16 +2687,14 @@ def phase_train_parity(s: Smoke):
     counters = _train_counters()
     out, launches, secs = {}, {}, {}
     for dev in (s.dev, cpu):
-        for fn in counters.values():
-            fn.launches = 0
+        counters.reset()
         t1 = time.perf_counter()
         batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
         out[dev] = step(params[dev], batch, 0)
         if dev == s.dev:
             torch.cuda.synchronize()
         secs[dev.type] = time.perf_counter() - t1
-        launches[dev.type] = {k: fn.launches for k, fn in counters.items()
-                              if fn.launches}
+        launches[dev.type] = counters.moved()
     # the encode: one tree launch (and its reduction) per client; the close:
     # one tree launch
     want = {"encode": 2 * n, "rec": 1}
@@ -2766,15 +2769,14 @@ def phase_train_long(s: Smoke):
         torch.cuda.synchronize()
         return float(loss), grads
 
-    for fn in counters.values():
-        fn.launches = 0
+    counters.reset()
     attention._sdpa_blocked_plain = counted
     try:
         blocked = loss_and_grads()
     finally:
         attention._sdpa_blocked_plain = plain_blocked
     blocked_s = time.perf_counter() - t0
-    flash = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    flash = counters.moved()
     threshold = attention.BLOCKED_SDPA_THRESHOLD
     attention.BLOCKED_SDPA_THRESHOLD = TRAIN_LONG_SEQ + 1
     try:
@@ -2858,8 +2860,7 @@ def phase_train(s: Smoke):
     counters = _train_counters()
     rows, close_check = [], None
     try:
-        for fn in counters.values():
-            fn.launches = 0
+        counters.reset()
         for rnd in range(1 + TRAIN_ROUNDS):
             toks = torch.randint(0, cfg.vocab_size, (gb, TRAIN_SEQ + 1),
                                  generator=s.gen, device=s.dev)
@@ -2887,7 +2888,7 @@ def phase_train(s: Smoke):
                 close_check = _train_close_check(s, params, new, m, layout)
                 torch.cuda.reset_peak_memory_stats()
             params = new
-        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        launches = counters.moved()
     finally:
         ops.project_tree_kernel, ops.server_update_kernel = originals
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -3101,11 +3102,11 @@ def _check_sharded(s: Smoke, params, n, family, k, mode, shards, what):
     what = f"{what} S={shards} {family} k={k} {mode}"
     for fused in (False, True):
         name = "fused" if fused else "rec"
-        before = counters[name].launches
+        before = counters.read()[name]
         got = tree_leaves(fr.sharded_server_update(mesh, params, rs, seeds, 0.9, dist,
                                                    mode=pm, plan=plan,
                                                    use_fused=fused))
-        launches = counters[name].launches - before
+        launches = counters.read()[name] - before
         want = tree_leaves(fr.sharded_server_update(mesh, params, rs, seeds, 0.9,
                                                     dist, mode=pm, plan=plan,
                                                     use_kernel=False,
@@ -3129,10 +3130,10 @@ def _check_sharded(s: Smoke, params, n, family, k, mode, shards, what):
         s._record(name, family, err, same)
     delta = tree_map(lambda w: (w.float() * 1e-2).to(w.dtype), params)
     seed = s.seeds(1)
-    before = counters["encode"].launches
+    before = counters.read()["encode"]
     got = fr.sharded_project_tree(mesh, delta, seed, dist, k, pm, plan=plan)
     again = fr.sharded_project_tree(mesh, delta, seed, dist, k, pm, plan=plan)
-    launches = counters["encode"].launches - before
+    launches = counters.read()["encode"] - before
     dl = tree_leaves(delta)
     uplan = tree_plan("encode", [tuple(x.shape) for x in dl], [x.dtype for x in dl],
                       k, pm, s.dev)
@@ -3238,10 +3239,10 @@ def _shard_resident(s: Smoke, launches):
         groups = _shard_groups(shards, len(leaves))
         got = {}
         for name, fused in (("rec", False), ("fused", True)):
-            before = counters[name].launches
+            before = counters.read()[name]
             out = fr.sharded_apply_blocks(mesh, plan, blocks, rs, seeds, 1.0,
                                           use_fused=fused)
-            n_launch = counters[name].launches - before
+            n_launch = counters.read()[name] - before
             launches[name] += n_launch
             got[name] = tree_leaves(fr.from_sharded_2d(out, plan, params))
             if n_launch != groups:
@@ -3286,9 +3287,9 @@ def _shard_resident(s: Smoke, launches):
     mesh = make_fed_mesh((1, 8))
     plan = fr.plan_tree(delta, 8)
     seed = s.seeds(1)
-    before = counters["encode"].launches
+    before = counters.read()["encode"]
     got = fr.sharded_project_tree(mesh, delta, seed, plan=plan)
-    n_launch = counters["encode"].launches - before
+    n_launch = counters.read()["encode"] - before
     launches["encode"] += n_launch
     flat = ops.project_tree_kernel(tree_map(lambda v: v[None], delta), seed)[0]
     views = [x[None] for ls, v in zip(plan.leaves, fr.to_sharded_2d(delta, plan))
@@ -3374,15 +3375,14 @@ def _shard_runtime(s: Smoke, launches):
     apply_blocks = fr.sharded_apply_blocks
 
     def counted(*args, **kwargs):
-        before = {k: c.launches for k, c in counters.items()}
+        before = counters.read()
         out = apply_blocks(*args, **kwargs)
         torch.cuda.synchronize()
-        per_call.append({k: c.launches - before[k] for k, c in counters.items()})
+        per_call.append({k: n - before[k] for k, n in counters.read().items()})
         return out
 
     def run(cfg, mesh):
-        for c in counters.values():
-            c.launches = 0
+        counters.reset()
         fr.sharded_apply_blocks = counted if mesh else apply_blocks
         try:
             t0 = time.perf_counter()
@@ -3392,7 +3392,7 @@ def _shard_runtime(s: Smoke, launches):
             wall = time.perf_counter() - t0
         finally:
             fr.sharded_apply_blocks = apply_blocks
-        got = {k: c.launches for k, c in counters.items()}
+        got = counters.read()
         if mesh:
             for k in launches:
                 launches[k] += got[k]
@@ -3627,12 +3627,11 @@ def phase_vlm_encdec_parity(s: Smoke):
         for k in total:
             total[k] += par["launches"][k]
     t0 = time.perf_counter()
-    before = {k: fn.launches for k, fn in _flash_counters().items()}
+    flash = _flash_counters()
     row = _consistency(s)
     print("whisper serve consistency (card, float32): " + json.dumps(dict(
         row, tolerance=CONSISTENCY_TOL,
-        flash_launches={k: fn.launches - before[k]
-                        for k, fn in _flash_counters().items()},
+        flash_launches=flash.read(),
         s=time.perf_counter() - t0)), flush=True)
     return total
 
@@ -3760,8 +3759,7 @@ def phase_vlm_encdec_train(s: Smoke):
         batch.update(tokens=toks[:, :-1], labels=toks[:, 1:])
         step = make_train_step(arch, FLRunConfig(num_virtual_clients=n, local_steps=1,
                                                  local_lr=TRAIN_LR, server_lr=1.0))
-        for fn in counters.values():
-            fn.launches = 0
+        counters.reset()
         worst[0], check_s[0] = 0.0, 0.0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3774,7 +3772,7 @@ def phase_vlm_encdec_train(s: Smoke):
             round_s = time.perf_counter() - t1 - check_s[0]
         finally:
             ops.project_tree_kernel = encode
-        launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        launches = counters.moved()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if launches != {"encode": 2 * n, "rec": 1}:
             raise AssertionError(f"family train {name}: launches {launches}, expected "
@@ -3864,12 +3862,11 @@ def phase_big_leaf(s: Smoke):
                                                device=s.dev)
     seeds, rs = s.seeds(n), s.randn(n, 1) * 0.3
     fns = _kernel_fns()
-    for fn in fns.values():
-        fn.launches = 0
+    fns.reset()
     r = ops.project_tree_kernel({"w": x[None]}, seeds[:1])
     y_rec = ops.server_update_kernel({"w": x}, rs, seeds, per_client_rounding=True)["w"]
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    launches = fns.moved()
     if launches != {"encode": 2, "rec": 1}:
         raise AssertionError(f"big leaf: launches {launches}")
 
@@ -3898,11 +3895,10 @@ def phase_big_leaf(s: Smoke):
         x[r0:r0 + BIG_SLAB_ROWS], seeds, rs, 0, 1.0, None, None, row_offset=r0,
         orig_cols=cols, per_client_rounding=True, div=float(n)))
     del y_rec
-    for fn in fns.values():
-        fn.launches = 0
+    fns.reset()
     y_fused = ops.server_update_fused({"w": x}, rs, seeds)["w"]
     torch.cuda.synchronize()
-    launches["fused"] = fns["fused"].launches
+    launches["fused"] = fns.read()["fused"]
     if launches["fused"] != 1:
         raise AssertionError(f"big leaf: fused launches {launches['fused']}")
     seeds_p, rs_p = pad_cohort(seeds & U32_MASK,
@@ -3957,7 +3953,6 @@ def _big_leaf_qsgd(s: Smoke, x):
     from repro_torch.kernels.common import fold_seed
     from repro_torch.kernels.qsgd_quant import (
         norm_depth,
-        qsgd_quantize,
         qsgd_quantize_plain,
         qsgd_tree,
     )
@@ -3969,14 +3964,14 @@ def _big_leaf_qsgd(s: Smoke, x):
 
     def check(leaves, what):
         nonlocal launches
-        before = qsgd_quantize.launches
+        before = _totals()["qsgd.launches"]
         q, pay, norms = qsgd_tree(leaves, seeds, levels, want_q=True,
                                   want_levels=True)
         torch.cuda.synchronize()
-        launches += qsgd_quantize.launches - before
-        if qsgd_quantize.launches - before != 2:
+        launches += _totals()["qsgd.launches"] - before
+        if _totals()["qsgd.launches"] - before != 2:
             raise AssertionError(f"qsgd past 2^31 ({what}): "
-                                 f"{qsgd_quantize.launches - before} launches")
+                                 f"{_totals()['qsgd.launches'] - before} launches")
         t = time.perf_counter()
         offset, worst = 0, 0.0
         for tag, leaf in enumerate(leaves):
@@ -4145,8 +4140,7 @@ def phase_meta_vs_card(s: Smoke):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         params = arch.init(seed=0, device=s.dev)
-        for fn in counters.values():
-            fn.launches = 0
+        counters.reset()
         if shape == "train_4k":
             toks = torch.randint(0, cfg.vocab_size, (gb, seq + 1), generator=s.gen,
                                  device=s.dev)
@@ -4173,7 +4167,7 @@ def phase_meta_vs_card(s: Smoke):
                 _, secs, peak = _card_step(s, lambda: step(params, token, caches,
                                                            seq - 1), base)
             del caches
-        got = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        got = counters.moved()
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         _meta_row(f"{TRAIN_ARCH} {shape} batch {gb}", meta, secs, peak, roof,
@@ -4202,10 +4196,9 @@ def phase_meta_vs_card(s: Smoke):
     batch = {"tokens": toks[:, :-1].to(torch.int32), "labels": toks[:, 1:].to(torch.int32)}
     del toks
     step = make_train_step(arch, FLRunConfig(2, 1, local_lr=TRAIN_LR, server_lr=1.0))
-    for fn in counters.values():
-        fn.launches = 0
+    counters.reset()
     (new, m), secs, peak = _card_step(s, lambda: step(params, batch, 0), base)
-    got = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    got = counters.moved()
     if got != {"encode": 4, "rec": 1}:
         raise AssertionError(f"card vs meta: {MINITRON}: launches {got}")
     for k, v in got.items():
@@ -4370,12 +4363,10 @@ def phase_client_parallel(s: Smoke):
     for name, make in (("sequential", make_train_step),
                        ("client_parallel", make_train_step_client_parallel)):
         step = make(arch, fl)
-        for fn in fns.values():
-            fn.launches = 0
+        fns.reset()
         (new, m), secs, peak = _card_step(s, lambda: step(params, batch, 1), base)
         out[name] = dict(m=m, s=secs, peak=peak,
-                         launches={k: fn.launches for k, fn in fns.items()
-                                   if fn.launches})
+                         launches=fns.moved())
         del new
         torch.cuda.empty_cache()
     seq_, par = out["sequential"], out["client_parallel"]
@@ -4415,12 +4406,10 @@ def phase_client_parallel(s: Smoke):
     step = make_train_step_client_parallel(arch, fl)
     res = {}
     for dev, p in ((s.dev, p_dev), (cpu, p_cpu)):
-        for fn in fns.values():
-            fn.launches = 0
+        fns.reset()
         res[dev.type] = step(p, {"tokens": toks[:, :-1].to(dev),
                                  "labels": toks[:, 1:].to(dev)}, 0)
-        res[dev.type + "_launches"] = {k: fn.launches for k, fn in fns.items()
-                                       if fn.launches}
+        res[dev.type + "_launches"] = fns.moved()
     (p_g, m_g), (p_c, m_c) = res["cuda"], res["cpu"]
     dloss = abs(float(m_g["loss"]) - float(m_c["loss"]))
     r_g, r_c = m_g["r"].cpu().double(), m_c["r"].double()
@@ -4464,7 +4453,7 @@ def _tile_checks(s: Smoke, params, n, family, k, mode, what, plain=True):
     from repro_torch.core.projection import ProjectionMode
     from repro_torch.core.tree import tree_leaves
     from repro_torch.kernels import ops
-    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply, fused_tree_plain
+    from repro_torch.kernels.reconstruct_apply import fused_tree_plain
     from repro_torch.kernels.tree import CLOSE_TILES, tree_plan
 
     mode = ProjectionMode(mode)
@@ -4480,11 +4469,11 @@ def _tile_checks(s: Smoke, params, n, family, k, mode, what, plain=True):
         frs, scale = ops.fold_upload_weights(rs, 0.9, None, mode, None)
         want = fused_tree_plain(leaves, seeds, frs, scale, plan, family)
     for tile in CLOSE_TILES:
-        before = fused_reconstruct_apply.launches
+        before = _totals()["close.launches"]
         got = tree_leaves(ops.server_update_fused(params, rs, seeds, 0.9, dist,
                                                   mode=mode, block=tile))
         torch.cuda.synchronize()
-        if fused_reconstruct_apply.launches - before != 1:
+        if _totals()["close.launches"] - before != 1:
             raise AssertionError(f"tune: tile {tile}: not one launch: {what}")
         if not all(torch.equal(g, d) for g, d in zip(got, default)):
             raise AssertionError(f"tune: tile {tile} differs from the default tile: "
@@ -4692,10 +4681,9 @@ def phase_tune(s: Smoke):
 
 def _mesh_counted(counters, fn):
     """→ (fn's result, the launches it made by kernel)."""
-    for c in counters.values():
-        c.launches = 0
+    counters.reset()
     out = fn()
-    return out, {k: c.launches for k, c in counters.items() if c.launches}
+    return out, counters.moved()
 
 
 def phase_mesh_train(s: Smoke):
@@ -4919,8 +4907,8 @@ def _mesh_serve_run(s: Smoke, arch, keep, params, inputs, groups):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
-    for fn in (*fns.values(), *counters.values()):
-        fn.launches = 0
+    fns.reset()
+    counters.reset()
     t0 = time.perf_counter()
     tok, caches = prefill(params, inputs)
     torch.cuda.synchronize()
@@ -4932,8 +4920,8 @@ def _mesh_serve_run(s: Smoke, arch, keep, params, inputs, groups):
         generated.append(tok.reshape(batch))
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    stray = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    launches = counters.read()
+    stray = fns.moved()
     peak = torch.cuda.max_memory_allocated()
     n_attn = _attn_layers(arch.cfg)
     want = {"all": groups * n_attn * (1 + SERVE_GEN), "prefill": groups * n_attn,

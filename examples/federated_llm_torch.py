@@ -15,9 +15,10 @@ unless asked otherwise::
 ``--full`` trains the published configuration (SmolLM-360M: 32 layers,
 bf16) instead of the reduced one.  ``--profile N`` traces N rounds with
 ``torch.profiler`` after the others and prints the device's busy share
-of the traced wall time and the top operators by device time and by host
-time.  The checkpointing substrate is exercised at the end (save,
-restore, bit for bit).
+of the traced window (the union of its operations' intervals), its idle
+time by the port span the host was in (``repro_torch.obs``) and the top
+operators by device time and by host time.  The checkpointing substrate
+is exercised at the end (save, restore, bit for bit).
 """
 import argparse
 import sys
@@ -30,6 +31,7 @@ sys.path.insert(0, str(REPO / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_arch  # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
@@ -55,9 +57,9 @@ def _sync(dev):
 
 
 def _profile(step, params, batches, dev):
-    """Trace ``step`` over ``batches``; print the device's busy share and the
-    top operators.  → the params after the traced rounds."""
-    from torch.autograd import DeviceType
+    """Trace ``step`` over ``batches``; print the device's busy share, its
+    idle time by the span the host was in, and the top operators.  → the params after the
+    traced rounds."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -70,11 +72,8 @@ def _profile(step, params, batches, dev):
         _sync(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    # Kernel rows only: operator rows repeat their kernels' device time.
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA)
-    print(f"profile: {len(batches)} rounds, wall {wall_us / 1e3:.3f} ms, device "
-          f"busy {dev_us / 1e3:.3f} ms ({100 * dev_us / wall_us:.2f}% of wall)")
+    print(f"profile: {len(batches)} rounds, wall {wall_us / 1e3:.3f} ms")
+    obs.print_device_time(prof, "profile")
     print(events.table(sort_by="self_device_time_total", row_limit=20))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     return params

@@ -29,8 +29,9 @@ modeled columns (bits, wall-clock, energy) depend only on the cost model's
 
 ``--profile N`` traces N rounds of the first method with
 ``torch.profiler`` (after a warm-up run) and prints the device's busy
-share of the traced wall time, and the top operators by device time and
-by host time.
+share of the traced window (the union of its operations' intervals), its
+idle time by the port span the host was in (``repro_torch.obs``), and
+the top operators by device time and by host time.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.projection import tree_size
 from repro_torch.data import load_digits, make_client_datasets, train_test_split_arrays
 from repro_torch.fed.costmodel import ChannelConfig
@@ -58,7 +60,6 @@ def acc_at_budget(h, budget, key):
 
 
 def _profile(cfg, clients, xte, yte, device, rounds: int) -> None:
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
@@ -73,12 +74,9 @@ def _profile(cfg, clients, xte, yte, device, rounds: int) -> None:
                        device=device)
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    # Kernel rows only: operator rows repeat their kernels' device time.
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA)
     print(f"profile: {cfg.method}, {rounds} rounds, wall {wall_us / 1e3:.3f} ms, "
-          f"device busy {dev_us / 1e3:.3f} ms ({100 * dev_us / wall_us:.2f}% of wall), "
           f"{wall_us / rounds / 1e3:.3f} ms/round")
+    obs.print_device_time(prof, f"profile: {cfg.method}")
     print(events.table(sort_by="self_device_time_total", row_limit=12))
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
 

@@ -34,7 +34,9 @@ reproduces the port's ``run_simulation`` trajectory bit for bit.
 ``--profile`` runs the configuration twice more after the main run:
 under ``cProfile``, printing the host seconds of each engine stage (sum
 over rounds, stages nested as in the driver loop), and under
-``torch.profiler``, printing the device's busy share of the wall time.
+``torch.profiler``, printing the device's busy share of the traced
+window (the union of its operations' intervals) and its idle time by the
+port span the host was in (``repro_torch.obs``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     load_digits,
     make_client_datasets,
@@ -60,14 +63,11 @@ from repro_torch.fed.runtime import (  # noqa: E402
     ServerConfig,
     run_federation,
 )
-from repro_torch.kernels.qsgd_quant import qsgd_quantize  # noqa: E402
-from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply  # noqa: E402
-from repro_torch.kernels.seeded_projection import project_blocks  # noqa: E402
-from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients  # noqa: E402
 from repro_torch.models.mlp_classifier import init_mlp  # noqa: E402
 
-KERNELS = {"encode": project_blocks, "fused_close": fused_reconstruct_apply,
-           "client_decode": reconstruct_apply_clients, "qsgd": qsgd_quantize}
+# The kernels' launch counters (repro_torch.obs), by the names printed.
+KERNELS = {"encode": "encode.launches", "fused_close": "close.launches",
+           "client_decode": "decode.launches", "qsgd": "qsgd.launches"}
 
 
 def check_fused_equivalence(clients, xte, yte, device) -> None:
@@ -118,7 +118,6 @@ def profile_run(cfg, clients, xte, yte, device) -> None:
     import time
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prof = cProfile.Profile()
@@ -148,10 +147,8 @@ def profile_run(cfg, clients, xte, yte, device) -> None:
                        xte, yte, device=device)
         wall_us = (time.perf_counter() - t0) * 1e6
     events = tp.key_averages()
-    dev_us = sum(e.self_device_time_total for e in events
-                 if e.device_type == DeviceType.CUDA)
-    print(f"profile (torch.profiler): wall {wall_us / 1e3:.3f} ms, device busy "
-          f"{dev_us / 1e3:.3f} ms ({100 * dev_us / wall_us:.2f}% of wall)")
+    print(f"profile (torch.profiler): wall {wall_us / 1e3:.3f} ms")
+    obs.print_device_time(tp, "profile (torch.profiler)")
     print(events.table(sort_by="self_device_time_total", row_limit=8))
 
 
@@ -242,8 +239,7 @@ def main():
           f"(cohort ≈ {cfg.cohort_size()})  sampler={cfg.sampler}  "
           f"protocol={cfg.protocol_name}  device={args.device}")
 
-    for fn in KERNELS.values():
-        fn.launches = 0
+    before = obs.totals()
     h = run_federation(cfg, init_mlp(seed=args.seed, device=args.device),
                        clients, xte, yte, device=args.device)
 
@@ -259,8 +255,9 @@ def main():
     if applied.any():
         print(f"apply: median {np.median(h['apply_s'][applied]) * 1e3:.3f} ms "
               f"per round, {h['recon_clients_per_s']:,.0f} clients/s")
+    after = obs.totals()
     print("kernel launches: " + ", ".join(
-        f"{name}={fn.launches}" for name, fn in KERNELS.items()))
+        f"{name}={after[c] - before[c]}" for name, c in KERNELS.items()))
 
     if "scheduler" in h:
         s = h["scheduler"]

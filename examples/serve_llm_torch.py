@@ -27,9 +27,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS, get_arch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.launch.serve import make_decode_step, make_prefill_step  # noqa: E402
 
 
@@ -69,7 +69,7 @@ def main():
     prefill = make_prefill_step(arch, capacity=capacity)
     decode = make_decode_step(arch)
 
-    flash_attention.launches = 0
+    flash0 = obs.totals()["flash.launches"]
     _sync(dev)
     t0 = time.perf_counter()
     token, caches = prefill(params, batch)
@@ -91,7 +91,7 @@ def main():
     dt = (time.perf_counter() - t0) / max(args.gen, 1)
     gen = torch.stack(toks, dim=1).cpu().numpy()
     print(f"generated {args.gen} tokens/seq at {dt * 1e3:.3f} ms/token; "
-          f"flash-attention kernel launches {flash_attention.launches}")
+          f"flash-attention kernel launches {obs.totals()['flash.launches'] - flash0}")
     for b in range(args.batch):
         print(f"  seq{b}: {gen[b].tolist()}")
 

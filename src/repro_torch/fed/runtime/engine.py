@@ -47,6 +47,7 @@ from typing import TYPE_CHECKING, Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import fedscalar as fs
 from repro_torch.core.prng import Distribution, U32_MASK
 from repro_torch.core.projection import tree_size, view2d
@@ -476,13 +477,14 @@ class EngineCore:
                       deadline_s: float | None = None) -> None:
         """Offer one round's transmitted cohort to the aggregator, in
         client-id order (the deterministic aggregation order)."""
-        for i in range(len(ids)):
-            self.agg.offer(Upload(
-                client_id=int(ids[i]), encoded_round=k,
-                seed=int(tx.seeds[i]), r=tx.r_hat[i],
-                agg_weight=float(weights[i]),
-                latency_s=float(tx.latency_s[i]), lost=bool(tx.lost[i])),
-                deadline_s=deadline_s)
+        with obs.span("server.offer"):
+            for i in range(len(ids)):
+                self.agg.offer(Upload(
+                    client_id=int(ids[i]), encoded_round=k,
+                    seed=int(tx.seeds[i]), r=tx.r_hat[i],
+                    agg_weight=float(weights[i]),
+                    latency_s=float(tx.latency_s[i]), lost=bool(tx.lost[i])),
+                    deadline_s=deadline_s)
 
     def apply_round(self, params, aseeds, acoeffs, ars, cohort_size: int, st):
         """Fold a closed round's buffers into the model.
@@ -502,8 +504,9 @@ class EngineCore:
         if a and not st.skipped:
             t_apply = time.perf_counter()
             if self.proto.name == "fedscalar":
-                rs_b, w_b, seeds_b = _dev_tensors(
-                    dev, *_pad_bucket(ars, acoeffs, aseeds))
+                with obs.span("server.stage"):
+                    rs_b, w_b, seeds_b = _dev_tensors(
+                        dev, *_pad_bucket(ars, acoeffs, aseeds))
                 if self.mesh is not None:
                     use_kernel = True
                 elif self.cfg.projection_mode == "fused_kernel":
@@ -513,21 +516,24 @@ class EngineCore:
                         and (self.cfg.num_projections == 1
                              or self.cfg.projection_mode == "block")):
                     use_kernel = True
-                params = self.proto.server_apply(
-                    params, rs_b, seeds_b, w_b, mesh=self.mesh,
-                    use_fused=use_kernel == "fused",
-                    use_kernel=use_kernel is True,
-                    fused_params=self.fused_params)
+                with obs.span("server.launch"):
+                    params = self.proto.server_apply(
+                        params, rs_b, seeds_b, w_b, mesh=self.mesh,
+                        use_fused=use_kernel == "fused",
+                        use_kernel=use_kernel is True,
+                        fused_params=self.fused_params)
             else:
                 uniform_exact = (self.cfg.sampler == "uniform"
                                  and a == cohort_size
                                  and st.applied_stale == 0
                                  and bool(np.all(acoeffs == acoeffs[0])))
-                if uniform_exact:
-                    (frames,) = _dev_tensors(dev, ars)
-                    params = self.proto.server_apply(params, frames, None, None)
-                else:
-                    frames, w_b = _dev_tensors(dev, *_pad_bucket(ars, acoeffs))
+                with obs.span("server.stage"):
+                    if uniform_exact:
+                        (frames,) = _dev_tensors(dev, ars)
+                        w_b = None
+                    else:
+                        frames, w_b = _dev_tensors(dev, *_pad_bucket(ars, acoeffs))
+                with obs.span("server.launch"):
                     params = self.proto.server_apply(params, frames, None, w_b)
             _sync(dev)
             apply_s = time.perf_counter() - t_apply

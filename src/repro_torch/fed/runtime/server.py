@@ -1,6 +1,7 @@
 """Server round state machine: streaming per-upload aggregation.
 
-Copy of ``repro/fed/runtime/server.py`` (numpy only).
+Copy of ``repro/fed/runtime/server.py`` (numpy only), with the close in
+the span ``server.close`` (:mod:`repro_torch.obs`).
 
 The server buffers each upload's decoded **frame payload** plus its
 aggregation coefficient:
@@ -37,6 +38,8 @@ import dataclasses
 import math
 
 import numpy as np
+
+from repro_torch import obs
 
 __all__ = ["ServerConfig", "Upload", "RoundStats", "StreamingAggregator"]
 
@@ -202,20 +205,21 @@ class StreamingAggregator:
         aggregator's footprint is bounded by the rounds in flight —
         previously ``_stats`` kept one record per round forever.
         """
-        buf = self._pending.pop(k, [])
-        st = self._stats.pop(k, None) or RoundStats(round_idx=k)
-        st.applied = len(buf)
-        st.weight_sum = float(sum(coeff for _, coeff, _, _ in buf))
-        st.applied_stale = sum(1 for _, _, _, tau in buf if tau > 0)
-        st.max_tau = max((tau for _, _, _, tau in buf), default=0)
-        st.skipped = st.applied < self.cfg.min_cohort
-        if not buf:
-            return (np.zeros(0, np.uint32), np.zeros(0, np.float64),
-                    np.zeros((0, 1), np.float32), st)
-        seeds = np.asarray([b[0] for b in buf], np.uint32)
-        coeffs = np.asarray([b[1] for b in buf], np.float64)
-        rs = np.stack([b[2] for b in buf]).astype(np.float32)
-        return seeds, coeffs, rs, st
+        with obs.span("server.close"):
+            buf = self._pending.pop(k, [])
+            st = self._stats.pop(k, None) or RoundStats(round_idx=k)
+            st.applied = len(buf)
+            st.weight_sum = float(sum(coeff for _, coeff, _, _ in buf))
+            st.applied_stale = sum(1 for _, _, _, tau in buf if tau > 0)
+            st.max_tau = max((tau for _, _, _, tau in buf), default=0)
+            st.skipped = st.applied < self.cfg.min_cohort
+            if not buf:
+                return (np.zeros(0, np.uint32), np.zeros(0, np.float64),
+                        np.zeros((0, 1), np.float32), st)
+            seeds = np.asarray([b[0] for b in buf], np.uint32)
+            coeffs = np.asarray([b[1] for b in buf], np.float64)
+            rs = np.stack([b[2] for b in buf]).astype(np.float32)
+            return seeds, coeffs, rs, st
 
     def pending_rounds(self) -> list[int]:
         """Rounds with deferred uploads not yet closed (drain at shutdown)."""

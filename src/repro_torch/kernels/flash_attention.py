@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import check_cuda_tensor, raise_on_cuda_error
 
@@ -201,7 +202,7 @@ def flash_prefill(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
             kpos.data_ptr(), out.data_ptr(), b, s, h, kh, t, hd, hd ** -0.5,
             int(causal), int(window), _stream(q.device))
     raise_on_cuda_error("fs_flash_prefill", err)
-    flash_prefill.launches += 1
+    obs.count("flash_prefill.launches")
 
 
 def flash_decode(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
@@ -227,7 +228,7 @@ def flash_decode(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
             pacc.data_ptr(), b, s, h, kh, t, hd, _DTYPE_CODES[q.dtype], hd ** -0.5,
             int(causal), int(window), part, nparts, _stream(q.device))
     raise_on_cuda_error("fs_flash_decode", err)
-    flash_decode.launches += 1
+    obs.count("flash_decode.launches")
 
 
 def flash_f32(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
@@ -245,7 +246,7 @@ def flash_f32(q, k, v, qpos, kpos, out, causal: bool, window: int) -> None:
             kpos.data_ptr(), out.data_ptr(), b, s, h, kh, t, hd, hd ** -0.5,
             int(causal), int(window), _stream(q.device))
     raise_on_cuda_error("fs_flash_attention", err)
-    flash_f32.launches += 1
+    obs.count("flash_f32.launches")
 
 
 _KERNELS = {"prefill": flash_prefill, "decode": flash_decode, "f32": flash_f32}
@@ -260,9 +261,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises); a CPU tensor takes the plain version; a ``meta`` tensor (the
     dry run) takes the card's checks and allocates the kernel's output and
     scratch, launching nothing.
-    ``flash_attention.launches`` counts the calls that launched a kernel;
-    ``flash_prefill.launches``, ``flash_decode.launches`` and
-    ``flash_f32.launches`` count each kernel's.
+    The counter ``flash.launches`` (:mod:`repro_torch.obs`) counts the
+    calls that launched a kernel; ``flash_prefill.launches``,
+    ``flash_decode.launches`` and ``flash_f32.launches`` count each
+    kernel's.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, qpos, kpos, causal=causal,
@@ -303,11 +305,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _KERNELS[flash_route(s, h, kh, q.dtype)](q, k, v, qpos, kpos, out, causal,
                                              window)
     if not q.is_meta:
-        flash_attention.launches += 1
+        obs.count("flash.launches")
     return out
-
-
-flash_attention.launches = 0
-flash_prefill.launches = 0
-flash_decode.launches = 0
-flash_f32.launches = 0

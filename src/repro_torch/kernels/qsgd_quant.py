@@ -42,6 +42,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.prng import U32_MASK, hash_u32, uniform01
 from repro_torch.core.projection import view2d
 from repro_torch.kernels import _build
@@ -251,7 +252,7 @@ def _launch(table: TreeTable, seeds: torch.Tensor, n: int, levels: int, fold: bo
             norms_sl, partials, parts, lv, lv_ld, norms_out, norms_ld, stream)
     raise_on_cuda_error("fs_qsgd_tree", err)
     # qsgd_norm_kernel (unless the norms are given) and qsgd_quant_kernel
-    qsgd_quantize.launches += 1 if norms_in is not None else 2
+    obs.count("qsgd.launches", 1 if norms_in is not None else 2)
 
 
 def _refuse_leaf(x: torch.Tensor, n: int, dev: torch.device) -> None:
@@ -345,8 +346,9 @@ def qsgd_quantize(x: torch.Tensor, seeds: torch.Tensor, norms: torch.Tensor,
     round trip in x's dtype, ``signed`` the float32 level codes; either
     pass writes only what is asked for.  A CUDA tensor launches the tree
     kernel on a one-leaf table with the norms given (or raises); a CPU
-    tensor takes the plain version.  ``qsgd_quantize.launches`` counts
-    kernel launches, those of :func:`qsgd_tree` too.
+    tensor takes the plain version.  The counter ``qsgd.launches``
+    (:mod:`repro_torch.obs`) counts kernel launches, those of
+    :func:`qsgd_tree` too.
     """
     if not (want_q or want_levels):
         raise ValueError("ask for q, the levels, or both")
@@ -373,5 +375,3 @@ def qsgd_quantize(x: torch.Tensor, seeds: torch.Tensor, norms: torch.Tensor,
             None if lv is None else lv.data_ptr(), rows * cols, None, 0)
     return q, lv
 
-
-qsgd_quantize.launches = 0

@@ -23,7 +23,8 @@ reduces each chunk with XLA's CPU sum, which is that same left fold;
 FUSED_CHUNK is a numerics constant: changing it changes output bits.
 The kernel folds the scale in as it stages each chunk and skips the
 padded slots, which leaves these bits unchanged (its note says why).
-``fused_reconstruct_apply.launches`` counts kernel launches.
+The counter ``close.launches`` (:mod:`repro_torch.obs`) counts kernel
+launches.
 
 Two knobs move no bit, as in the reference, and ``kernels/tune.py``
 tunes them: the kernel's tile (``block``, one of ``tree.CLOSE_TILES``;
@@ -38,6 +39,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.prng import PROJ_SALT, U32_MASK, splitmix32
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
@@ -186,7 +188,7 @@ def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: floa
                                    CLOSE_TILES.index(tile), stream)
     raise_on_cuda_error("fs_fused_tree", err)
     if table.num_tiles > 0:          # a table of empty leaves launches nothing
-        fused_reconstruct_apply.launches += 1
+        obs.count("close.launches")
 
 
 def fused_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
@@ -275,5 +277,3 @@ def fused_reconstruct_apply(x2d: torch.Tensor, seeds: torch.Tensor,
             hi.data_ptr() if masked else None, masked, distribution, tile, dev)
     return y
 
-
-fused_reconstruct_apply.launches = 0

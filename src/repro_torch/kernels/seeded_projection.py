@@ -20,7 +20,8 @@ tolerance, and the kernel gives the same bits run after run.  The plain
 version can sum in float64 (``dtype``), which gives the exact value to
 hold the kernel's float32 sum against.
 
-``project_blocks.launches`` counts kernel launches, two per tree group
+The counter ``encode.launches`` (:mod:`repro_torch.obs`) counts kernel
+launches, two per tree group
 (``project_tree_kernel`` and ``sum_tree_partials_kernel``) and two per
 :func:`project_blocks` call.
 """
@@ -30,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.prng import U32_MASK, block_seed
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
@@ -199,7 +201,7 @@ def _launch(table: TreeTable, seeds: torch.Tensor, lo: int | None,
     raise_on_cuda_error("fs_project_tree", err)
     # project_tree_kernel (not launched for a table with no tiles) and
     # sum_tree_partials_kernel
-    project_blocks.launches += 2 if table.num_tiles > 0 else 1
+    obs.count("encode.launches", 2 if table.num_tiles > 0 else 1)
 
 
 def project_tree(leaves, seeds: torch.Tensor, plan: TreePlan,
@@ -271,5 +273,3 @@ def project_blocks(x: torch.Tensor, seeds: torch.Tensor, leaf_tag: int,
             distribution, accumulate=False)
     return out
 
-
-project_blocks.launches = 0

@@ -41,8 +41,10 @@ equal.  Each element's value depends only on its own chain, so row slabs
 of the plain version and the kernel's tile skipping leave the bits alone.
 CLIENT_CHUNK is the reference's padding, not a sum order: the kernel
 stages its own number of (client, block) pairs at a time.
-``reconstruct_apply_clients.launches`` counts kernel launches (one per
-launch group).
+Of the port's counters (:mod:`repro_torch.obs`), ``decode.launches``
+counts kernel launches (one per launch group) and ``decode.slots`` the
+cohort rows :func:`reconstruct_tree` decodes, bucket padding included,
+on the card and on the plain route.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.prng import PROJ_SALT, U32_MASK, splitmix32
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (
@@ -203,7 +206,7 @@ def _launch(table: TreeTable, seeds: torch.Tensor, rs: torch.Tensor, scale: floa
                                  int(vector), DIST_CODES[distribution], stream)
     raise_on_cuda_error("fs_rec_tree", err)
     if table.num_tiles > 0:          # a table of empty leaves launches nothing
-        reconstruct_apply_clients.launches += 1
+        obs.count("decode.launches")
 
 
 def reconstruct_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float,
@@ -220,6 +223,8 @@ def reconstruct_tree(leaves, seeds: torch.Tensor, rs: torch.Tensor, scale: float
     plain version.
     """
     dev = rs.device
+    if dev.type != "meta":
+        obs.count("decode.slots", rs.shape[0])
     if dev.type == "cpu":
         return reconstruct_tree_plain(leaves, seeds, rs, scale, div, plan,
                                       distribution, per_client_rounding)
@@ -296,5 +301,3 @@ def reconstruct_apply_clients(x2d: torch.Tensor, seeds: torch.Tensor,
             distribution, dev)
     return y
 
-
-reconstruct_apply_clients.launches = 0

@@ -57,6 +57,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.core.prng import Distribution  # noqa: E402
 from repro_torch.core.projection import ProjectionMode  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -78,7 +79,6 @@ from repro_torch.kernels.seeded_reconstruct import (  # noqa: E402
     reconstruct_apply_clients,
     reconstruct_plain,
 )
-import repro_torch.kernels.flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     allowed_mask,
     flash_agrees,
@@ -94,6 +94,12 @@ pytestmark = pytest.mark.cuda
 
 FAMILIES = ["rademacher", "gaussian", "sparse_rademacher", "hadamard"]
 MODES = [(1, "full"), (8, "full"), (8, "block")]
+
+
+def _launches(names) -> list:
+    """The port's launch counters ``names`` (``repro_torch.obs``) so far."""
+    totals = obs.totals()
+    return [totals[n] for n in names]
 
 
 def _params(seed=0):
@@ -198,12 +204,12 @@ def test_cuda_rec_matches_plain(cuda_device, family, k, mode, n):
     w = torch.from_numpy(rng.rand(n).astype(np.float32))
     want = ops.server_update_kernel(p, rs, seeds, 0.9, Distribution(family),
                                     weights=w, mode=ProjectionMode(mode))
-    before = reconstruct_apply_clients.launches
+    before = obs.totals()["decode.launches"]
     got = ops.server_update_kernel(
         {key: v.to(cuda_device) for key, v in p.items()}, rs.to(cuda_device),
         seeds.to(cuda_device), 0.9, Distribution(family),
         weights=w.to(cuda_device), mode=ProjectionMode(mode))
-    assert reconstruct_apply_clients.launches == before + 1    # one tree launch
+    assert obs.totals()["decode.launches"] == before + 1    # one tree launch
     for key in p:
         _assert_fused(family, got[key].cpu(), want[key])
 
@@ -274,14 +280,14 @@ def test_cuda_digest_replay_through_rec_is_bit_identical(cuda_device):
 
     x, y = load_digits(400)
     xtr, ytr, xte, yte = train_test_split_arrays(x, y)
-    before = reconstruct_apply_clients.launches
+    before = obs.totals()["decode.launches"]
     h = run_federation(
         RuntimeConfig(rounds=3, population=64, participation=0.5,
                       kernel_cohort_threshold=8, downlink_mode="digest",
                       verify_replay=True),
         init_mlp(device="cuda"), make_client_datasets(xtr, ytr, 8), xte, yte)
     # server apply and shadow replay: one tree launch each, every round
-    assert reconstruct_apply_clients.launches - before == 2 * 3
+    assert obs.totals()["decode.launches"] - before == 2 * 3
     assert np.isfinite(h["loss"]).all()
 
 
@@ -301,11 +307,11 @@ def _check_flash(dev, b, s, t, h, kh, hd, dtype, window=0, qpos=None, kpos=None,
     qpos = torch.arange(t - s, t, dtype=torch.int32) if qpos is None else qpos
     kpos = torch.arange(t, dtype=torch.int32) if kpos is None else kpos
     args = [x.to(dev) for x in (q, k, v, qpos, kpos)]
-    before = flash_attention.launches
+    before = obs.totals()["flash.launches"]
     got = flash_attention(*args, causal=True, window=window)
     want = flash_attention_plain(*args, causal=True, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    assert obs.totals()["flash.launches"] == before + 1
     rows = allowed_mask(qpos, kpos, True, window).any(dim=1).to(dev)
     assert got.dtype == dtype and bool(rows.any())
     g, w = got[:, rows], want[:, rows]
@@ -360,10 +366,10 @@ _ROUTES = {"prefill": "flash_prefill", "decode": "flash_decode", "f32": "flash_f
 def _check_route(dev, route, b, s, t, h, kh, hd, dtype, *args, **kw):
     """_check_flash, and the call launched the kernel ``route`` names."""
     assert flash_route(s, h, kh, dtype) == route
-    fn = getattr(fa, _ROUTES[route])
-    before = fn.launches
+    name = _ROUTES[route] + ".launches"
+    before = obs.totals()[name]
     _check_flash(dev, b, s, t, h, kh, hd, dtype, *args, **kw)
-    assert fn.launches == before + 1
+    assert obs.totals()[name] == before + 1
 
 
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
@@ -433,10 +439,11 @@ def test_cuda_flash_counters_on_serve(cuda_device, monkeypatch):
             steps.append(logits)
         return torch.stack([x.float().cpu() for x in steps])
 
-    counters = [flash_attention, fa.flash_prefill, fa.flash_decode, fa.flash_f32]
-    before = [f.launches for f in counters]
+    counters = ["flash.launches", "flash_prefill.launches", "flash_decode.launches",
+                "flash_f32.launches"]
+    before = _launches(counters)
     got = run()
-    assert [f.launches - n for f, n in zip(counters, before)] == [10, 2, 8, 0]
+    assert [n - b for n, b in zip(_launches(counters), before)] == [10, 2, 8, 0]
 
     def plain(q, k, v, qpos, kpos, *, causal, window, prefix_len):
         return flash_attention_plain(q, k, v, qpos.int(), kpos.int(), causal=causal,
@@ -491,7 +498,8 @@ def test_cuda_serve_matches_cpu(cuda_device, monkeypatch):
     dev_params = tree_map(lambda t: t.to(cuda_device), params)
     tok = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size,
                                                             (2, 200)))
-    before = [f.launches for f in (flash_attention, fa.flash_f32, fa.flash_decode)]
+    counters = ["flash.launches", "flash_f32.launches", "flash_decode.launches"]
+    before = _launches(counters)
     out = {}
     for dev, p in (("cpu", params), ("cuda", dev_params)):
         logits, caches = arch.prefill(p, {"tokens": tok.to(dev)}, capacity=212)
@@ -502,8 +510,7 @@ def test_cuda_serve_matches_cpu(cuda_device, monkeypatch):
             steps.append(logits)
         out[dev] = torch.stack([x.cpu() for x in steps])
     # float32: the prefill on the float32 kernel, each decode step split-KV
-    assert [f.launches - n for f, n in zip(
-        (flash_attention, fa.flash_f32, fa.flash_decode), before)] == [2 + 2 * 4, 2, 8]
+    assert [n - b for n, b in zip(_launches(counters), before)] == [2 + 2 * 4, 2, 8]
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-3)
 
 
@@ -531,7 +538,8 @@ def test_cuda_moe_and_mamba_forward_match_cpu(cuda_device, monkeypatch, name, ov
     params = Arch(cfg).init(seed=0, device="cpu")
     tok = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 200)))
     routes = MoERoutes()
-    before = [f.launches for f in (flash_attention, fa.flash_f32)]
+    counters = ["flash.launches", "flash_f32.launches"]
+    before = _launches(counters)
     with routes.use("record"):
         got = lm_forward(tree_map(lambda t: t.to(cuda_device), params), cfg,
                          tokens=tok.to(cuda_device))
@@ -539,8 +547,7 @@ def test_cuda_moe_and_mamba_forward_match_cpu(cuda_device, monkeypatch, name, ov
     with routes.use("replay"):
         want = lm_forward(params, cfg, tokens=tok)
     n_attn = cfg.num_layers if cfg.num_heads else 0
-    assert [f.launches - n for f, n in zip((flash_attention, fa.flash_f32),
-                                           before)] == [n_attn, n_attn]
+    assert [n - b for n, b in zip(_launches(counters), before)] == [n_attn, n_attn]
     assert len(routes.recorded) == (cfg.num_layers if cfg.num_experts else 0)
     routes.check(cfg.name)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-3)
@@ -578,10 +585,10 @@ def test_cuda_vlm_and_encdec_serve_match_cpu(cuda_device, monkeypatch, name, ove
              "embeds": torch.from_numpy((rng.randn(2, n_emb, cfg.d_model) * 0.02)
                                         .astype(np.float32))}
     start = prompt + (n_emb if vlm else 0)
-    counters = (flash_attention, fa.flash_f32, fa.flash_decode)
+    counters = ("flash.launches", "flash_f32.launches", "flash_decode.launches")
     out = {}
     for dev, p in (("cpu", params), ("cuda", dev_params)):
-        before = [f.launches for f in counters]
+        before = _launches(counters)
         logits, caches = arch.prefill(p, {k: x.to(dev) for k, x in batch.items()},
                                       capacity=start + 8)
         steps = [logits]
@@ -591,7 +598,7 @@ def test_cuda_vlm_and_encdec_serve_match_cpu(cuda_device, monkeypatch, name, ove
             steps.append(logits)
         out[dev] = torch.stack([x.cpu() for x in steps])
     n = cfg.num_layers
-    assert [f.launches - b for f, b in zip(counters, before)] == (
+    assert [n - b for n, b in zip(_launches(counters), before)] == (
         [4 * n, 0, 4 * n] if vlm else [5 * n, n, 4 * n])
     assert bool(torch.isfinite(out["cuda"]).all())
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-3)
@@ -685,20 +692,20 @@ def test_cuda_sdpa_blocked_refuses_autograd(cuda_device):
     q, k, v = (torch.randn(1, 40, 3, 64, generator=g).to(cuda_device)
                for _ in range(3))
     pos = torch.arange(40, device=cuda_device)
-    before = flash_attention.launches
+    before = obs.totals()["flash.launches"]
     out = _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
     assert out.shape == q.shape and not out.requires_grad
-    assert flash_attention.launches == before + 1
+    assert obs.totals()["flash.launches"] == before + 1
     for leaf in (q, k, v):
         leaf.requires_grad_(True)
         got = _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
         assert got.requires_grad
         leaf.requires_grad_(False)
-    assert flash_attention.launches == before + 1
+    assert obs.totals()["flash.launches"] == before + 1
     with torch.no_grad():
         q.requires_grad_(True)
         _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
-    assert flash_attention.launches == before + 2
+    assert obs.totals()["flash.launches"] == before + 2
 
 
 @pytest.mark.parametrize("window,prefix_len", [(0, 0), (24, 0), (0, 13)])
@@ -767,10 +774,10 @@ def test_cuda_tree_encode_matches_plain(cuda_device, dtype, family, k, mode,
                      [x.dtype for x in leaves], k, ProjectionMode(mode), "cpu")
     want = project_tree_plain(leaves, seeds, plan, family, dtype=torch.float64)
     on = {key: x.to(cuda_device) for key, x in d.items()}
-    before = project_blocks.launches
+    before = obs.totals()["encode.launches"]
     got = ops.project_tree_kernel(on, seeds.to(cuda_device), Distribution(family),
                                   k, ProjectionMode(mode))
-    assert project_blocks.launches - before == 2 * len(plan.groups)
+    assert obs.totals()["encode.launches"] - before == 2 * len(plan.groups)
     again = ops.project_tree_kernel(on, seeds.to(cuda_device), Distribution(family),
                                     k, ProjectionMode(mode))
     assert torch.equal(got, again)
@@ -805,11 +812,11 @@ def test_cuda_tree_close_matches_plain(cuda_device, dtype, family, k, mode,
         seeds = torch.from_numpy(seeds_np(rng, n).astype(np.int64))
         want = ops.server_update_fused(p, rs, seeds, 0.7, Distribution(family),
                                        mode=ProjectionMode(mode))
-        before = fused_reconstruct_apply.launches
+        before = obs.totals()["close.launches"]
         got = ops.server_update_fused(on, rs.to(cuda_device), seeds.to(cuda_device),
                                       0.7, Distribution(family),
                                       mode=ProjectionMode(mode))
-        assert fused_reconstruct_apply.launches - before == -(-n_leaves // 64)
+        assert obs.totals()["close.launches"] - before == -(-n_leaves // 64)
         for key in p:
             if dt == torch.bfloat16:
                 _bf16_decode_close(family, got[key].cpu(), want[key])
@@ -899,13 +906,13 @@ def test_cuda_train_step_matches_cpu(cuda_device, dtype):
     step = make_train_step(arch, FLRunConfig(num_virtual_clients=4, local_steps=2,
                                              local_lr=0.05))
     out = {}
-    enc0, rec0 = project_blocks.launches, reconstruct_apply_clients.launches
+    enc0, rec0 = obs.totals()["encode.launches"], obs.totals()["decode.launches"]
     for dev in ("cpu", "cuda"):
         p = tree_map(lambda t: t.to(dev), params)
         out[dev] = (p, *step(p, {"tokens": toks[:, :-1].to(dev),
                                  "labels": toks[:, 1:].to(dev)}, 2))
-    assert project_blocks.launches - enc0 == 2 * 4      # one tree launch per client
-    assert reconstruct_apply_clients.launches - rec0 == 1   # the close: one tree launch
+    assert obs.totals()["encode.launches"] - enc0 == 2 * 4      # one tree launch per client
+    assert obs.totals()["decode.launches"] - rec0 == 1   # the close: one tree launch
     tol = 1e-4 if dtype == "float32" else 2e-2
     assert abs(float(out["cuda"][2]["loss"]) - float(out["cpu"][2]["loss"])) <= tol
     p, new, m = out["cuda"]
@@ -955,11 +962,11 @@ def test_cuda_tree_decode_matches_plain(cuda_device, dtype, family, k, mode, rou
         kw = dict(mode=ProjectionMode(mode), per_client_rounding=rounding)
         want = ops.server_update_kernel(p, rs, seeds, 0.7, Distribution(family),
                                         weights=w, **kw)
-        before = reconstruct_apply_clients.launches
+        before = obs.totals()["decode.launches"]
         got = ops.server_update_kernel(
             on, rs.to(cuda_device), seeds.to(cuda_device), 0.7, Distribution(family),
             weights=None if w is None else w.to(cuda_device), **kw)
-        assert reconstruct_apply_clients.launches - before == -(-n_leaves // 64)
+        assert obs.totals()["decode.launches"] - before == -(-n_leaves // 64)
         for key in p:
             if dt == torch.bfloat16:
                 _bf16_decode_close(family, got[key].cpu(), want[key])
@@ -983,11 +990,11 @@ def test_cuda_tree_decode_mlp_cohort_1024(cuda_device, family):
                      [x.dtype for x in leaves], 1, ProjectionMode.FULL, cuda_device)
     assert [g.vector for g in plan.groups] == [False]
     want = ops.server_update_kernel(p, rs, seeds, 1.0, Distribution(family))
-    before = reconstruct_apply_clients.launches
+    before = obs.totals()["decode.launches"]
     got = ops.server_update_kernel({key: v.to(cuda_device) for key, v in p.items()},
                                    rs.to(cuda_device), seeds.to(cuda_device), 1.0,
                                    Distribution(family))
-    assert reconstruct_apply_clients.launches == before + 1
+    assert obs.totals()["decode.launches"] == before + 1
     for key in p:
         _assert_fused(family, got[key].cpu(), want[key])
 
@@ -1034,11 +1041,11 @@ def _check_f32(dev, b, s, t, h, kh, hd, *, causal=True, window=0, qpos=None,
     qpos = torch.arange(t - s, t, dtype=torch.int32) if qpos is None else qpos
     kpos = torch.arange(t, dtype=torch.int32) if kpos is None else kpos
     args = [x.to(dev) for x in (q, k, v, qpos, kpos)]
-    before = fa.flash_f32.launches
+    before = obs.totals()["flash_f32.launches"]
     got = flash_attention(*args, causal=causal, window=window)
     want = flash_attention_plain(*args, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert fa.flash_f32.launches == before + 1
+    assert obs.totals()["flash_f32.launches"] == before + 1
     rows = allowed_mask(qpos, kpos, causal, window).any(dim=1).to(dev)
     assert bool(rows.any())
     gr, wr = got[:, rows], want[:, rows]
@@ -1117,11 +1124,11 @@ def test_cuda_qsgd_tree_matches_plain(cuda_device, dtype, bits, case):
     levels = (1 << (bits - 1)) - 1
     seeds = torch.from_numpy(seeds_np(np.random.RandomState(bits), n).astype(np.int64))
     on = [x.to(cuda_device) for x in leaves]
-    before = qsgd_quantize.launches
+    before = obs.totals()["qsgd.launches"]
     q, payload, norms = qsgd_tree(on, seeds.to(cuda_device), levels, want_q=True,
                                   want_levels=True)
     groups = -(-len(leaves) // MAX_TREE_LEAVES)
-    assert qsgd_quantize.launches - before == 2 * groups
+    assert obs.totals()["qsgd.launches"] - before == 2 * groups
     q2, payload2, norms2 = qsgd_tree(on, seeds.to(cuda_device), levels,
                                      want_q=True, want_levels=True)
     torch.cuda.synchronize()
@@ -1169,11 +1176,11 @@ def test_cuda_qsgd_tree_given_norms(cuda_device, shape):
     norms = torch.from_numpy(rng.rand(n, len(leaves)).astype(np.float32) + 0.01)
     if shape == "n":
         norms = norms[:, 0].contiguous()
-    before = qsgd_quantize.launches
+    before = obs.totals()["qsgd.launches"]
     q, payload, got = qsgd_tree([x.to(cuda_device) for x in leaves],
                                 seeds.to(cuda_device), 7, want_q=True, want_levels=True,
                                 norms=norms.to(cuda_device))
-    assert qsgd_quantize.launches - before == 1
+    assert obs.totals()["qsgd.launches"] - before == 1
     qp, pp, want = qsgd_tree_plain(leaves, seeds, 7, want_q=True, want_levels=True,
                                    norms=norms)
     assert torch.equal(payload.cpu(), pp) and torch.equal(got.cpu(), want)
@@ -1193,10 +1200,10 @@ def test_cuda_qsgd_protocol_encode_is_one_tree_call(cuda_device):
     deltas = {k: torch.from_numpy((rng.randn(256, *v.shape) * 0.01).astype(np.float32))
               for k, v in p.items()}
     ids = torch.arange(1000, 1256)
-    before = qsgd_quantize.launches
+    before = obs.totals()["qsgd.launches"]
     got = proto.encode_cohort({k: v.to(cuda_device) for k, v in deltas.items()}, None,
                               4, ids.to(cuda_device))
-    assert qsgd_quantize.launches - before == 2
+    assert obs.totals()["qsgd.launches"] - before == 2
     leaves = [deltas[k] for k in sorted(deltas)]
     _, want, _ = qsgd_tree_plain(leaves, tq.quant_seeds(4, ids), 127, want_q=False,
                                  want_levels=True,
@@ -1240,7 +1247,6 @@ def test_cuda_sharded_paths_match_plain(cuda_device, shards, family, k, mode):
     ``tree_encode_tolerance`` of the shards' views of the float64 plain
     encode."""
     from repro_torch.core.tree import tree_leaves
-    from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply as fra
     from repro_torch.kernels.seeded_projection import (
         project_tree_plain,
         tree_encode_tolerance,
@@ -1258,11 +1264,11 @@ def test_cuda_sharded_paths_match_plain(cuda_device, shards, family, k, mode):
     seeds = torch.from_numpy(seeds_np(rng, 37).astype(np.int64))
     rs_d, seeds_d = rs.to(cuda_device), seeds.to(cuda_device)
     groups = -(-shards * len(p) // 64)
-    for fused, counter in ((False, reconstruct_apply_clients), (True, fra)):
-        before = counter.launches
+    for fused, counter in ((False, "decode.launches"), (True, "close.launches")):
+        before = obs.totals()[counter]
         got = fr.sharded_server_update(mesh, on, rs_d, seeds_d, 0.7, dist, mode=pm,
                                        use_fused=fused)
-        assert counter.launches - before == groups
+        assert obs.totals()[counter] - before == groups
         want = fr.sharded_server_update(cpu_mesh, p, rs, seeds, 0.7, dist, mode=pm,
                                         use_fused=fused)
         flat = (ops.server_update_fused if fused else ops.server_update_kernel)(
@@ -1353,9 +1359,9 @@ def test_cuda_tree_leaf_past_2_31_elements(cuda_device, kind):
     seeds = torch.tensor([101, 202, 303, 404], dtype=torch.int64, device=cuda_device)
     rs = torch.tensor([[0.5], [-1.25], [2.0], [0.75]], device=cuda_device)
     if kind == "encode":
-        before = project_blocks.launches
+        before = obs.totals()["encode.launches"]
         r = ops.project_tree_kernel({"w": x[None]}, seeds[:1])
-        assert project_blocks.launches - before == 2
+        assert obs.totals()["encode.launches"] - before == 2
         exact = project_blocks_plain(x[None], seeds[:1], 0, torch.zeros(1, device=cuda_device),
                                      torch.full((1,), 1e12, device=cuda_device),
                                      dtype=torch.float64)
@@ -1363,9 +1369,9 @@ def test_cuda_tree_leaf_past_2_31_elements(cuda_device, kind):
         assert ((r.double() - exact).abs() <= tol).all()
         return
     if kind == "close":
-        before = fused_reconstruct_apply.launches
+        before = obs.totals()["close.launches"]
         y = ops.server_update_fused({"w": x}, rs, seeds)["w"]
-        assert fused_reconstruct_apply.launches - before == 1
+        assert obs.totals()["close.launches"] - before == 1
         seeds_p, rs_p = pad_cohort(seeds, rs * torch.tensor(0.25, device=cuda_device))
         lo, hi = torch.zeros(1, device=cuda_device), torch.zeros(1, device=cuda_device)
         for r0 in (0, rows - 64):
@@ -1373,9 +1379,9 @@ def test_cuda_tree_leaf_past_2_31_elements(cuda_device, kind):
                                      row_offset=r0, orig_cols=cols)
             assert torch.equal(y[r0:r0 + 64], want)
         return
-    before = reconstruct_apply_clients.launches
+    before = obs.totals()["decode.launches"]
     y = ops.server_update_kernel({"w": x}, rs, seeds, per_client_rounding=True)["w"]
-    assert reconstruct_apply_clients.launches - before == 1
+    assert obs.totals()["decode.launches"] - before == 1
     for r0 in (0, rows - 64):
         want = reconstruct_plain(x[r0:r0 + 64], seeds, rs, 0, 1.0, None, None,
                                  row_offset=r0, orig_cols=cols,
@@ -1411,10 +1417,10 @@ def test_cuda_fused_tiles_give_the_default_bits(cuda_device, family, k, mode):
                rs.to(cuda_device), seeds.to(cuda_device))
         default = ops.server_update_fused(*dev, 0.8, dist, mode=ProjectionMode(mode))
         for tile in CLOSE_TILES:
-            before = fused_reconstruct_apply.launches
+            before = obs.totals()["close.launches"]
             got = ops.server_update_fused(*dev, 0.8, dist, mode=ProjectionMode(mode),
                                           block=tile)
-            assert fused_reconstruct_apply.launches - before == 1
+            assert obs.totals()["close.launches"] - before == 1
             for key in p:
                 assert torch.equal(got[key], default[key]), (tile, key)
                 g = got[key].cpu()
@@ -1463,9 +1469,9 @@ def test_cuda_qsgd_payload_past_2_31_columns(cuda_device):
         torch.bfloat16)
     small = torch.randn((1, 8, 8), generator=gen, device=cuda_device)
     seeds = torch.tensor([12345], dtype=torch.int64, device=cuda_device)
-    before = qsgd_quantize.launches
+    before = obs.totals()["qsgd.launches"]
     q, pay, norms = qsgd_tree([big, small], seeds, 127, want_q=True, want_levels=True)
-    assert qsgd_quantize.launches - before == 2
+    assert obs.totals()["qsgd.launches"] - before == 2
     d = rows * cols
     assert pay.shape == (1, d + 64 + 2)
     for tag, x in enumerate((big, small)):
@@ -1572,11 +1578,11 @@ def test_cuda_mesh_train_step_one_group_is_bitwise(cuda_device, deterministic, s
         return u_rs[i]
 
     monkeypatch.setattr(fed_rules, "sharded_project_tree", spy_m)
-    enc0, rec0 = project_blocks.launches, reconstruct_apply_clients.launches
+    enc0, rec0 = obs.totals()["encode.launches"], obs.totals()["decode.launches"]
     new, m = make_train_step(arch, fl, mesh=mesh)(shard_resident(params, mesh), batch, 4)
     entries = len(mesh.device_groups())
-    assert project_blocks.launches - enc0 == 2 * 2 * entries
-    assert reconstruct_apply_clients.launches - rec0 == entries
+    assert obs.totals()["encode.launches"] - enc0 == 2 * 2 * entries
+    assert obs.totals()["decode.launches"] - rec0 == entries
     assert len(seen) == 2 and torch.equal(m["loss"], u_m["loss"])
     for j, w in enumerate(tree_leaves(u_new)):
         assert torch.equal(new.gather(j, cuda_device), w)
@@ -1675,10 +1681,10 @@ def test_cuda_mesh_serve_is_bitwise(cuda_device, shape, layout, monkeypatch):
         return out, [tree_leaves(tuple(c)) for c in groups]
 
     place = shard_resident if layout == "zero3" else place_rows
-    before = [f.launches for f in (fa.flash_prefill, fa.flash_decode, fa.flash_f32)]
+    counters = ["flash_prefill.launches", "flash_decode.launches", "flash_f32.launches"]
+    before = _launches(counters)
     got, got_caches = serve(place(params, mesh), tokens)
-    launched = [f.launches - n for f, n in
-                zip((fa.flash_prefill, fa.flash_decode, fa.flash_f32), before)]
+    launched = [n - b for n, b in zip(_launches(counters), before)]
     d, layers = shape[0], arch.cfg.num_layers
     assert launched == [d * layers, d * layers * 3, 0]
     rows = tokens.shape[0] // d
@@ -1743,12 +1749,12 @@ def test_cuda_mesh_client_parallel_step(cuda_device, deterministic, monkeypatch)
         return u_m["r"][i]
 
     monkeypatch.setattr(fed_rules, "sharded_project_tree", check)
-    enc0, rec0 = project_blocks.launches, reconstruct_apply_clients.launches
+    enc0, rec0 = obs.totals()["encode.launches"], obs.totals()["decode.launches"]
     new, m = make_train_step_client_parallel(arch, fl, mesh=mesh)(
         shard_resident(params, mesh), batch, 4)
     row_entries = len(mesh.row_mesh(0).device_groups())
-    assert project_blocks.launches - enc0 == 2 * row_entries * 4
-    assert reconstruct_apply_clients.launches - rec0 == len(mesh.device_groups())
+    assert obs.totals()["encode.launches"] - enc0 == 2 * row_entries * 4
+    assert obs.totals()["decode.launches"] - rec0 == len(mesh.device_groups())
     assert len(seen) == 4 and torch.equal(m["seeds"], u_m["seeds"])
     for j, w in enumerate(tree_leaves(u_new)):
         assert torch.equal(new.gather(j, cuda_device), w)

@@ -35,14 +35,12 @@ import jax  # noqa: E402
 from repro.configs import registry as j_registry  # noqa: E402
 from repro.launch.serve import make_prefill_step as j_prefill_step  # noqa: E402
 from repro.models.api import Arch as JArch  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs import registry as t_registry  # noqa: E402
 from repro_torch.core.prng import Distribution  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.qsgd_quant import qsgd_quantize, qsgd_tree  # noqa: E402
-from repro_torch.kernels.reconstruct_apply import fused_reconstruct_apply  # noqa: E402
-from repro_torch.kernels.seeded_projection import project_blocks  # noqa: E402
-from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients  # noqa: E402
+from repro_torch.kernels.qsgd_quant import qsgd_tree  # noqa: E402
 from repro_torch.kernels.tree import tree_plan  # noqa: E402
 from repro_torch.core.projection import ProjectionMode  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -105,11 +103,14 @@ def test_init_on_meta_allocates_nothing():
 # the kernels' meta routes
 # ---------------------------------------------------------------------------
 
+LAUNCHES = ("encode.launches", "close.launches", "decode.launches", "qsgd.launches",
+            "flash.launches", "flash_prefill.launches", "flash_decode.launches",
+            "flash_f32.launches")
+
+
 def _counters():
-    return (project_blocks.launches, fused_reconstruct_apply.launches,
-            reconstruct_apply_clients.launches, qsgd_quantize.launches,
-            fa.flash_attention.launches, fa.flash_prefill.launches,
-            fa.flash_decode.launches, fa.flash_f32.launches)
+    totals = obs.totals()
+    return tuple(totals[n] for n in LAUNCHES)
 
 
 def _run(fn, *args):

@@ -391,15 +391,15 @@ def test_route_rule():
 def test_cpu_call_counts_no_launch():
     """On CPU tensors the wrapper takes the plain version and no kernel
     counter moves."""
-    import repro_torch.kernels.flash_attention as fa
+    from repro_torch import obs
 
     q, k, v = (torch.from_numpy(a) for a in _qkv(13, 1, 1, 40, 6, 2, 32))
     pos = torch.arange(40, dtype=torch.int32)
-    before = [f.launches for f in (flash_attention, fa.flash_prefill,
-                                   fa.flash_decode, fa.flash_f32)]
+    names = ("flash.launches", "flash_prefill.launches", "flash_decode.launches",
+             "flash_f32.launches")
+    before = [obs.totals()[n] for n in names]
     flash_attention(q, k, v, pos[-1:], pos)
-    assert before == [f.launches for f in (flash_attention, fa.flash_prefill,
-                                           fa.flash_decode, fa.flash_f32)]
+    assert before == [obs.totals()[n] for n in names]
 
 
 def test_wrapper_refuses_other_devices():

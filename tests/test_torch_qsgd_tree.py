@@ -40,6 +40,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import qsgd as jq  # noqa: E402
 from repro.fed import protocols as jpr  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import qsgd as tq  # noqa: E402
 from repro_torch.core.projection import leaf_layout  # noqa: E402
 from repro_torch.fed import protocols as tpr  # noqa: E402
@@ -47,7 +48,6 @@ from repro_torch.kernels.qsgd_quant import (  # noqa: E402
     RoundSeeds,
     norm_depth,
     norm_tolerance,
-    qsgd_quantize,
     qsgd_tree,
     qsgd_tree_plain,
 )
@@ -180,10 +180,10 @@ def test_tree_plain_is_the_per_leaf_path(dtype, bits, case):
     leaves[0][3] = 0.0
     seeds = torch.from_numpy(seeds_np(np.random.RandomState(bits), n).astype(np.int64))
     levels = (1 << (bits - 1)) - 1
-    before = qsgd_quantize.launches
+    before = obs.totals()["qsgd.launches"]
     q, payload, norms = qsgd_tree(leaves, seeds, levels, want_q=True,
                                   want_levels=True)
-    assert qsgd_quantize.launches == before           # the CPU takes the plain path
+    assert obs.totals()["qsgd.launches"] == before           # the CPU takes the plain path
     want_q, want_payload = _per_leaf(leaves, seeds, levels)
     assert torch.equal(payload, want_payload)
     assert torch.equal(norms, payload[:, -len(leaves):])

@@ -526,8 +526,7 @@ def test_run_federation_matches_reference(case, digits8, shared_draws,
 
 def test_engine_apply_routes_and_launch_free_cpu(digits8, shared_draws):
     """On the CPU no kernel launches; the route follows the threshold."""
-    from repro_torch.kernels.qsgd_quant import qsgd_quantize
-    from repro_torch.kernels.seeded_reconstruct import reconstruct_apply_clients
+    from repro_torch import obs
 
     clients, xte, yte = digits8
     p = params_from_jax(mlp_params_np(5), "cpu")
@@ -538,10 +537,10 @@ def test_engine_apply_routes_and_launch_free_cpu(digits8, shared_draws):
                               (tmlp.mlp_loss, tmlp.mlp_accuracy), None, proto,
                               1990, torch.device("cpu"))
     assert core.kern_thresh is None          # the CPU never takes the kernel route
-    before = (reconstruct_apply_clients.launches, qsgd_quantize.launches)
+    before = (obs.totals()["decode.launches"], obs.totals()["qsgd.launches"])
     tengine.run_federation(dataclasses.replace(core_cfg, protocol_name="qsgd"),
                            p, clients, xte, yte, device="cpu")
-    assert (reconstruct_apply_clients.launches, qsgd_quantize.launches) == before
+    assert (obs.totals()["decode.launches"], obs.totals()["qsgd.launches"]) == before
 
 
 def test_fused_shortcut_and_digest_replay_on_cpu(digits8):
