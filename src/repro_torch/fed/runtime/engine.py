@@ -233,7 +233,8 @@ def _fused_method(cfg: RuntimeConfig, num_shards: int) -> str | None:
 
 def _pad_pow2(n: int, lo: int = 16) -> int:
     """Bucket size for round-close buffers (the reference's recompilation
-    bound; kept so the padded applies match it)."""
+    bound; kept on every route but the per-client decode kernel's on the
+    card)."""
     b = lo
     while b < n:
         b *= 2
@@ -245,7 +246,9 @@ def _pad_bucket(ars: np.ndarray, acoeffs: np.ndarray,
     """Zero-pad the round-close buffers to a power-of-two bucket.
 
     Zero weights give zero contributions.  → ``(rs_b, w_b)`` or
-    ``(rs_b, w_b, seeds_b)`` when seeds are given.
+    ``(rs_b, w_b, seeds_b)`` when seeds are given.  The per-client decode
+    kernel's route on the card stages the applied rows alone
+    (:func:`_stage_weighted`).
     """
     a = len(acoeffs)
     bucket = _pad_pow2(a)
@@ -258,6 +261,32 @@ def _pad_bucket(ars: np.ndarray, acoeffs: np.ndarray,
     seeds_b = np.zeros(bucket, np.uint32)
     seeds_b[:a] = aseeds
     return rs_b, w_b, seeds_b
+
+
+# Devices on which the per-client decode kernel's route stages the applied
+# rows alone.  The CPU runs the kernel's plain version on that route, with
+# the reference's bucket: the benchmark's CPU run of its server cell
+# (``fedbench/test_fedbench_spans.py``) holds it to the padded slot count.
+_APPLIED_ROWS_DEVICES = ("cuda",)
+
+
+def _stage_weighted(device, ars: np.ndarray, acoeffs: np.ndarray,
+                    aseeds: np.ndarray, decode_kernel: bool):
+    """A weighted FedScalar round's buffers on ``device`` → ``(rs, w, seeds)``.
+
+    For the per-client decode kernel on the card (``decode_kernel``), the
+    applied uploads alone, in :func:`_pad_bucket`'s dtypes: the kernel adds
+    the rows in order to a float32 accumulator that starts at +0, and the
+    bucket's zero rows at the tail would each add ±0, so the applied rows
+    give the padded launch's bits without decoding the padding.  Otherwise
+    the bucket.
+    """
+    if decode_kernel and device.type in _APPLIED_ROWS_DEVICES:
+        bufs = (np.asarray(ars, np.float32), np.asarray(acoeffs).astype(np.float32),
+                np.asarray(aseeds).astype(np.uint32))
+    else:
+        bufs = _pad_bucket(ars, acoeffs, aseeds)
+    return _dev_tensors(device, *bufs)
 
 
 def _dev_tensors(device, *arrays):
@@ -281,9 +310,10 @@ class StatefulClient:
 
     A client keeps its last synced parameters and replays each
     :class:`RoundDigest` through the same apply the server ran (the
-    bucket-padded weighted apply for event-driven rounds, the exact
-    uniform mean for full-arrival rounds).  The digest carries exactly
-    the server's (seeds, coefficients, scalars), so the replayed
+    weighted apply for event-driven rounds, staged as the server stages
+    it, by :func:`_stage_weighted`; the exact uniform mean for
+    full-arrival rounds).  The digest carries exactly the server's
+    (seeds, coefficients, scalars), so the replayed
     parameters are bit-identical when both sides pin the same apply
     method: ``use_kernel`` is False/"fori", True/"kernel" (the per-client
     decode kernel) or "fused" (the fused close kernel).  The port's
@@ -321,8 +351,8 @@ class StatefulClient:
             rs, seeds = _dev_tensors(dev, dg.rs, dg.seeds)
             self.params = self._apply(rs, seeds, None, use_kernel)
         else:
-            rs, w, seeds = _dev_tensors(
-                dev, *_pad_bucket(dg.rs, dg.coeffs, dg.seeds))
+            rs, w, seeds = _stage_weighted(dev, dg.rs, dg.coeffs, dg.seeds,
+                                           use_kernel in (True, "kernel"))
             self.params = self._apply(rs, seeds, w, use_kernel)
         return self.params
 
@@ -495,7 +525,10 @@ class EngineCore:
         synchronise.  A mesh round pins the decode kernel: the sharded
         decode is the unsharded decode kernel bit for bit (reconstruction
         is elementwise), whereas the reference pins its plain loop, which
-        its own mesh mirror equals.
+        its own mesh mirror equals.  The decode kernel's route off a mesh
+        stages the applied rows alone on the card (:func:`_stage_weighted`:
+        the same bits, no padding decoded); every other route keeps the
+        bucket.
         """
         a = len(aseeds)
         use_kernel: bool | str = False
@@ -504,9 +537,6 @@ class EngineCore:
         if a and not st.skipped:
             t_apply = time.perf_counter()
             if self.proto.name == "fedscalar":
-                with obs.span("server.stage"):
-                    rs_b, w_b, seeds_b = _dev_tensors(
-                        dev, *_pad_bucket(ars, acoeffs, aseeds))
                 if self.mesh is not None:
                     use_kernel = True
                 elif self.cfg.projection_mode == "fused_kernel":
@@ -516,9 +546,13 @@ class EngineCore:
                         and (self.cfg.num_projections == 1
                              or self.cfg.projection_mode == "block")):
                     use_kernel = True
+                with obs.span("server.stage"):
+                    rs, w, seeds = _stage_weighted(
+                        dev, ars, acoeffs, aseeds,
+                        use_kernel is True and self.mesh is None)
                 with obs.span("server.launch"):
                     params = self.proto.server_apply(
-                        params, rs_b, seeds_b, w_b, mesh=self.mesh,
+                        params, rs, seeds, w, mesh=self.mesh,
                         use_fused=use_kernel == "fused",
                         use_kernel=use_kernel is True,
                         fused_params=self.fused_params)

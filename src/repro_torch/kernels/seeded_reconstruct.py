@@ -43,8 +43,9 @@ CLIENT_CHUNK is the reference's padding, not a sum order: the kernel
 stages its own number of (client, block) pairs at a time.
 Of the port's counters (:mod:`repro_torch.obs`), ``decode.launches``
 counts kernel launches (one per launch group) and ``decode.slots`` the
-cohort rows :func:`reconstruct_tree` decodes, bucket padding included,
-on the card and on the plain route.
+cohort rows :func:`reconstruct_tree` decodes, on the card and on the
+plain route: the applied uploads on the engine's decode-kernel route
+on the card, with the bucket's padding on the routes that pad.
 """
 from __future__ import annotations
 

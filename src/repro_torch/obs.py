@@ -11,14 +11,16 @@ Names in use, each read by a per-layer metric of the benchmark:
 
 * spans ``server.offer`` (``EngineCore.offer_uploads``), ``server.close``
   (``StreamingAggregator.close_round``), ``server.stage`` (the apply's
-  bucket padding and host → device copies) and ``server.launch`` (the
-  protocol's ``server_apply`` up to its return, before the synchronise);
-* counters ``decode.slots`` (the cohort rows a tree decode computes,
-  bucket padding included), and the kernel launches ``decode.launches``,
-  ``close.launches``, ``encode.launches``, ``qsgd.launches``,
-  ``flash.launches`` (the calls of ``flash_attention`` that launched),
-  ``flash_prefill.launches``, ``flash_decode.launches`` and
-  ``flash_f32.launches``.
+  staging: bucket padding on the routes that pad, and host → device
+  copies) and ``server.launch`` (the protocol's ``server_apply`` up to
+  its return, before the synchronise);
+* counters ``decode.slots`` (the cohort rows a tree decode computes: the
+  applied uploads on the engine's decode-kernel route on the card, bucket
+  padding included on the routes that pad), and the kernel launches
+  ``decode.launches``, ``close.launches``, ``encode.launches``,
+  ``qsgd.launches``, ``flash.launches`` (the calls of ``flash_attention``
+  that launched), ``flash_prefill.launches``, ``flash_decode.launches``
+  and ``flash_f32.launches``.
 
 :func:`device_time` reads a finished recording: the device's busy time
 as the union of its operations' intervals, and its idle time split by

@@ -13,7 +13,8 @@ from the plain version's: it is held against the plain version summed
 in float64, within ``encode_tolerance`` (4·2⁻²³·√h·‖x‖₂·max|v|, h the
 depth of the kernel's float32 sum); and the kernel gives the same bits
 on every run.  The per-client decode is bitwise equal to its plain
-version for the ±1/±2 families (gaussian within rtol/atol 1e-5), and the
+version for the ±1/±2 families (gaussian within rtol/atol 1e-5), and on
+the applied rows alone bitwise its launch on the zero-padded bucket; the
 QSGD kernel's levels and round trip are bitwise equal to its plain
 version given the same norms.  A digest replayed through the decode
 kernel lands on the server's bits.  Flash attention is held against its
@@ -997,6 +998,75 @@ def test_cuda_tree_decode_mlp_cohort_1024(cuda_device, family):
     assert obs.totals()["decode.launches"] == before + 1
     for key in p:
         _assert_fused(family, got[key].cpu(), want[key])
+
+
+def _smollm_tree(dev, seed: int) -> dict:
+    """SmolLM-360M's parameter tree (11 leaves, 361.8M elements) in bf16,
+    drawn on the card."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.tree import tree_map
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tree_map(lambda m: (0.02 * torch.randn(tuple(m.shape), generator=g, device=dev)
+                               ).to(torch.bfloat16),
+                    get_arch("smollm-360m").param_shapes())
+
+
+@pytest.mark.parametrize("family", ["rademacher", "gaussian"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_decode_of_the_applied_rows_is_the_padded_launch(cuda_device, dtype,
+                                                              family):
+    """The engine's decode-kernel route on the card stages the applied rows
+    alone: the decode of the first n rows is bitwise the decode of the same
+    rows zero-padded to the bucket, for n across the kernel's 128-pair
+    staging and the server cell's 700-950 applied, on SmolLM-360M's bf16
+    leaves and on a float32 leaf of its MLP's stacked shape."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fed.runtime.engine import _dev_tensors, _pad_bucket, _stage_weighted
+    from torch_parity import closed_round
+
+    if dtype == "bfloat16":
+        params = _smollm_tree(cuda_device, 5)
+    else:
+        g = torch.Generator(device=cuda_device).manual_seed(6)
+        params = {"w": torch.randn((32, 960, 2560), generator=g, device=cuda_device)}
+    for n in (1, 127, 128, 129, 700, 950, 1024):
+        aseeds, acoeffs, ars, _ = closed_round(n, seed=n)
+        slots0 = obs.totals()["decode.slots"]
+        rs, w, seeds = _stage_weighted(cuda_device, ars, acoeffs, aseeds, True)
+        got = ops.server_update_kernel(params, rs, seeds, 1.0, Distribution(family),
+                                       weights=w)
+        assert obs.totals()["decode.slots"] - slots0 == n
+        rs, w, seeds = _dev_tensors(cuda_device, *_pad_bucket(ars, acoeffs, aseeds))
+        want = ops.server_update_kernel(params, rs, seeds, 1.0, Distribution(family),
+                                        weights=w)
+        for x, y in zip(tree_leaves(got), tree_leaves(want)):
+            assert x.dtype == getattr(torch, dtype) and torch.equal(x, y), n
+
+
+def test_cuda_engine_round_decodes_the_applied_rows(cuda_device):
+    """One ``EngineCore.apply_round`` on the card at 700 applied uploads
+    (the decode kernel's route, threshold 512) on SmolLM-360M's bf16 tree:
+    700 slots decoded, bitwise the bucket's launch, and the digest replay
+    (``verify_replay``) lands on the server's bits through its own 700."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fed.runtime.engine import _dev_tensors, _pad_bucket
+    from torch_parity import closed_round, server_core
+
+    a = 700
+    params = _smollm_tree(cuda_device, 7)
+    core = server_core(params, cuda_device, downlink_mode="digest", verify_replay=True)
+    assert core.kern_thresh == 512
+    aseeds, acoeffs, ars, st = closed_round(a, seed=3)
+    slots0 = obs.totals()["decode.slots"]
+    got, method, _ = core.apply_round(params, aseeds, acoeffs, ars, a, st)
+    assert method is True and obs.totals()["decode.slots"] - slots0 == a
+    core.close_digest(0, aseeds, acoeffs, ars, st, np.arange(a), got, method)
+    assert obs.totals()["decode.slots"] - slots0 == 2 * a
+    rs, w, seeds = _dev_tensors(cuda_device, *_pad_bucket(ars, acoeffs, aseeds))
+    want = core.proto.server_apply(params, rs, seeds, w, use_kernel=True)
+    for x, y in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -3,6 +3,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
@@ -62,6 +63,77 @@ def test_decode_slots_count_the_rows_of_the_plain_route():
     after = obs.totals()
     assert after["decode.slots"] - before["decode.slots"] == 24
     assert after["decode.launches"] == before["decode.launches"]   # no kernel on the CPU
+
+
+APPLIED = [1, 5, 17, 33, 100]
+
+
+def _small_tree(dtype, seed: int) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {"b": torch.randn(40, generator=g).to(dtype),
+            "w": torch.randn(24, 40, generator=g).to(dtype)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("a", APPLIED)
+def test_decode_kernel_route_decodes_the_applied_rows_alone(a, dtype, monkeypatch):
+    """``EngineCore.apply_round`` on the decode-kernel route hands the
+    decode the ``a`` applied uploads, not the bucket, and lands on the
+    padded launch's bits; the digest replay runs the same launch.  The
+    card's staging, laid onto the CPU's plain version of the kernel."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fed.runtime import engine
+    from torch_parity import closed_round, server_core
+
+    monkeypatch.setattr(engine, "_APPLIED_ROWS_DEVICES", ("cuda", "cpu"))
+    params = _small_tree(dtype, a)
+    core = server_core(params, "cpu", kernel_cohort_threshold=1,
+                       downlink_mode="digest", verify_replay=True)
+    aseeds, acoeffs, ars, st = closed_round(a, seed=a)
+    slots0 = obs.totals()["decode.slots"]
+    got, method, _ = core.apply_round(params, aseeds, acoeffs, ars, a, st)
+    assert method is True
+    assert obs.totals()["decode.slots"] - slots0 == a
+    core.close_digest(0, aseeds, acoeffs, ars, st, np.arange(a), got, method)
+    assert obs.totals()["decode.slots"] - slots0 == 2 * a    # the replay's own a rows
+    rs, w, seeds = engine._dev_tensors(torch.device("cpu"),
+                                       *engine._pad_bucket(ars, acoeffs, aseeds))
+    want = core.proto.server_apply(params, rs, seeds, w, use_kernel=True)
+    for x, y in zip(tree_leaves(got), tree_leaves(want)):
+        assert x.dtype == dtype and torch.equal(x, y)
+
+
+BUCKET_ROUTES = {
+    "plain": ({}, False),
+    "kernel_plain_version": (dict(kernel_cohort_threshold=1), True),
+    "fused": (dict(projection_mode="fused_kernel"), "fused"),
+    "mesh": (dict(mesh_shape=(1, 2)), True),
+}
+
+
+@pytest.mark.parametrize("route", list(BUCKET_ROUTES))
+@pytest.mark.parametrize("a", APPLIED)
+def test_other_routes_keep_the_bucket(a, route):
+    """Every route but the decode kernel's on the card hands its apply the
+    zero-padded bucket, as the reference does: the plain loop, the CPU's
+    plain version of the kernel, the fused close and the mesh decode."""
+    from repro_torch.fed.runtime.engine import _pad_pow2
+    from torch_parity import closed_round, server_core
+
+    cfg_kw, want_method = BUCKET_ROUTES[route]
+    params = _small_tree(torch.float32, a)
+    core = server_core(params, "cpu", **cfg_kw)
+    rows = []
+    apply = core.proto.server_apply
+
+    def spy(params, payloads, *args, **kw):
+        rows.append(payloads.shape[0])
+        return apply(params, payloads, *args, **kw)
+
+    core.proto.server_apply = spy
+    aseeds, acoeffs, ars, st = closed_round(a, seed=a)
+    _, method, _ = core.apply_round(params, aseeds, acoeffs, ars, a, st)
+    assert method == want_method and rows == [_pad_pow2(a)]
 
 
 def test_idle_goes_to_the_innermost_port_span_by_instant():

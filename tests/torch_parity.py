@@ -19,6 +19,9 @@
   reference draws batches with threefry, which the port does not
   reproduce); ``STAT_KEYS`` are the history arrays those tests hold
   bitwise.
+* ``server_core`` and ``closed_round`` give the engine's server alone
+  (an ``EngineCore`` with no client data) and one closed round's
+  buffers, for the tests of ``EngineCore.apply_round``'s staging.
 * ``MoERoutes`` records the MoE routes of one run (on the card) and
   replays them in another (on the CPU); ``chip_smoke.py`` uses it too,
   so it imports neither jax nor pytest fixtures.
@@ -126,6 +129,35 @@ def mlp_params_np(seed: int = 0, noise: float = 0.1) -> dict:
 
 def seeds_np(rng: np.random.RandomState, n: int) -> np.ndarray:
     return rng.randint(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
+
+
+def server_core(params, device, **cfg_kw):
+    """An ``EngineCore`` around ``params`` whose server alone is used:
+    FedScalar (Rademacher, k = 1), ``cfg_kw`` laid over the defaults."""
+    import torch
+    from repro_torch.core.projection import tree_size
+    from repro_torch.fed.runtime.engine import EngineCore, RuntimeConfig
+
+    def unused(*_a, **_k):
+        raise AssertionError("the server alone is used")
+
+    cfg = RuntimeConfig(**{"population": 2000, **cfg_kw})
+    one = (np.zeros((1, 1), np.float32), np.zeros(1, np.int64))
+    return EngineCore(cfg, params, [one], one[0], one[1], unused, (unused, unused),
+                      None, cfg.build_protocol(params), tree_size(params),
+                      torch.device(device))
+
+
+def closed_round(a: int, seed: int):
+    """One closed round of ``a`` applied uploads, as
+    ``StreamingAggregator.close_round`` hands them over → ``(aseeds,
+    acoeffs, ars, st)``."""
+    from repro_torch.fed.runtime.server import RoundStats
+
+    rng = np.random.RandomState(seed)
+    return (seeds_np(rng, a), rng.rand(a) * 2.0,
+            (0.2 * rng.randn(a, 1)).astype(np.float32),
+            RoundStats(round_idx=0, offered=a, applied=a))
 
 
 # The engine history's per-round counters and costs: equal bit for bit
