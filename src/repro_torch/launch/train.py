@@ -21,6 +21,11 @@ members, one after another:
     the port's ``server_aggregate`` bit for bit for the ±1/±2 families,
     on bf16 leaves as on float32 ones.
 
+The round's stages are the port's spans (``obs.py``): ``train.forward``,
+``train.backward`` and ``train.update`` in every local step (the mesh and
+client-parallel steps' too), ``train.encode`` and ``train.close`` in the
+unsharded step; ``train.tokens`` counts the tokens through local steps.
+
 Sequential placement keeps one param copy and one delta alive besides the
 global params whatever the cohort size: the copy is updated in place and
 turned into the delta in place.  On the card the encode and the close are
@@ -70,6 +75,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.fedscalar import FedScalarConfig, round_seeds
 from repro_torch.core.prng import Distribution
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -150,14 +156,15 @@ def make_train_step(arch, fl: FLRunConfig, window: Optional[int] = None,
         for i in range(n):
             delta, lsum = client_update(
                 params, tree_map(lambda x: x[i], sb), s)
-            rs.append(ops.project_tree_kernel(
-                tree_map(lambda d: d.unsqueeze(0), delta), seeds[i:i + 1],
-                pcfg.distribution, pcfg.num_projections, pcfg.mode))
+            with obs.span("train.encode", sync=device):
+                rs.append(ops.project_tree_kernel(
+                    tree_map(lambda d: d.unsqueeze(0), delta), seeds[i:i + 1],
+                    pcfg.distribution, pcfg.num_projections, pcfg.mode))
             losses.append(lsum / s)
             del delta
         rs = torch.cat(rs)
 
-        with torch.no_grad():
+        with obs.span("train.close", sync=device), torch.no_grad():
             new_params = ops.server_update_kernel(
                 params, rs, seeds, pcfg.server_lr, pcfg.distribution,
                 mode=pcfg.mode, per_client_rounding=True)
@@ -171,18 +178,25 @@ def _local_sgd(leaves, base, loss_of, client_batches, s: int, lr: float):
     dtype with ``g`` the gradient of ``loss_of(step's batch).sum()`` (the
     client-parallel step's loss is a vector, one per client), then
     δ = ψ_S − x in place (``base``: x's leaves, broadcast over a client
-    axis) → Σ of the steps' losses, float32."""
+    axis) → Σ of the steps' losses, float32.  Each step counts its batch's
+    labels as ``train.tokens``, under the spans ``train.forward``,
+    ``train.backward`` and ``train.update`` (``obs.py``)."""
+    dev = leaves[0].device
     lsum = None
     for step in range(s):
-        loss = loss_of(tree_map(lambda x: x[step], client_batches))
-        grads = torch.autograd.grad(loss.sum(), leaves)
-        with torch.no_grad():
+        b = tree_map(lambda x: x[step], client_batches)
+        obs.count("train.tokens", b["labels"].numel())
+        with obs.span("train.forward", sync=dev):
+            loss = loss_of(b)
+        with obs.span("train.backward", sync=dev):
+            grads = torch.autograd.grad(loss.sum(), leaves)
+        with obs.span("train.update", sync=dev), torch.no_grad():
             for w, g in zip(leaves, grads):
                 w.sub_(lr * g.to(w.dtype))
         del grads
         loss = loss.detach().to(torch.float32)
         lsum = loss if lsum is None else lsum + loss
-    with torch.no_grad():
+    with obs.span("train.update", sync=dev), torch.no_grad():
         for w, w0 in zip(leaves, base):
             w.sub_(w0)                               # δ = ψ_S − x, leaf dtype
     return lsum

@@ -1,9 +1,10 @@
 """Grouped-query attention with RoPE, sliding windows and a ring-buffer KV cache.
 
 Counterpart of ``repro/models/attention.py``: GQA / MQA / MHA, QKV
-biases, sliding windows, the prefix-bidirectional mask (PaliGemma), the
-ring-buffer cache and cross-attention (the Whisper decoder over its
-encoder's states).
+biases, rotary over the whole head or its first ``cfg.rotary_dim`` dims
+(the port's own ``partial_rotary_factor``), sliding windows, the
+prefix-bidirectional mask (PaliGemma), the ring-buffer cache and
+cross-attention (the Whisper decoder over its encoder's states).
 
 ``_sdpa`` is plain PyTorch.  ``_sdpa_blocked`` — taken, as in the
 reference, for prompts and caches longer than ``BLOCKED_SDPA_THRESHOLD``
@@ -255,7 +256,7 @@ def attention(
     v = linear(params["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
 
     if cfg.use_rope:
-        cos, sin = rope_freqs(positions, hd, cfg.rope_theta)
+        cos, sin = rope_freqs(positions, cfg.rotary_dim, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
 

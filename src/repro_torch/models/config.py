@@ -6,7 +6,10 @@ MoE layers, Mamba-1 SSM stacks, hybrid (Jamba) interleaves, enc-dec
 backbones.  ``repro_torch/configs/<arch>.py`` instantiates one of these
 per ported architecture; reduced variants (for CPU smoke tests) shrink
 layers/width only.  A copy of the reference's dataclass, field for
-field, with ``torch_dtype`` in place of ``jnp_dtype``.
+field, with ``torch_dtype`` in place of ``jnp_dtype``, and one field of
+the port's own: ``partial_rotary_factor``, the share of each head that
+rotary positions rotate (Nemotron's 0.5; the rest of the head passes
+through).  Its default, 1.0, is the whole head, as in the reference.
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ class ModelConfig:
     activation: str = "swiglu"        # swiglu | gelu | geglu
     norm: str = "rmsnorm"             # rmsnorm | layernorm
     rope_theta: float = 10000.0
+    partial_rotary_factor: float = 1.0  # the port's own field (module docstring)
     use_rope: bool = True             # whisper uses learned absolute positions
     max_position: int = 0             # for learned positions (0 = unused)
     tie_embeddings: bool = False
@@ -74,6 +78,11 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def rotary_dim(self) -> int:
+        """The dims of each query and key head that rotary positions rotate."""
+        return int(self.partial_rotary_factor * self.resolved_head_dim)
 
     @property
     def resolved_dt_rank(self) -> int:

@@ -89,9 +89,11 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.bfloat1
 def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
     """→ (cos, sin) of shape ``positions.shape + (head_dim/2,)`` (float32).
 
-    The frequency table is rounded once from float64, so it has the same
-    float32 bits on every device; the angles and their cos/sin are
-    float32, as in the reference.
+    ``head_dim`` is the rotated width: the whole head, or its first
+    ``ModelConfig.rotary_dim`` dims, with frequencies θ^(−i/(head_dim/2))
+    over that width.  The frequency table is rounded once from float64, so
+    it has the same float32 bits on every device; the angles and their
+    cos/sin are float32, as in the reference.
     """
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float64, device=positions.device) / half
@@ -101,7 +103,13 @@ def rope_freqs(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate pairs (split-half convention).  x: (..., S, H, head_dim)."""
+    """Rotate pairs (split-half convention).  x: (..., S, H, head_dim).
+
+    The tables' width sets the rotated dims: ``2 · cos.shape[-1]``, the
+    first of each head; the rest pass through unchanged."""
+    rot = 2 * cos.shape[-1]
+    if rot < x.shape[-1]:
+        return torch.cat([apply_rope(x[..., :rot], cos, sin), x[..., rot:]], dim=-1)
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     # cos/sin: (..., S, half) → broadcast over the head axis

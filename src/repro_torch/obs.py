@@ -7,13 +7,21 @@ to a process total.  While one records, a span is a
 beside the device's operations (it nests inside whatever range the
 caller holds), and a count also adds to that recording's tally.
 
-Names in use, each read by a per-layer metric of the benchmark:
+Names in use, each read by a per-layer metric of the benchmark or named
+in its trace's breakdown of the device's idle time:
 
 * spans ``server.offer`` (``EngineCore.offer_uploads``), ``server.close``
   (``StreamingAggregator.close_round``), ``server.stage`` (the apply's
   staging: bucket padding on the routes that pad, and host → device
   copies) and ``server.launch`` (the protocol's ``server_apply`` up to
   its return, before the synchronise);
+* spans of the training round (``launch/train.py``; each waits for the
+  device at its ends while traced): ``train.forward`` (a local step's
+  loss), ``train.backward`` (its ``autograd.grad``, which holds the
+  periods' recompute), ``train.update`` (the in-place step ``w −= α·g``,
+  and δ = ψ − x after the last step), ``train.encode`` (a client's
+  encode) and ``train.close`` (the round's close); the counter
+  ``train.tokens`` (the tokens through local steps);
 * counters ``decode.slots`` (the cohort rows a tree decode computes: the
   applied uploads on the engine's decode-kernel route on the card, bucket
   padding included on the routes that pad), and the kernel launches
@@ -52,12 +60,26 @@ def _tracing() -> bool:
     return on
 
 
-def span(name: str):
+def span(name: str, sync=None):
     """A ``record_function(name)`` range while a profiler records, else a
-    shared null context."""
+    shared null context.  With ``sync`` (a device), a recorded range also
+    waits for that device at its start and at its end, so that its length
+    is the device's time for the work enqueued inside it; a range that
+    does not wait measures the host's enqueue, which runs ahead of the
+    device."""
     if not _tracing():
         return _NULL
-    return torch.profiler.record_function(name)
+    if sync is None or torch.device(sync).type != "cuda":
+        return torch.profiler.record_function(name)
+    return _synced(name, torch.device(sync))
+
+
+@contextlib.contextmanager
+def _synced(name: str, device: torch.device):
+    torch.cuda.synchronize(device)
+    with torch.profiler.record_function(name):
+        yield
+        torch.cuda.synchronize(device)
 
 
 def count(name: str, n: int = 1) -> None:

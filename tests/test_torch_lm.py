@@ -134,10 +134,18 @@ def blocked(monkeypatch):
 # configs, registry, parameter tree
 # ---------------------------------------------------------------------------
 
+def _reference_fields(cfg) -> dict:
+    """The port's config as a dict of the reference's fields: its own field,
+    ``partial_rotary_factor``, must hold the reference's whole-head rotary."""
+    d = dataclasses.asdict(cfg)
+    assert d.pop("partial_rotary_factor") == 1.0
+    return d
+
+
 @pytest.mark.parametrize("name", DENSE + FAMILIES + ["paligemma-3b", "whisper-tiny"])
 def test_config_is_the_references(name):
     j, t = j_registry.get_config(name), t_registry.get_config(name)
-    jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
+    jd, td = dataclasses.asdict(j), _reference_fields(t)
     if name == "smollm-360m":
         # the figures are the 360M model's; the reference cites the 135M card
         assert td.pop("source") == "hf:HuggingFaceTB/SmolLM-360M"
@@ -147,7 +155,7 @@ def test_config_is_the_references(name):
         assert td.pop("source") == "hf:Qwen/Qwen3-235B-A22B"
         assert jd.pop("source") == "hf:Qwen/Qwen3-30B-A3B"
     assert td == jd
-    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(
+    assert _reference_fields(t.reduced()) == dataclasses.asdict(
         dataclasses.replace(j.reduced(), source=t.source))
     assert t.torch_dtype == torch.bfloat16 and t.reduced().torch_dtype == torch.float32
 
@@ -159,7 +167,7 @@ def test_registry_names_the_unported_families():
     assert t_registry.ARCH_IDS == j_registry.ARCH_IDS and len(t_registry.ARCH_IDS) == 10
     for name in t_registry.ARCH_IDS:
         jd = dataclasses.asdict(j_registry.get_config(name))
-        td = dataclasses.asdict(t_registry.get_config(name))
+        td = _reference_fields(t_registry.get_config(name))
         jd.pop("source"), td.pop("source")
         assert td == jd, name
     with pytest.raises(KeyError, match="unknown arch"):

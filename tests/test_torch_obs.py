@@ -151,3 +151,27 @@ def test_device_time_on_a_cpu_trace():
     assert t["busy_s"] == 0.0 and t["window_s"] > 0.0
     assert sum(t["idle_s"].values()) == pytest.approx(t["window_s"])
     assert t["idle_s"]["test.busy"] > 0.0
+
+
+def test_a_traced_round_counts_each_train_span_and_its_tokens():
+    """The unsharded round: per client, each local step's forward, backward
+    and update, the δ update, and the encode; one close a round; the
+    tokens of every local step."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.train import FLRunConfig, make_train_step
+    from repro_torch.models.api import Arch
+
+    arch = Arch(get_config("smollm-360m").reduced(num_layers=1, d_model=16, d_ff=32,
+                                                  vocab_size=32))
+    params = arch.init(0, device="cpu")
+    n, s = 2, 2
+    tok = torch.randint(0, 32, (n * s * 3, 9), generator=torch.Generator().manual_seed(1))
+    step = make_train_step(arch, FLRunConfig(num_virtual_clients=n, local_steps=s))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(params, batch, 5)
+    names = [e.name for e in prof.events() if getattr(e, "is_user_annotation", False)]
+    want = {"train.forward": n * s, "train.backward": n * s, "train.update": n * (s + 1),
+            "train.encode": n, "train.close": 1}
+    assert {k: names.count(k) for k in want} == want
+    assert obs.traced()["train.tokens"] == batch["labels"].numel()
