@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases (any failure exits non-zero and the final line is not printed):
 
 1. device: the card's name, count, and ``nvidia-smi`` name and power limit;
-2. build: the seven CUDA sources with nvcc (in parallel), with ptxas's
+2. build: the eight CUDA sources with nvcc (in parallel), with ptxas's
    registers and spills per kernel;
 3. kernels against their plain PyTorch versions, on the card, at the MLP
    leaves, a SmolLM-360M-sized tied embedding (49152, 960) for k = 1 and
@@ -110,7 +110,9 @@ Phases (any failure exits non-zero and the final line is not printed):
    full width, 2 layers, float32, ``launch/train.py``'s ``train_step``
    for one round (N = 4 clients, S = 2 local steps, per-step batch 1 ×
    512 tokens): loss, every client's r and the new params within the
-   limits stated at ``TRAIN_LOSS_ATOL``;
+   limits stated at ``TRAIN_LOSS_ATOL``; the card's attention through
+   the flash training kernels (two forward launches and one backward a
+   layer, client and step);
 13. main path of the training slice at full width and depth: SmolLM-360M,
    32 layers, bf16, random weights from seed 0, rademacher, k = 1, N = 4,
    S = 2, per-step batch 1 × 4096 tokens (``train_4k``'s sequence; its
@@ -145,8 +147,11 @@ Phases (any failure exits non-zero and the final line is not printed):
    phase 13 the train round's encode and close (one launch) likewise;
 15. training above the blocked-attention threshold (after phase 12):
    SmolLM-360M at full width, 2 layers, float32, 8448 tokens under
-   autograd: loss and gradients through ``_sdpa_blocked`` (the plain
-   blocked recurrence) against the plain ``_sdpa``; phase 13's close
+   autograd: loss and gradients through ``_sdpa_blocked`` against the
+   plain ``_sdpa`` with its flash route off, once as float32 runs (the
+   flash training kernels, never the blocked recurrence) and once with the
+   flash route off, as bf16 training and prefix prefills run (the plain
+   blocked recurrence, twice a layer); phase 13's close
    (per-client rounding) is held bitwise against ``server_aggregate``.
 16. the mesh-sharded server (after phase 5; ``sharding/fed_rules.py``):
    the decode, the fused close and the encode over shard plans (one tree
@@ -296,7 +301,8 @@ Phases (any failure exits non-zero and the final line is not printed):
    (2, 2) holds the data groups' gradient sum: its loss within 1e-4, each
    r within 1e-5·(1 + |r|) and its params within Σₙ|Δrₙ|/N + 1e-6 of the
    float32 unsharded round's (the card tests' float32 limits; a group's
-   gradient lost or the groups' losses summed moves r by about |r|).
+   gradient lost or the groups' losses summed moves r by about |r|), its
+   attention through the flash training kernels, launches exact.
 22. serving from resident shards on a mesh (after phase 21;
    ``models/api.py``, ``sharding/resident.py::place_rows``): SmolLM-360M
    at full width and depth, bf16, batch 4, a 16 384-token prompt and 32
@@ -321,6 +327,16 @@ Phases (any failure exits non-zero and the final line is not printed):
    float64 encode of that δ, and the close given the one-device r bitwise
    the one-device close; a replica's resident bytes per entry beside
    ``per_device_bytes`` under ``param_specs(layout="tp")``.
+
+24. the float32 flash training kernels (``csrc/flash_attention.cu`` with
+   its lse output, ``csrc/flash_attention_bwd.cu``) at Minitron-8B's
+   attention, (1, 4096, 48/8, 128) causal: the backward bitwise on a
+   rerun and within 1e-4 of its plain version's largest |gradient|; each
+   kernel's CUDA-event time in turns with its plain version, beside its
+   bound (the FMAs the function needs an allowed pair, 2·hd forward and
+   5·hd backward, at the float32 FMA rate); a FlashAttentionF32 forward and backward beside the plain
+   ``_sdpa`` under autograd and ``scaled_dot_product_attention``'s (timed
+   only, as a yardstick).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.
@@ -2045,6 +2061,111 @@ def _flash_counters():
                      "decode": "flash_decode.launches", "f32": "flash_f32.launches"})
 
 
+# Minitron-8B's attention at its training sequence (fedbench's
+# minitron-8b-base.fedround): (B, S, H, K, hd), causal
+FLASH_TRAIN_SHAPE = (1, 4096, 48, 8, 128)
+
+
+def phase_flash_train(s: Smoke):
+    """The float32 training kernels at FLASH_TRAIN_SHAPE, CUDA events: the
+    forward with its lse output and the backward, each in turns (kernel,
+    plain, kernel), beside its bound and its plain version.  The bound is
+    the FMAs the function needs an allowed pair at the float32 FMA rate:
+    2·hd forward (QKᵀ, P·V), 5·hd backward (S = QKᵀ, dP = dO·Vᵀ, dV, dK,
+    dQ); the backward kernels' recompute of S and dP for dQ, 2·hd more, is
+    the design's and not counted; then a whole
+    FlashAttentionF32 forward and backward beside the plain ``_sdpa``'s under
+    autograd (the route it replaces) and, as a yardstick only,
+    ``scaled_dot_product_attention``'s float32 forward and backward (K/V
+    repeated to H outside the timed region).  Checks the gradients within
+    1e-4 of the plain backward's largest and two backward runs bitwise.
+    → the row."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.models import attention
+
+    b, sl, h, kh, hd = FLASH_TRAIN_SHAPE
+    q, dy = s.randn(b, sl, h, hd), s.randn(b, sl, h, hd)
+    k, v = s.randn(b, sl, kh, hd), s.randn(b, sl, kh, hd)
+    pos = torch.arange(sl, dtype=torch.int32, device=s.dev)
+    pairs = int(fa.allowed_mask(pos, pos, True, 0).sum()) * b * h
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, pos, pos)
+    grads = fa.flash_attention_bwd(q, k, v, out, dy, lse, pos, pos)
+    again = fa.flash_attention_bwd(q, k, v, out, dy, lse, pos, pos)
+    plain = fa.flash_attention_bwd_plain(q, k, v, out, dy, lse, pos, pos)
+    if not all(torch.equal(a, g) for a, g in zip(grads, again)):
+        raise AssertionError("flash train: two backward runs differ")
+    errs = [float((a - p).abs().max()) / float(p.abs().max()) for a, p in zip(grads, plain)]
+    if max(errs) > 1e-4:
+        raise AssertionError(f"flash train: gradients {errs} of the plain backward's largest")
+    del plain, again
+
+    def fwd():
+        return fa.flash_attention_fwd_lse(q, k, v, pos, pos)
+
+    def bwd():
+        return fa.flash_attention_bwd(q, k, v, out, dy, lse, pos, pos)
+
+    def both(fn):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, dy)
+
+    def flash_both():
+        return both(lambda *a: fa.flash_attention_train(*a, pos, pos))
+
+    def sdpa_plain(*a):
+        route = attention._flash_train_route
+        attention._flash_train_route = lambda *_: False
+        try:
+            return attention._sdpa(*a, pos, pos, causal=True, window=0, prefix_len=0)
+        finally:
+            attention._flash_train_route = route
+
+    qt, dyt = q.transpose(1, 2).contiguous(), dy.transpose(1, 2).contiguous()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(h // kh, dim=1).contiguous()
+              for x in (k, v))
+
+    def library():
+        leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(o, leaves, dyt)
+
+    tt = {}
+    for name, fn, reps in (("fwd", fwd, 5), ("fwd_plain", lambda: fa.flash_attention_fwd_lse_plain(
+            q, k, v, pos, pos), 1), ("fwd2", fwd, 5), ("bwd", bwd, 3),
+            ("bwd_plain", lambda: fa.flash_attention_bwd_plain(q, k, v, out, dy, lse, pos, pos), 1),
+            ("bwd2", bwd, 3), ("train", flash_both, 3),
+            ("sdpa_plain", lambda: both(sdpa_plain), 1), ("library", library, 3),
+            ("train2", flash_both, 3)):
+        tt[name] = s.time_ms(fn, reps=reps, warmup=1)
+        torch.cuda.empty_cache()
+    fwd_ms, bwd_ms = (tt["fwd"] + tt["fwd2"]) / 2, (tt["bwd"] + tt["bwd2"]) / 2
+    fwd_bound = 2 * hd * pairs / FP32_OPS_PER_S * 1e3
+    bwd_bound = 5 * hd * pairs / FP32_OPS_PER_S * 1e3
+    row = dict(shape=dict(B=b, S=sl, T=sl, H=h, K=kh, hd=hd, dtype="float32", causal=True),
+               allowed_pairs=pairs,
+               fwd_lse=dict(ms=fwd_ms, turns_ms=[tt["fwd"], tt["fwd2"]],
+                            plain_ms=tt["fwd_plain"], bound_ms=fwd_bound,
+                            bound_pct=100 * fwd_bound / fwd_ms),
+               bwd=dict(ms=bwd_ms, turns_ms=[tt["bwd"], tt["bwd2"]],
+                        plain_ms=tt["bwd_plain"], bound_ms=bwd_bound,
+                        bound_pct=100 * bwd_bound / bwd_ms,
+                        design_fma_per_pair=7 * hd, bound_fma_per_pair=5 * hd,
+                        max_grad_err_over_plain_max=max(errs)),
+               fwd_bwd=dict(ms=(tt["train"] + tt["train2"]) / 2,
+                            turns_ms=[tt["train"], tt["train2"]],
+                            sdpa_plain_ms=tt["sdpa_plain"], library_ms=tt["library"]))
+    print("flash train times: " + json.dumps(row), flush=True)
+    del q, k, v, dy, out, lse, grads, qt, kt, vt, dyt
+    torch.cuda.empty_cache()
+    return row
+
+
 def _positions(cfg, batch):
     """Decoder positions a prefill of ``batch`` fills: the VLM's patch
     embeddings come before its text, the enc-dec's frames go to the encoder."""
@@ -2563,7 +2684,7 @@ def phase_families_serve(s: Smoke):
 
 def _train_counters():
     """The launch counters the training slice may move, by kernel."""
-    return Launches({**_kernel_fns(),
+    return Launches({**_kernel_fns(), "flash_bwd": "flash_bwd.launches",
                      **{f"flash_{k}": c for k, c in _flash_counters().items()}})
 
 
@@ -2663,7 +2784,8 @@ def phase_train_kernels(s: Smoke):
 
 def phase_train_parity(s: Smoke):
     """SmolLM-360M at full width, 2 layers, float32: one train_step round on
-    the card against the same round on the CPU."""
+    the card (its attention through the flash training kernels) against the
+    same round on the CPU → the card's launches."""
     import numpy as np
     import torch
 
@@ -2696,8 +2818,10 @@ def phase_train_parity(s: Smoke):
         secs[dev.type] = time.perf_counter() - t1
         launches[dev.type] = counters.moved()
     # the encode: one tree launch (and its reduction) per client; the close:
-    # one tree launch
-    want = {"encode": 2 * n, "rec": 1}
+    # one tree launch; float32 attention under autograd: the flash kernel in
+    # each layer's forward and its recompute, its backward once, a step
+    calls = n * st * cfg.num_layers
+    want = {"encode": 2 * n, "rec": 1, "flash_f32": 2 * calls, "flash_bwd": calls}
     if launches != {"cuda": want, "cpu": {}}:
         raise AssertionError(f"train parity: launches {launches}, expected "
                              f"{want} on the card and none on the CPU")
@@ -2729,14 +2853,19 @@ def phase_train_parity(s: Smoke):
         total_s=time.perf_counter() - t0)), flush=True)
     del out, params
     torch.cuda.empty_cache()
+    return launches["cuda"]
 
 
 def phase_train_long(s: Smoke):
     """Training above the blocked-attention threshold on the card (C2):
     SmolLM-360M at full width, 2 layers, float32, one sequence of
     TRAIN_LONG_SEQ tokens; the loss and every gradient through
-    ``_sdpa_blocked`` (the reference's blocked recurrence in plain torch,
-    under autograd) against the same through the plain ``_sdpa``."""
+    ``_sdpa_blocked`` against the same through the plain ``_sdpa`` with its
+    flash route turned off, twice: as float32 runs (FlashAttentionF32, the
+    flash kernel forward and its backward, never the blocked recurrence),
+    and with the flash route turned off, as bf16 training and prefix
+    prefills run (the reference's blocked recurrence in plain torch, under
+    autograd) → the flash training launches."""
     import numpy as np
     import torch
 
@@ -2754,12 +2883,17 @@ def phase_train_long(s: Smoke):
         0, cfg.vocab_size, (1, TRAIN_LONG_SEQ + 1))).to(s.dev)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     counters = _flash_counters()
-    plain_blocked = attention._sdpa_blocked_plain
+    plain_blocked, route = attention._sdpa_blocked_plain, attention._flash_train_route
+    threshold = attention.BLOCKED_SDPA_THRESHOLD
     calls = [0]
 
     def counted(*args, **kwargs):
         calls[0] += 1
         return plain_blocked(*args, **kwargs)
+
+    def flash_train():
+        t = _totals()
+        return {n: t[n] for n in ("flash_train.calls", "flash_bwd.launches")}
 
     def loss_and_grads():
         leaves = [w.detach().requires_grad_(True) for w in tree_leaves(params)]
@@ -2767,47 +2901,75 @@ def phase_train_long(s: Smoke):
         loss = arch.loss(p, batch)
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
-        return float(loss), grads
+        return float(loss.detach()), grads
 
-    counters.reset()
-    attention._sdpa_blocked_plain = counted
-    try:
-        blocked = loss_and_grads()
-    finally:
-        attention._sdpa_blocked_plain = plain_blocked
-    blocked_s = time.perf_counter() - t0
-    flash = counters.moved()
-    threshold = attention.BLOCKED_SDPA_THRESHOLD
+    def run(flash_route):
+        """→ (loss and grads through ``_sdpa_blocked``, its seconds, the
+        blocked recurrence's calls, the flash launches, the flash training
+        counts)."""
+        counters.reset()
+        before = flash_train()
+        calls[0] = 0
+        attention._sdpa_blocked_plain = counted
+        if not flash_route:
+            attention._flash_train_route = lambda *a: False
+        try:
+            t1 = time.perf_counter()
+            out = loss_and_grads()
+            secs = time.perf_counter() - t1
+        finally:
+            attention._sdpa_blocked_plain = plain_blocked
+            attention._flash_train_route = route
+        return (out, secs, calls[0], counters.moved(),
+                {n: c - before[n] for n, c in flash_train().items()})
+
+    flash, flash_s, flash_calls, flash_launches, trained = run(True)
+    blocked, blocked_s, blocked_calls, blocked_launches, blocked_trained = run(False)
     attention.BLOCKED_SDPA_THRESHOLD = TRAIN_LONG_SEQ + 1
+    attention._flash_train_route = lambda *a: False
     try:
         t1 = time.perf_counter()
         plain = loss_and_grads()
         plain_s = time.perf_counter() - t1
     finally:
         attention.BLOCKED_SDPA_THRESHOLD = threshold
-    worst = max(float((a - b).abs().max()) / float(b.abs().max())
-                for a, b in zip(blocked[1], plain[1]))
-    dloss = abs(blocked[0] - plain[0])
-    # forward and the recomputation in the backward (remat), per layer
-    if calls[0] != 2 * cfg.num_layers or flash:
-        raise AssertionError(f"train long: blocked recurrence taken {calls[0]} "
-                             f"times (expected {2 * cfg.num_layers}), flash "
-                             f"launches {flash}")
-    if not (dloss <= TRAIN_LONG_LOSS_ATOL and worst <= TRAIN_LONG_GRAD_RTOL
-            and all(bool(torch.isfinite(g).all()) for g in blocked[1])):
-        raise AssertionError(f"train long: |dloss| {dloss} (limit "
-                             f"{TRAIN_LONG_LOSS_ATOL}), worst gradient "
-                             f"{worst} of its leaf's largest (limit "
-                             f"{TRAIN_LONG_GRAD_RTOL})")
+        attention._flash_train_route = route
+    # forward and the recomputation in the backward (remat), per layer; one
+    # backward per layer; flash_attention (no grad) never
+    layers = cfg.num_layers
+    want = {"flash_train.calls": 2 * layers, "flash_bwd.launches": layers}
+    none = dict.fromkeys(want, 0)
+    if (flash_calls or trained != want or flash_launches != {"f32": 2 * layers}
+            or blocked_calls != 2 * layers or blocked_trained != none or blocked_launches):
+        raise AssertionError(
+            f"train long: flash route: blocked recurrence taken {flash_calls} times "
+            f"(expected 0), flash training {trained} (expected {want}), flash "
+            f"launches {flash_launches}; route off: blocked recurrence taken "
+            f"{blocked_calls} times (expected {2 * layers}), flash training "
+            f"{blocked_trained}, flash launches {blocked_launches} (expected none)")
+    rows = {}
+    for name, (loss, grads) in (("flash", flash), ("blocked", blocked)):
+        worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(grads, plain[1]))
+        dloss = abs(loss - plain[0])
+        if not (dloss <= TRAIN_LONG_LOSS_ATOL and worst <= TRAIN_LONG_GRAD_RTOL
+                and all(bool(torch.isfinite(g).all()) for g in grads)):
+            raise AssertionError(f"train long ({name}): |dloss| {dloss} (limit "
+                                 f"{TRAIN_LONG_LOSS_ATOL}), worst gradient "
+                                 f"{worst} of its leaf's largest (limit "
+                                 f"{TRAIN_LONG_GRAD_RTOL})")
+        rows[name] = dict(loss=loss, abs_dloss=dloss, max_grad_err_over_leaf_max=worst)
     print("train long: " + json.dumps(dict(
-        arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, seq=TRAIN_LONG_SEQ,
-        threshold=threshold, loss_blocked=blocked[0], loss_plain=plain[0],
-        abs_dloss=dloss, loss_limit=TRAIN_LONG_LOSS_ATOL,
-        max_grad_err_over_leaf_max=worst, grad_limit=TRAIN_LONG_GRAD_RTOL,
-        blocked_recurrence_calls=calls[0], blocked_s=blocked_s, plain_s=plain_s,
-        total_s=time.perf_counter() - t0)), flush=True)
-    del params, blocked, plain
+        arch=cfg.name, layers=layers, dtype=cfg.dtype, seq=TRAIN_LONG_SEQ,
+        threshold=threshold, loss_plain=plain[0], loss_limit=TRAIN_LONG_LOSS_ATOL,
+        grad_limit=TRAIN_LONG_GRAD_RTOL, flash=dict(rows["flash"], flash_train=trained,
+                                                     s=flash_s),
+        blocked=dict(rows["blocked"], blocked_recurrence_calls=blocked_calls,
+                     s=blocked_s),
+        plain_s=plain_s, total_s=time.perf_counter() - t0)), flush=True)
+    del params, flash, blocked, plain
     torch.cuda.empty_cache()
+    return {"flash_f32": flash_launches["f32"], "flash_bwd": trained["flash_bwd.launches"]}
 
 
 def phase_train(s: Smoke):
@@ -4419,9 +4581,11 @@ def phase_client_parallel(s: Smoke):
     p_tol = float(d_r.sum()) / n + 1e-6
     dp = max(float((a.cpu() - b).abs().max())
              for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)))
+    # one launch of each flash training kernel covers the N clients (vmap)
+    calls = st * cfg.num_layers
+    want = {"encode": 2, "rec": 1, "flash_f32": 2 * calls, "flash_bwd": calls}
     if not (dloss <= TRAIN_LOSS_ATOL and bool((d_r <= r_lim).all()) and dp <= p_tol
-            and res["cuda_launches"] == {"encode": 2, "rec": 1}
-            and res["cpu_launches"] == {}):
+            and res["cuda_launches"] == want and res["cpu_launches"] == {}):
         raise AssertionError(f"client parallel: card vs CPU |dloss| {dloss}, |dr| "
                              f"{d_r.flatten().tolist()} (limits "
                              f"{r_lim.flatten().tolist()}), |dparams| {dp} (limit "
@@ -4432,7 +4596,7 @@ def phase_client_parallel(s: Smoke):
         max_abs_dparams=dp, dparams_limit=p_tol)), flush=True)
     del res, p_cpu, p_dev
     torch.cuda.empty_cache()
-    return cp_launches
+    return {**cp_launches, **{k: want[k] for k in ("flash_f32", "flash_bwd")}}
 
 
 # Phase 20: the fused close's autotuner.  The sweep's workloads, (rows,
@@ -4851,7 +5015,12 @@ def phase_mesh_train(s: Smoke):
     u_new, u_m = make_train_step(arch32, fl)(p32, batch, 2)
     (new, m), got = _mesh_counted(counters, lambda: make_train_step(
         arch32, fl, mesh=mesh)(shard_resident(p32, mesh), batch, 2))
-    want = {"encode": 2 * n * len(mesh.device_groups()), "rec": len(mesh.device_groups())}
+    # float32 attention under autograd: each client's step runs the layers
+    # once a data group, the flash kernel in a layer's forward and its
+    # recompute, its backward once
+    calls = n * st * len(mesh.data_groups()) * cfg.num_layers
+    want = {"encode": 2 * n * len(mesh.device_groups()), "rec": len(mesh.device_groups()),
+            "flash_f32": 2 * calls, "flash_bwd": calls}
     if got != want:
         raise AssertionError(f"mesh float32 (2, 2): launches {got}, expected {want}")
     launches = {k: launches.get(k, 0) + v for k, v in got.items()}
@@ -5220,8 +5389,8 @@ def _run(torch, t0, name, count, smi_line) -> int:
     fam_launches = phase_families_parity(s)
     fam_serve = phase_families_serve(s)
     phase_train_kernels(s)
-    phase_train_parity(s)
-    phase_train_long(s)
+    parity_launches = phase_train_parity(s)
+    long_launches = phase_train_long(s)
     train_launches = phase_train(s)
     hd256_rows = phase_flash_hd256(s)
     vlm_launches = phase_vlm_encdec_parity(s)
@@ -5232,6 +5401,7 @@ def _run(torch, t0, name, count, smi_line) -> int:
     mesh_launches = phase_mesh_train(s)
     serve_mesh = phase_mesh_serve(s)
     cp_mesh = phase_mesh_client_parallel(s)
+    flash_train = phase_flash_train(s)
     for part in (mesh_launches, cp_mesh):
         launches["encode"] += part.get("encode", 0)
         train_launches["rec"] = train_launches.get("rec", 0) + part.get("rec", 0)
@@ -5248,6 +5418,12 @@ def _run(torch, t0, name, count, smi_line) -> int:
         flash_launches[k] += (fam_launches[k] + fam_serve[k] + vlm_launches[k]
                               + vlm_serve[k] + mc_launches.get(f"flash_{k}", 0)
                               + serve_mesh[k])
+    # float32 training's attention (phases 12, 15, 19's client-parallel
+    # round and 21's float32 mesh round): the float32 kernel forward, and
+    # its backward
+    for part in (parity_launches, long_launches, cp_launches, mesh_launches):
+        flash_launches["f32"] += part.get("flash_f32", 0)
+        flash_launches["bwd"] = flash_launches.get("bwd", 0) + part.get("flash_bwd", 0)
     kernels = [
         dict(name="seeded_projection", route="cuda",
              source="src/repro_torch/kernels/csrc/seeded_projection.cu",
@@ -5275,8 +5451,10 @@ def _run(torch, t0, name, count, smi_line) -> int:
     ]
     # The flash kernels: prefill and decode carry the serve paths (launches
     # from phases 10, 17 and 18); the float32 kernel carries the parity
-    # paths' prefill (launches from phases 9, 17 and 18).  Times at the
-    # SmolLM-360M shapes (phase 8); phase 18 prints the head_dim-256 ones.
+    # paths' prefill (launches from phases 9, 17 and 18) and float32
+    # training's forward (12, 15, 19, 21), the backward float32 training's.
+    # Times at the SmolLM-360M shapes (phase 8); phase 18 prints the
+    # head_dim-256 ones; the backward's at Minitron-8B's attention (24).
     for route, kernel in FLASH_KERNELS.items():
         fr = flash_rows[route]
         kernels.append(dict(
@@ -5286,6 +5464,14 @@ def _run(torch, t0, name, count, smi_line) -> int:
             launches=flash_launches[route], max_abs_err=s.errs[kernel],
             ms=fr["ms"], plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"],
             bound_by=fr["bound_by"], library_ms=fr["library_ms"]))
+    fb = flash_train["bwd"]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu", replaces=None,
+        launches=flash_launches["bwd"],
+        max_grad_err_over_plain_max=fb["max_grad_err_over_plain_max"], ms=fb["ms"],
+        plain_ms=fb["plain_ms"], bound_ms=fb["bound_ms"], bound_by="operations",
+        library_ms=None))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

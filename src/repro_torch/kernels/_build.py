@@ -9,10 +9,10 @@ plain C interface::
 
 ``-fmad=false`` is part of the numeric spec of the fused close, the
 per-client decode and the QSGD round trip: no mul+add pair may be
-contracted into an FMA.  Flash attention (three sources: the float32
-kernel, the bf16 tensor-core prefill and the split-KV decode) needs only
-a tolerance; it writes its FMAs as ``fmaf``, which the flag leaves
-alone.  The prefill looks up libcuda's ``cuTensorMapEncodeTiled`` at
+contracted into an FMA.  Flash attention (four sources: the float32
+kernel and its backward, the bf16 tensor-core prefill and the split-KV
+decode) needs only a tolerance; it writes its FMAs as ``fmaf``, which
+the flag leaves alone.  The prefill looks up libcuda's ``cuTensorMapEncodeTiled`` at
 run time through the CUDA runtime, so no source links ``-lcuda``.  Division and
 ``expf`` stay IEEE (never ``--use_fast_math``).
 The library name carries a hash of the sources and flags, so an edited
@@ -39,7 +39,8 @@ __all__ = ["CSRC", "BUILD_DIR", "SOURCES", "NVCC_FLAGS", "BuildResult",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("seeded_projection", "reconstruct_apply", "seeded_reconstruct",
-           "qsgd_quant", "flash_attention", "flash_prefill", "flash_decode")
+           "qsgd_quant", "flash_attention", "flash_attention_bwd", "flash_prefill",
+           "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 

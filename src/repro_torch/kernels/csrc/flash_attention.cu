@@ -15,7 +15,11 @@
 // allowed key gets 0 (the Pallas kernel averages V over its masked keys
 // there; no caller keeps such rows).  Layouts are the reference's: q and
 // out (B, S, H, hd), k and v (B, T, KH, hd), all contiguous; qpos (S,) and
-// kpos (T,) int32.
+// kpos (T,) int32.  Given an lse pointer (B, H, S), float32, it also
+// stores each row's log-sum-exp of its scaled scores, m + log l (-inf for
+// a row with no allowed key), which the backward
+// (csrc/flash_attention_bwd.cu) recomputes P from; with a null pointer it
+// stores nothing else, and out is the same either way.
 //
 // What bounds it: 4·hd flops per allowed (query, key) pair on 2·hd·4 bytes
 // per key read from L2, so it is bound by arithmetic.  It uses float32
@@ -158,8 +162,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ qpos,
-             const int* __restrict__ kpos, float* __restrict__ out, int S, int H,
-             int KH, int T, int group, float scale, int causal, int window) {
+             const int* __restrict__ kpos, float* __restrict__ out,
+             float* __restrict__ lse, int S, int H, int KH, int T, int group,
+             float scale, int causal, int window) {
   using Sh = Shape<HD>;
   constexpr int BM = Sh::BM, TM = Sh::TM, QST = Sh::QST;
   constexpr int BN = Sh::BN, TN = Sh::TN, VW = Sh::VW, NV = Sh::NV, KST = Sh::KST;
@@ -394,6 +399,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long r = row0 + rr;
     const long long s = r / group;
     const int h = kvh * group + (int)(r % group);
+    if (lse != nullptr && cg == 0)
+      lse[((long long)b * H + h) * S + s] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     float* dst = out + ((b * (long long)S + s) * H + h) * HD;
 #pragma unroll
     for (int u = 0; u < NV; ++u) {
@@ -411,8 +418,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const int* qpos,
-           const int* kpos, float* out, int B, int S, int H, int KH, int T,
-           float scale, int causal, int window, cudaStream_t stream) {
+           const int* kpos, float* out, float* lse, int B, int S, int H, int KH,
+           int T, float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = Shape<HD>::SMEM_BYTES;
   static bool configured = false;
   if (!configured) {
@@ -426,8 +433,8 @@ int launch(const float* q, const float* k, const float* v, const int* qpos,
   const long long tiles = (rows + BM - 1) / BM;
   if (tiles > INT_MAX || KH > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
   dim3 grid((unsigned)tiles, (unsigned)KH, (unsigned)B);
-  flash_kernel<HD><<<grid, kThreads, smem, stream>>>(q, k, v, qpos, kpos, out, S, H, KH,
-                                                     T, H / KH, scale, causal, window);
+  flash_kernel<HD><<<grid, kThreads, smem, stream>>>(q, k, v, qpos, kpos, out, lse, S, H,
+                                                     KH, T, H / KH, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -435,10 +442,10 @@ int launch(const float* q, const float* k, const float* v, const int* qpos,
 
 extern "C" {
 
-// float32 only.  Returns the launch's cudaError_t.
+// float32 only; lse may be null.  Returns the launch's cudaError_t.
 int fs_flash_attention(const void* q, const void* k, const void* v,
-                       const int* qpos, const int* kpos, void* out, int B,
-                       int S, int H, int KH, int T, int hd, float scale,
+                       const int* qpos, const int* kpos, void* out, void* lse,
+                       int B, int S, int H, int KH, int T, int hd, float scale,
                        int causal, int window, void* stream) {
     if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0) {
         return (int)cudaErrorInvalidValue;
@@ -447,19 +454,20 @@ int fs_flash_attention(const void* q, const void* k, const void* v,
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(out);
+    float* lf = static_cast<float*>(lse);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (hd) {
         case 32:
-            return launch<32>(qf, kf, vf, qpos, kpos, of, B, S, H, KH, T, scale, causal,
+            return launch<32>(qf, kf, vf, qpos, kpos, of, lf, B, S, H, KH, T, scale, causal,
                               window, st);
         case 64:
-            return launch<64>(qf, kf, vf, qpos, kpos, of, B, S, H, KH, T, scale, causal,
+            return launch<64>(qf, kf, vf, qpos, kpos, of, lf, B, S, H, KH, T, scale, causal,
                               window, st);
         case 128:
-            return launch<128>(qf, kf, vf, qpos, kpos, of, B, S, H, KH, T, scale, causal,
+            return launch<128>(qf, kf, vf, qpos, kpos, of, lf, B, S, H, KH, T, scale, causal,
                                window, st);
         case 256:
-            return launch<256>(qf, kf, vf, qpos, kpos, of, B, S, H, KH, T, scale, causal,
+            return launch<256>(qf, kf, vf, qpos, kpos, of, lf, B, S, H, KH, T, scale, causal,
                                window, st);
         default:
             return (int)cudaErrorInvalidValue;

@@ -13,7 +13,18 @@ plain version on a CPU tensor; under autograd on the card, and where a
 query lies inside the prefix (a prefill with a prefix), it is the
 reference's blocked recurrence in plain torch (``_sdpa_blocked_plain``).
 A decode step past the prefix has the causal mask, and takes the kernel.
-Cross-attention always takes the plain ``_sdpa``, as in the reference.
+Cross-attention takes ``_sdpa``, as in the reference.
+
+Training in float32 on the card is the exception to both: a call that
+autograd records (``_flash_train_route``: a CUDA or meta tensor, float32,
+q, k or v requiring grad, a head_dim the kernels take, no query inside
+the prefix) takes ``kernels.flash_attention.FlashAttentionF32``, the
+float32 flash kernel forward and its hand-written backward, whatever its
+length, so that no (S, T) score tensor is kept or recomputed.  bf16
+training, calls without grad and prefix prefills keep their routes.  The
+counters ``attn.grad_calls`` (every call autograd records on the card or
+meta) and ``flash_train.calls`` (those that took the flash route) say
+how often it engages.
 
 The KV cache is a fixed-capacity ring buffer: ``pos`` records each
 slot's absolute token position (−1 = empty).  Unlike the reference,
@@ -27,8 +38,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attention import allowed_mask, flash_attention
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, allowed_mask, flash_attention,
+                                                 flash_attention_train)
 from repro_torch.models.layers import apply_rope, init_linear, linear, rope_freqs
 
 __all__ = ["KVCache", "init_attention", "attention", "init_cache", "NEG_INF",
@@ -82,6 +95,54 @@ def _mask_logits(scores, qpos, kpos, *, causal, window, prefix_len):
     return torch.where(ok, scores, torch.full_like(scores, NEG_INF))
 
 
+def _requires_grad(x: torch.Tensor) -> bool:
+    """Whether autograd tracks ``x``; inside ``torch.func.vmap`` (the
+    client-parallel step) the batched wrapper does not say, its value does."""
+    while torch._C._functorch.is_batchedtensor(x):
+        x = torch._C._functorch.get_unwrapped(x)
+    return x.requires_grad
+
+
+def _grad_on_card(q, k, v) -> bool:
+    """A CUDA or meta call that autograd records."""
+    return ((q.is_cuda or q.is_meta) and torch.is_grad_enabled()
+            and any(_requires_grad(x) for x in (q, k, v)))
+
+
+def _inside_prefix(q, qpos, prefix_len) -> bool:
+    """Whether a query lies inside the prefix-bidirectional span.  A
+    ``meta`` tensor's positions hold no values: a call of more than one
+    query counts as a prefill from position 0 (inside any prefix), a
+    single query as a decode step past it, as the dry run's steps are."""
+    if not prefix_len:
+        return False
+    if q.is_meta:
+        return q.shape[1] > 1
+    return int(qpos.min()) < prefix_len
+
+
+def _flash_train_route(q, k, v, qpos, prefix_len) -> bool:
+    """Whether the call trains through ``FlashAttentionF32``: on the card
+    (or meta) under autograd, float32, a head_dim the kernels take, and no
+    query inside the prefix, whose mask they do not have."""
+    return (_grad_on_card(q, k, v)
+            and q.dtype == k.dtype == v.dtype == torch.float32
+            and q.shape[-1] in HEAD_DIMS and not _inside_prefix(q, qpos, prefix_len))
+
+
+def _flash_train(q, k, v, qpos, kpos, *, causal, window, prefix_len):
+    """The attention through ``FlashAttentionF32`` where
+    :func:`_flash_train_route` takes the call, else None (the caller keeps
+    its route); counts ``attn.grad_calls`` and ``flash_train.calls``."""
+    if not _grad_on_card(q, k, v):
+        return None
+    obs.count("attn.grad_calls")
+    if not _flash_train_route(q, k, v, qpos, prefix_len):
+        return None
+    obs.count("flash_train.calls")
+    return flash_attention_train(q, k, v, qpos, kpos, causal=causal, window=window)
+
+
 def _sdpa(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     """q: (B,S,H,hd), k/v: (B,T,K,hd) → (B,S,H,hd).  fp32 softmax.
 
@@ -91,7 +152,15 @@ def _sdpa(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     the probabilities are rounded to V's dtype before P·V as there.  At
     S = T = 8192 the score tensor is B·H·S²·4 bytes (16 GB at batch 4,
     15 heads): above the threshold the blocked path takes over.
+
+    A float32 call that autograd records on the card takes the flash
+    kernels instead (:func:`_flash_train`), which keep no score tensor;
+    their sums run in another order, at float32 rounding.
     """
+    out = _flash_train(q, k, v, qpos, kpos, causal=causal, window=window,
+                       prefix_len=prefix_len)
+    if out is not None:
+        return out
     b, s, h, hd = q.shape
     t, kheads = k.shape[1], k.shape[2]
     g = h // kheads
@@ -184,27 +253,24 @@ def _sdpa_blocked(q, k, v, qpos, kpos, *, causal, window, prefix_len):
     The reference's ``_sdpa_blocked`` is the pure-JAX online softmax over
     query and KV chunks.  Here the flash-attention kernels take it
     (``kernels.flash_attention``: the hand-written kernel on a CUDA
-    tensor, its plain version on a CPU tensor), except where they cannot:
-    where a query lies inside the prefix-bidirectional span, whose mask
-    they do not have, and on the card under autograd, where they have no
-    backward.  Those take :func:`_sdpa_blocked_plain`, the reference's
-    recurrence itself.  When every query lies at or past the prefix (a
-    decode step), the prefix term of the mask is empty and the mask is
-    the causal one, which the kernels take.
+    tensor, its plain version on a CPU tensor), and under autograd in
+    float32 on the card the kernels forward and backward
+    (:func:`_flash_train`), except where they cannot: where a query lies
+    inside the prefix-bidirectional span, whose mask they do not have, and
+    on the card under autograd in bf16, where they have no backward.  Those
+    take :func:`_sdpa_blocked_plain`, the reference's recurrence itself.
+    When every query lies at or past the prefix (a decode step), the
+    prefix term of the mask is empty and the mask is the causal one, which
+    the kernels take.
 
-    A ``meta`` tensor (the dry run) takes the card's branches; its
-    positions hold no values, so a call of more than one query counts as
-    a prefill from position 0 (inside any prefix) and a single query as a
-    decode step past it, as the dry run's steps are.
+    A ``meta`` tensor (the dry run) takes the card's branches
+    (:func:`_inside_prefix` says how it counts the prefix).
     """
-    on_card = q.is_cuda or q.is_meta
-    if q.is_meta:
-        inside_prefix = bool(prefix_len) and q.shape[1] > 1
-    else:
-        inside_prefix = bool(prefix_len) and int(qpos.min()) < prefix_len
-    if inside_prefix or (
-            on_card and torch.is_grad_enabled() and (
-                q.requires_grad or k.requires_grad or v.requires_grad)):
+    out = _flash_train(q, k, v, qpos, kpos, causal=causal, window=window,
+                       prefix_len=prefix_len)
+    if out is not None:
+        return out
+    if _inside_prefix(q, qpos, prefix_len) or _grad_on_card(q, k, v):
         return _sdpa_blocked_plain(q, k, v, qpos, kpos, causal=causal,
                                    window=window, prefix_len=prefix_len)
     return flash_attention(q, k, v, qpos.to(torch.int32).contiguous(),

@@ -27,8 +27,12 @@ in its trace's breakdown of the device's idle time:
   padding included on the routes that pad), and the kernel launches
   ``decode.launches``, ``close.launches``, ``encode.launches``,
   ``qsgd.launches``, ``flash.launches`` (the calls of ``flash_attention``
-  that launched), ``flash_prefill.launches``, ``flash_decode.launches``
-  and ``flash_f32.launches``.
+  that launched), ``flash_prefill.launches``, ``flash_decode.launches``,
+  ``flash_f32.launches`` and ``flash_bwd.launches``;
+* counters of attention under autograd (``models/attention.py``):
+  ``attn.grad_calls`` (every call autograd records on the card or meta)
+  and ``flash_train.calls`` (those that train through the float32 flash
+  kernels).
 
 :func:`device_time` reads a finished recording: the device's busy time
 as the union of its operations' intervals, and its idle time split by

@@ -3,8 +3,8 @@
 ``repro_torch.models.attention._sdpa_blocked_plain`` is the reference's
 blocked online softmax (query chunks × KV chunks, running m, l, acc) in
 plain torch.  It serves attention above ``BLOCKED_SDPA_THRESHOLD`` where
-the flash kernels cannot: under autograd on the card (they have no
-backward) and with a prefix-bidirectional mask (they have none).  Held
+the flash kernels cannot: under autograd on the card in bf16 (they have
+no bf16 backward) and with a prefix-bidirectional mask (they have none).  Held
 here against ``repro.models.attention._sdpa_blocked`` on the same
 numpy inputs with small chunks (ragged query and key chunks, padded keys
 at position −1), GQA, causal, windowed and with a prefix: float32

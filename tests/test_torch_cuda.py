@@ -36,6 +36,13 @@ grids (524 288 × 1, QSGD 262 144 × 2) are bitwise; the train step's
 close (per-client rounding) is bitwise equal to ``server_aggregate``;
 the plain blocked attention recurrence is held against the plain
 ``_sdpa`` (values within 1e-5, gradients within 1e-4 of their largest).
+Float32 training attention (``FlashAttentionF32``): the forward with its
+lse output within ``flash_agrees`` of its plain version and bitwise the
+output without lse, its backward kernel within 1e-4 of the largest
+|gradient| of autograd through the plain ``_sdpa``, bitwise on a rerun
+and under the client-parallel step's vmap, at Minitron-8B's attention
+and at the CPU tests' small shapes; bf16 training and calls without
+grad launch no training kernel.
 A bf16 leaf of 2³¹ + 2²⁰ elements goes through the encode (within
 ``encode_tolerance`` of its float64 plain sum), the fused close and the
 per-client decode (bitwise their plain versions on its first and last
@@ -682,39 +689,164 @@ def test_cuda_bf16_tree_ops_launch_without_a_float32_copy(cuda_device):
 
 
 def test_cuda_sdpa_blocked_refuses_autograd(cuda_device):
-    """The flash kernels have no backward: under autograd on the card
-    _sdpa_blocked does not launch them (no tensor autograd cannot reach)
-    but takes the reference's blocked recurrence in plain torch, whose
-    gradients are the plain _sdpa's (float32, within 1e-4 of the largest
-    |gradient|); without autograd it launches the kernel."""
-    from repro_torch.models.attention import _sdpa, _sdpa_blocked
+    """Under autograd on the card the flash kernels without a backward are
+    refused: float32 trains through FlashAttentionF32 (the float32 kernel
+    forward and its backward; ``flash_train.calls``, no ``flash.launches``),
+    bf16 launches no flash kernel at all but takes the reference's blocked
+    recurrence in plain torch; without autograd ``flash_attention`` runs."""
+    from repro_torch.models.attention import _sdpa_blocked
 
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 40, 3, 64, generator=g).to(cuda_device)
                for _ in range(3))
     pos = torch.arange(40, device=cuda_device)
-    before = obs.totals()["flash.launches"]
-    out = _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+    names = ("flash.launches", "flash_f32.launches", "flash_prefill.launches",
+             "flash_decode.launches", "flash_bwd.launches", "flash_train.calls",
+             "attn.grad_calls")
+
+    def moved(fn):
+        before = obs.totals()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: obs.totals()[n] - before[n] for n in names if
+                     obs.totals()[n] != before[n]}
+
+    out, m = moved(lambda: _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0,
+                                         prefix_len=0))
     assert out.shape == q.shape and not out.requires_grad
-    assert obs.totals()["flash.launches"] == before + 1
+    assert m == {"flash.launches": 1, "flash_f32.launches": 1}
     for leaf in (q, k, v):
         leaf.requires_grad_(True)
-        got = _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
+        got, m = moved(lambda: _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0,
+                                             prefix_len=0))
         assert got.requires_grad
+        assert m == {"flash_f32.launches": 1, "flash_train.calls": 1, "attn.grad_calls": 1}
+        _, m = moved(lambda: torch.autograd.grad(got, leaf, torch.ones_like(got)))
+        assert m == {"flash_bwd.launches": 1}
         leaf.requires_grad_(False)
-    assert obs.totals()["flash.launches"] == before + 1
+    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v))
+    got, m = moved(lambda: _sdpa_blocked(qb, kb, vb, pos, pos, causal=True, window=0,
+                                         prefix_len=0))
+    assert got.requires_grad and m == {"attn.grad_calls": 1}
+    _, m = moved(lambda: torch.autograd.grad(got, (qb, kb, vb), torch.ones_like(got)))
+    assert m == {}
     with torch.no_grad():
         q.requires_grad_(True)
-        _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0, prefix_len=0)
-    assert obs.totals()["flash.launches"] == before + 2
+        _, m = moved(lambda: _sdpa_blocked(q, k, v, pos, pos, causal=True, window=0,
+                                           prefix_len=0))
+    assert m == {"flash.launches": 1, "flash_f32.launches": 1}
+
+
+# (B, S, H, K, hd, causal, window, key holes): Minitron-8B's attention at
+# its training sequence, and tests/test_torch_flash_train.py's cases
+FLASH_TRAIN = {
+    "minitron-4096": (1, 4096, 48, 8, 128, True, 0, False),
+    "hd32-g6": (1, 40, 6, 1, 32, True, 0, False),
+    "hd128-g1": (1, 24, 2, 2, 128, True, 0, False),
+    "ragged70-g3": (2, 70, 6, 2, 32, True, 0, False),
+    "window24": (2, 70, 6, 2, 32, True, 24, False),
+    "holes": (1, 70, 6, 1, 32, True, 0, True),
+    "noncausal-hd128-g6": (1, 33, 6, 1, 128, False, 0, False),
+    "hd64-g3-333": (1, 333, 6, 2, 64, True, 0, False),
+    "hd256-g8-200": (1, 200, 8, 1, 256, True, 0, False),
+}
+
+
+def _flash_train_case(dev, name, seed=0):
+    b, s, h, kh, hd, causal, window, holes = FLASH_TRAIN[name]
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, s, h, hd, generator=g).to(dev)
+    k, v = (torch.randn(b, s, kh, hd, generator=g).to(dev) for _ in range(2))
+    dy = torch.randn(b, s, h, hd, generator=g).to(dev)
+    qpos = torch.arange(s, dtype=torch.int32)
+    kpos = qpos.clone()
+    if holes:
+        kpos[3::7] = -1
+    return q, k, v, dy, qpos.to(dev), kpos.to(dev), dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("name", list(FLASH_TRAIN))
+def test_cuda_flash_train_matches_plain(cuda_device, monkeypatch, name):
+    """The float32 kernel with its lse output and the backward kernels
+    against their plain versions on the card: the output within the
+    float32 kernel's limits (``flash_agrees``), lse within 1e-5, the
+    output with no lse pointer bitwise the output with one; q, k and v
+    gradients through FlashAttentionF32 within 1e-4 of the largest
+    |gradient| of autograd through the plain ``_sdpa`` (its flash route
+    turned off), and the plain backward the same; two backward runs
+    bitwise equal."""
+    import repro_torch.kernels.flash_attention as fa
+    from repro_torch.models import attention
+
+    q, k, v, dy, qpos, kpos, kw = _flash_train_case(cuda_device, name)
+    out, lse = fa.flash_attention_fwd_lse(q, k, v, qpos, kpos, **kw)
+    want_out, want_lse = fa.flash_attention_fwd_lse_plain(q, k, v, qpos, kpos, **kw)
+    assert flash_agrees(out, want_out), flash_compare(out, want_out)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    assert torch.equal(out, flash_attention(q, k, v, qpos, kpos, **kw))
+    before = obs.totals()["flash_bwd.launches"]
+    grads = fa.flash_attention_bwd(q, k, v, out, dy, lse, qpos, kpos, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, dy, lse, qpos, kpos, **kw)
+    torch.cuda.synchronize()
+    assert obs.totals()["flash_bwd.launches"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    plain = fa.flash_attention_bwd_plain(q, k, v, out, dy, lse, qpos, kpos, **kw)
+    monkeypatch.setattr(attention, "_flash_train_route", lambda *a: False)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = attention._sdpa(*leaves, qpos, kpos, prefix_len=0, **kw)
+    want = torch.autograd.grad(ref, leaves, dy)
+    del ref, leaves
+    monkeypatch.undo()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = fa.flash_attention_train(*leaves, qpos, kpos, **kw)
+    through = torch.autograd.grad(got, leaves, dy)
+    for a, p, t, w in zip(grads, plain, through, want):
+        limit = 1e-4 * float(w.abs().max())
+        assert torch.equal(a, t)
+        assert float((a - w).abs().max()) <= limit
+        assert float((p - w).abs().max()) <= limit
+
+
+def test_cuda_flash_train_under_vmap(cuda_device):
+    """The client-parallel step's vmap folds its clients into the batch:
+    two clients' output and gradients bitwise those of the folded batch
+    (one launch of each kernel for the two), within 1e-4 of a loop over
+    the clients."""
+    import repro_torch.kernels.flash_attention as fa
+
+    q, k, v, dy, qpos, kpos, kw = _flash_train_case(cuda_device, "ragged70-g3")
+    before = obs.totals()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = torch.func.vmap(lambda a, b, c: fa.flash_attention_train(
+        a[None], b[None], c[None], qpos, kpos, **kw)[0])(*leaves)
+    grads = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    after = obs.totals()
+    assert after["flash_f32.launches"] - before["flash_f32.launches"] == 1
+    assert after["flash_bwd.launches"] - before["flash_bwd.launches"] == 1
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    folded = fa.flash_attention_train(*leaves, qpos, kpos, **kw)
+    assert torch.equal(out, folded)
+    for a, b in zip(grads, torch.autograd.grad(folded, leaves, dy)):
+        assert torch.equal(a, b)
+    for i in range(q.shape[0]):
+        leaves = [x[i:i + 1].clone().requires_grad_(True) for x in (q, k, v)]
+        one = fa.flash_attention_train(*leaves, qpos, kpos, **kw)
+        for a, b in zip(grads, torch.autograd.grad(one, leaves, dy[i:i + 1])):
+            assert float((a[i] - b[0]).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("window,prefix_len", [(0, 0), (24, 0), (0, 13)])
-def test_cuda_blocked_plain_grads_match_sdpa(cuda_device, window, prefix_len):
+def test_cuda_blocked_plain_grads_match_sdpa(cuda_device, window, prefix_len,
+                                            monkeypatch):
     """C2/C3: the plain blocked recurrence (small chunks, GQA, ragged
-    chunks) against the plain _sdpa on the card: values within 1e-5 and
-    q/k/v gradients within 1e-4 of the largest |gradient| (float32)."""
+    chunks) against the plain _sdpa on the card (its flash training route
+    off): values within 1e-5 and q/k/v gradients within 1e-4 of the
+    largest |gradient| (float32)."""
+    from repro_torch.models import attention
     from repro_torch.models.attention import _sdpa, _sdpa_blocked_plain
+
+    monkeypatch.setattr(attention, "_flash_train_route", lambda *a: False)
 
     g = torch.Generator().manual_seed(window + prefix_len)
     q = torch.randn(2, 70, 6, 32, generator=g).to(cuda_device)
